@@ -1,0 +1,514 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port of FedEEC on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with an H100 (sm_90) and nvcc.
+It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
+five phases, each printing its lines; any failure exits non-zero before
+the result line:
+
+1. device: name, compute capability (must be 9.0), count, nvidia-smi's name
+   and power limit, and the TF32 flags the port sets;
+2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` and print
+   nvcc's registers / shared memory / spills per kernel;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and the LM bench shapes, then its device time (a
+   CUDA graph of many launches between CUDA events) beside the plain
+   version's, the bound and, where one PyTorch call computes the same
+   function, that call's time;
+4. main path: ``run_experiment("fedeec", FLConfig(), rounds=3)`` on the
+   card, with the launch counters zeroed just before and read just after,
+   each held to the count the trainer's ``pair_steps`` predicts;
+5. parity: the card against the CPU (the port's plain path, which the CPU
+   tests hold to the JAX package) on small inputs: one student step's loss
+   and gradient per model, and one tiny FedEEC round.
+
+It ends with the kernels' JSON line, nvidia-smi's line and, last,
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+TIMED_LAUNCHES = 200
+TPU_KERNELS = {
+    "distill_loss_fwd": "src/repro/kernels/distill_loss.py:53",
+    "distill_loss_bwd": "src/repro/kernels/distill_loss.py:95",
+    "skr_rectify": "src/repro/kernels/skr_rectify.py:33",
+}
+SOURCES = {
+    "distill_loss_fwd": "src/repro_torch/csrc/distill_loss.cu",
+    "distill_loss_bwd": "src/repro_torch/csrc/distill_loss.cu",
+    "skr_rectify": "src/repro_torch/csrc/skr_rectify.cu",
+}
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def phase(name: str) -> None:
+    print(f"\n== {name}", flush=True)
+
+
+def eager_ms(fn, launches: int = TIMED_LAUNCHES) -> float:
+    """Milliseconds per call of ``fn`` issued eagerly in a loop, from CUDA
+    events: what a caller launching one call at a time sees, host launch
+    overhead included."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def device_ms(fn, launches: int = TIMED_LAUNCHES, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``launches`` calls captured
+    in one CUDA graph and replayed between CUDA events, so the host's
+    launch overhead drops out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------- phases
+
+
+def check_device():
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    phase("device")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    dev = resolve_device("cuda")
+    print(f"device: {name}  capability {cap}  count {count}")
+    print(f"nvidia-smi: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}  "
+          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if cap != (9, 0):
+        fail(f"needs compute capability (9, 0), got {cap}")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on")
+    return dev, name, count, smi
+
+
+def build_kernels():
+    from repro_torch.kernels import _lib
+
+    phase("build")
+    t0 = time.perf_counter()
+    path, report = _lib.build()
+    _lib.lib()
+    print(f"built {path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+    for line in report.splitlines():
+        if line.startswith("==") or "Compiling entry" in line or "Used" in line or "spill" in line:
+            print("  " + line.strip())
+    if "sm_90a" not in report:
+        fail("kernels were not compiled for sm_90a")
+
+
+def _distill_inputs(B, N, V, dev, seed=0):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randn((B, N, V), generator=g, device=dev) * 2.0
+    t = torch.log_softmax(torch.randn((B, N, V), generator=g, device=dev), -1)
+    y = torch.randint(0, V, (B, N), generator=g, device=dev)
+    return z, t, y
+
+
+def check_distill_loss(dev):
+    """Forward within 1e-5 relative (fp32 sums in another order); gradient
+    within 1e-6 absolute plus 1e-5 relative (a one-ulp difference in logZ
+    scales each dz element by about 1e-6 of itself)."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.distill_loss import distill_loss_batched
+
+    worst_fwd = worst_bwd = 0.0
+    for B, N, V in [(1, 8, 10), (4, 8, 10), (3, 37, 1000), (4, 256, 2048),
+                    (2, 64, 128256)]:
+        for beta in (0.0, 1.5):
+            z, t, y = _distill_inputs(B, N, V, dev)
+            zk = z.clone().requires_grad_(True)
+            loss = distill_loss_batched(zk, t, y, beta, 1.0)
+            (dz,) = torch.autograd.grad(loss.sum(), zk)
+            want = R.distill_loss_batched_ref(z, y, t, beta, 1.0)
+            want_dz = R.distill_loss_grad_ref(z, y, t, beta, 1.0)
+            torch.cuda.synchronize()
+            e_fwd = (loss - want).abs().max().item()
+            e_bwd = (dz - want_dz).abs().max().item()
+            worst_fwd, worst_bwd = max(worst_fwd, e_fwd), max(worst_bwd, e_bwd)
+            ok_fwd = torch.allclose(loss, want, rtol=1e-5, atol=1e-6)
+            ok_bwd = torch.allclose(dz, want_dz, rtol=1e-5, atol=1e-6)
+            print(f"distill_loss ({B},{N},{V}) beta={beta}: fwd max|err| {e_fwd:.3e}"
+                  f"  grad max|err| {e_bwd:.3e}  {'ok' if ok_fwd and ok_bwd else 'MISMATCH'}")
+            if not (ok_fwd and ok_bwd):
+                fail(f"distill_loss disagrees with its plain version at ({B},{N},{V}) beta={beta}")
+    return worst_fwd, worst_bwd
+
+
+def check_skr_rectify(dev):
+    """Exact: the same division and product per element on both sides."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.skr_rectify import skr_rectify_batched
+
+    for B, N, C in [(1, 8, 10), (4, 8, 10), (4, 256, 1024)]:
+        probs, labels, qbar, counts = _skr_inputs(B, N, C, dev)
+        got = skr_rectify_batched(probs, labels, qbar, counts)
+        want = R.skr_rectify_batched_ref(probs, labels, qbar, counts)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print(f"skr_rectify ({B},{N},{C}): max|err| {err:.3e}  "
+              f"{'exact' if torch.equal(got, want) else 'MISMATCH'}")
+        if not torch.equal(got, want):
+            fail(f"skr_rectify is not exact at ({B},{N},{C})")
+    return 0.0
+
+
+def _skr_inputs(B, N, C, dev):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    probs = torch.softmax(torch.randn((B, N, C), generator=g, device=dev) * 2, -1)
+    labels = torch.randint(0, C, (B, N), generator=g, device=dev)
+    qbar = torch.rand((B, C), generator=g, device=dev) * 0.8 + 0.1
+    counts = torch.randint(0, 3, (B, C), generator=g, device=dev, dtype=torch.int32)
+    return probs, labels, qbar, counts
+
+
+def _timed(name, tag, shape, kernel, plain, library, nbytes, ops):
+    """Time one kernel against its plain version (and the library call, if
+    any) on the same inputs; print the line and return the JSON fields."""
+    ms, eager = device_ms(kernel), eager_ms(kernel)
+    plain_ms = device_ms(plain)
+    library_ms = device_ms(library) if library is not None else None
+    b, by = bound_ms(nbytes, ops)
+    print(f"{name} {tag} {shape}: kernel {ms:.5f} ms device ({eager:.5f} ms eager)  "
+          f"plain {plain_ms:.5f} ms  bound {b:.6f} ms ({by})"
+          + (f"  library {library_ms:.5f} ms" if library_ms is not None else ""))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=library_ms)
+
+
+def time_kernels(dev):
+    """Times at the main path's shape (FedEEC: 8 rows of 10 classes) and at
+    the LM bench shapes. Device times come from CUDA graphs of many calls;
+    the eager time per call is printed beside. Each kernel is timed through
+    its launch function with labels already validated. The bound counts
+    each input read once and each output written once, against 3.35 TB/s,
+    and the fp32 operations (exp counted as one) against 67 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.distill_loss import _bwd_cuda, _fwd_cuda
+
+    rows = {}
+    for tag, (B, N, V) in [("main", (1, 8, 10)), ("lm", (4, 256, 2048))]:
+        for beta in (0.0, 1.5):
+            z, t, y = _distill_inputs(B, N, V, dev)
+            y32 = y.to(torch.int32)
+            n = B * N
+            _, stats = _fwd_cuda(z, t, y32, beta, 1.0)
+            g = torch.ones((B, N), device=dev)
+            shape = f"({B},{N},{V}) beta={beta}"
+            # the library call computes the same function only at beta = 0
+            ce = ((lambda: F.cross_entropy(z.view(-1, V), y.view(-1), reduction="none"))
+                  if beta == 0.0 else None)
+            rows[("distill_loss_fwd", tag, beta)] = _timed(
+                "distill_loss_fwd", tag, shape,
+                lambda: _fwd_cuda(z, t, y32, beta, 1.0),
+                lambda: R.distill_loss_batched_ref(z, y, t, beta, 1.0), ce,
+                4 * (2 * n * V + n) + 4 * 3 * n, 7 * n * V)
+            rows[("distill_loss_bwd", tag, beta)] = _timed(
+                "distill_loss_bwd", tag, shape,
+                lambda: _bwd_cuda(z, t, y32, stats, g, beta, 1.0),
+                lambda: g[..., None] * R.distill_loss_grad_ref(z, y, t, beta, 1.0), None,
+                4 * (3 * n * V + 4 * n), 11 * n * V)
+    for tag, (B, N, C) in [("main", (1, 8, 10)), ("lm", (4, 256, 1024))]:
+        probs, labels, qbar, counts = _skr_inputs(B, N, C, dev)
+        labels = labels.long()
+        p_c = probs.gather(-1, labels[..., None])[..., 0].contiguous()
+        do = (probs.argmax(-1) != labels) & (counts.gather(-1, labels) > 0)
+        qb = qbar.gather(-1, labels).contiguous()
+        y32 = labels.to(torch.int32)
+        out = torch.empty_like(probs)
+
+        def launch():
+            _lib.launch("skr_rectify", dev, probs.data_ptr(), y32.data_ptr(), p_c.data_ptr(),
+                        do.data_ptr(), qb.data_ptr(), out.data_ptr(), B * N, C)
+
+        n = B * N
+        rows[("skr_rectify", tag, None)] = _timed(
+            "skr_rectify", tag, f"({B},{N},{C})", launch,
+            lambda: R.skr_rectify_rows_ref(probs, labels, p_c, do, qb), None,
+            4 * 2 * n * C + n * (4 + 4 + 1 + 4), 2 * n * C)
+        torch.cuda.synchronize()
+        if not torch.equal(out, R.skr_rectify_rows_ref(probs, labels, p_c, do, qb)):
+            fail("the timed skr_rectify launches disagree with the plain version")
+    return rows
+
+
+def time_skr_queue_pass(dev):
+    """The SKR queue pass (a torch loop over the rows, no kernel of its
+    own) with its one rectify launch, per teacher step at FedEEC's shape:
+    8 rows, 10 classes, queues of 20, issued eagerly as the main path
+    issues it."""
+    from repro_torch.core.skr import skr_init, skr_process_batch
+
+    probs, labels, _, _ = _skr_inputs(1, 8, 10, dev)
+    state = skr_init(10, 20, dev)
+    ms = eager_ms(lambda: skr_process_batch(state, probs[0], labels[0]))
+    print(f"skr_process_batch (8 rows, 10 classes, queue 20): {ms:.4f} ms per call, eager")
+
+
+def expected_launches(cfg, rounds, dev):
+    """Kernel launches ``rounds`` plain FedEEC rounds make, from the
+    trainer's own ``pair_steps``: per student step one forward and one
+    backward (two of each for a data-holding leaf: local CE and bridge
+    loss); per teacher step one rectification."""
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+
+    _, tree, client_data, auto = build_problem(cfg, device=dev)
+    trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=dev)
+    fwd = skr = 0
+    for v, p in trainer.round_pairs():
+        for s, t in ((v, p), (p, v)):
+            k = trainer.pair_steps(s, t)
+            fwd += k * (2 if s in client_data else 1)
+            skr += k
+    return {"distill_loss_fwd": rounds * fwd, "distill_loss_bwd": rounds * fwd,
+            "skr_rectify": rounds * skr}
+
+
+def drive_main_path(dev):
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.engine import build_problem, run_experiment
+    from repro_torch.kernels import ops
+
+    cfg, rounds = FLConfig(), 3
+    print(f"config: {cfg}")
+    t0 = time.perf_counter()
+    build_problem(cfg, device=dev)  # pretrains the autoencoder (cached)
+    torch.cuda.synchronize()
+    print(f"build_problem incl. autoencoder pretrain (1200 steps): "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = run_experiment("fedeec", cfg, rounds=rounds, device=dev)
+    counts = dict(ops.launches)
+    torch.cuda.synchronize()
+    print(f"round wall s (train, ending in a sync): {res.round_s}")
+    print(f"run wall s (rounds + evals): {res.wall_s:.3f}")
+    print(f"cloud accuracy curve: {res.acc_curve}")
+    print(f"comm bytes: {res.comm_bytes}")
+    print(f"peak max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    print(f"launches: {counts}")
+    want = expected_launches(cfg, rounds, dev)
+    print(f"launches predicted from pair_steps: {want}")
+    if len(res.acc_curve) != rounds or not all(
+            math.isfinite(a) and 0.0 <= a <= 1.0 for a in res.acc_curve):
+        fail(f"bad accuracy curve {res.acc_curve}")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+        if n != want[name]:
+            fail(f"kernel {name}: {n} launches, pair_steps predicts {want[name]}")
+    return counts
+
+
+def check_step_parity(dev):
+    """One student step's loss and gradient on the card and on the CPU (the
+    port's plain path, which the CPU tests hold to the JAX package), from
+    the same parameters and inputs, for each FL model and both losses.
+    Loss within 1e-5 relative; gradient within 1e-5 absolute (each device's
+    fp32 gradient lies within about 2e-6 of an fp64 one at these sizes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bsbodp
+    from repro_torch.core.fedeec import node_generator
+    from repro_torch.models.registry import get_fl_model
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+
+    rng = np.random.default_rng(0)
+    x = rng.random((8, 16, 16, 3), dtype=np.float32)
+    lx = rng.random((8, 16, 16, 3), dtype=np.float32)
+    y, ly = rng.integers(0, 10, 8), rng.integers(0, 10, 8)
+    q = rng.random((8, 10)).astype(np.float32) ** 3
+    q /= q.sum(-1, keepdims=True)
+    for i, name in enumerate(("cnn1", "resnet10", "resnet18")):
+        init, apply = get_fl_model(name)
+        p = init(node_generator(0, i), 10, 16)
+        for leaf in (False, True):
+            out = {}
+            for d in (dev, torch.device("cpu")):
+                t = lambda a: torch.as_tensor(a).to(d)
+                if leaf:
+                    fn = lambda pp: bsbodp.leaf_loss(apply(pp, t(lx)), t(ly), apply(pp, t(x)),
+                                                     t(y), t(q), 1.5, 1.0)
+                else:
+                    fn = lambda pp: bsbodp.non_leaf_loss(apply(pp, t(x)), t(y), t(q), 1.5)
+                loss, g = value_and_grad(fn, tree_map(lambda a: a.to(d), p))
+                out[d.type] = (float(loss), [a.cpu() for a in tree_leaves(g)])
+            (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+            err = max((a - b).abs().max().item() for a, b in zip(gg, gc))
+            print(f"{name} {'leaf' if leaf else 'non-leaf'} step: loss {lg:.7f} (card) "
+                  f"{lc:.7f} (CPU)  grad max|diff| {err:.3e}")
+            if abs(lg - lc) > 1e-5 * abs(lc) or err > 1e-5:
+                fail(f"{name}: the card's student step disagrees with the CPU's")
+
+
+def check_round_parity(dev):
+    """One FedEEC round (tiny config) on the card and on the CPU from the
+    same parameters: comm bytes and the numpy rng state identical, every
+    parameter finite. The parameters are reported, not held to a bound:
+    AdamW's first step moves an element by about lr·sign(g) whenever |g|
+    is well above eps = 1e-8, and elements whose gradient is below the fp32
+    noise (about 1e-6 here) take either sign on either device."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.fedeec import FedEEC
+    from repro_torch.core.topology import Tree
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.fl.metrics import accuracy
+    from repro_torch.models.autoencoder import init_autoencoder
+    from repro_torch.tree import tree_leaves
+
+    cfg = FLConfig(num_clients=2, num_edges=1, samples_per_client=8, test_samples=64,
+                   image_size=8, embed_dim=16, distill_steps=1)
+    ds = make_dataset(cfg.dataset, num_train=16, num_test=64, image=8, seed=0)
+    parts = dirichlet_partition(ds.y_train, 2, cfg.dirichlet_alpha, seed=0)
+    cd = {f"client{i}": (ds.x_train[parts[i]], ds.y_train[parts[i]]) for i in range(2)}
+    auto = init_autoencoder(torch.Generator().manual_seed(3), image=8, embed_dim=16)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        # node i's init is drawn from the same CPU generator on both devices
+        tr = FedEEC(cfg, Tree.three_tier(1, 2), cd, auto, seed=0, device=d)
+        tr.train_round()
+        runs[d.type] = tr
+    g, c = runs["cuda"], runs["cpu"]
+    leaves = [(a.cpu(), b) for v in g.params
+              for a, b in zip(tree_leaves(g.params[v]), tree_leaves(c.params[v]))]
+    err = max((a - b).abs().max().item() for a, b in leaves)
+    finite = all(bool(torch.isfinite(a).all()) for a, _ in leaves)
+    same_skr = all(torch.equal(g.skr[v][k].cpu(), c.skr[v][k])
+                   for v in g.skr for k in ("count", "head"))
+    accs = [accuracy(t.cloud_apply(), t.cloud_params(), ds.x_test, ds.y_test) for t in (g, c)]
+    print(f"one round card vs CPU: params max|diff| {err:.3e}  SKR counts/heads identical "
+          f"{same_skr}  cloud accuracy {accs[0]} vs {accs[1]}")
+    if not finite or not np.isfinite(accs[0]):
+        fail("the card's FedEEC round produced non-finite values")
+    if dict(g.comm.bytes) != dict(c.comm.bytes) or \
+            g.rng.bit_generator.state != c.rng.bit_generator.state:
+        fail("the card's FedEEC round differs from the CPU's in comm bytes or rng draws")
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: torch.cuda.is_available() is false")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail(f"repro_torch not found under {ROOT / 'src'}")
+
+    dev, name, count, smi = check_device()
+    build_kernels()
+
+    phase("kernels vs plain versions")
+    err = dict(zip(("distill_loss_fwd", "distill_loss_bwd"), check_distill_loss(dev)))
+    err["skr_rectify"] = check_skr_rectify(dev)
+    phase("kernel times")
+    times = time_kernels(dev)
+    time_skr_queue_pass(dev)
+
+    phase("main path: run_experiment('fedeec', FLConfig(), rounds=3)")
+    counts = drive_main_path(dev)
+
+    phase("parity: the card vs the CPU on small inputs")
+    check_step_parity(dev)
+    check_round_parity(dev)
+
+    pick = {"distill_loss_fwd": ("main", 0.0), "distill_loss_bwd": ("main", 1.5),
+            "skr_rectify": ("main", None)}
+    kernels = []
+    for k, (tag, beta) in pick.items():
+        row = times[(k, tag, beta)]
+        kernels.append({
+            "name": k, "route": "cuda", "source": SOURCES[k], "replaces": TPU_KERNELS[k],
+            "launches": counts[k], "max_abs_err": err[k],
+            **row,
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

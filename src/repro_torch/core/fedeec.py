@@ -1,0 +1,308 @@
+"""FedEEC: recursive knowledge agglomeration over the EEC-NET (Algorithm 3),
+counterpart of ``repro.core.fedeec`` (its serial path).
+
+Two phases per run:
+  * Init: every leaf encodes its private data with the frozen encoder and
+    sends (ε, y) up the tree; every interior node stores the union of its
+    subtree's embeddings.
+  * Train rounds: post-order traversal; every (child, parent) pair runs
+    BSBODP(+SKR): child-as-student then parent-as-student, distilling over
+    bridge samples dec(ε) of the child's subtree embeddings.
+
+FedAgg (the INFOCOM'24 predecessor) is exactly this with SKR disabled
+(``use_skr=False``) — the ablation the paper reports in Table III.
+
+Parameters, optimizer and SKR states live on ``device``. The embedding
+stores stay host numpy, indexed by draws from ``np.random.default_rng(seed)``
+in the reference's order, so a run consumes the generator call for call as
+the reference does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FLConfig
+from repro_torch.core import bsbodp
+from repro_torch.core.protocols import BSBODP_SKR
+from repro_torch.core.skr import skr_init, skr_process_batch
+from repro_torch.core.topology import Tree
+from repro_torch.device import resolve_device
+from repro_torch.fl.api import FLAlgorithm, WorkItem, register_algorithm
+from repro_torch.models.autoencoder import decode, encode
+from repro_torch.models.registry import get_fl_model
+from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.tree import tree_map, value_and_grad
+
+
+def node_generator(seed: int, i: int) -> torch.Generator:
+    """The CPU generator node ``i`` of a run seeded ``seed`` draws its
+    initial parameters from."""
+    s = np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(s))
+
+
+class FedEEC(FLAlgorithm):
+    # BSBODP(+SKR) imposes no structural relation on parent-child model
+    # pairs (R = V x V): every migration is legal (Theorem 1)
+    protocol = BSBODP_SKR
+
+    def __init__(
+        self,
+        cfg: FLConfig,
+        tree: Tree,
+        client_data: dict[str, tuple[np.ndarray, np.ndarray]],
+        auto_params,
+        *,
+        use_skr: bool = True,
+        model_of: dict[str, str] | None = None,
+        seed: int = 0,
+        device="cuda",
+        params: dict[str, object] | None = None,
+    ):
+        """``params`` optionally gives each node's initial parameters (a
+        tree per node, e.g. converted from the reference); otherwise node
+        ``i`` of ``tree.nodes`` draws them from ``node_generator(seed, i)``."""
+        super().__init__(cfg, tree)
+        self.device = resolve_device(device)
+        self.auto = tree_map(lambda t: t.to(self.device), auto_params)
+        self.use_skr = use_skr
+        self.rng = np.random.default_rng(seed)
+
+        # tier -> model assignment
+        self.model_of: dict[str, str] = {}
+        leaves = tree.leaves
+        for v in tree.nodes:
+            if model_of and v in model_of:
+                self.model_of[v] = model_of[v]
+            elif tree.is_leaf(v):
+                if cfg.end_model_hetero and leaves.index(v) % 2 == 1:
+                    self.model_of[v] = cfg.end_model_hetero
+                else:
+                    self.model_of[v] = cfg.end_model
+            elif v == tree.root:
+                self.model_of[v] = cfg.cloud_model
+            else:
+                self.model_of[v] = cfg.edge_model
+
+        # node states
+        self.params: dict[str, object] = {}
+        self.opt: dict[str, object] = {}
+        self.skr: dict[str, object] = {}
+        self.apply: dict[str, object] = {}
+        for i, v in enumerate(tree.nodes):
+            init_fn, apply_fn = get_fl_model(self.model_of[v])
+            if params is not None:
+                p = params[v]
+            else:
+                p = init_fn(node_generator(seed, i), cfg.num_classes,
+                            cfg.image_size)
+            p = tree_map(lambda t: t.to(self.device), p)
+            self.params[v] = p
+            self.opt[v] = adamw_init(p)
+            self.skr[v] = skr_init(cfg.num_classes, cfg.queue_len, self.device)
+            self.apply[v] = apply_fn
+
+        self.client_data = client_data
+        self.embeddings: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        self._init_phase()
+
+    # ------------------------------------------------------------------ init
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    @torch.no_grad()
+    def _init_phase(self):
+        """Leaves encode private data; embeddings propagate to the root."""
+        for v in self.tree.post_order():
+            if self.tree.is_leaf(v):
+                x, y = self.client_data[v]
+                eps = encode(self.auto, self._to_device(x)).cpu().numpy()
+                self.embeddings[v] = (eps, y.copy())
+                # upload (ε, y): (|ε| + 1) per sample — Table VII init term
+                link = self.comm.link_kind(self.tree, v)
+                self.comm.record(link, eps.size + len(y), "init-embed")
+            elif v != self.tree.root:
+                self._gather_children(v)
+        self._gather_children(self.tree.root)
+
+    def _gather_children(self, v):
+        es, ys = [], []
+        for c in self.tree.children[v]:
+            e, y = self.embeddings[c]
+            es.append(e)
+            ys.append(y)
+            if v != self.tree.root:
+                link = self.comm.link_kind(self.tree, v)
+                self.comm.record(link, e.size + y.size, "relay-embed")
+        self.embeddings[v] = (np.concatenate(es), np.concatenate(ys))
+
+    # ----------------------------------------------------------------- steps
+
+    @torch.no_grad()
+    def _teacher_step(self, model_name, params, skr_state, bridge_x, labels):
+        apply_fn = get_fl_model(model_name)[1]
+        z = apply_fn(params, bridge_x)
+        probs = torch.softmax(z / self.cfg.temperature, dim=-1)
+        new_state, q = skr_process_batch(skr_state, probs, labels)
+        return probs, q, new_state
+
+    def _student_step(self, model_name, leaf: bool, params, opt, bx, by, tq,
+                      lx=None, ly=None):
+        apply_fn = get_fl_model(model_name)[1]
+        beta, gamma = self.cfg.beta, self.cfg.gamma
+        if leaf:
+            def loss_fn(p):
+                zl = apply_fn(p, lx)
+                zb = apply_fn(p, bx)
+                return bsbodp.leaf_loss(zl, ly, zb, by, tq, beta, gamma)
+        else:
+            def loss_fn(p):
+                return bsbodp.non_leaf_loss(apply_fn(p, bx), by, tq, beta)
+        l, g = value_and_grad(loss_fn, params)
+        params, opt = adamw_update(g, opt, params, lr=self.cfg.lr,
+                                   weight_decay=0.0)
+        return params, opt, l
+
+    # ------------------------------------------------------------- protocol
+
+    def _bsbodp_directional(self, v_s: str, v_t: str):
+        """One direction: v_t teaches v_s over bridge samples of the shared
+        (= intersection of leaf sets = student∩teacher subtree) embeddings."""
+        cfg = self.cfg
+        pair_node = v_s if self.tree.parent.get(v_s) == v_t else v_t
+        eps, labels = self.embeddings[pair_node]
+        n = len(labels)
+        if n == 0:  # subtree emptied by migration — nothing to distill over
+            return
+        bs = min(cfg.batch_size, n)
+        # "leaf" = data-holding end device; an edge whose clients all
+        # migrated away is tree-leaf but must not train on client data
+        is_leaf = v_s in self.client_data
+        link = self.comm.link_kind(self.tree, pair_node)
+
+        steps = self.pair_steps(v_s, v_t)
+        for _ in range(steps):
+            idx = self.rng.choice(n, size=bs, replace=n < bs)
+            y_b = self._to_device(labels[idx]).long()
+            with torch.no_grad():
+                bridge = decode(self.auto, self._to_device(eps[idx]),
+                                cfg.image_size)
+            probs, q, self.skr[v_t] = self._teacher_step(
+                self.model_of[v_t], self.params[v_t], self.skr[v_t], bridge,
+                y_b)
+            tq = q if self.use_skr else probs
+            # teacher -> student: (|z| + 1) per sample (Table VII round term)
+            self.comm.record(link, bs * (cfg.num_classes + 1), "logits")
+            if is_leaf:
+                lx, ly = self.client_data[v_s]
+                li = self.rng.choice(len(ly), size=min(bs, len(ly)),
+                                     replace=len(ly) < bs)
+                self.params[v_s], self.opt[v_s], _ = self._student_step(
+                    self.model_of[v_s], True, self.params[v_s], self.opt[v_s],
+                    bridge, y_b, tq, self._to_device(lx[li]),
+                    self._to_device(ly[li]).long())
+            else:
+                self.params[v_s], self.opt[v_s], _ = self._student_step(
+                    self.model_of[v_s], False, self.params[v_s],
+                    self.opt[v_s], bridge, y_b, tq)
+
+    def bsbodp_pair(self, v1: str, v2: str):
+        """Algorithm 1/2: both directions."""
+        self._bsbodp_directional(v1, v2)
+        self._bsbodp_directional(v2, v1)
+
+    def pair_steps(self, v1: str, v2: str) -> int:
+        """Distill steps one direction of pair (v1, v2) runs — the single
+        formula ``_bsbodp_directional`` and its callers use."""
+        pair_node = v1 if self.tree.parent.get(v1) == v2 else v2
+        n = len(self.embeddings[pair_node][1])
+        if n == 0:
+            return 0
+        bs = min(self.cfg.batch_size, n)
+        return self.cfg.distill_steps or min(
+            max(1, (n + bs - 1) // bs), self.cfg.max_distill_steps
+        )
+
+    # ------------------------------------------------------------ training
+
+    def round_pairs(self) -> list[tuple[str, str]]:
+        """The round's (child, parent) pairs in post-order."""
+        return [
+            (v, self.tree.parent[v])
+            for v in self.tree.post_order()
+            if v != self.tree.root
+        ]
+
+    def work_items(self, round: int, online) -> list[WorkItem]:
+        """One bidirectional BSBODP "pair" item per (child, parent) link,
+        in post-order (Algorithm 3's subtree-before-parent order)."""
+        return [
+            WorkItem("pair", node=v, peer=p, link=self.link_of(v),
+                     steps=self.pair_steps(v, p))
+            for v, p in self.round_pairs()
+        ]
+
+    def execute(self, item: WorkItem) -> None:
+        self.bsbodp_pair(item.node, item.peer)
+
+    def _model_params(self, node: str):
+        return self.params[node]
+
+    def _do_migrate(self, node: str, new_parent: str):
+        """Dynamic migration (§IV-E): legal for any pair under BSBODP+SKR.
+
+        The moved subtree's embeddings are (a) dropped from the stores on
+        the old parent→root path, (b) re-registered up the new path — and
+        the re-registration upload is charged on the CommMeter per the
+        Table VII init term ((|ε|+1) per sample per hop). Only the two
+        affected root paths are recomputed.
+        """
+        old_parent = self.tree.parent[node]
+        self.tree.migrate(node, new_parent)
+        affected = {
+            v for v in self.tree.path_to_root(old_parent)
+            + self.tree.path_to_root(new_parent)
+            if v not in self.client_data
+        }
+        for v in sorted(affected, key=self.tree.tier, reverse=True):
+            es, ys = [], []
+            for c in self.tree.children[v]:
+                e, y = self.embeddings[c]
+                es.append(e)
+                ys.append(y)
+            if es:
+                self.embeddings[v] = (np.concatenate(es), np.concatenate(ys))
+            else:
+                self.embeddings[v] = (
+                    np.zeros((0,) + self.embeddings[node][0].shape[1:],
+                             dtype=self.embeddings[node][0].dtype),
+                    np.zeros((0,), dtype=self.embeddings[node][1].dtype),
+                )
+        # charge the subtree's (ε, y) upload on every hop of the new path
+        eps, ys_ = self.embeddings[node]
+        hop = node
+        while hop != self.tree.root:
+            link = self.comm.link_kind(self.tree, hop)
+            self.comm.record(link, eps.size + ys_.size, "migrate-embed")
+            hop = self.tree.parent[hop]
+
+    def cloud_params(self):
+        return self.params[self.tree.root]
+
+    def cloud_apply(self):
+        return self.apply[self.tree.root]
+
+
+@register_algorithm("fedeec")
+def _fedeec(cfg, tree, client_data, auto, *, device="cuda"):
+    return FedEEC(cfg, tree, client_data, auto, use_skr=True, seed=cfg.seed,
+                  device=device)
+
+
+@register_algorithm("fedagg")
+def _fedagg(cfg, tree, client_data, auto, *, device="cuda"):
+    # the INFOCOM'24 predecessor == FedEEC with SKR disabled (Table III)
+    return FedEEC(cfg, tree, client_data, auto, use_skr=False, seed=cfg.seed,
+                  device=device)

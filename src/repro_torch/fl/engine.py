@@ -1,0 +1,184 @@
+"""FL experiment engine, counterpart of ``repro.fl.engine``: builds the
+dataset / partition / topology / autoencoder, runs the selected algorithm
+for R rounds, and records the cloud-model accuracy curve and the
+communication bytes (the quantities behind paper Tables III-VII and Fig. 5).
+
+The port runs the plain (round-counted) path. The simulated-network path
+and its options (``scenario``, ``faults``, checkpoint/resume, ``tracer``,
+``profile_sim``) raise ``NotImplementedError`` until the port's simulator,
+fault and observability slices land (ROADMAP.md, queue A).
+
+Everything runs on ``device``, which defaults to ``"cuda"`` and raises
+without a card unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from collections import OrderedDict
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch.configs.base import FLConfig
+from repro_torch.core.topology import Tree
+from repro_torch.data.partition import dirichlet_partition
+from repro_torch.data.synthetic import make_dataset
+from repro_torch.device import resolve_device
+from repro_torch.fl.api import create_algorithm, list_algorithms  # noqa: F401  (re-export)
+from repro_torch.fl.metrics import accuracy
+from repro_torch.models.autoencoder import pretrain_autoencoder
+
+
+@dataclass
+class RunResult:
+    algorithm: str
+    cfg: FLConfig
+    acc_curve: list[float] = field(default_factory=list)
+    best_acc: float = 0.0
+    comm_bytes: dict[str, float] = field(default_factory=dict)
+    wall_s: float = 0.0
+    # host seconds of each round's training, ending in a device sync
+    round_s: list[float] = field(default_factory=list)
+
+    @property
+    def final_acc(self) -> float:
+        return self.acc_curve[-1] if self.acc_curve else 0.0
+
+
+# LRU of pre-trained autoencoders: parameter sweeps cycle through many
+# (dataset, image, embed_dim, seed) combos; keep only the hottest few alive
+_AUTO_CACHE: OrderedDict = OrderedDict()
+_AUTO_CACHE_MAX = 4
+
+
+def _pretrained_auto(cfg: FLConfig, x_open, device: torch.device):
+    """The frozen autoencoder depends only on the open split — cache it
+    per (dataset, image, embed_dim, seed, device) within the process."""
+    key = (cfg.dataset, cfg.image_size, cfg.embed_dim, cfg.seed, str(device))
+    if key in _AUTO_CACHE:
+        _AUTO_CACHE.move_to_end(key)
+        return _AUTO_CACHE[key]
+    auto = pretrain_autoencoder(
+        cfg.seed + 7,
+        x_open,
+        image=cfg.image_size,
+        embed_dim=cfg.embed_dim,
+        device=device,
+    )
+    _AUTO_CACHE[key] = auto
+    while len(_AUTO_CACHE) > _AUTO_CACHE_MAX:
+        _AUTO_CACHE.popitem(last=False)
+    return auto
+
+
+def build_problem(cfg: FLConfig, *, device="cuda"):
+    """dataset + dirichlet partition + tree + pre-trained autoencoder."""
+    dev = resolve_device(device)
+    ds = make_dataset(
+        cfg.dataset,
+        num_train=cfg.num_clients * cfg.samples_per_client,
+        num_test=cfg.test_samples,
+        image=cfg.image_size,
+        num_classes=cfg.num_classes,
+        seed=cfg.seed,
+    )
+    parts = dirichlet_partition(
+        ds.y_train, cfg.num_clients, cfg.dirichlet_alpha, seed=cfg.seed
+    )
+    tree = Tree.three_tier(cfg.num_edges, cfg.num_clients)
+    client_data = {
+        f"client{i}": (ds.x_train[parts[i]], ds.y_train[parts[i]])
+        for i in range(cfg.num_clients)
+    }
+    auto = _pretrained_auto(cfg, ds.x_open, dev)
+    return ds, tree, client_data, auto
+
+
+def _not_ported(option: str, item: str):
+    raise NotImplementedError(
+        f"repro_torch.fl.engine: {option} is not ported yet "
+        f"(ROADMAP.md queue A, {item})")
+
+
+def run_experiment(
+    algorithm: str,
+    cfg: FLConfig,
+    *,
+    rounds: int | None = None,
+    eval_every: int = 1,
+    verbose: bool = False,
+    migration_round: int | None = None,
+    scenario=None,
+    tracer=None,
+    faults=None,
+    checkpoint_every: int = 0,
+    checkpoint_dir: str = "",
+    resume_from: str = "",
+    stop_after: int | None = None,
+    profile_sim: bool = False,
+    device="cuda",
+) -> RunResult:
+    """Run ``algorithm`` for R rounds on ``device`` (plain path)."""
+    if scenario is not None or cfg.scenario or profile_sim:
+        _not_ported("the simulated-network path (scenario=, profile_sim=)",
+                    "the simulator slice")
+    if faults is not None or stop_after is not None:
+        _not_ported("the fault plane (faults=, stop_after=)",
+                    "the simulator slice")
+    if checkpoint_every or checkpoint_dir or resume_from:
+        _not_ported("checkpoint/resume", "the checkpoint item")
+    if tracer is not None:
+        _not_ported("tracing (tracer=)", "the simulator slice's repro.obs port")
+    dev = resolve_device(device)
+
+    ds, tree, client_data, auto = build_problem(cfg, device=dev)
+    trainer = create_algorithm(algorithm, cfg, tree, client_data, auto,
+                               device=dev)
+    rounds = rounds if rounds is not None else cfg.rounds
+    res = RunResult(algorithm, cfg)
+    t0 = time.perf_counter()
+    _run_plain(trainer, ds, res, rounds, eval_every, verbose,
+               migration_round, dev)
+    res.comm_bytes = trainer.comm.summary()
+    res.wall_s = time.perf_counter() - t0
+    return res
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _run_plain(trainer, ds, res, rounds, eval_every, verbose,
+               migration_round, dev):
+    for r in range(rounds):
+        if migration_round is not None and r == migration_round:
+            # move one client to a different edge mid-training (§IV-E demo)
+            leaf = trainer.tree.leaves[0]
+            edges = [v for v in trainer.tree.nodes
+                     if not trainer.tree.is_leaf(v) and v != trainer.tree.root]
+            cur = trainer.tree.parent[leaf]
+            target = next((e for e in edges if e != cur), None)
+            if target is None:
+                warnings.warn(
+                    "migration demo skipped: needs >= 2 edges "
+                    f"(topology has {len(edges)})", stacklevel=2,
+                )
+            elif not trainer.try_migrate(leaf, target):
+                warnings.warn(
+                    f"migration demo refused by protocol "
+                    f"{trainer.protocol.name!r}: {leaf} -/-> {target}",
+                    stacklevel=2,
+                )
+        t0 = time.perf_counter()
+        trainer.train_round()
+        _sync(dev)
+        res.round_s.append(time.perf_counter() - t0)
+        if (r + 1) % eval_every == 0 or r == rounds - 1:
+            acc = accuracy(trainer.cloud_apply(), trainer.cloud_params(),
+                           ds.x_test, ds.y_test)
+            res.acc_curve.append(acc)
+            res.best_acc = max(res.best_acc, acc)
+            if verbose:
+                print(f"  [{res.algorithm}] round {r+1:3d}  cloud acc {acc:.4f}", flush=True)

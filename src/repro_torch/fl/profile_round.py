@@ -1,0 +1,81 @@
+"""Where a FedEEC round's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.fl.profile_round
+
+Builds the problem at ``FLConfig()`` defaults on the card, runs one plain
+round (it pays the one-off set-up), times the next round without the
+profiler, then runs one more round under
+``torch.profiler`` and reports: the round's host wall time, the device's
+busy time (the union of kernel intervals) and idle share, the number of
+kernels launched, and the kernels that take the most device time. The
+profiler slows the host, so the idle share is reported against the
+unprofiled round's wall time too.
+"""
+from __future__ import annotations
+
+import time
+
+TOP = 12  # kernels and host operators listed
+
+
+def _busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main() -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+
+    cfg = FLConfig()
+    _, tree, client_data, auto = build_problem(cfg, device="cuda")
+    trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device="cuda")
+    trainer.train_round()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_round()
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_round()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device activity")
+    busy_s = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"round wall s: {wall_plain:.4f} unprofiled, {wall_prof:.4f} profiled")
+    print(f"device busy s: {busy_s:.4f}  idle share: {1 - busy_s / wall_plain:.4f} of the "
+          f"unprofiled round, {1 - busy_s / wall_prof:.4f} of the profiled one")
+    print(f"kernels launched in the round: {len(kernels)}")
+    print("top kernels by device time (total ms, count, mean us):")
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:TOP]
+    for name, ts in top:
+        print(f"  {sum(ts) / 1e3:9.3f} ms  {len(ts):7d}  {sum(ts) / len(ts):8.2f}  {name[:90]}")
+    print("top host operators by self CPU time (profiled round):")
+    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=TOP))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,145 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources in ``repro_torch/csrc/*.cu`` expose a plain C interface. At
+first use they are compiled for Hopper with ``nvcc`` — one process per
+source, all started together, then one link — into a shared library under
+``build/kernels/<hash of sources and flags>/`` at the repository root, and
+loaded with ``ctypes``. A failed build raises with nvcc's output. Nothing
+is compiled or loaded when this module is imported.
+
+``launches`` counts kernel launches by name; a wrapper adds one where it
+launches its kernel and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+LIB_NAME = "librepro_torch_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+launches: dict[str, int] = {
+    "distill_loss_fwd": 0, "distill_loss_bwd": 0, "skr_rectify": 0,
+}
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    # z, t, y, loss, stats, rows, V, beta, lw, stream
+    "distill_loss_fwd": [_P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
+    # z, t, y, stats, g, dz, rows, V, beta, lw, stream
+    "distill_loss_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
+    # p, label, p_c, do, qbar, out, rows, C, stream
+    "skr_rectify": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels unless this exact build exists; return the
+    library's path and the ``-Xptxas -v`` report (registers, shared
+    memory and spills per kernel)."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out = BUILD_ROOT / h.hexdigest()[:16]
+    lib, log = out / LIB_NAME, out / "ptxas.log"
+    if lib.exists() and log.exists():
+        return lib, log.read_text()
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for s, o in zip(srcs, objs)
+        ]
+        reports = [(s, p, p.communicate()[0]) for s, p in zip(srcs, procs)]
+        for s, p, text in reports:
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s.name}:\n{text}")
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp_lib),
+                               *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        report = "".join(f"== {s.name}\n{text}" for s, _, text in reports)
+        log.write_text(report)
+        os.replace(tmp_lib, lib)
+    return lib, report
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        handle = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel entry point ``name`` on ``device``'s current stream
+    (appended as the last argument), count the launch and raise if CUDA
+    refused it."""
+    fn = getattr(lib(), name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
+    launches[name] += 1
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous and on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def check_labels(name: str, labels: torch.Tensor, n: int) -> torch.Tensor:
+    """Labels as int32 after checking they lie in [0, n). On a card the
+    check reads one flag back to the host."""
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: labels must be int32 or int64, got {labels.dtype}")
+    if labels.numel() and not bool(((labels >= 0) & (labels < n)).all()):
+        raise ValueError(f"{name}: labels must lie in [0, {n})")
+    return labels.to(torch.int32).contiguous()

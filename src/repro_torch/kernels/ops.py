@@ -1,0 +1,55 @@
+"""Public entry points of the port's kernels, mirroring
+``repro.kernels.ops``.
+
+On a CUDA tensor each op launches its hand-written kernel (built at first
+use) or raises; on a CPU tensor it runs the plain version in ``ref.py``.
+``launches`` counts kernel launches by name (``distill_loss_fwd``,
+``distill_loss_bwd``, ``skr_rectify``); ``reset_launches`` zeroes it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as R
+from repro_torch.kernels._lib import launches, reset_launches  # noqa: F401
+from repro_torch.kernels.distill_loss import (
+    distill_loss as _distill_loss,
+    distill_loss_batched as _distill_loss_batched,
+)
+from repro_torch.kernels.skr_rectify import (
+    skr_rectify as _skr,
+    skr_rectify_batched as _skr_batched,
+    skr_rectify_rows,  # noqa: F401
+)
+
+
+def fused_softmax_xent(logits, labels):
+    """Per-row CE without materializing softmax (beta=0 distill_loss)."""
+    return _distill_loss(logits, torch.zeros_like(logits), labels, 0.0, 1.0)
+
+
+def fused_distill_loss(logits, teacher_logprobs, labels, *, beta: float,
+                       label_weight: float = 1.0):
+    """Fused Eq.(3)/(32): CE + beta*KL per row (autograd, vocab-streamed)."""
+    return _distill_loss(logits, teacher_logprobs, labels, beta, label_weight)
+
+
+def fused_distill_loss_batched(logits, teacher_logprobs, labels, *,
+                               beta: float, label_weight: float = 1.0):
+    """Batched Eq.(3)/(32) over stacked pairs (B, N, V) — one kernel
+    launch forward and one backward for the whole group."""
+    return _distill_loss_batched(logits, teacher_logprobs, labels, beta,
+                                 label_weight)
+
+
+def skr_rectify(probs, labels, qbar, counts):
+    return _skr(probs, labels, qbar, counts)
+
+
+def skr_rectify_batched(probs, labels, qbar, counts):
+    """Stacked (B, N, C) rectification with per-pair (B, C) queue stats."""
+    return _skr_batched(probs, labels, qbar, counts)
+
+
+# Re-export the plain versions for tests and chip_smoke.py
+ref = R

@@ -1,0 +1,82 @@
+"""Plain PyTorch versions of the port's kernels: the CPU execution path and
+the reference the CUDA kernels are held to on the card. Counterpart of
+``repro.kernels.ref``; each function mirrors its reference's signature and
+also takes stacked leading axes, so the batched versions are the same
+functions."""
+from __future__ import annotations
+
+import torch
+
+
+# --- skr_rectify -----------------------------------------------------------
+
+
+def skr_rectify_rows_ref(probs, labels, p_c, do, qb):
+    """Eq. (31) from per-row values: probs (..., C); labels, p_c, do, qb
+    (...). The expression order matches the TPU kernel's
+    (``repro/kernels/skr_rectify.py:_kernel``)."""
+    scale = (1.0 - qb) / torch.clamp_min(1.0 - p_c, 1e-12)
+    rect = probs * scale[..., None]
+    is_label = labels.long()[..., None] == torch.arange(probs.shape[-1],
+                                                        device=probs.device)
+    rect = torch.where(is_label, qb[..., None], rect)
+    return torch.where(do[..., None], rect, probs)
+
+
+def skr_rectify_ref(probs, labels, qbar, counts):
+    """Batched Eq. (31) with precomputed queue means: probs (N, C), labels
+    (N,), qbar/counts (C,) — or stacked (B, N, C), (B, N), (B, C)."""
+    labels = labels.long()
+    p_c = probs.gather(-1, labels[..., None])[..., 0]
+    mis = probs.argmax(-1) != labels  # Eq. 8
+    do = mis & (counts.gather(-1, labels) > 0)
+    qb = qbar.gather(-1, labels)
+    return skr_rectify_rows_ref(probs, labels, p_c, do, qb)
+
+
+skr_rectify_batched_ref = skr_rectify_ref
+
+
+# --- distill loss (fused CE + beta*KL over the vocab axis) ------------------
+
+
+def distill_loss_ref(logits, labels, teacher_logprobs, beta, label_weight=1.0):
+    """Per-row: CE(softmax(z), y) + beta * KL(softmax(z) || exp(tlq)).
+
+    logits: (..., V) student logits; labels (...) int; teacher_logprobs:
+    (..., V) log of the (possibly rectified) teacher probs. Returns per-row
+    losses (...).
+    """
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    logp = logits - logz
+    ce = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    sp = torch.exp(logp)
+    kl = torch.sum(sp * (logp - teacher_logprobs), dim=-1)
+    return label_weight * ce + beta * kl
+
+
+def distill_loss_grad_ref(logits, labels, teacher_logprobs, beta,
+                          label_weight=1.0):
+    """d(per-row loss)/d logits — the reference for the backward kernel."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    logp = logits - logz
+    sp = torch.exp(logp)
+    onehot = (labels.long()[..., None] == torch.arange(
+        logits.shape[-1], device=logits.device)).to(torch.float32)
+    kl = torch.sum(sp * (logp - teacher_logprobs), dim=-1, keepdim=True)
+    dce = sp - onehot
+    dkl = sp * ((logp - teacher_logprobs) - kl)
+    return label_weight * dce + beta * dkl
+
+
+distill_loss_batched_ref = distill_loss_ref
+
+
+def softmax_xent_ref(logits, labels):
+    """Plain CE per row (the beta=0 special case used for the LM loss)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return logz - gold
