@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port of FedEEC on one CUDA card.
+"""Smoke run of the PyTorch port on one CUDA card: the FedEEC trainer and
+the LM serving path.
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
-five phases, each printing its lines; any failure exits non-zero before
+these phases, each printing its lines; any failure exits non-zero before
 the result line:
 
 1. device: name, compute capability (must be 9.0), count, nvidia-smi's name
    and power limit, and the TF32 flags the port sets;
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` and print
    nvcc's registers / shared memory / spills per kernel;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and the LM bench shapes, then its device time (a
-   CUDA graph of many launches between CUDA events) beside the plain
-   version's, the bound and, where one PyTorch call computes the same
-   function, that call's time;
-4. main path: ``run_experiment("fedeec", FLConfig(), rounds=3)`` on the
-   card, with the launch counters zeroed just before and read just after,
-   each held to the count the trainer's ``pair_steps`` predicts;
-5. parity: the card against the CPU (the port's plain path, which the CPU
-   tests hold to the JAX package) on small inputs: one student step's loss
-   and gradient per model, and one tiny FedEEC round.
+3. kernels: each of the five kernels against its plain PyTorch version on
+   the card, at the main paths' shapes and the bench shapes, then the
+   FedEEC kernels' device time (a CUDA graph of many launches between CUDA
+   events) beside the plain version's, the bound and, where one PyTorch
+   call computes the same function, that call's time;
+4. FedEEC: ``run_experiment("fedeec", FLConfig(), rounds=3)`` on the card,
+   with the launch counters zeroed just before and read just after, each
+   held to the count the trainer's ``pair_steps`` predicts;
+5. FedEEC parity: the card against the CPU (the port's plain path, which
+   the CPU tests hold to the JAX package) on small inputs: one student
+   step's loss and gradient per model, and one tiny FedEEC round;
+6. LM serving, for llama3.2-3b then rwkv6-1.6b at full width and depth in
+   bf16: ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
+   64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
+   call at batch 1, with the launch counters zeroed before and held after
+   to the counts the layer list predicts;
+7. LM parity: each architecture at full width, two layers, fp32, on the
+   card and on the CPU from the same parameters: 8 decode steps and one
+   128-token prefill;
+8. LM kernel times, as in 3, at the serving path's shapes. They come last,
+   so that nothing the timing leaves allocated enters a main path's peak
+   memory.
 
 It ends with the kernels' JSON line, nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -40,16 +52,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 TIMED_LAUNCHES = 200
 TPU_KERNELS = {
     "distill_loss_fwd": "src/repro/kernels/distill_loss.py:53",
     "distill_loss_bwd": "src/repro/kernels/distill_loss.py:95",
     "skr_rectify": "src/repro/kernels/skr_rectify.py:33",
+    "flash_attention": "src/repro/kernels/flash_attention.py:32",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:25",
 }
 SOURCES = {
     "distill_loss_fwd": "src/repro_torch/csrc/distill_loss.cu",
     "distill_loss_bwd": "src/repro_torch/csrc/distill_loss.cu",
     "skr_rectify": "src/repro_torch/csrc/skr_rectify.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
 }
 
 
@@ -107,9 +124,9 @@ def device_ms(fn, launches: int = TIMED_LAUNCHES, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * launches)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -231,17 +248,127 @@ def _skr_inputs(B, N, C, dev):
     return probs, labels, qbar, counts
 
 
-def _timed(name, tag, shape, kernel, plain, library, nbytes, ops):
+def _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, seed=0):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).mul_(0.5).to(dtype)
+               for shape in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, H)))
+    return q, k, v
+
+
+FLASH_CASES = [
+    # the sweep of tests/test_kernels.py: (B, Sq, Sk, N, K, H, causal, window)
+    (2, 32, 32, 4, 2, 32, True, 0),
+    (1, 64, 64, 8, 8, 64, True, 0),
+    (2, 32, 32, 4, 1, 32, True, 8),
+    (1, 16, 64, 4, 2, 32, True, 0),
+    (2, 24, 24, 2, 2, 128, False, 0),
+    # a window over a kv length that is no tile multiple, and H = 256
+    (2, 40, 100, 4, 2, 64, True, 24),
+    (1, 17, 33, 2, 1, 256, True, 0),
+]
+FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128)  # llama3.2-3b, one 4096-token prompt
+FLASH_DECODE = (8, 1, 4096, 24, 8, 128)  # 8 requests against a 4096-long cache
+RWKV_CASES = [(2, 32, 4, 16), (1, 40, 2, 32), (3, 16, 1, 64)]
+RWKV_PREFILL = (1, 1024, 32, 64)  # rwkv6-1.6b, one 1024-token prompt
+RWKV_DECODE = (8, 1, 32, 64)  # 8 requests, one step
+
+
+BF16_ULP = 2.0**-7  # one bf16 ulp of x is at most 2^-7 |x|
+
+
+def check_flash_attention(dev):
+    """fp32 within 3e-5 (the JAX kernel tests' bound: fp32 sums in another
+    order). bf16 within one bf16 ulp of each output element, 2^-7 |want|
+    plus 1e-6: both sides compute in fp32 and round once, so they differ
+    by at most the one rounding step (the JAX tests' 2e-2 is 20-300x
+    looser than that at the main path's shapes, whose outputs are about
+    0.01). The prefill and decode shapes also run in fp32 at 3e-5, where
+    a dropped or misread kv tile of the 4096-key walk (about 1e-3) fails."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    both = (torch.float32, torch.bfloat16)
+    cases = [(c, dt) for c in FLASH_CASES for dt in both]
+    cases += [((*FLASH_PREFILL, True, 0), dt, 0) for dt in both]
+    cases += [((*FLASH_DECODE, True, 0), dt, off) for dt in both for off in (0, 63, 4095)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for case in cases:
+        (B, Sq, Sk, N, K, H, causal, window), dtype = case[0], case[1]
+        qo = case[2] if len(case) > 2 else (Sk - Sq if causal else 0)
+        q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev)
+        got = flash_attention(q, k, v, causal=causal, window=window, q_offset=qo)
+        want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=qo)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            tol = BF16_ULP * want.float().abs() + 1e-6
+        else:
+            tol = torch.full_like(diff, 3e-5)
+        err, share = diff.max().item(), (diff / tol).max().item()
+        worst[dtype] = max(worst[dtype], err)
+        ok = got.dtype == dtype and share <= 1.0
+        print(f"flash_attention {(B, Sq, Sk, N, K, H)} causal={causal} window={window} "
+              f"q_offset={qo} {str(dtype)[6:]}: max|err| {err:.3e}, {share:.3f} of the "
+              f"bound, max|want| {want.float().abs().max().item():.3e}  "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"flash_attention disagrees with its plain version at {case}")
+        del q, k, v, got, want, diff, tol
+    return worst[torch.float32], worst[torch.bfloat16]
+
+
+def _rwkv_inputs(B, T, H, hd, dev, seed=0):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shp = (B, T, H, hd)
+    r, k, v = (torch.randn(shp, generator=g, device=dev) * 0.3 for _ in range(3))
+    w = torch.sigmoid(torch.randn(shp, generator=g, device=dev))
+    u = torch.randn((H, hd), generator=g, device=dev) * 0.3
+    s0 = torch.randn((B, H, hd, hd), generator=g, device=dev) * 0.1
+    return r, k, v, w, u, s0
+
+
+def check_rwkv6_scan(dev):
+    """y and the final state within 3e-5 (fp32 sums in another order)."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    worst = 0.0
+    for B, T, H, hd in RWKV_CASES + [RWKV_PREFILL, RWKV_DECODE]:
+        ins = _rwkv_inputs(B, T, H, hd, dev)
+        y, sT = rwkv6_scan(*ins)
+        yr, sTr = R.rwkv6_scan_ref(*ins)
+        torch.cuda.synchronize()
+        ey, es = (y - yr).abs().max().item(), (sT - sTr).abs().max().item()
+        worst = max(worst, ey, es)
+        ok = ey <= 3e-5 and es <= 3e-5
+        print(f"rwkv6_scan {(B, T, H, hd)}: y max|err| {ey:.3e}  state max|err| {es:.3e}  "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"rwkv6_scan disagrees with its plain version at {(B, T, H, hd)}")
+    return worst
+
+
+def _timed(name, tag, shape, kernel, plain, library, nbytes, ops,
+           ops_per_s=FP32_OPS_PER_S, launches=TIMED_LAUNCHES):
     """Time one kernel against its plain version (and the library call, if
     any) on the same inputs; print the line and return the JSON fields."""
-    ms, eager = device_ms(kernel), eager_ms(kernel)
-    plain_ms = device_ms(plain)
-    library_ms = device_ms(library) if library is not None else None
-    b, by = bound_ms(nbytes, ops)
+    ms, eager = device_ms(kernel, launches), eager_ms(kernel, launches)
+    plain_ms = device_ms(plain, launches)
+    library_ms = device_ms(library, launches) if library is not None else None
+    b, by = bound_ms(nbytes, ops, ops_per_s)
     print(f"{name} {tag} {shape}: kernel {ms:.5f} ms device ({eager:.5f} ms eager)  "
           f"plain {plain_ms:.5f} ms  bound {b:.6f} ms ({by})"
           + (f"  library {library_ms:.5f} ms" if library_ms is not None else ""))
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=library_ms)
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=library_ms)
 
 
 def time_kernels(dev):
@@ -354,10 +481,12 @@ def drive_main_path(dev):
     print(f"build_problem incl. autoencoder pretrain (1200 steps): "
           f"{time.perf_counter() - t0:.3f} s")
 
+    print(f"allocated before the rounds: {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     res = run_experiment("fedeec", cfg, rounds=rounds, device=dev)
-    counts = dict(ops.launches)
+    counts = {k: ops.launches[k] for k in ("distill_loss_fwd", "distill_loss_bwd",
+                                           "skr_rectify")}
     torch.cuda.synchronize()
     print(f"round wall s (train, ending in a sync): {res.round_s}")
     print(f"run wall s (rounds + evals): {res.wall_s:.3f}")
@@ -468,6 +597,194 @@ def check_round_parity(dev):
         fail("the card's FedEEC round differs from the CPU's in comm bytes or rng draws")
 
 
+def time_lm_kernels(dev):
+    """Times at the LM serving path's shapes: flash_attention in bf16 at the
+    4096-token prefill and at a decode step of 8 requests with the queries
+    at position 63 (the middle of the serve run's 128 positions) and 4095
+    (a full cache); rwkv6_scan at a 1024-token prefill and a decode step.
+    The bound counts q, o and the k/v rows the masks leave (each read or
+    written once) against 3.35 TB/s, and 4 H flops per unmasked (q, k) pair
+    and q head against the bf16 tensor-core peak (989 TFLOP/s: the card
+    could run this bf16 attention there); for the scan, r, k, v, w, u, s0
+    read and y, sT written once, and 7 hd^2 flops per token and head against
+    the fp32 peak (67 TFLOP/s: its inputs and state are fp32). The library
+    call for attention is F.scaled_dot_product_attention on the same
+    tensors (is_causal at prefill; unmasked over the cache's first pos + 1
+    rows at decode); the scan has none."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+
+    rows = {}
+    for tag, (B, Sq, Sk, N, K, H), qo in [("prefill", FLASH_PREFILL, 0),
+                                          ("decode", FLASH_DECODE, 63),
+                                          ("decode", FLASH_DECODE, 4095)]:
+        q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, torch.bfloat16, dev)
+        n_keys = min(Sk, qo + Sq)
+        pairs = sum(min(qo + i + 1, Sk) for i in range(Sq))
+        nbytes = 2 * (2 * B * Sq * N * H + 2 * B * n_keys * K * H)
+        if tag == "prefill":
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True)
+        else:
+            kc, vc = k[:, :qo + 1].transpose(1, 2), v[:, :qo + 1].transpose(1, 2)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q.transpose(1, 2), kc, vc, enable_gqa=True)
+        rows[("flash_attention", tag, qo)] = _timed(
+            "flash_attention", tag, f"q {(B, Sq, N, H)} kv {(B, Sk, K, H)} q_offset={qo} bf16",
+            lambda: ops.flash_attention(q, k, v, q_offset=qo),
+            lambda: R.flash_attention_ref(q, k, v, q_offset=qo), lib,
+            nbytes, 4 * B * N * H * pairs, BF16_OPS_PER_S,
+            launches=5 if tag == "prefill" else TIMED_LAUNCHES)
+    for tag, (B, T, H, hd) in [("prefill", RWKV_PREFILL), ("decode", RWKV_DECODE)]:
+        ins = _rwkv_inputs(B, T, H, hd, dev)
+        rows[("rwkv6_scan", tag, None)] = _timed(
+            "rwkv6_scan", tag, f"{(B, T, H, hd)} fp32",
+            lambda: ops.rwkv6_scan(*ins), lambda: R.rwkv6_scan_ref(*ins), None,
+            4 * (5 * B * T * H * hd + H * hd + 2 * B * H * hd * hd), 7 * hd * hd * T * H * B,
+            launches=10 if tag == "prefill" else TIMED_LAUNCHES)
+    return rows
+
+
+LM_ARCHS = (("llama3.2-3b", 4096), ("rwkv6-1.6b", 1024))  # (arch, prefill step length)
+LM_SERVE = dict(num_requests=8, prompt_len=64, gen_len=64, cache_len=4096)
+
+
+def expected_lm_launches(cfg):
+    """Kernel launches of one serve run and one prefill step, from the
+    layer list: each decode step and the prefill step run every layer once."""
+    steps = LM_SERVE["prompt_len"] + LM_SERVE["gen_len"] + 1
+    return {"flash_attention": steps * sum(b.kind == "attn" for b in cfg.blocks),
+            "rwkv6_scan": steps * sum(b.kind == "rwkv6" for b in cfg.blocks)}
+
+
+def drive_lm_path(dev, arch, prefill_len):
+    """The LM serving path at full width and depth, bf16: ``serve`` as
+    ``--full`` runs it, then one prefill step at batch 1."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import default_opts, make_prefill_step
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_arch(arch)
+    print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, {cfg.param_dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve(arch, use_reduced=False, device=dev, **LM_SERVE)
+    serve_peak = torch.cuda.max_memory_allocated()
+
+    opts = default_opts(cfg)
+    params = init_params(cfg, opts, seed=1, device=dev)
+    toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (1, prefill_len))
+    toks = torch.from_numpy(toks).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = make_prefill_step(cfg, opts)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = {k: ops.launches[k] for k in ("flash_attention", "rwkv6_scan")}
+    want = expected_lm_launches(cfg)
+    finite = bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated()
+
+    print(f"serve: decode-step prefill of {LM_SERVE['prompt_len']} tokens "
+          f"{res.prefill_s:.4f} s; generation {res.gen_s:.4f} s, "
+          f"{res.tokens_per_s:.2f} tokens/s, {res.ms_per_step:.4f} ms per decode step "
+          f"(batch {LM_SERVE['num_requests']})")
+    print(f"serve peak max_memory_allocated: {serve_peak / 2**20:.1f} MiB")
+    print(f"prefill step (1, {prefill_len}): {prefill_s:.4f} s  "
+          f"({prefill_len / prefill_s:.1f} tokens/s); logits {tuple(logits.shape)} "
+          f"{logits.dtype}, finite {finite}")
+    print(f"peak max_memory_allocated (serve + prefill step): {peak / 2**20:.1f} MiB")
+    print(f"launches: {counts}  predicted from the layer list: {want}")
+    V = cfg.vocab_size
+    if res.tokens.shape != (LM_SERVE["num_requests"], LM_SERVE["gen_len"]):
+        fail(f"{arch}: generated tokens have shape {res.tokens.shape}")
+    if not ((res.tokens >= 0) & (res.tokens < V)).all():
+        fail(f"{arch}: generated tokens outside [0, {V})")
+    if not (res.logits_finite and finite):
+        fail(f"{arch}: non-finite logits")
+    if logits.shape != (1, padded_vocab(V)):
+        fail(f"{arch}: prefill logits have shape {tuple(logits.shape)}")
+    if counts != want:
+        fail(f"{arch}: launches {counts}, the layer list predicts {want}")
+    if max(counts.values()) <= 0:
+        fail(f"{arch}: no kernel was launched on the serving path")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(serve_prefill_s=res.prefill_s, gen_s=res.gen_s,
+                        tokens_per_s=res.tokens_per_s, ms_per_step=res.ms_per_step,
+                        prefill_step_s=prefill_s, peak_mib=peak / 2**20)
+
+
+def check_lm_parity(dev, arch):
+    """Full width, two layers, fp32, parameters drawn on the CPU and copied
+    to the card: the same 8 decode steps (2 requests, the same input tokens
+    on both devices) and one 128-token prefill. Logits within 1e-4 of
+    max|logit| (TF32 off: fp32 sums in other orders over d_model = 2048 to
+    8192); greedy tokens identical wherever the top-two margin exceeds that
+    bound."""
+    import gc
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import default_opts, make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.tree import tree_map
+
+    cfg = replace(get_arch(arch), n_repeats=2, num_layers=2, param_dtype="float32",
+                  compute_dtype="float32")
+    opts = default_opts(cfg)
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(2)
+    steps = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 8)))
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 128)))
+    params = init_params(cfg, opts, seed=3, device=cpu)
+    out = []
+    for d in (dev, cpu):
+        p = params if d == cpu else tree_map(lambda t: t.to(d), params)
+        step = make_serve_step(cfg, opts)
+        cache = init_cache(cfg, opts, 2, 16, torch.float32, device=d)
+        logits = []
+        for t in range(8):
+            _, lg, cache = step(p, cache, {"token": steps[:, t:t + 1].to(d), "pos": t})
+            logits.append(lg.cpu())
+        pre = make_prefill_step(cfg, opts)(p, {"tokens": prompt.to(d)}).cpu()
+        out.append((torch.stack(logits), pre))
+        del p, cache
+    (dec_g, pre_g), (dec_c, pre_c) = out
+    for name, g, c in (("decode", dec_g, dec_c), ("prefill", pre_g, pre_c)):
+        bound = 1e-4 * c.abs().max().item()
+        err = (g - c).abs().max().item()
+        top2 = c.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > bound
+        same = bool((g.argmax(-1) == c.argmax(-1))[sure].all())
+        print(f"{arch} 2 layers fp32 {name}: logits max|card - CPU| {err:.3e}, bound "
+              f"{bound:.3e} (1e-4 of max|logit|); greedy tokens identical at "
+              f"{int(sure.sum())} of {sure.numel()} positions with a margin above it: {same}")
+        if err > bound or not same:
+            fail(f"{arch}: the card's logits disagree with the CPU's ({name})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     try:
         import torch
@@ -484,6 +801,8 @@ def main() -> None:
     phase("kernels vs plain versions")
     err = dict(zip(("distill_loss_fwd", "distill_loss_bwd"), check_distill_loss(dev)))
     err["skr_rectify"] = check_skr_rectify(dev)
+    err["flash_attention"] = max(check_flash_attention(dev))
+    err["rwkv6_scan"] = check_rwkv6_scan(dev)
     phase("kernel times")
     times = time_kernels(dev)
     time_skr_queue_pass(dev)
@@ -495,8 +814,22 @@ def main() -> None:
     check_step_parity(dev)
     check_round_parity(dev)
 
+    for arch, prefill_len in LM_ARCHS:
+        phase(f"LM serving path: {arch}, full width and depth, bf16")
+        lm_counts, _ = drive_lm_path(dev, arch, prefill_len)
+        for k, n in lm_counts.items():
+            counts[k] = counts.get(k, 0) + n
+    for arch, _ in LM_ARCHS:
+        phase(f"LM parity: {arch}, full width, two layers, fp32, the card vs the CPU")
+        check_lm_parity(dev, arch)
+    # timed last, so no graph pool or input of the timing is allocated while
+    # a main path's peak memory is read
+    phase("kernel times at the LM serving shapes")
+    times.update(time_lm_kernels(dev))
+
     pick = {"distill_loss_fwd": ("main", 0.0), "distill_loss_bwd": ("main", 1.5),
-            "skr_rectify": ("main", None)}
+            "skr_rectify": ("main", None), "flash_attention": ("prefill", 0),
+            "rwkv6_scan": ("prefill", None)}
     kernels = []
     for k, (tag, beta) in pick.items():
         row = times[(k, tag, beta)]

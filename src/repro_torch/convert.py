@@ -11,7 +11,8 @@ bit-exact):
 
 The JAX side is a tree of numpy arrays (``jax.tree.map(np.asarray, p)``);
 the port side is a tree of torch tensors. Model names are those of
-``repro_torch.models.registry`` plus ``"autoencoder"``.
+``repro_torch.models.registry`` plus ``"autoencoder"``. The LM plane's trees
+need no permutation: ``lm_from_jax`` / ``lm_to_jax`` copy them leaf for leaf.
 """
 from __future__ import annotations
 
@@ -116,3 +117,40 @@ def adamw_to_jax(name: str, state):
         "m": to_jax(name, state["m"]),
         "v": to_jax(name, state["v"]),
     }
+
+
+# --- the LM plane -------------------------------------------------------------
+#
+# The transformer trees have one layout on both sides (weights ``(in, out)``
+# applied as ``x @ w``, stacked unit leaves), so the leaves copy one to one
+# and never go through ``from_jax``'s HWIO transpose, which would scramble a
+# stacked 4-D leaf. bf16 leaves (``ml_dtypes.bfloat16`` in numpy, which
+# ``torch.from_numpy`` rejects) travel bit for bit as int16.
+
+
+def _leaf_from_jax(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _leaf_to_jax(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16, as JAX uses it
+
+        return t.contiguous().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def lm_from_jax(jax_tree, device: torch.device | str = "cpu"):
+    """JAX numpy tree of an LM (``repro.models.init_params``, or a decode
+    cache) -> the port's tensor tree, bit-exact."""
+    return _map(jax_tree, lambda _, a: _leaf_from_jax(a, device))
+
+
+def lm_to_jax(tree):
+    """The port's LM tensor tree -> numpy tree in the JAX layout, bit-exact."""
+    return _map(tree, lambda _, t: _leaf_to_jax(t))

@@ -18,7 +18,7 @@ import time
 TOP = 12  # kernels and host operators listed
 
 
-def _busy_us(intervals: list[tuple[float, float]]) -> float:
+def busy_us(intervals: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals."""
     total, cur_s, cur_e = 0.0, None, None
     for s, e in sorted(intervals):
@@ -60,7 +60,7 @@ def main() -> None:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise SystemExit("the profiler recorded no device activity")
-    busy_s = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
+    busy_s = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
     by_name: dict[str, list[float]] = {}
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())

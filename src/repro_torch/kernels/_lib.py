@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 
 launches: dict[str, int] = {
     "distill_loss_fwd": 0, "distill_loss_bwd": 0, "skr_rectify": 0,
+    "flash_attention": 0, "rwkv6_scan": 0,
 }
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -42,6 +43,12 @@ _SIGNATURES = {
     "distill_loss_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
     # p, label, p_c, do, qbar, out, rows, C, stream
     "skr_rectify": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
+    # q, k, v, o, B, Sq, Sk, N, K, H, is_bf16, causal, window, q_offset,
+    # k_len, scale, stream
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
+                        _I, _F, _P],
+    # r, k, v, w, u, s0, y, sT, B, T, H, hd, stream
+    "rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

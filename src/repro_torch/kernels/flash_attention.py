@@ -1,0 +1,64 @@
+"""GQA flash attention (causal / sliding-window), forward only: the wrapper
+around the CUDA kernel in ``repro_torch/csrc/flash_attention.cu``.
+
+Counterpart of ``repro.kernels.flash_attention``. q (B, Sq, N, H), k and v
+(B, Sk, K, H) with N % K == 0; q head n reads kv head n // (N / K). Masks
+use absolute positions: query i sits at ``q_offset + i``; causal keeps
+keys at or before it, ``window > 0`` keeps the trailing ``window`` keys.
+The softmax runs online in fp32; the output has q's dtype.
+
+``causal``, ``window`` and ``q_offset`` are runtime arguments of the kernel
+(the TPU kernel takes them as static only because of jit), so a decode loop
+passes its position as a plain int with no recompilation and no read-back.
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
+it computes the plain version in ``ref.py``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels import ref as R
+
+HEAD_DIMS = (32, 64, 128, 256)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention: want q (B, Sq, N, H), k and v (B, Sk, K, H); got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, N, H = q.shape
+    if k.shape[0] != B or k.shape[3] != H or N % k.shape[2]:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)} "
+            "(batch and head_dim must match, N % K == 0)")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention: q, k, v must share one of {DTYPES}; got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k and v must share a device")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
+    """Returns (B, Sq, N, H) in q's dtype."""
+    _check(q, k, v)
+    if not q.is_cuda:
+        return R.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    B, Sq, N, H = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if H not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes head_dim in {HEAD_DIMS}, got {H}")
+    _lib.check_cuda("flash_attention", q, k, v)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the kernel takes 16-byte aligned tensors")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _lib.launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), B, Sq, Sk, N, K, H, int(q.dtype == torch.bfloat16),
+                int(bool(causal)), int(window), int(q_offset), Sk, float(H**-0.5))
+    return out

@@ -4,7 +4,8 @@
 On a CUDA tensor each op launches its hand-written kernel (built at first
 use) or raises; on a CPU tensor it runs the plain version in ``ref.py``.
 ``launches`` counts kernel launches by name (``distill_loss_fwd``,
-``distill_loss_bwd``, ``skr_rectify``); ``reset_launches`` zeroes it.
+``distill_loss_bwd``, ``skr_rectify``, ``flash_attention``,
+``rwkv6_scan``); ``reset_launches`` zeroes it.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from repro_torch.kernels.distill_loss import (
     distill_loss as _distill_loss,
     distill_loss_batched as _distill_loss_batched,
 )
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6
 from repro_torch.kernels.skr_rectify import (
     skr_rectify as _skr,
     skr_rectify_batched as _skr_batched,
@@ -49,6 +52,17 @@ def skr_rectify(probs, labels, qbar, counts):
 def skr_rectify_batched(probs, labels, qbar, counts):
     """Stacked (B, N, C) rectification with per-pair (B, C) queue stats."""
     return _skr_batched(probs, labels, qbar, counts)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """GQA attention, q (B, Sq, N, H), k/v (B, Sk, K, H), absolute-position
+    causal / sliding-window masks with the queries at ``q_offset``."""
+    return _flash(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def rwkv6_scan(r, k, v, w, u, s0):
+    """RWKV6 recurrence: (y fp32 (B, T, H, hd), final state (B, H, hd, hd))."""
+    return _rwkv6(r, k, v, w, u, s0)
 
 
 # Re-export the plain versions for tests and chip_smoke.py

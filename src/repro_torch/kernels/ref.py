@@ -80,3 +80,46 @@ def softmax_xent_ref(logits, labels):
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return logz - gold
+
+
+# --- flash attention ---------------------------------------------------------
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+    """q (B,Sq,N,H), k/v (B,Sk,K,H). GQA; absolute-position masks. The
+    (B, K, G, Sq, Sk) fp32 scores are materialised."""
+    B, Sq, N, H = q.shape
+    K = k.shape[2]
+    G = N // K
+    qf = q.to(torch.float32) * (H**-0.5)
+    qf = qf.reshape(B, Sq, K, G, H)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(torch.float32))
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(k.shape[1], device=q.device)
+    m = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if window:
+        m &= kpos[None, :] > (qpos[:, None] - window)
+    s = torch.where(m, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+    return o.reshape(B, Sq, N, v.shape[-1]).to(q.dtype)
+
+
+# --- rwkv6 scan --------------------------------------------------------------
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0):
+    """Exact RWKV6 recurrence. r/k/v/w: (B,T,H,hd) fp32, u: (H,hd),
+    s0: (B,H,hd,hd). Returns (y (B,T,H,hd), sT)."""
+    r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
+    s = s0.to(torch.float32)
+    uu = u[None, ..., None]
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + uu * kv))
+        s = w[:, t, :, :, None] * s + kv
+    y = torch.stack(ys, 1) if ys else r.new_zeros(r.shape)
+    return y, s

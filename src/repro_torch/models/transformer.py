@@ -1,0 +1,295 @@
+"""Transformer assembly for the LM serving path.
+
+Counterpart of ``repro.models.transformer`` for the block kinds the port
+runs: ``attn`` (GQA + MLP) and ``rwkv6`` (time-mix + channel-mix). An
+``ArchConfig`` describes the model as ``head_blocks + pattern*n_repeats +
+tail_blocks``. The repeated unit keeps the reference's stacked layout (each
+``params["unit"]`` leaf has a leading ``n_repeats`` axis), and
+``_backbone`` loops over the repeats where the reference scans.
+
+Every other block kind (``local_attn``, ``mla``, ``moe``, ``mla_moe``,
+``mamba2``, ``shared_attn``), encoder-decoder models, media frontends and
+learned position embeddings raise ``NotImplementedError``; the training
+entry points (``forward_train``, ``lm_loss_chunked``) are not here yet
+(ROADMAP A4).
+
+Entry points:
+  init_params(cfg, opts, seed=, device=)      -> param tree
+  forward_prefill(cfg, opts, params, batch)   -> last-position logits
+  forward_decode(cfg, opts, params, batch, states) -> (logits, states)
+  init_cache(cfg, opts, B, S, dtype, device=) -> decode state tree
+
+Decode states are updated in place: ``forward_decode`` writes each block's
+new KV entry or recurrent state into ``states`` and returns the same tree
+(the reference returns a new one with the same values), so a 4096-long
+cache is never copied. ``batch["pos"]`` is a Python int.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
+from repro_torch.models.layers import (
+    apply_mlp,
+    apply_norm,
+    embed_init,
+    init_mlp,
+    init_norm,
+    mask_padded_logits,
+    mm,
+    padded_vocab,
+)
+from repro_torch.tree import tree_map
+
+PORTED_KINDS = ("attn", "rwkv6")
+
+
+@dataclass(frozen=True)
+class ModelOpts:
+    """Build/runtime options orthogonal to the architecture definition.
+
+    Only the reference's fields that the ported code reads; each other
+    field comes with the code that reads it (ROADMAP A4).
+    """
+
+    kv_mult: int = 1  # KV-head replication for tensor parallelism
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP A4); the port runs "
+        f"block kinds {PORTED_KINDS}")
+
+
+def _check_ported(cfg) -> None:
+    for blk in cfg.blocks:
+        if blk.kind not in PORTED_KINDS or blk.shared:
+            raise _unported(f"block kind {blk.kind!r}{' (shared)' if blk.shared else ''}")
+    if cfg.enc_dec:
+        raise _unported("the encoder-decoder model")
+    if cfg.frontend:
+        raise _unported(f"frontend {cfg.frontend!r}")
+    if cfg.learned_pos_emb:
+        raise _unported("learned position embeddings")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# per-block init / apply
+# ---------------------------------------------------------------------------
+
+
+def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts):
+    dt = _dtype(cfg.param_dtype)
+    d = cfg.d_model
+    if kind == "attn":
+        return {
+            "ln1": init_norm(cfg, d, gen.device),
+            "attn": A.init_attn(gen, cfg, dt, opts.kv_mult),
+            "ln2": init_norm(cfg, d, gen.device),
+            "mlp": init_mlp(gen, cfg, d, cfg.d_ff, dt),
+        }
+    if kind == "rwkv6":
+        return {
+            "ln1": init_norm(cfg, d, gen.device),
+            "rwkv": S.init_rwkv6(gen, cfg, dt),
+            "ln2": init_norm(cfg, d, gen.device),
+        }
+    raise _unported(f"block kind {kind!r}")
+
+
+def init_block_state(cfg, kind: str, opts: ModelOpts, batch: int, seq: int, dtype,
+                     device=None):
+    """Decode-time state for one block occurrence."""
+    if kind == "attn":
+        return A.init_kv_cache(cfg, batch, seq, dtype, opts.kv_mult, device)
+    if kind == "rwkv6":
+        return S.init_rwkv6_state(cfg, batch, device=device)
+    raise _unported(f"block kind {kind!r}")
+
+
+def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
+                cache_pos=None):
+    """Returns (x, new_state). state is None in prefill (full-sequence) mode."""
+    decode = state is not None and cache_pos is not None
+    if kind == "attn":
+        h = apply_norm(cfg, p["ln1"], x)
+        y, new_state = A.attn_forward(
+            cfg, p["attn"], h, positions=positions, theta=cfg.rope_theta, window=0,
+            cache=state if decode else None, cache_pos=cache_pos, kv_mult=opts.kv_mult)
+        x = x + y
+        h = apply_norm(cfg, p["ln2"], x)
+        x = x + apply_mlp(cfg, p["mlp"], h)
+        return x, new_state if decode else None
+    if kind == "rwkv6":
+        st = state if state is not None else S.init_rwkv6_state(cfg, x.shape[0],
+                                                                device=x.device)
+        h = apply_norm(cfg, p["ln1"], x)
+        y, st_tm = S.rwkv6_time_mix(cfg, p["rwkv"], h, st)
+        x = x + y
+        h = apply_norm(cfg, p["ln2"], x)
+        y, st_cm = S.rwkv6_channel_mix(cfg, p["rwkv"], h, st)
+        return x + y, ({**st, **st_tm, **st_cm} if state is not None else None)
+    raise _unported(f"block kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# whole-model init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg, opts: ModelOpts, *, seed: int = 0, device="cuda"):
+    """Parameters drawn from one ``torch.Generator`` on ``device`` (seeded
+    with ``seed``), so a large model is made on the card and never passes
+    through the host. The tree layout is the reference's; the values differ
+    from the reference's (another generator), so parity tests convert the
+    reference's parameters with ``repro_torch.convert.lm_from_jax``."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = _dtype(cfg.param_dtype)
+    V = padded_vocab(cfg.vocab_size)
+    params: dict[str, Any] = {
+        "embed": embed_init(gen, V, cfg.d_model, dt),
+        "final_norm": init_norm(cfg, cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["out"] = embed_init(gen, V, cfg.d_model, dt)  # (V, d), used transposed
+    params["head_blocks"] = [init_block(gen, cfg, b.kind, opts) for b in cfg.head_blocks]
+    params["tail_blocks"] = [init_block(gen, cfg, b.kind, opts) for b in cfg.tail_blocks]
+    params["shared"] = {}
+    params["unit"] = _stack_repeats(
+        cfg.n_repeats,
+        lambda: {f"blk{i}": init_block(gen, cfg, b.kind, opts)
+                 for i, b in enumerate(cfg.pattern)})
+    return params
+
+
+def _stack_repeats(n: int, make) -> dict:
+    """``n`` trees from ``make()`` stacked leafwise on a new leading axis,
+    filled one repeat at a time (no list of n trees is held)."""
+    if not n:
+        return {}
+    first = make()
+    out = tree_map(lambda t: t.new_empty((n,) + t.shape), first)
+    tree_map(lambda o, t: o[0].copy_(t), out, first)
+    for r in range(1, n):
+        tree_map(lambda o, t: o[r].copy_(t), out, make())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# backbone
+# ---------------------------------------------------------------------------
+
+
+def _write_state(dst: dict, new: dict) -> None:
+    """Write a block's new state into its slot of the state tree in place."""
+    for k, t in new.items():
+        if t is not dst[k]:
+            dst[k].copy_(t)
+
+
+def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None):
+    """Run head blocks, the repeated unit, and tail blocks.
+
+    states: None (prefill) or {"head": [..], "unit": stacked, "tail": [..]},
+    updated in place. Returns the final-normed hidden states."""
+    for i, blk in enumerate(cfg.head_blocks):
+        st = states["head"][i] if states else None
+        x, ns = apply_block(cfg, opts, blk.kind, params["head_blocks"][i], x,
+                            positions=positions, state=st, cache_pos=cache_pos)
+        if ns is not None:
+            _write_state(st, ns)
+    for r in range(cfg.n_repeats):
+        for i, blk in enumerate(cfg.pattern):
+            p = tree_map(lambda t: t[r], params["unit"][f"blk{i}"])
+            st = tree_map(lambda t: t[r], states["unit"][f"blk{i}"]) if states else None
+            x, ns = apply_block(cfg, opts, blk.kind, p, x, positions=positions, state=st,
+                                cache_pos=cache_pos)
+            if ns is not None:
+                _write_state(st, ns)
+    for i, blk in enumerate(cfg.tail_blocks):
+        st = states["tail"][i] if states else None
+        x, ns = apply_block(cfg, opts, blk.kind, params["tail_blocks"][i], x,
+                            positions=positions, state=st, cache_pos=cache_pos)
+        if ns is not None:
+            _write_state(st, ns)
+    return apply_norm(cfg, params["final_norm"], x)
+
+
+def _logits_matrix(cfg, params):
+    return params["embed"] if cfg.tie_embeddings else params["out"]  # (V_pad, d)
+
+
+def _embed_tokens(cfg, params, tokens):
+    return params["embed"][tokens]
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+
+def forward_prefill(cfg, opts, params, batch):
+    """Full-sequence forward returning last-position logits (B, V_pad).
+    batch: tokens (B, S) int."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    x = _embed_tokens(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    h = _backbone(cfg, opts, params, x, positions=positions)
+    logits = mm(h[:, -1], _logits_matrix(cfg, params).T.to(h.dtype))
+    return mask_padded_logits(logits, cfg.vocab_size)
+
+
+def forward_decode(cfg, opts, params, batch, states):
+    """One-token decode against a cache.
+
+    batch: token (B, 1) int, pos (Python int) — the write/attend position.
+    states: tree from ``init_cache`` (possibly filled), updated in place.
+    Returns (logits (B, V_pad), states).
+    """
+    _check_ported(cfg)
+    token, pos = batch["token"], int(batch["pos"])
+    x = _embed_tokens(cfg, params, token)
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    h = _backbone(cfg, opts, params, x, positions=positions, states=states,
+                  cache_pos=pos)
+    logits = mm(h[:, -1], _logits_matrix(cfg, params).T.to(h.dtype))
+    return mask_padded_logits(logits, cfg.vocab_size), states
+
+
+def init_cache(cfg, opts: ModelOpts, batch: int, seq: int, dtype=torch.bfloat16, *,
+               device="cuda"):
+    """Zeroed decode states: KV caches (B, seq, K, H) in ``dtype`` for
+    attention blocks, fp32-state RWKV6 recurrences; unit states stacked over
+    the repeats."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+
+    def one(kind):
+        return init_block_state(cfg, kind, opts, batch, seq, dtype, dev)
+
+    states: dict[str, Any] = {
+        "head": [one(b.kind) for b in cfg.head_blocks],
+        "tail": [one(b.kind) for b in cfg.tail_blocks],
+    }
+    if cfg.n_repeats:
+        states["unit"] = {
+            f"blk{i}": tree_map(lambda t: t.new_zeros((cfg.n_repeats,) + t.shape),
+                                one(b.kind))
+            for i, b in enumerate(cfg.pattern)
+        }
+    else:
+        states["unit"] = None
+    return states
+

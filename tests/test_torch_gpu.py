@@ -83,7 +83,8 @@ def test_launches_are_counted(cuda):
     skr_rectify_rows(probs[0], y[0], probs[0, :, 0].contiguous(),
                      torch.ones(8, dtype=torch.bool, device=cuda),
                      torch.full((8,), 0.5, device=cuda))
-    assert ops.launches == {"distill_loss_fwd": 1, "distill_loss_bwd": 1, "skr_rectify": 1}
+    assert ops.launches == {"distill_loss_fwd": 1, "distill_loss_bwd": 1, "skr_rectify": 1,
+                            "flash_attention": 0, "rwkv6_scan": 0}
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
@@ -104,4 +105,102 @@ def test_fedeec_runs_through_the_kernels(cuda):
     ops.reset_launches()
     res = run_experiment("fedeec", cfg, rounds=1)
     assert np.isfinite(res.acc_curve).all()
-    assert all(n > 0 for n in ops.launches.values())
+    fedeec_kernels = ("distill_loss_fwd", "distill_loss_bwd", "skr_rectify")
+    assert all(ops.launches[k] > 0 for k in fedeec_kernels)
+
+
+# --- the LM serving kernels ---------------------------------------------------
+
+
+def _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=dev).mul_(0.5).to(dtype)
+                 for s in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, H)))
+
+
+# fp32 within 3e-5 (sums in another order: the JAX kernel tests' bound);
+# bf16 within one bf16 ulp of each element, 2^-7 |want| + 1e-6 (both sides
+# compute in fp32 and round once)
+@pytest.mark.parametrize("B,Sq,Sk,N,K,H,causal,window,q_offset", [
+    (2, 32, 32, 4, 2, 32, True, 0, 0),
+    (1, 64, 64, 8, 8, 64, True, 0, 0),
+    (2, 32, 32, 4, 1, 32, True, 8, 0),
+    (1, 16, 64, 4, 2, 32, True, 0, 48),
+    (2, 24, 24, 2, 2, 128, False, 0, 0),
+    (2, 40, 100, 4, 2, 64, True, 24, 60),
+    (1, 17, 33, 2, 1, 256, True, 0, 16),
+    (8, 1, 300, 24, 8, 128, True, 0, 130),  # decode against a longer cache
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window, q_offset,
+                                       dtype):
+    q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, cuda)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    rtol, atol = (2.0**-7, 1e-6) if dtype == torch.bfloat16 else (0.0, 3e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def _rwkv_inputs(B, T, H, hd, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shp = (B, T, H, hd)
+    r, k, v = (torch.randn(shp, generator=g, device=dev) * 0.3 for _ in range(3))
+    w = torch.sigmoid(torch.randn(shp, generator=g, device=dev))
+    u = torch.randn((H, hd), generator=g, device=dev) * 0.3
+    s0 = torch.randn((B, H, hd, hd), generator=g, device=dev) * 0.1
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(2, 32, 4, 16), (1, 40, 2, 32), (3, 16, 1, 64),
+                                      (2, 13, 2, 128), (8, 1, 32, 64)])
+def test_rwkv6_scan_matches_plain(cuda, B, T, H, hd):
+    ins = _rwkv_inputs(B, T, H, hd, cuda)
+    y, sT = ops.rwkv6_scan(*ins)
+    yr, sTr = R.rwkv6_scan_ref(*ins)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yr, rtol=0, atol=3e-5)
+    torch.testing.assert_close(sT, sTr, rtol=0, atol=3e-5)
+
+
+def test_lm_kernel_launches_are_counted(cuda):
+    ops.reset_launches()
+    ops.flash_attention(*_attn_inputs(1, 4, 4, 2, 1, 32, torch.float32, cuda))
+    ops.rwkv6_scan(*_rwkv_inputs(1, 3, 2, 16, cuda))
+    ops.rwkv6_scan(*_rwkv_inputs(1, 3, 2, 16, cuda))
+    assert ops.launches["flash_attention"] == 1 and ops.launches["rwkv6_scan"] == 2
+
+
+def test_lm_wrappers_raise_instead_of_falling_back(cuda):
+    q, k, v = _attn_inputs(1, 8, 8, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError):  # non-contiguous q
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(TypeError):  # mixed dtypes
+        ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError):  # a dtype the kernel does not take
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):  # a head_dim the kernel does not take
+        ops.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                            v[..., :48].contiguous())
+    r, kk, vv, w, u, s0 = _rwkv_inputs(1, 5, 2, 16, cuda)
+    with pytest.raises(ValueError):  # non-contiguous r
+        ops.rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), kk, vv, w, u, s0)
+    with pytest.raises(TypeError):  # integer inputs
+        ops.rwkv6_scan(r.int(), kk, vv, w, u, s0)
+    with pytest.raises(ValueError):  # mixed devices
+        ops.rwkv6_scan(r, kk, vv, w.cpu(), u, s0)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b"])
+def test_serve_runs_through_the_kernels(cuda, arch):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serve import serve
+
+    ops.reset_launches()
+    res = serve(arch, num_requests=2, prompt_len=3, gen_len=4, cache_len=8)
+    blocks = reduced(get_arch(arch)).blocks
+    kernel, kind = (("flash_attention", "attn") if arch.startswith("llama")
+                    else ("rwkv6_scan", "rwkv6"))
+    assert res.tokens.shape == (2, 4) and res.logits_finite
+    assert ops.launches[kernel] == sum(b.kind == kind for b in blocks) * 7

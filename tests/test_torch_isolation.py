@@ -31,7 +31,8 @@ def test_no_jax_or_repro_import(path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"fedeec.py", "engine.py", "distill_loss.py", "chip_smoke.py"} <= names
+    assert {"fedeec.py", "engine.py", "distill_loss.py", "chip_smoke.py",
+            "flash_attention.py", "rwkv6_scan.py", "serve.py", "transformer.py"} <= names
 
 
 def _no_card():
@@ -52,6 +53,67 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
             build_problem(cfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             FedEEC(cfg, Tree.three_tier(1, 2), {}, {})
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import (
+        ModelOpts, forward_decode, init_cache, init_params)
+
+    cfg, opts = reduced(get_arch("rwkv6-1.6b")), ModelOpts()
+    params = init_params(cfg, opts, device="cpu")
+    with _no_card():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve("rwkv6-1.6b", num_requests=1, prompt_len=1, gen_len=1, cache_len=4)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(cfg, opts)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_cache(cfg, opts, 1, 4)
+        # a decode whose cache is made on the default device stops there,
+        # before any model code runs on the CPU
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            forward_decode(cfg, opts, params, {"token": torch.zeros((1, 1), dtype=torch.long),
+                                               "pos": 0}, init_cache(cfg, opts, 1, 4))
+
+
+def test_decode_profiler_needs_a_card():
+    from repro_torch.launch import profile_serve
+
+    with _no_card():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            profile_serve.main([])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            profile_serve.profile_decode("rwkv6-1.6b")
+
+
+@pytest.mark.parametrize("kind", ["local_attn", "mla", "moe", "mla_moe", "mamba2",
+                                  "shared_attn"])
+def test_unported_block_kinds_raise(kind):
+    from dataclasses import replace
+
+    from repro_torch.configs import BlockKind, get_arch, reduced
+    from repro_torch.models.transformer import ModelOpts, init_block, init_params
+
+    cfg = reduced(get_arch("llama3.2-3b"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_block(torch.Generator(), cfg, kind, ModelOpts())
+    cfg = replace(cfg, pattern=(BlockKind(kind, shared=kind == "shared_attn"),))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_params(cfg, ModelOpts(), device="cpu")
+
+
+@pytest.mark.parametrize("change", [dict(enc_dec=True), dict(frontend="vision_stub"),
+                                    dict(learned_pos_emb=True)])
+def test_unported_model_features_raise(change):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.transformer import ModelOpts, init_params
+
+    cfg = replace(reduced(get_arch("llama3.2-3b")), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_params(cfg, ModelOpts(), device="cpu")
 
 
 def test_unported_options_raise():

@@ -1,0 +1,203 @@
+"""The port's LM modules against the JAX package's on reduced llama3.2-3b and
+rwkv6-1.6b, from the reference's parameters converted with ``lm_from_jax``
+and the same numpy inputs: attention, the RWKV6 mixes, prefill and decode
+logits within 1e-4 (fp32 through a few layers, sums in other orders). Also
+the port's decode reproduces its own prefill, as the reference's smoke test
+checks for the reference."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jax_get_arch
+from repro.configs import reduced as jax_reduced
+from repro.models import ModelOpts as JaxOpts
+from repro.models import attention as JA
+from repro.models import forward_decode as jax_decode
+from repro.models import forward_prefill as jax_prefill
+from repro.models import init_cache as jax_init_cache
+from repro.models import init_params as jax_init_params
+from repro.models import ssm as JS
+from repro_torch.configs import get_arch, reduced
+from repro_torch.convert import lm_from_jax
+from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
+from repro_torch.models.transformer import (
+    ModelOpts,
+    forward_decode,
+    forward_prefill,
+    init_cache,
+    init_params,
+)
+from repro_torch.tree import tree_map
+
+TOL = 1e-4
+ARCHS = ["llama3.2-3b", "rwkv6-1.6b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    """(jcfg, cfg, jax params, port params, jitted jax prefill / decode)."""
+    jcfg = jax_reduced(jax_get_arch(request.param))
+    jo = JaxOpts(remat=False)
+    jp = jax_init_params(jax.random.PRNGKey(0), jcfg, jo)
+    p = lm_from_jax(jax.tree.map(np.asarray, jp))
+    pre = jax.jit(lambda prm, toks: jax_prefill(jcfg, jo, prm, {"tokens": toks}))
+    dec = jax.jit(lambda prm, tok, pos, c: jax_decode(jcfg, jo, prm,
+                                                      {"token": tok, "pos": pos}, c))
+    return jcfg, reduced(get_arch(request.param)), jp, p, pre, dec
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=tol)
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def test_params_have_the_reference_layout(model):
+    jcfg, cfg, jp, p, _, _ = model
+    mine = init_params(cfg, ModelOpts(), seed=0, device="cpu")
+    shapes = jax.tree.map(lambda a: tuple(a.shape), jp)
+    assert tree_map(lambda t: tuple(t.shape), mine) == shapes
+    assert tree_map(lambda t: t.dtype, mine) == tree_map(lambda t: t.dtype, p)
+
+
+def test_prefill_logits(model):
+    jcfg, cfg, jp, p, pre, _ = model
+    toks = _tokens(cfg, 2, 12)
+    want = pre(jp, jnp.asarray(toks))
+    got = forward_prefill(cfg, ModelOpts(), p,
+                          {"tokens": torch.from_numpy(toks).long()})
+    assert got.shape == want.shape
+    _close(got, want)
+
+
+def test_decode_logits(model):
+    """Eight decode steps into a 12-long cache, the cache updated in place."""
+    jcfg, cfg, jp, p, _, dec = model
+    opts = ModelOpts()
+    toks = _tokens(cfg, 2, 8, seed=1)
+    jc = jax_init_cache(jcfg, JaxOpts(remat=False), 2, 12, jnp.float32)
+    c = init_cache(cfg, opts, 2, 12, torch.float32, device="cpu")
+    for t in range(8):
+        want, jc = dec(jp, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t), jc)
+        got, c2 = forward_decode(cfg, opts, p,
+                                 {"token": torch.from_numpy(toks[:, t:t + 1]).long(),
+                                  "pos": t}, c)
+        assert c2 is c
+        _close(got, want)
+    # the caches agree too
+    got_leaves, want_leaves = _leaves(c), _leaves(jc)
+    assert len(got_leaves) == len(want_leaves)
+    for g, w in zip(got_leaves, want_leaves):
+        _close(g, w)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def test_decode_matches_prefill(model):
+    """The port's token-by-token decode reproduces its full-sequence
+    forward at the last position (the reference checks its own within 2e-3;
+    the port's agree far closer)."""
+    _, cfg, _, p, _, _ = model
+    opts = ModelOpts()
+    toks = torch.from_numpy(_tokens(cfg, 1, 8, seed=2)).long()
+    full = forward_prefill(cfg, opts, p, {"tokens": toks})
+    c = init_cache(cfg, opts, 1, 9, torch.float32, device="cpu")
+    for t in range(8):
+        logits, c = forward_decode(cfg, opts, p, {"token": toks[:, t:t + 1], "pos": t}, c)
+    torch.testing.assert_close(logits, full, rtol=0, atol=TOL)
+
+
+# --- modules ------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def llama():
+    jcfg = jax_reduced(jax_get_arch("llama3.2-3b"))
+    jp = jax.tree.map(np.asarray, JA.init_attn(jax.random.PRNGKey(3), jcfg, jnp.float32))
+    return jcfg, reduced(get_arch("llama3.2-3b")), jp, lm_from_jax(jp)
+
+
+def test_attn_forward_prefill(llama):
+    jcfg, cfg, jp, p = llama
+    x = np.random.default_rng(3).standard_normal((2, 10, cfg.d_model)).astype(np.float32)
+    pos = np.arange(10)
+    want, want_kv = JA.attn_forward(jcfg, jax.tree.map(jnp.asarray, jp), jnp.asarray(x),
+                                    positions=jnp.asarray(pos), theta=cfg.rope_theta,
+                                    return_kv=True)
+    got, kv = A.attn_forward(cfg, p, torch.from_numpy(x), positions=torch.from_numpy(pos),
+                             theta=cfg.rope_theta, return_kv=True)
+    _close(got, want)
+    _close(kv["k"], want_kv["k"])
+    _close(kv["v"], want_kv["v"])
+
+
+@pytest.mark.parametrize("pos", [0, 5, 15])
+def test_attn_forward_decode(llama, pos):
+    jcfg, cfg, jp, p = llama
+    rng = np.random.default_rng(pos)
+    x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    cache = {k: rng.standard_normal((2, 16, 2, 32)).astype(np.float32) for k in ("k", "v")}
+    want, want_c = JA.attn_forward(jcfg, jax.tree.map(jnp.asarray, jp), jnp.asarray(x),
+                                   positions=jnp.asarray([pos]), theta=cfg.rope_theta,
+                                   cache=jax.tree.map(jnp.asarray, cache),
+                                   cache_pos=jnp.asarray(pos))
+    c = lm_from_jax(cache)
+    got, c2 = A.attn_forward(cfg, p, torch.from_numpy(x), positions=torch.tensor([pos]),
+                             theta=cfg.rope_theta, cache=c, cache_pos=pos)
+    assert c2 is c
+    _close(got, want)
+    _close(c["k"], want_c["k"])
+    _close(c["v"], want_c["v"])
+
+
+def test_rwkv6_channel_mix():
+    jcfg = jax_reduced(jax_get_arch("rwkv6-1.6b"))
+    cfg = reduced(get_arch("rwkv6-1.6b"))
+    rng = np.random.default_rng(4)
+    jp = jax.tree.map(np.asarray, JS.init_rwkv6(jax.random.PRNGKey(4), jcfg, jnp.float32))
+    for k in ("cm_mu_k", "cm_mu_r"):
+        jp[k] = (rng.standard_normal(jp[k].shape) * 0.3).astype(np.float32)
+    x = rng.standard_normal((2, 7, cfg.d_model)).astype(np.float32)
+    st = {"cm_x": rng.standard_normal((2, cfg.d_model)).astype(np.float32)}
+    want, want_st = JS.rwkv6_channel_mix(jcfg, jax.tree.map(jnp.asarray, jp), jnp.asarray(x),
+                                         jax.tree.map(jnp.asarray, st))
+    got, new = S.rwkv6_channel_mix(cfg, lm_from_jax(jp), torch.from_numpy(x), lm_from_jax(st))
+    _close(got, want)
+    _close(new["cm_x"], want_st["cm_x"], 0.0)
+
+
+def test_rwkv6_state_layout():
+    jcfg = jax_reduced(jax_get_arch("rwkv6-1.6b"))
+    want = JS.init_rwkv6_state(jcfg, 3)
+    got = S.init_rwkv6_state(reduced(get_arch("rwkv6-1.6b")), 3)
+    assert {k: tuple(v.shape) for k, v in got.items()} == {k: v.shape for k, v in want.items()}
+    assert all(v.dtype == torch.float32 and not v.any() for v in got.values())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_prefill_and_decode_run(arch):
+    """The bf16 path (the card's default dtype) runs and stays finite on
+    the CPU, with bf16 logits as the reference gives."""
+    from dataclasses import replace
+
+    cfg = replace(reduced(get_arch(arch)), param_dtype="bfloat16", compute_dtype="bfloat16")
+    opts = ModelOpts()
+    p = init_params(cfg, opts, seed=1, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 6, seed=5)).long()
+    full = forward_prefill(cfg, opts, p, {"tokens": toks})
+    c = init_cache(cfg, opts, 2, 8, torch.bfloat16, device="cpu")
+    for t in range(6):
+        logits, c = forward_decode(cfg, opts, p, {"token": toks[:, t:t + 1], "pos": t}, c)
+    assert full.dtype == logits.dtype == torch.bfloat16
+    assert torch.isfinite(full).all() and torch.isfinite(logits).all()
