@@ -13,9 +13,11 @@ the result line:
    and power limit, and the TF32 flags the port sets;
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` and print
    nvcc's registers / shared memory / spills per kernel;
-3. kernels: each of the five kernels against its plain PyTorch version on
-   the card, at the main paths' shapes and the bench shapes, then the
-   FedEEC kernels' device time (a CUDA graph of many launches between CUDA
+3. kernels: each CUDA kernel against its plain PyTorch version on the
+   card, at the main paths' shapes and the bench shapes (flash_attention
+   has two: the tensor-core kernel for bf16 prefill and the SIMT kernel for
+   the rest; each case names the one that served it), then the FedEEC
+   kernels' device time (a CUDA graph of many launches between CUDA
    events) beside the plain version's, the bound and, where one PyTorch
    call computes the same function, that call's time;
 4. FedEEC: ``run_experiment("fedeec", FLConfig(), rounds=3)`` on the card,
@@ -28,13 +30,15 @@ the result line:
    bf16: ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
    64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
    call at batch 1, with the launch counters zeroed before and held after
-   to the counts the layer list predicts;
+   to the counts the layer list predicts (the prefill step's attention on
+   the tensor-core kernel, every decode step's on the SIMT kernel);
 7. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
    128-token prefill;
-8. LM kernel times, as in 3, at the serving path's shapes. They come last,
-   so that nothing the timing leaves allocated enters a main path's peak
-   memory.
+8. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
+   attention kernel at the prefill shape beside the tensor-core one. They
+   come last, so that nothing the timing leaves allocated enters a main
+   path's peak memory.
 
 It ends with the kernels' JSON line, nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -59,15 +63,19 @@ TPU_KERNELS = {
     "distill_loss_bwd": "src/repro/kernels/distill_loss.py:95",
     "skr_rectify": "src/repro/kernels/skr_rectify.py:33",
     "flash_attention": "src/repro/kernels/flash_attention.py:32",
+    "flash_attention_simt": "src/repro/kernels/flash_attention.py:32",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:25",
 }
 SOURCES = {
     "distill_loss_fwd": "src/repro_torch/csrc/distill_loss.cu",
     "distill_loss_bwd": "src/repro_torch/csrc/distill_loss.cu",
     "skr_rectify": "src/repro_torch/csrc/skr_rectify.cu",
-    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
+    "flash_attention_simt": "src/repro_torch/csrc/flash_attention.cu",
     "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
 }
+# the kernels' JSON rows: flash_attention's two CUDA kernels each have one
+VARIANTS = {"flash_attention": "sm90", "flash_attention_simt": "simt"}
 
 
 def fail(msg: str) -> None:
@@ -267,6 +275,14 @@ FLASH_CASES = [
     # a window over a kv length that is no tile multiple, and H = 256
     (2, 40, 100, 4, 2, 64, True, 24),
     (1, 17, 33, 2, 1, 256, True, 0),
+    # the tensor-core kernel's edges in bf16 (128 rows, 64 keys a tile):
+    # Sq * G no multiple of 128; Sk no multiple of 64 at q_offset 60; a
+    # window across tile edges; non-causal at G = 4; H = 64 at G = 1
+    (1, 77, 77, 24, 8, 128, True, 0),
+    (2, 40, 100, 6, 2, 128, True, 0),
+    (1, 200, 200, 8, 2, 64, True, 70),
+    (1, 96, 160, 8, 2, 128, False, 0),
+    (2, 300, 300, 4, 4, 64, True, 0),
 ]
 FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128)  # llama3.2-3b, one 4096-token prompt
 FLASH_DECODE = (8, 1, 4096, 24, 8, 128)  # 8 requests against a 4096-long cache
@@ -285,22 +301,27 @@ def check_flash_attention(dev):
     by at most the one rounding step (the JAX tests' 2e-2 is 20-300x
     looser than that at the main path's shapes, whose outputs are about
     0.01). The prefill and decode shapes also run in fp32 at 3e-5, where
-    a dropped or misread kv tile of the 4096-key walk (about 1e-3) fails."""
+    a dropped or misread kv tile of the 4096-key walk (about 1e-3) fails.
+    Each case names the kernel that served it, and fails unless that is the
+    one ``_variant`` picks. Returns the worst error per kernel."""
     import torch
 
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import _variant, flash_attention, variant_launches
 
     both = (torch.float32, torch.bfloat16)
     cases = [(c, dt) for c in FLASH_CASES for dt in both]
     cases += [((*FLASH_PREFILL, True, 0), dt, 0) for dt in both]
     cases += [((*FLASH_DECODE, True, 0), dt, off) for dt in both for off in (0, 63, 4095)]
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst = {"sm90": 0.0, "simt": 0.0}
     for case in cases:
         (B, Sq, Sk, N, K, H, causal, window), dtype = case[0], case[1]
         qo = case[2] if len(case) > 2 else (Sk - Sq if causal else 0)
         q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev)
+        before = dict(variant_launches)
         got = flash_attention(q, k, v, causal=causal, window=window, q_offset=qo)
+        served = [n for n in variant_launches if variant_launches[n] > before[n]]
+        variant = _variant(dtype, Sq, H)
         want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=qo)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -309,16 +330,18 @@ def check_flash_attention(dev):
         else:
             tol = torch.full_like(diff, 3e-5)
         err, share = diff.max().item(), (diff / tol).max().item()
-        worst[dtype] = max(worst[dtype], err)
+        worst[variant] = max(worst[variant], err)
         ok = got.dtype == dtype and share <= 1.0
         print(f"flash_attention {(B, Sq, Sk, N, K, H)} causal={causal} window={window} "
-              f"q_offset={qo} {str(dtype)[6:]}: max|err| {err:.3e}, {share:.3f} of the "
-              f"bound, max|want| {want.float().abs().max().item():.3e}  "
+              f"q_offset={qo} {str(dtype)[6:]} [{'+'.join(served)}]: max|err| {err:.3e}, "
+              f"{share:.3f} of the bound, max|want| {want.float().abs().max().item():.3e}  "
               f"{'ok' if ok else 'MISMATCH'}")
+        if served != [variant]:
+            fail(f"flash_attention at {case}: served by {served}, the rule picks {variant}")
         if not ok:
             fail(f"flash_attention disagrees with its plain version at {case}")
         del q, k, v, got, want, diff, tol
-    return worst[torch.float32], worst[torch.bfloat16]
+    return worst
 
 
 def _rwkv_inputs(B, T, H, hd, dev, seed=0):
@@ -610,11 +633,13 @@ def time_lm_kernels(dev):
     the fp32 peak (67 TFLOP/s: its inputs and state are fp32). The library
     call for attention is F.scaled_dot_product_attention on the same
     tensors (is_causal at prefill; unmasked over the cache's first pos + 1
-    rows at decode); the scan has none."""
+    rows at decode); the scan has none. At the prefill shape the SIMT
+    attention kernel, which the wrapper no longer picks there, is launched
+    directly, timed beside the tensor-core one and held to the same bound."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _lib, ops
     from repro_torch.kernels import ref as R
 
     rows = {}
@@ -633,12 +658,24 @@ def time_lm_kernels(dev):
             kc, vc = k[:, :qo + 1].transpose(1, 2), v[:, :qo + 1].transpose(1, 2)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q.transpose(1, 2), kc, vc, enable_gqa=True)
-        rows[("flash_attention", tag, qo)] = _timed(
-            "flash_attention", tag, f"q {(B, Sq, N, H)} kv {(B, Sk, K, H)} q_offset={qo} bf16",
-            lambda: ops.flash_attention(q, k, v, q_offset=qo),
-            lambda: R.flash_attention_ref(q, k, v, q_offset=qo), lib,
+        shape = f"q {(B, Sq, N, H)} kv {(B, Sk, K, H)} q_offset={qo} bf16"
+        name = "flash_attention" if tag == "prefill" else "flash_attention_simt"
+        plain = lambda: R.flash_attention_ref(q, k, v, q_offset=qo)  # noqa: E731
+        rows[(name, tag, qo)] = _timed(
+            name, tag, shape, lambda: ops.flash_attention(q, k, v, q_offset=qo), plain, lib,
             nbytes, 4 * B * N * H * pairs, BF16_OPS_PER_S,
             launches=5 if tag == "prefill" else TIMED_LAUNCHES)
+        if tag == "prefill":
+            out = torch.empty_like(q)
+            simt = lambda: _lib.launch(  # noqa: E731
+                "flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), B, Sq, Sk, N, K, H, 1, 1, 0, qo, Sk, float(H**-0.5))
+            rows[("flash_attention_simt", tag, qo)] = _timed(
+                "flash_attention_simt", tag, shape, simt, plain, lib, nbytes,
+                4 * B * N * H * pairs, BF16_OPS_PER_S, launches=5)
+            want = plain().float()
+            if ((out.float() - want).abs() > BF16_ULP * want.abs() + 1e-6).any():
+                fail("the SIMT flash_attention kernel disagrees at the prefill shape")
     for tag, (B, T, H, hd) in [("prefill", RWKV_PREFILL), ("decode", RWKV_DECODE)]:
         ins = _rwkv_inputs(B, T, H, hd, dev)
         rows[("rwkv6_scan", tag, None)] = _timed(
@@ -671,6 +708,7 @@ def drive_lm_path(dev, arch, prefill_len):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import _variant, variant_launches
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import default_opts, make_prefill_step
     from repro_torch.models.layers import padded_vocab
@@ -684,6 +722,7 @@ def drive_lm_path(dev, arch, prefill_len):
     ops.reset_launches()
     res = serve(arch, use_reduced=False, device=dev, **LM_SERVE)
     serve_peak = torch.cuda.max_memory_allocated()
+    serve_variants = dict(variant_launches)
 
     opts = default_opts(cfg)
     params = init_params(cfg, opts, seed=1, device=dev)
@@ -696,6 +735,13 @@ def drive_lm_path(dev, arch, prefill_len):
     prefill_s = time.perf_counter() - t0
     counts = {k: ops.launches[k] for k in ("flash_attention", "rwkv6_scan")}
     want = expected_lm_launches(cfg)
+    variants = dict(variant_launches)
+    n_attn = sum(b.kind == "attn" for b in cfg.blocks)
+    # the prefill step's attention layers on the tensor-core kernel, the
+    # decode steps' (Sq = 1) on the SIMT kernel
+    sm90 = n_attn if _variant(getattr(torch, cfg.compute_dtype), prefill_len,
+                              cfg.head_dim) == "sm90" else 0
+    want_variants = {"sm90": sm90, "simt": want["flash_attention"] - sm90}
     finite = bool(torch.isfinite(logits).all())
     peak = torch.cuda.max_memory_allocated()
 
@@ -709,6 +755,8 @@ def drive_lm_path(dev, arch, prefill_len):
           f"{logits.dtype}, finite {finite}")
     print(f"peak max_memory_allocated (serve + prefill step): {peak / 2**20:.1f} MiB")
     print(f"launches: {counts}  predicted from the layer list: {want}")
+    print(f"flash_attention launches per kernel: {variants} (serve alone: {serve_variants}) "
+          f" predicted: {want_variants}")
     V = cfg.vocab_size
     if res.tokens.shape != (LM_SERVE["num_requests"], LM_SERVE["gen_len"]):
         fail(f"{arch}: generated tokens have shape {res.tokens.shape}")
@@ -720,14 +768,17 @@ def drive_lm_path(dev, arch, prefill_len):
         fail(f"{arch}: prefill logits have shape {tuple(logits.shape)}")
     if counts != want:
         fail(f"{arch}: launches {counts}, the layer list predicts {want}")
+    if variants != want_variants or serve_variants["sm90"] != 0:
+        fail(f"{arch}: flash_attention kernels {variants} (serve {serve_variants}), "
+             f"predicted {want_variants}")
     if max(counts.values()) <= 0:
         fail(f"{arch}: no kernel was launched on the serving path")
     del params, logits
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, dict(serve_prefill_s=res.prefill_s, gen_s=res.gen_s,
-                        tokens_per_s=res.tokens_per_s, ms_per_step=res.ms_per_step,
-                        prefill_step_s=prefill_s, peak_mib=peak / 2**20)
+    return counts, variants, dict(
+        serve_prefill_s=res.prefill_s, gen_s=res.gen_s, tokens_per_s=res.tokens_per_s,
+        ms_per_step=res.ms_per_step, prefill_step_s=prefill_s, peak_mib=peak / 2**20)
 
 
 def check_lm_parity(dev, arch):
@@ -801,7 +852,8 @@ def main() -> None:
     phase("kernels vs plain versions")
     err = dict(zip(("distill_loss_fwd", "distill_loss_bwd"), check_distill_loss(dev)))
     err["skr_rectify"] = check_skr_rectify(dev)
-    err["flash_attention"] = max(check_flash_attention(dev))
+    flash_err = check_flash_attention(dev)
+    err.update({k: flash_err[VARIANTS[k]] for k in VARIANTS})
     err["rwkv6_scan"] = check_rwkv6_scan(dev)
     phase("kernel times")
     times = time_kernels(dev)
@@ -814,11 +866,15 @@ def main() -> None:
     check_step_parity(dev)
     check_round_parity(dev)
 
+    # each JSON row counts its own CUDA kernel's launches: flash_attention's
+    # the tensor-core kernel's, flash_attention_simt's the SIMT kernel's
+    counts.update(dict.fromkeys(("rwkv6_scan", *VARIANTS), 0))
     for arch, prefill_len in LM_ARCHS:
         phase(f"LM serving path: {arch}, full width and depth, bf16")
-        lm_counts, _ = drive_lm_path(dev, arch, prefill_len)
-        for k, n in lm_counts.items():
-            counts[k] = counts.get(k, 0) + n
+        lm_counts, variants, _ = drive_lm_path(dev, arch, prefill_len)
+        counts["rwkv6_scan"] += lm_counts["rwkv6_scan"]
+        for k, variant in VARIANTS.items():
+            counts[k] += variants[variant]
     for arch, _ in LM_ARCHS:
         phase(f"LM parity: {arch}, full width, two layers, fp32, the card vs the CPU")
         check_lm_parity(dev, arch)
@@ -829,14 +885,14 @@ def main() -> None:
 
     pick = {"distill_loss_fwd": ("main", 0.0), "distill_loss_bwd": ("main", 1.5),
             "skr_rectify": ("main", None), "flash_attention": ("prefill", 0),
-            "rwkv6_scan": ("prefill", None)}
+            "flash_attention_simt": ("decode", 4095), "rwkv6_scan": ("prefill", None)}
     kernels = []
     for k, (tag, beta) in pick.items():
         row = times[(k, tag, beta)]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": TPU_KERNELS[k],
             "launches": counts[k], "max_abs_err": err[k],
-            **row,
+            **({"variant": VARIANTS[k]} if k in VARIANTS else {}), **row,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,7 +8,9 @@ loaded with ``ctypes``. A failed build raises with nvcc's output. Nothing
 is compiled or loaded when this module is imported.
 
 ``launches`` counts kernel launches by name; a wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else. A TPU kernel with two CUDA variants
+keeps one name there; its wrapper keeps a per-variant count of its own,
+registered with ``counter`` so that ``reset_launches`` zeroes it too.
 """
 from __future__ import annotations
 
@@ -47,16 +49,29 @@ _SIGNATURES = {
     # k_len, scale, stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
                         _I, _F, _P],
+    # q, k, v, o, B, Sq, Sk, N, K, H, causal, window, q_offset, k_len,
+    # scale, stream (bf16 only)
+    "flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _I,
+                             _F, _P],
     # r, k, v, w, u, s0, y, sT, B, T, H, hd, stream
     "rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
+_counters: list[dict[str, int]] = [launches]
+
+
+def counter(keys) -> dict[str, int]:
+    """A dict of launch counts at 0 that ``reset_launches`` also zeroes."""
+    d = dict.fromkeys(keys, 0)
+    _counters.append(d)
+    return d
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in _counters:
+        for k in d:
+            d[k] = 0
 
 
 def _nvcc() -> str:
@@ -120,16 +135,16 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, count_as: str | None = None) -> None:
     """Call kernel entry point ``name`` on ``device``'s current stream
-    (appended as the last argument), count the launch and raise if CUDA
-    refused it."""
+    (appended as the last argument), count the launch under ``count_as``
+    (default ``name``) and raise if CUDA refused it."""
     fn = getattr(lib(), name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
-    launches[name] += 1
+    launches[count_as or name] += 1
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -1,5 +1,5 @@
 """GQA flash attention (causal / sliding-window), forward only: the wrapper
-around the CUDA kernel in ``repro_torch/csrc/flash_attention.cu``.
+around two CUDA kernels for the one TPU kernel.
 
 Counterpart of ``repro.kernels.flash_attention``. q (B, Sq, N, H), k and v
 (B, Sk, K, H) with N % K == 0; q head n reads kv head n // (N / K). Masks
@@ -10,8 +10,17 @@ The softmax runs online in fp32; the output has q's dtype.
 ``causal``, ``window`` and ``q_offset`` are runtime arguments of the kernel
 (the TPU kernel takes them as static only because of jit), so a decode loop
 passes its position as a plain int with no recompilation and no read-back.
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it computes the plain version in ``ref.py``.
+On a CUDA tensor the wrapper launches the kernel ``_variant`` picks, or
+raises (it never retries on the other kernel); on a CPU tensor it computes
+the plain version in ``ref.py``:
+
+- ``"sm90"``, ``repro_torch/csrc/flash_attention_sm90.cu``: bf16 prefill
+  (Sq > 1) at head_dim 64 or 128, both products on the tensor cores (wgmma);
+- ``"simt"``, ``repro_torch/csrc/flash_attention.cu``: everything else
+  (fp32, decode at Sq = 1, head_dim 32 or 256), on the fp32 cores.
+
+``_lib.launches["flash_attention"]`` counts the launches of both;
+``variant_launches`` counts them per variant.
 """
 from __future__ import annotations
 
@@ -21,7 +30,18 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels import ref as R
 
 HEAD_DIMS = (32, 64, 128, 256)
+SM90_HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+
+variant_launches = _lib.counter(("sm90", "simt"))
+
+
+def _variant(dtype: torch.dtype, Sq: int, H: int) -> str:
+    """Which kernel a CUDA call runs: the tensor-core kernel for bf16
+    prefill at head_dim 64 or 128, the SIMT kernel for everything else."""
+    if dtype == torch.bfloat16 and Sq > 1 and H in SM90_HEAD_DIMS:
+        return "sm90"
+    return "simt"
 
 
 def _check(q, k, v):
@@ -58,7 +78,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _lib.launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), B, Sq, Sk, N, K, H, int(q.dtype == torch.bfloat16),
-                int(bool(causal)), int(window), int(q_offset), Sk, float(H**-0.5))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    mask = (int(bool(causal)), int(window), int(q_offset), Sk, float(H**-0.5))
+    variant = _variant(q.dtype, Sq, H)
+    if variant == "sm90":
+        _lib.launch("flash_attention_sm90", q.device, *ptrs, B, Sq, Sk, N, K, H, *mask,
+                    count_as="flash_attention")
+    else:
+        _lib.launch("flash_attention", q.device, *ptrs, B, Sq, Sk, N, K, H,
+                    int(q.dtype == torch.bfloat16), *mask)
+    variant_launches[variant] += 1
     return out

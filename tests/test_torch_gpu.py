@@ -143,6 +143,51 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
+# the tensor-core kernel's edges (128 rows, 64 keys a tile), as in
+# chip_smoke.py, and the llama3.2-3b prefill shape; bound as above
+@pytest.mark.parametrize("B,Sq,Sk,N,K,H,causal,window,q_offset", [
+    (1, 77, 77, 24, 8, 128, True, 0, 0),
+    (2, 40, 100, 6, 2, 128, True, 0, 60),
+    (1, 200, 200, 8, 2, 64, True, 70, 0),
+    (1, 96, 160, 8, 2, 128, False, 0, 0),
+    (2, 300, 300, 4, 4, 64, True, 0, 0),
+    (1, 4096, 4096, 24, 8, 128, True, 0, 0),
+])
+def test_flash_attention_sm90_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
+                                            q_offset):
+    from repro_torch.kernels.flash_attention import variant_launches
+
+    q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, torch.bfloat16, cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert variant_launches == {"sm90": 1, "simt": 0}
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=1e-6)
+
+
+def test_flash_attention_variants_are_counted(cuda):
+    from repro_torch.kernels.flash_attention import variant_launches
+
+    ops.reset_launches()
+    prefill = _attn_inputs(1, 16, 16, 6, 2, 128, torch.bfloat16, cuda)
+    ops.flash_attention(*prefill)  # bf16 prefill: tensor cores
+    ops.flash_attention(*_attn_inputs(2, 1, 16, 6, 2, 128, torch.bfloat16, cuda),
+                        q_offset=7)  # decode
+    ops.flash_attention(*(t.float() for t in prefill))  # fp32
+    ops.flash_attention(*_attn_inputs(1, 16, 16, 6, 2, 32, torch.bfloat16, cuda))  # H = 32
+    assert variant_launches == {"sm90": 1, "simt": 3}
+    assert ops.launches["flash_attention"] == 4
+
+
+def test_flash_attention_sm90_rejects_other_head_dims(cuda):
+    q, k, v = _attn_inputs(1, 16, 16, 2, 1, 32, torch.bfloat16, cuda)
+    o = torch.empty_like(q)
+    with pytest.raises(RuntimeError):  # cudaErrorInvalidValue, nothing launched
+        _lib.launch("flash_attention_sm90", cuda, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    o.data_ptr(), 1, 16, 16, 2, 1, 32, 1, 0, 0, 16, 32**-0.5)
+
+
 def _rwkv_inputs(B, T, H, hd, dev, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     shp = (B, T, H, hd)
