@@ -15,9 +15,11 @@ the result line:
    nvcc's registers / shared memory / spills per kernel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main paths' shapes and the bench shapes (flash_attention
-   has two: the tensor-core kernel for bf16 prefill and the SIMT kernel for
-   the rest; each case names the one that served it), then the FedEEC
-   kernels' device time (a CUDA graph of many launches between CUDA
+   has three: the split-KV decode kernel for every call with one query,
+   the tensor-core kernel for bf16 prefill and the SIMT kernel for the
+   rest; each case names the one that served it, and at every decode case
+   the SIMT kernel, launched directly, is held to the same bound), then the
+   FedEEC kernels' device time (a CUDA graph of many launches between CUDA
    events) beside the plain version's, the bound and, where one PyTorch
    call computes the same function, that call's time;
 4. FedEEC: ``run_experiment("fedeec", FLConfig(), rounds=3)`` on the card,
@@ -31,12 +33,18 @@ the result line:
    64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
    call at batch 1, with the launch counters zeroed before and held after
    to the counts the layer list predicts (the prefill step's attention on
-   the tensor-core kernel, every decode step's on the SIMT kernel);
+   the tensor-core kernel, every decode step's on the split-KV decode
+   kernel, none on the SIMT kernel); then, for llama3.2-3b, decode steps
+   at position 4095 of a full cache of random values: wall ms per step
+   (host clock, ending in a sync) and device ms per step (the union of
+   kernel intervals under ``torch.profiler``), with the attention kernel's
+   share;
 7. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
    128-token prefill;
 8. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
-   attention kernel at the prefill shape beside the tensor-core one. They
+   attention kernel, launched directly, at the prefill shape beside the
+   tensor-core one and at the decode shapes beside the decode one. They
    come last, so that nothing the timing leaves allocated enters a main
    path's peak memory.
 
@@ -64,6 +72,7 @@ TPU_KERNELS = {
     "skr_rectify": "src/repro/kernels/skr_rectify.py:33",
     "flash_attention": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_simt": "src/repro/kernels/flash_attention.py:32",
+    "flash_attention_decode": "src/repro/kernels/flash_attention.py:32",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:25",
 }
 SOURCES = {
@@ -72,10 +81,12 @@ SOURCES = {
     "skr_rectify": "src/repro_torch/csrc/skr_rectify.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_simt": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_decode": "src/repro_torch/csrc/flash_attention_decode.cu",
     "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
 }
-# the kernels' JSON rows: flash_attention's two CUDA kernels each have one
-VARIANTS = {"flash_attention": "sm90", "flash_attention_simt": "simt"}
+# the kernels' JSON rows: flash_attention's three CUDA kernels each have one
+VARIANTS = {"flash_attention": "sm90", "flash_attention_simt": "simt",
+            "flash_attention_decode": "decode"}
 
 
 def fail(msg: str) -> None:
@@ -284,6 +295,21 @@ FLASH_CASES = [
     (1, 96, 160, 8, 2, 128, False, 0),
     (2, 300, 300, 4, 4, 64, True, 0),
 ]
+# the split-KV decode kernel's edges, one query against the cache
+# (B, Sk, N, K, H, causal, window, q_offset): G in {1, 3, 4, 8, 16}, every
+# head_dim, several splits whose last is short, windows inside one split
+# and across splits, a query past the cache's end, non-causal
+DECODE_CASES = [
+    (2, 300, 8, 8, 32, True, 0, 299),
+    (2, 700, 6, 2, 64, True, 0, 650),
+    (1, 1000, 4, 1, 128, True, 100, 900),
+    (1, 1500, 16, 2, 256, True, 0, 1499),
+    (1, 600, 24, 8, 128, True, 0, 700),
+    (1, 1200, 8, 2, 128, True, 700, 1100),
+    (2, 300, 4, 2, 32, False, 0, 5),
+    (1, 520, 16, 1, 64, True, 24, 400),
+    (1, 520, 16, 1, 64, True, 0, 519),
+]
 FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128)  # llama3.2-3b, one 4096-token prompt
 FLASH_DECODE = (8, 1, 4096, 24, 8, 128)  # 8 requests against a 4096-long cache
 RWKV_CASES = [(2, 32, 4, 16), (1, 40, 2, 32), (3, 16, 1, 64)]
@@ -303,9 +329,13 @@ def check_flash_attention(dev):
     0.01). The prefill and decode shapes also run in fp32 at 3e-5, where
     a dropped or misread kv tile of the 4096-key walk (about 1e-3) fails.
     Each case names the kernel that served it, and fails unless that is the
-    one ``_variant`` picks. Returns the worst error per kernel."""
+    one ``_variant`` picks. At every decode case (one query) the SIMT
+    kernel, which the wrapper no longer picks there, is also launched
+    directly on the same inputs and held to the same bound. Returns the
+    worst error per kernel."""
     import torch
 
+    from repro_torch.kernels import _lib
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.flash_attention import _variant, flash_attention, variant_launches
 
@@ -313,7 +343,22 @@ def check_flash_attention(dev):
     cases = [(c, dt) for c in FLASH_CASES for dt in both]
     cases += [((*FLASH_PREFILL, True, 0), dt, 0) for dt in both]
     cases += [((*FLASH_DECODE, True, 0), dt, off) for dt in both for off in (0, 63, 4095)]
-    worst = {"sm90": 0.0, "simt": 0.0}
+    cases += [((B, 1, Sk, N, K, H, causal, window), dt, off)
+              for B, Sk, N, K, H, causal, window, off in DECODE_CASES for dt in both]
+    worst = dict.fromkeys(variant_launches, 0.0)
+
+    def held(tag, got, want, dtype):
+        diff = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            tol = BF16_ULP * want.float().abs() + 1e-6
+        else:
+            tol = torch.full_like(diff, 3e-5)
+        err, share = diff.max().item(), (diff / tol).max().item()
+        ok = got.dtype == dtype and share <= 1.0
+        print(f"  [{tag}]: max|err| {err:.3e}, {share:.3f} of the bound, max|want| "
+              f"{want.float().abs().max().item():.3e}  {'ok' if ok else 'MISMATCH'}")
+        return err, ok
+
     for case in cases:
         (B, Sq, Sk, N, K, H, causal, window), dtype = case[0], case[1]
         qo = case[2] if len(case) > 2 else (Sk - Sq if causal else 0)
@@ -324,23 +369,27 @@ def check_flash_attention(dev):
         variant = _variant(dtype, Sq, H)
         want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=qo)
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        if dtype == torch.bfloat16:
-            tol = BF16_ULP * want.float().abs() + 1e-6
-        else:
-            tol = torch.full_like(diff, 3e-5)
-        err, share = diff.max().item(), (diff / tol).max().item()
-        worst[variant] = max(worst[variant], err)
-        ok = got.dtype == dtype and share <= 1.0
         print(f"flash_attention {(B, Sq, Sk, N, K, H)} causal={causal} window={window} "
-              f"q_offset={qo} {str(dtype)[6:]} [{'+'.join(served)}]: max|err| {err:.3e}, "
-              f"{share:.3f} of the bound, max|want| {want.float().abs().max().item():.3e}  "
-              f"{'ok' if ok else 'MISMATCH'}")
+              f"q_offset={qo} {str(dtype)[6:]}")
+        err, ok = held("+".join(served), got, want, dtype)
+        worst[variant] = max(worst[variant], err)
         if served != [variant]:
             fail(f"flash_attention at {case}: served by {served}, the rule picks {variant}")
         if not ok:
             fail(f"flash_attention disagrees with its plain version at {case}")
-        del q, k, v, got, want, diff, tol
+        if Sq == 1:
+            out = torch.empty_like(q)
+            _lib.launch("flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B, Sq, Sk, N, K, H, int(dtype == torch.bfloat16),
+                        int(causal), window, qo, Sk, float(H**-0.5))
+            torch.cuda.synchronize()
+            err, ok = held("simt, launched directly", out, want, dtype)
+            worst["simt"] = max(worst["simt"], err)
+            if not ok:
+                fail(f"the SIMT flash_attention kernel disagrees with its plain version "
+                     f"at {case}")
+            del out
+        del q, k, v, got, want
     return worst
 
 
@@ -633,9 +682,10 @@ def time_lm_kernels(dev):
     the fp32 peak (67 TFLOP/s: its inputs and state are fp32). The library
     call for attention is F.scaled_dot_product_attention on the same
     tensors (is_causal at prefill; unmasked over the cache's first pos + 1
-    rows at decode); the scan has none. At the prefill shape the SIMT
-    attention kernel, which the wrapper no longer picks there, is launched
-    directly, timed beside the tensor-core one and held to the same bound."""
+    rows at decode); the scan has none. The wrapper runs the tensor-core
+    kernel at prefill and the split-KV kernel at decode; at each of those
+    shapes the SIMT attention kernel, which it no longer picks there, is
+    launched directly, timed beside them and held to the same bound."""
     import torch
     import torch.nn.functional as F
 
@@ -659,23 +709,22 @@ def time_lm_kernels(dev):
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q.transpose(1, 2), kc, vc, enable_gqa=True)
         shape = f"q {(B, Sq, N, H)} kv {(B, Sk, K, H)} q_offset={qo} bf16"
-        name = "flash_attention" if tag == "prefill" else "flash_attention_simt"
+        name = "flash_attention" if tag == "prefill" else "flash_attention_decode"
         plain = lambda: R.flash_attention_ref(q, k, v, q_offset=qo)  # noqa: E731
+        launches = 5 if tag == "prefill" else TIMED_LAUNCHES
         rows[(name, tag, qo)] = _timed(
             name, tag, shape, lambda: ops.flash_attention(q, k, v, q_offset=qo), plain, lib,
-            nbytes, 4 * B * N * H * pairs, BF16_OPS_PER_S,
-            launches=5 if tag == "prefill" else TIMED_LAUNCHES)
-        if tag == "prefill":
-            out = torch.empty_like(q)
-            simt = lambda: _lib.launch(  # noqa: E731
-                "flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), B, Sq, Sk, N, K, H, 1, 1, 0, qo, Sk, float(H**-0.5))
-            rows[("flash_attention_simt", tag, qo)] = _timed(
-                "flash_attention_simt", tag, shape, simt, plain, lib, nbytes,
-                4 * B * N * H * pairs, BF16_OPS_PER_S, launches=5)
-            want = plain().float()
-            if ((out.float() - want).abs() > BF16_ULP * want.abs() + 1e-6).any():
-                fail("the SIMT flash_attention kernel disagrees at the prefill shape")
+            nbytes, 4 * B * N * H * pairs, BF16_OPS_PER_S, launches=launches)
+        out = torch.empty_like(q)
+        simt = lambda: _lib.launch(  # noqa: E731
+            "flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, Sq, Sk, N, K, H, 1, 1, 0, qo, Sk, float(H**-0.5))
+        rows[("flash_attention_simt", tag, qo)] = _timed(
+            "flash_attention_simt", tag, shape, simt, plain, lib, nbytes,
+            4 * B * N * H * pairs, BF16_OPS_PER_S, launches=launches)
+        want = plain().float()
+        if ((out.float() - want).abs() > BF16_ULP * want.abs() + 1e-6).any():
+            fail(f"the SIMT flash_attention kernel disagrees at the {tag} shape, q_offset {qo}")
     for tag, (B, T, H, hd) in [("prefill", RWKV_PREFILL), ("decode", RWKV_DECODE)]:
         ins = _rwkv_inputs(B, T, H, hd, dev)
         rows[("rwkv6_scan", tag, None)] = _timed(
@@ -708,7 +757,7 @@ def drive_lm_path(dev, arch, prefill_len):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import _variant, variant_launches
+    from repro_torch.kernels.flash_attention import variant_launches
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import default_opts, make_prefill_step
     from repro_torch.models.layers import padded_vocab
@@ -738,10 +787,9 @@ def drive_lm_path(dev, arch, prefill_len):
     variants = dict(variant_launches)
     n_attn = sum(b.kind == "attn" for b in cfg.blocks)
     # the prefill step's attention layers on the tensor-core kernel, the
-    # decode steps' (Sq = 1) on the SIMT kernel
-    sm90 = n_attn if _variant(getattr(torch, cfg.compute_dtype), prefill_len,
-                              cfg.head_dim) == "sm90" else 0
-    want_variants = {"sm90": sm90, "simt": want["flash_attention"] - sm90}
+    # decode steps' (Sq = 1) on the split-KV decode kernel, none on the SIMT
+    # kernel (both serving models are bf16 at head_dim 64 or 128)
+    want_variants = {"sm90": n_attn, "simt": 0, "decode": want["flash_attention"] - n_attn}
     finite = bool(torch.isfinite(logits).all())
     peak = torch.cuda.max_memory_allocated()
 
@@ -773,12 +821,75 @@ def drive_lm_path(dev, arch, prefill_len):
              f"predicted {want_variants}")
     if max(counts.values()) <= 0:
         fail(f"{arch}: no kernel was launched on the serving path")
+    full_cache = time_decode_at(dev, cfg, opts, params, LM_SERVE["cache_len"] - 1) \
+        if n_attn else {}
     del params, logits
     gc.collect()
     torch.cuda.empty_cache()
     return counts, variants, dict(
         serve_prefill_s=res.prefill_s, gen_s=res.gen_s, tokens_per_s=res.tokens_per_s,
-        ms_per_step=res.ms_per_step, prefill_step_s=prefill_s, peak_mib=peak / 2**20)
+        ms_per_step=res.ms_per_step, prefill_step_s=prefill_s, peak_mib=peak / 2**20,
+        **full_cache)
+
+
+def time_decode_at(dev, cfg, opts, params, pos, steps=16):
+    """Greedy decode steps of the serving batch at position ``pos`` of a
+    cache of ``LM_SERVE["cache_len"]`` filled with random values (each step
+    rewrites slot ``pos`` and attends to every slot up to it): wall ms per
+    step (host clock over ``steps`` steps, ending in a sync) and device ms
+    per step (the union of kernel intervals under ``torch.profiler`` over as
+    many steps), with the split-KV attention kernel's device ms per step.
+    Its launches are not main-path launches: the counts are read before."""
+    import gc
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl.profile_round import busy_us
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.tree import tree_leaves
+
+    B, S = LM_SERVE["num_requests"], LM_SERVE["cache_len"]
+    cache = init_cache(cfg, opts, B, S, getattr(torch, cfg.compute_dtype), device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for t in tree_leaves(cache):
+        if t is not None:
+            t.normal_(0.0, 0.5, generator=g)
+    step = make_serve_step(cfg, opts)
+    tok = torch.ones((B, 1), dtype=torch.long, device=dev)
+
+    def run(n):
+        nonlocal tok
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            nxt, _, _ = step(params, cache, {"token": tok, "pos": pos})
+            tok = nxt[:, None].long()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    run(2)
+    wall = run(steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        fail("the profiler recorded no device activity in the decode steps")
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
+    attn = [e for e in kernels if "flash_decode_" in e.name]
+    attn_ms = sum(e.time_range.elapsed_us() for e in attn) / 1e3 / steps
+    print(f"decode step at position {pos} of a full cache (batch {B}): {wall:.4f} ms wall "
+          f"per step; device busy {busy:.4f} ms per step (profiler, union of kernel "
+          f"intervals), idle share {1 - busy / wall:.4f}; split-KV attention "
+          f"{attn_ms:.4f} ms per step in {len(attn) / steps:.1f} launches "
+          f"({len(kernels) / steps:.1f} kernels per step)")
+    if not attn:
+        fail("the decode steps at a full cache ran no split-KV attention kernel")
+    del cache, prof
+    gc.collect()
+    return dict(full_cache_wall_ms=wall, full_cache_busy_ms=busy, full_cache_attn_ms=attn_ms)
 
 
 def check_lm_parity(dev, arch):
@@ -867,7 +978,8 @@ def main() -> None:
     check_round_parity(dev)
 
     # each JSON row counts its own CUDA kernel's launches: flash_attention's
-    # the tensor-core kernel's, flash_attention_simt's the SIMT kernel's
+    # the tensor-core kernel's, flash_attention_simt's the SIMT kernel's,
+    # flash_attention_decode's the split-KV decode kernel's
     counts.update(dict.fromkeys(("rwkv6_scan", *VARIANTS), 0))
     for arch, prefill_len in LM_ARCHS:
         phase(f"LM serving path: {arch}, full width and depth, bf16")
@@ -885,7 +997,8 @@ def main() -> None:
 
     pick = {"distill_loss_fwd": ("main", 0.0), "distill_loss_bwd": ("main", 1.5),
             "skr_rectify": ("main", None), "flash_attention": ("prefill", 0),
-            "flash_attention_simt": ("decode", 4095), "rwkv6_scan": ("prefill", None)}
+            "flash_attention_simt": ("decode", 4095), "flash_attention_decode": ("decode", 4095),
+            "rwkv6_scan": ("prefill", None)}
     kernels = []
     for k, (tag, beta) in pick.items():
         row = times[(k, tag, beta)]

@@ -32,7 +32,9 @@
 // tiles are read with 16-byte vector loads. This is a SIMT kernel: the
 // products run on the fp32 cores, not the tensor cores (wgmma and TMA
 // pipelining are later work), so prefill sits well above its tensor-core
-// bound.
+// bound. The wrapper sends it only the prefill calls the tensor-core kernel
+// does not take (fp32, H in {32, 256}); decode goes to
+// flash_attention_decode.cu.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

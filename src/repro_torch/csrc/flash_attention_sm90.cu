@@ -3,8 +3,8 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py:_kernel for the
 // calls the wrapper (repro_torch/kernels/flash_attention.py:_variant) sends
 // here: q, k, v in bf16, head_dim H in {64, 128}, more than one query (a
-// prefill). Decode (Sq = 1), fp32 and H in {32, 256} stay on the SIMT kernel
-// in flash_attention.cu.
+// prefill). Decode (Sq = 1) goes to flash_attention_decode.cu; fp32 and H
+// in {32, 256} stay on the SIMT kernel in flash_attention.cu.
 //
 //   o[b, i, n] = softmax_j(scale * q[b, i, n] . k[b, j, n / G]) v[b, j, n / G]
 //

@@ -53,6 +53,10 @@ _SIGNATURES = {
     # scale, stream (bf16 only)
     "flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _I,
                              _F, _P],
+    # q, k, v, o, ws, B, Sk, N, K, H, is_bf16, causal, window, q_offset,
+    # k_len, scale, chunk, splits, stream (Sq = 1)
+    "flash_attention_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
+                               _I, _F, _I, _I, _P],
     # r, k, v, w, u, s0, y, sT, B, T, H, hd, stream
     "rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

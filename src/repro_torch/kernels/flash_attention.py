@@ -1,5 +1,5 @@
 """GQA flash attention (causal / sliding-window), forward only: the wrapper
-around two CUDA kernels for the one TPU kernel.
+around three CUDA kernels for the one TPU kernel.
 
 Counterpart of ``repro.kernels.flash_attention``. q (B, Sq, N, H), k and v
 (B, Sk, K, H) with N % K == 0; q head n reads kv head n // (N / K). Masks
@@ -11,15 +11,18 @@ The softmax runs online in fp32; the output has q's dtype.
 (the TPU kernel takes them as static only because of jit), so a decode loop
 passes its position as a plain int with no recompilation and no read-back.
 On a CUDA tensor the wrapper launches the kernel ``_variant`` picks, or
-raises (it never retries on the other kernel); on a CPU tensor it computes
+raises (it never retries on another kernel); on a CPU tensor it computes
 the plain version in ``ref.py``:
 
+- ``"decode"``, ``repro_torch/csrc/flash_attention_decode.cu``: every call
+  with Sq = 1, fp32 or bf16, any head_dim. The kv range is split across
+  blocks by ``_decode_plan`` and the partial softmax states are merged;
 - ``"sm90"``, ``repro_torch/csrc/flash_attention_sm90.cu``: bf16 prefill
   (Sq > 1) at head_dim 64 or 128, both products on the tensor cores (wgmma);
-- ``"simt"``, ``repro_torch/csrc/flash_attention.cu``: everything else
-  (fp32, decode at Sq = 1, head_dim 32 or 256), on the fp32 cores.
+- ``"simt"``, ``repro_torch/csrc/flash_attention.cu``: the rest of prefill
+  (fp32, head_dim 32 or 256), on the fp32 cores.
 
-``_lib.launches["flash_attention"]`` counts the launches of both;
+``_lib.launches["flash_attention"]`` counts the calls that launch a kernel;
 ``variant_launches`` counts them per variant.
 """
 from __future__ import annotations
@@ -33,15 +36,44 @@ HEAD_DIMS = (32, 64, 128, 256)
 SM90_HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
-variant_launches = _lib.counter(("sm90", "simt"))
+variant_launches = _lib.counter(("sm90", "simt", "decode"))
+
+# the decode kernel's split plan: fill the card's 132 SMs about four times
+# over with (batch, kv head, split) blocks, but give no split fewer than
+# DECODE_MIN_CHUNK keys, so a short range runs one split and no merge pass;
+# chunks are a multiple of the kernel's keys per block step at head_dim 128
+# (32 or 64), so only a range's last split ends in a partial step
+SMS = 132
+DECODE_TARGET_BLOCKS = 4 * SMS
+DECODE_MIN_CHUNK = 256
+DECODE_CHUNK_ALIGN = 64
 
 
 def _variant(dtype: torch.dtype, Sq: int, H: int) -> str:
-    """Which kernel a CUDA call runs: the tensor-core kernel for bf16
-    prefill at head_dim 64 or 128, the SIMT kernel for everything else."""
-    if dtype == torch.bfloat16 and Sq > 1 and H in SM90_HEAD_DIMS:
+    """Which kernel a CUDA call runs: the split-KV decode kernel for one
+    query, the tensor-core kernel for bf16 prefill at head_dim 64 or 128,
+    the SIMT kernel for the rest."""
+    if Sq == 1:
+        return "decode"
+    if dtype == torch.bfloat16 and H in SM90_HEAD_DIMS:
         return "sm90"
     return "simt"
+
+
+def _decode_plan(B: int, K: int, k_len: int, q_offset: int, causal: bool,
+                 window: int) -> tuple[int, int, int]:
+    """(j_lo, chunk, splits) for one query at ``q_offset``: its visible keys
+    are [j_lo, j_hi], and split s takes [j_lo + s chunk, j_lo + (s + 1)
+    chunk) of them. No split is empty; splits is 0 when the range is."""
+    j_hi = min(k_len - 1, q_offset) if causal else k_len - 1
+    j_lo = max(0, q_offset - window + 1) if window > 0 else 0
+    n = j_hi - j_lo + 1
+    if n <= 0:
+        return j_lo, 0, 0
+    want = -(-DECODE_TARGET_BLOCKS // max(1, B * K))
+    chunk = max(DECODE_MIN_CHUNK, -(-n // want))
+    chunk = -(-chunk // DECODE_CHUNK_ALIGN) * DECODE_CHUNK_ALIGN
+    return j_lo, chunk, -(-n // chunk)
 
 
 def _check(q, k, v):
@@ -81,7 +113,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     mask = (int(bool(causal)), int(window), int(q_offset), Sk, float(H**-0.5))
     variant = _variant(q.dtype, Sq, H)
-    if variant == "sm90":
+    if variant == "decode":
+        _, chunk, splits = _decode_plan(B, K, Sk, int(q_offset), bool(causal), int(window))
+        ws = torch.empty(B * N * splits * (H + 2) if splits > 1 else 0,
+                         dtype=torch.float32, device=q.device)
+        _lib.launch("flash_attention_decode", q.device, *ptrs, ws.data_ptr(), B, Sk, N, K,
+                    H, int(q.dtype == torch.bfloat16), *mask, chunk, splits,
+                    count_as="flash_attention")
+    elif variant == "sm90":
         _lib.launch("flash_attention_sm90", q.device, *ptrs, B, Sq, Sk, N, K, H, *mask,
                     count_as="flash_attention")
     else:

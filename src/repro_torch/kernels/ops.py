@@ -7,7 +7,7 @@ use) or raises; on a CPU tensor it runs the plain version in ``ref.py``.
 ``distill_loss_bwd``, ``skr_rectify``, ``flash_attention``,
 ``rwkv6_scan``); ``reset_launches`` zeroes it, and also
 ``kernels.flash_attention.variant_launches``, flash_attention's launches
-per kernel (``sm90``, ``simt``).
+per kernel (``sm90``, ``simt``, ``decode``).
 """
 from __future__ import annotations
 

@@ -53,8 +53,8 @@ def attn_forward(cfg, params, x, *, positions, theta: float, window: int = 0,
       * decode: cache holds (B, S, K, H); x is (B, 1, d); cache_pos is the
         write/attend position, a Python int, so nothing is read back from
         the card. The new k/v are written into the cache in place (the same
-        values the reference's ``dynamic_update_slice`` gives), and the
-        returned cache is the same dict.
+        values, at the same clamped slot, as the reference's
+        ``dynamic_update_slice``), and the returned cache is the same dict.
     """
     B, S, _ = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
@@ -80,11 +80,17 @@ def attn_forward(cfg, params, x, *, positions, theta: float, window: int = 0,
             return y, {"k": k, "v": v}
         return y, None
 
-    # decode: single new token at cache_pos; the causal mask at q_offset =
-    # cache_pos is the reference's valid_len = cache_pos + 1
-    cache["k"][:, cache_pos:cache_pos + S] = k.to(cache["k"].dtype)
-    cache["v"][:, cache_pos:cache_pos + S] = v.to(cache["v"].dtype)
-    o = ops.flash_attention(q.to(cache["k"].dtype).contiguous(), cache["k"], cache["v"],
+    # decode: single new token at cache_pos. The write lands where the
+    # reference's dynamic_update_slice clamps it (the last slot once
+    # cache_pos runs past the cache); the causal mask at q_offset =
+    # cache_pos is its valid_len = cache_pos + 1
+    at = max(0, min(cache_pos, cache["k"].shape[1] - S))
+    cache["k"][:, at:at + S] = k.to(cache["k"].dtype)
+    cache["v"][:, at:at + S] = v.to(cache["v"].dtype)
+    # attend in the wider of q's and the cache's dtypes, as the reference
+    # computes in fp32 whatever the cache holds
+    dt = torch.promote_types(q.dtype, cache["k"].dtype)
+    o = ops.flash_attention(q.to(dt).contiguous(), cache["k"].to(dt), cache["v"].to(dt),
                             causal=True, window=window, q_offset=cache_pos)
     y = mm(o.reshape(B, S, n * hd).to(x.dtype), params["wo"])
     return y, cache

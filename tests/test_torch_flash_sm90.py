@@ -99,7 +99,10 @@ IDS = ["rows_ragged", "keys_ragged_offset", "window", "noncausal_g4", "h64_g1"]
 @pytest.mark.parametrize("Sq", [1, 2, 4096])
 @pytest.mark.parametrize("H", [32, 64, 128, 256])
 def test_variant(dtype, Sq, H):
-    want = "sm90" if dtype == torch.bfloat16 and Sq > 1 and H in (64, 128) else "simt"
+    if Sq == 1:
+        want = "decode"
+    else:
+        want = "sm90" if dtype == torch.bfloat16 and H in (64, 128) else "simt"
     assert FA._variant(dtype, Sq, H) == want
 
 
@@ -137,7 +140,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ops.reset_launches()
     out = ops.flash_attention(q, k, v)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
-    assert FA.variant_launches == {"sm90": 0, "simt": 0}
+    assert FA.variant_launches == {"sm90": 0, "simt": 0, "decode": 0}
     assert ops.launches["flash_attention"] == 0
 
 
@@ -145,4 +148,4 @@ def test_reset_launches_zeroes_the_variant_counts():
     FA.variant_launches["sm90"] += 3
     FA.variant_launches["simt"] += 1
     ops.reset_launches()
-    assert FA.variant_launches == {"sm90": 0, "simt": 0}
+    assert FA.variant_launches == {"sm90": 0, "simt": 0, "decode": 0}

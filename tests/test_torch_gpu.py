@@ -162,8 +162,75 @@ def test_flash_attention_sm90_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, wi
     got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert variant_launches == {"sm90": 1, "simt": 0}
+    assert variant_launches == {"sm90": 1, "simt": 0, "decode": 0}
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=1e-6)
+
+
+# the split-KV decode kernel: the CPU emulation's cases
+# (tests/test_torch_flash_decode.py) and llama3.2-3b's decode step against
+# a 4096-long cache at positions 0, 63 and 4095; bound as above
+DECODE_CASES = [
+    (2, 300, 8, 8, 32, True, 0, 299),
+    (2, 700, 6, 2, 64, True, 0, 650),
+    (1, 1000, 4, 1, 128, True, 100, 900),
+    (1, 1500, 16, 2, 256, True, 0, 1499),
+    (1, 600, 24, 8, 128, True, 0, 700),
+    (1, 1200, 8, 2, 128, True, 700, 1100),
+    (2, 300, 4, 2, 32, False, 0, 5),
+    (1, 520, 16, 1, 64, True, 24, 400),
+    (1, 520, 16, 1, 64, True, 0, 519),
+    (8, 4096, 24, 8, 128, True, 0, 0),
+    (8, 4096, 24, 8, 128, True, 0, 63),
+    (8, 4096, 24, 8, 128, True, 0, 4095),
+]
+
+
+@pytest.mark.parametrize("B,Sk,N,K,H,causal,window,q_offset", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_matches_plain(cuda, B, Sk, N, K, H, causal, window, q_offset,
+                                              dtype):
+    from repro_torch.kernels.flash_attention import variant_launches
+
+    q, k, v = _attn_inputs(B, 1, Sk, N, K, H, dtype, cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert variant_launches == {"sm90": 0, "simt": 0, "decode": 1}
+    assert got.dtype == dtype
+    rtol, atol = (2.0**-7, 1e-6) if dtype == torch.bfloat16 else (0.0, 3e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("q_offset", [63, 4095])
+def test_flash_attention_decode_repeats_bitwise(cuda, q_offset):
+    """The merge runs in a fixed split order: two calls give the same bits."""
+    q, k, v = _attn_inputs(8, 1, 4096, 24, 8, 128, torch.bfloat16, cuda)
+    a = ops.flash_attention(q, k, v, q_offset=q_offset)
+    b = ops.flash_attention(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_flash_attention_decode_with_no_visible_key_writes_zeros(cuda):
+    """ROADMAP C8: a window that ends before the cache does leaves no key;
+    the kernel writes 0, as the TPU kernel does when it reaches no kv block."""
+    q, k, v = _attn_inputs(2, 1, 33, 6, 2, 64, torch.float32, cuda)
+    got = ops.flash_attention(q, k, v, window=8, q_offset=100)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(q))
+
+
+def test_flash_attention_decode_failed_launch_raises(cuda):
+    q, k, v = _attn_inputs(1, 1, 64, 2, 1, 32, torch.float32, cuda)
+    o = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    with pytest.raises(RuntimeError):  # a head_dim it does not take: nothing launched
+        _lib.launch("flash_attention_decode", cuda, *args, 0, 1, 64, 2, 1, 48, 0, 1, 0, 63,
+                    64, 48**-0.5, 256, 1)
+    with pytest.raises(RuntimeError):  # two splits and no workspace
+        _lib.launch("flash_attention_decode", cuda, *args, 0, 1, 64, 2, 1, 32, 0, 1, 0, 63,
+                    64, 32**-0.5, 32, 2)
 
 
 def test_flash_attention_variants_are_counted(cuda):
@@ -173,10 +240,10 @@ def test_flash_attention_variants_are_counted(cuda):
     prefill = _attn_inputs(1, 16, 16, 6, 2, 128, torch.bfloat16, cuda)
     ops.flash_attention(*prefill)  # bf16 prefill: tensor cores
     ops.flash_attention(*_attn_inputs(2, 1, 16, 6, 2, 128, torch.bfloat16, cuda),
-                        q_offset=7)  # decode
+                        q_offset=7)  # decode: split-KV
     ops.flash_attention(*(t.float() for t in prefill))  # fp32
     ops.flash_attention(*_attn_inputs(1, 16, 16, 6, 2, 32, torch.bfloat16, cuda))  # H = 32
-    assert variant_launches == {"sm90": 1, "simt": 3}
+    assert variant_launches == {"sm90": 1, "simt": 2, "decode": 1}
     assert ops.launches["flash_attention"] == 4
 
 

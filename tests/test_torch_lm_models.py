@@ -50,7 +50,8 @@ def model(request):
 
 
 def _close(got, want, tol=TOL):
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=tol)
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
+                               rtol=0, atol=tol)
 
 
 def _tokens(cfg, B, S, seed=0):
@@ -75,13 +76,16 @@ def test_prefill_logits(model):
     _close(got, want)
 
 
-def test_decode_logits(model):
-    """Eight decode steps into a 12-long cache, the cache updated in place."""
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_decode_logits(model, cache_dtype):
+    """Eight decode steps into a 12-long cache, the cache updated in place.
+    The fp32 model also runs against a bf16 cache (both packages' default
+    cache dtype), where attention computes in fp32 all the same."""
     jcfg, cfg, jp, p, _, dec = model
     opts = ModelOpts()
     toks = _tokens(cfg, 2, 8, seed=1)
-    jc = jax_init_cache(jcfg, JaxOpts(remat=False), 2, 12, jnp.float32)
-    c = init_cache(cfg, opts, 2, 12, torch.float32, device="cpu")
+    jc = jax_init_cache(jcfg, JaxOpts(remat=False), 2, 12, getattr(jnp, cache_dtype))
+    c = init_cache(cfg, opts, 2, 12, getattr(torch, cache_dtype), device="cpu")
     for t in range(8):
         want, jc = dec(jp, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t), jc)
         got, c2 = forward_decode(cfg, opts, p,
@@ -94,6 +98,25 @@ def test_decode_logits(model):
     assert len(got_leaves) == len(want_leaves)
     for g, w in zip(got_leaves, want_leaves):
         _close(g, w)
+
+
+def test_decode_past_the_cache_end(model):
+    """Decode at positions 0-5 into a 4-long cache: from position 4 on the
+    reference's dynamic_update_slice clamps the write to the last slot, and
+    valid_len = pos + 1 attends every slot."""
+    jcfg, cfg, jp, p, _, dec = model
+    opts = ModelOpts()
+    toks = _tokens(cfg, 2, 6, seed=6)
+    jc = jax_init_cache(jcfg, JaxOpts(remat=False), 2, 4, jnp.float32)
+    c = init_cache(cfg, opts, 2, 4, torch.float32, device="cpu")
+    for t in range(6):
+        want, jc = dec(jp, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t), jc)
+        got, c = forward_decode(cfg, opts, p,
+                                {"token": torch.from_numpy(toks[:, t:t + 1]).long(),
+                                 "pos": t}, c)
+        _close(got, want)
+        for g, w in zip(_leaves(c), _leaves(jc), strict=True):
+            _close(g, w)
 
 
 def _leaves(tree):
