@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: the FedEEC trainer and
-the LM serving path.
+"""Smoke run of the PyTorch port on one CUDA card: the FedEEC trainer, the
+LM serving path and the LM training path.
 
     python3 chip_smoke.py
 
@@ -14,11 +14,14 @@ the result line:
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` and print
    nvcc's registers / shared memory / spills per kernel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the main paths' shapes and the bench shapes (flash_attention
-   has three: the split-KV decode kernel for every call with one query,
-   the tensor-core kernel for bf16 prefill and the SIMT kernel for the
-   rest; each case names the one that served it, and at every decode case
-   the SIMT kernel, launched directly, is held to the same bound), then the
+   card, at the main paths' shapes and the bench shapes (distill_loss on
+   fp32 and on bf16 logits, the latter up to the LM training loss's
+   (1, 1024, 128256); flash_attention has three kernels: the split-KV
+   decode kernel for every call with one query, the tensor-core kernel for
+   bf16 prefill and the SIMT kernel for the rest; each case names the one
+   that served it, at every decode case the SIMT kernel, launched
+   directly, is held to the same bound, and rows that see no key (ROADMAP
+   C8) go through each of the three and the empty-row kernel), then the
    FedEEC kernels' device time (a CUDA graph of many launches between CUDA
    events) beside the plain version's, the bound and, where one PyTorch
    call computes the same function, that call's time;
@@ -42,11 +45,24 @@ the result line:
 7. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
    128-token prefill;
-8. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
+8. LM training: ``train_lm("llama3.2-3b", use_reduced=False, steps=4,
+   batch=2, seq=1024, use_kernels=True)``, full width and depth in bf16,
+   with the launch counters zeroed before and held after to steps x
+   seq / loss_chunk distill_loss launches each way (and none of the
+   forward-only attention kernels): wall s, tokens/s, loss and grad norm
+   per step, and the peak memory; then one step's breakdown under
+   ``torch.profiler`` (device busy ms, idle share, top kernels);
+9. training parity: llama3.2-3b at full width, two layers, fp32, one
+   ``make_train_step`` on the card and on the CPU from the same params and
+   ``token_batches`` batch (loss, grad norm, every gradient leaf), and on
+   the card the loss with ``use_kernels`` on against off;
+10. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
    attention kernel, launched directly, at the prefill shape beside the
-   tensor-core one and at the decode shapes beside the decode one. They
-   come last, so that nothing the timing leaves allocated enters a main
-   path's peak memory.
+   tensor-core one and at the decode shapes beside the decode one; and
+   distill_loss at the training shape in bf16, forward and backward,
+   beside ``F.cross_entropy`` on the same logits, printed on a line of its
+   own. They come last, so that nothing the timing leaves allocated enters
+   a main path's peak memory.
 
 It ends with the kernels' JSON line, nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -236,6 +252,59 @@ def check_distill_loss(dev):
     return worst_fwd, worst_bwd
 
 
+DISTILL_BF16_SHAPES = [(1, 8, 10), (3, 37, 1000), (4, 256, 2048)]
+TRAIN_LOSS_SHAPE = (1, 1024, 128256)  # llama3.2-3b, batch 2 x loss_chunk 512 rows
+
+
+def check_distill_loss_bf16(dev):
+    """bf16 logits, as the LM training loss feeds them (beta = 0 with an
+    all-zero t, as ``fused_softmax_xent`` passes it) and with a bf16 teacher
+    at beta = 1.5. The loss (fp32) within 1e-5 relative plus 1e-6, as in
+    fp32; dz (bf16) within ``ref.distill_loss_grad_bf16_bound``: both sides
+    compute in fp32 and round once, so one bf16 ulp of |want| and nothing
+    more at beta = 0; at beta = 1.5, where beta's term can cancel lw * p,
+    also 2^-16 of that element's terms g beta p (|logZ| + |logp - t| +
+    |KL|), for the fp32 errors of logZ and KL. Returns the worst errors
+    (fwd, bwd)."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.distill_loss import distill_loss_batched
+
+    worst_fwd = worst_bwd = 0.0
+    for B, N, V in DISTILL_BF16_SHAPES + [TRAIN_LOSS_SHAPE]:
+        for beta in (0.0, 1.5):
+            z, t, y = _distill_inputs(B, N, V, dev)
+            z = z.bfloat16()
+            t = (t if beta else torch.zeros_like(t)).bfloat16()
+            w = torch.randn((B, N), generator=torch.Generator(device=dev).manual_seed(5),
+                            device=dev)
+            zk = z.clone().requires_grad_(True)
+            loss = distill_loss_batched(zk, t, y, beta, 1.0)
+            (dz,) = torch.autograd.grad(loss, zk, w)
+            want = R.distill_loss_batched_ref(z, y, t, beta, 1.0)
+            want_dz = R.distill_loss_grad_ref(z, y, t, beta, 1.0, g=w).float()
+            torch.cuda.synchronize()
+            e_fwd = (loss - want).abs().max().item()
+            d = (dz.float() - want_dz).abs()
+            e_bwd = d.max().item()
+            bound = R.distill_loss_grad_bf16_bound(want_dz, z, t, beta, g=w)
+            share = (d / bound).nan_to_num(0.0).max().item()  # 0 / 0: equal zeros
+            ulps = (d > BF16_ULP * want_dz.abs()).sum().item()
+            worst_fwd, worst_bwd = max(worst_fwd, e_fwd), max(worst_bwd, e_bwd)
+            ok = (loss.dtype == torch.float32 and dz.dtype == torch.bfloat16
+                  and torch.allclose(loss, want, rtol=1e-5, atol=1e-6)
+                  and bool((d <= bound).all()))
+            print(f"distill_loss bf16 ({B},{N},{V}) beta={beta}: fwd max|err| {e_fwd:.3e}  "
+                  f"dz max|err| {e_bwd:.3e}, {share:.3f} of the bound, {ulps} elements past "
+                  f"one ulp of |want| alone  {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"bf16 distill_loss disagrees with its plain version at ({B},{N},{V}) "
+                     f"beta={beta}")
+            del z, t, zk, loss, dz, want, want_dz, d, bound
+    return worst_fwd, worst_bwd
+
+
 def check_skr_rectify(dev):
     """Exact: the same division and product per element on both sides."""
     import torch
@@ -310,6 +379,15 @@ DECODE_CASES = [
     (1, 520, 16, 1, 64, True, 24, 400),
     (1, 520, 16, 1, 64, True, 0, 519),
 ]
+# ROADMAP C8, rows that see no key (a window that ends before the keys do),
+# through each of the three kernels and then the empty-row kernel:
+# (B, Sq, Sk, N, K, H, causal, window, q_offset)
+C8_CASES = [
+    (2, 1, 33, 6, 2, 64, True, 8, 100),  # decode: the plan has no split
+    (1, 64, 64, 8, 2, 32, True, 8, 40),  # simt (fp32 below; bf16 at H 32 too)
+    (1, 128, 100, 24, 8, 128, True, 16, 40),  # sm90 in bf16, simt in fp32
+    (1, 64, 64, 8, 2, 64, False, 8, 40),  # non-causal
+]
 FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128)  # llama3.2-3b, one 4096-token prompt
 FLASH_DECODE = (8, 1, 4096, 24, 8, 128)  # 8 requests against a 4096-long cache
 RWKV_CASES = [(2, 32, 4, 16), (1, 40, 2, 32), (3, 16, 1, 64)]
@@ -337,7 +415,12 @@ def check_flash_attention(dev):
 
     from repro_torch.kernels import _lib
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.flash_attention import _variant, flash_attention, variant_launches
+    from repro_torch.kernels.flash_attention import (
+        _has_empty_rows,
+        _variant,
+        flash_attention,
+        variant_launches,
+    )
 
     both = (torch.float32, torch.bfloat16)
     cases = [(c, dt) for c in FLASH_CASES for dt in both]
@@ -345,6 +428,7 @@ def check_flash_attention(dev):
     cases += [((*FLASH_DECODE, True, 0), dt, off) for dt in both for off in (0, 63, 4095)]
     cases += [((B, 1, Sk, N, K, H, causal, window), dt, off)
               for B, Sk, N, K, H, causal, window, off in DECODE_CASES for dt in both]
+    cases += [(c[:8], dt, c[8]) for c in C8_CASES for dt in both]
     worst = dict.fromkeys(variant_launches, 0.0)
 
     def held(tag, got, want, dtype):
@@ -364,20 +448,24 @@ def check_flash_attention(dev):
         qo = case[2] if len(case) > 2 else (Sk - Sq if causal else 0)
         q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev)
         before = dict(variant_launches)
+        empty_before = _lib.launches["flash_attention_empty_rows"]
         got = flash_attention(q, k, v, causal=causal, window=window, q_offset=qo)
         served = [n for n in variant_launches if variant_launches[n] > before[n]]
+        empty = _lib.launches["flash_attention_empty_rows"] - empty_before
         variant = _variant(dtype, Sq, H)
         want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=qo)
         torch.cuda.synchronize()
         print(f"flash_attention {(B, Sq, Sk, N, K, H)} causal={causal} window={window} "
               f"q_offset={qo} {str(dtype)[6:]}")
-        err, ok = held("+".join(served), got, want, dtype)
+        err, ok = held("+".join(served + ["empty_rows"] * empty), got, want, dtype)
         worst[variant] = max(worst[variant], err)
         if served != [variant]:
             fail(f"flash_attention at {case}: served by {served}, the rule picks {variant}")
+        if empty != int(_has_empty_rows(Sq, Sk, qo, causal, window)):
+            fail(f"flash_attention at {case}: {empty} empty-row launches")
         if not ok:
             fail(f"flash_attention disagrees with its plain version at {case}")
-        if Sq == 1:
+        if Sq == 1 and not empty:
             out = torch.empty_like(q)
             _lib.launch("flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), B, Sq, Sk, N, K, H, int(dtype == torch.bfloat16),
@@ -947,6 +1035,165 @@ def check_lm_parity(dev, arch):
     torch.cuda.empty_cache()
 
 
+LM_TRAIN = dict(steps=4, batch=2, seq=1024)
+
+
+def drive_train_path(dev):
+    """The LM training path at llama3.2-3b's full width and depth, bf16, as
+    ``python -m repro_torch.launch.train --full --use-kernels`` runs it
+    (``remat`` and ``attn_chunk`` as ``train_lm`` sets them), with the
+    launch counters zeroed just before and read just after: the loss runs
+    one forward and one backward distill_loss launch per loss chunk, and
+    attention (``mha``, autograd) no kernel. The last step runs under
+    ``torch.profiler`` (``train_lm``'s ``profile_last``): device busy ms,
+    idle share and the kernels that take the most device time."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import default_opts
+    from repro_torch.launch.train import train_lm
+
+    cfg = get_arch("llama3.2-3b")
+    chunk = min(default_opts(cfg).loss_chunk, LM_TRAIN["seq"])
+    per_step = LM_TRAIN["seq"] // chunk
+    print(f"llama3.2-3b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, {cfg.param_dtype}; {LM_TRAIN}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = train_lm("llama3.2-3b", use_reduced=False, use_kernels=True, device=dev,
+                   log_every=1, profile_last=1, **LM_TRAIN)
+    counts = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = LM_TRAIN["steps"] * per_step
+    for i, (s_, loss, gn) in enumerate(zip(res.step_s, res.losses, res.grad_norms)):
+        print(f"train step {i + 1}: {s_:.4f} s wall (ending in a sync"
+              f"{', under the profiler' if i == LM_TRAIN['steps'] - 1 else ''}), "
+              f"{res.tokens_per_s[i]:.1f} tokens/s, loss {loss:.5f}, grad norm {gn:.5f}")
+    print(f"train step {LM_TRAIN['steps']} under torch.profiler: device busy "
+          f"{1e3 * res.profile['busy_s']:.4f} ms, idle share {res.profile['idle_share']:.4f} "
+          f"of step {LM_TRAIN['steps'] - 1}'s wall, "
+          f"{res.profile['kernels_per_step']:.1f} kernels")
+    print(f"training peak max_memory_allocated: {peak / 2**20:.1f} MiB "
+          f"({peak / 1e9:.2f} GB)")
+    print(f"launches: {counts}  predicted: distill_loss_fwd = distill_loss_bwd = "
+          f"steps x seq / loss_chunk = {want}, no attention or scan kernel")
+    if not res.profile["busy_s"] > 0:
+        fail("the profiler recorded no device time in the training step")
+    if not all(math.isfinite(v) for v in res.losses + res.grad_norms):
+        fail(f"non-finite training loss or grad norm: {res.losses} {res.grad_norms}")
+    if counts["distill_loss_fwd"] != want or counts["distill_loss_bwd"] != want:
+        fail(f"training: distill_loss launches {counts}, predicted {want} each")
+    if counts["flash_attention"] or counts["rwkv6_scan"]:
+        fail(f"training launched a forward-only kernel: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in ("distill_loss_fwd", "distill_loss_bwd")}, res, peak
+
+
+def check_train_parity(dev):
+    """llama3.2-3b at full width, two layers, fp32 (params drawn on the CPU
+    and copied to the card), one ``make_train_step`` with the loss through
+    ``use_kernels`` on the card and on the CPU from one ``token_batches``
+    batch: loss within 1e-5 relative, grad norm within 1e-4 relative, every
+    gradient leaf within 1e-4 of that leaf's max |g| (TF32 off: fp32 sums in
+    other orders over d_model 3072, d_ff 8192 and 128256 logits). Params are
+    not compared after the step: AdamW's first step moves each element by
+    about lr * sign(g), and signs of gradients below the fp32 noise flip
+    between devices (ROADMAP C4). On the card, also the loss with
+    ``use_kernels`` on against off, within 1e-5 relative."""
+    import gc
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.loader import token_batches
+    from repro_torch.launch.steps import default_opts, make_train_step
+    from repro_torch.models.transformer import forward_train, init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+
+    cfg = replace(get_arch("llama3.2-3b"), n_repeats=2, num_layers=2, param_dtype="float32",
+                  compute_dtype="float32")
+    opts = default_opts(cfg, attn_chunk=0, remat=False, use_kernels=True)
+    cpu = torch.device("cpu")
+    params = init_params(cfg, opts, seed=5, device=cpu)
+    b = next(token_batches(np.random.default_rng(6), cfg.vocab_size, 2, 64))
+    out = []
+    for d in (dev, cpu):
+        p = tree_map(lambda t: t.to(d, copy=True), params)
+        batch = {k: torch.from_numpy(v).to(d, torch.int64) for k, v in b.items()}
+        _, g = value_and_grad(lambda pp: forward_train(cfg, opts, pp, batch)[0], p)
+        g = [t.cpu() for t in tree_leaves(g)]
+        if d == dev:
+            with torch.no_grad():
+                plain = forward_train(cfg, replace(opts, use_kernels=False), p, batch)[0]
+        _, _, m = make_train_step(cfg, opts, lr=1e-4)(p, adamw_init(p), batch)
+        out.append((float(m["loss"]), float(m["grad_norm"]), g))
+        if d == dev:
+            loss_plain = float(plain)
+        del p, batch
+        gc.collect()
+    (lg, ng, gg), (lc, nc, gc_) = out
+    share = max(((a - b_).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+                for a, b_ in zip(gc_, gg))
+    print(f"llama3.2-3b 2 layers fp32 train step: loss {lg:.7f} (card) {lc:.7f} (CPU); "
+          f"grad norm {ng:.7f} (card) {nc:.7f} (CPU); worst gradient leaf max|card - CPU| "
+          f"{share:.3e} of its max|g|; card loss with use_kernels off {loss_plain:.7f}")
+    if abs(lg - lc) > 1e-5 * abs(lc) or abs(ng - nc) > 1e-4 * abs(nc) or share > 1e-4:
+        fail("the card's training step disagrees with the CPU's")
+    if abs(lg - loss_plain) > 1e-5 * abs(loss_plain):
+        fail("the card's training loss differs between use_kernels on and off")
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def time_train_loss_kernels(dev):
+    """distill_loss at the training shape, bf16 logits, beta = 0 with an
+    all-zero t (as ``fused_softmax_xent`` passes it): forward and backward
+    device ms beside the plain versions and, for the forward,
+    ``F.cross_entropy`` on the same bf16 logits. The bound counts z and t
+    read once (and, for the backward, dz written once) in bf16, the labels,
+    the fp32 loss, stats and cotangent once, against 3.35 TB/s; the fp32
+    operations against 67 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.distill_loss import _bwd_cuda, _fwd_cuda
+
+    B, N, V = TRAIN_LOSS_SHAPE
+    z, _, y = _distill_inputs(B, N, V, dev)
+    z = z.bfloat16()
+    t = torch.zeros_like(z)
+    y32 = y.to(torch.int32)
+    _, stats = _fwd_cuda(z, t, y32, 0.0, 1.0)
+    g = torch.ones((B, N), device=dev)
+    n = B * N
+    shape = f"({B},{N},{V}) bf16 beta=0.0"
+    rows = {}
+    rows["distill_loss_fwd"] = _timed(
+        "distill_loss_fwd", "train", shape, lambda: _fwd_cuda(z, t, y32, 0.0, 1.0),
+        lambda: R.distill_loss_batched_ref(z, y, t, 0.0, 1.0),
+        lambda: F.cross_entropy(z.view(-1, V), y.view(-1), reduction="none"),
+        2 * 2 * n * V + 4 * n + 4 * 3 * n, 7 * n * V, launches=20)
+    rows["distill_loss_bwd"] = _timed(
+        "distill_loss_bwd", "train", shape, lambda: _bwd_cuda(z, t, y32, stats, g, 0.0, 1.0),
+        lambda: R.distill_loss_grad_ref(z, y, t, 0.0, 1.0, g=g), None,
+        2 * 3 * n * V + 4 * 4 * n, 11 * n * V, launches=20)
+    print("distill_loss at the training shape: " + json.dumps(rows))
+    return rows
+
+
 def main() -> None:
     try:
         import torch
@@ -962,6 +1209,8 @@ def main() -> None:
 
     phase("kernels vs plain versions")
     err = dict(zip(("distill_loss_fwd", "distill_loss_bwd"), check_distill_loss(dev)))
+    for k, e in zip(("distill_loss_fwd", "distill_loss_bwd"), check_distill_loss_bf16(dev)):
+        err[k] = max(err[k], e)
     err["skr_rectify"] = check_skr_rectify(dev)
     flash_err = check_flash_attention(dev)
     err.update({k: flash_err[VARIANTS[k]] for k in VARIANTS})
@@ -990,10 +1239,17 @@ def main() -> None:
     for arch, _ in LM_ARCHS:
         phase(f"LM parity: {arch}, full width, two layers, fp32, the card vs the CPU")
         check_lm_parity(dev, arch)
+    phase("LM training path: llama3.2-3b, full width and depth, bf16")
+    train_counts, _, _ = drive_train_path(dev)
+    for k, n in train_counts.items():
+        counts[k] += n
+    phase("training parity: llama3.2-3b, full width, two layers, fp32, the card vs the CPU")
+    check_train_parity(dev)
     # timed last, so no graph pool or input of the timing is allocated while
     # a main path's peak memory is read
-    phase("kernel times at the LM serving shapes")
+    phase("kernel times at the LM serving and training shapes")
     times.update(time_lm_kernels(dev))
+    time_train_loss_kernels(dev)
 
     pick = {"distill_loss_fwd": ("main", 0.0), "distill_loss_bwd": ("main", 1.5),
             "skr_rectify": ("main", None), "flash_attention": ("prefill", 0),

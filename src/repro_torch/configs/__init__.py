@@ -15,5 +15,5 @@ from repro_torch.configs.base import (  # noqa: F401
 
 def load_all() -> None:
     """Import the architectures the port runs (registration side effects);
-    the reference's other nine wait for their block kinds (ROADMAP A4)."""
+    the reference's other nine wait for their block kinds (ROADMAP A6.3)."""
     from repro_torch.configs import llama3_2_3b, rwkv6_1_6b  # noqa: F401

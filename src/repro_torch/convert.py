@@ -12,7 +12,8 @@ bit-exact):
 The JAX side is a tree of numpy arrays (``jax.tree.map(np.asarray, p)``);
 the port side is a tree of torch tensors. Model names are those of
 ``repro_torch.models.registry`` plus ``"autoencoder"``. The LM plane's trees
-need no permutation: ``lm_from_jax`` / ``lm_to_jax`` copy them leaf for leaf.
+need no permutation: ``lm_from_jax`` / ``lm_to_jax`` copy them leaf for leaf,
+and ``lm_adamw_from_jax`` / ``lm_adamw_to_jax`` their AdamW states.
 """
 from __future__ import annotations
 
@@ -154,3 +155,19 @@ def lm_from_jax(jax_tree, device: torch.device | str = "cpu"):
 def lm_to_jax(tree):
     """The port's LM tensor tree -> numpy tree in the JAX layout, bit-exact."""
     return _map(tree, lambda _, t: _leaf_to_jax(t))
+
+
+def lm_adamw_from_jax(state, device: torch.device | str = "cpu"):
+    """An LM's AdamW state ``{"step", "m", "v"}`` (``repro.optim.adamw_init``
+    over ``repro.models.init_params``) -> the port's, bit-exact: the moments
+    have the params' layout."""
+    return {"step": _leaf_from_jax(state["step"], device),
+            "m": lm_from_jax(state["m"], device),
+            "v": lm_from_jax(state["v"], device)}
+
+
+def lm_adamw_to_jax(state):
+    """The port's LM AdamW state -> numpy tree in the JAX layout, bit-exact."""
+    return {"step": _leaf_to_jax(state["step"]),
+            "m": lm_to_jax(state["m"]),
+            "v": lm_to_jax(state["v"])}

@@ -31,7 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fl.api import FLAlgorithm, WorkItem, register_algorithm
 from repro_torch.models.autoencoder import decode, encode
 from repro_torch.models.registry import get_fl_model
-from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.optim import adamw_init, adamw_update_
 from repro_torch.tree import tree_map, value_and_grad
 
 
@@ -61,8 +61,9 @@ class FedEEC(FLAlgorithm):
         params: dict[str, object] | None = None,
     ):
         """``params`` optionally gives each node's initial parameters (a
-        tree per node, e.g. converted from the reference); otherwise node
-        ``i`` of ``tree.nodes`` draws them from ``node_generator(seed, i)``."""
+        tree per node, e.g. converted from the reference, which the trainer
+        copies, as it updates its own in place); otherwise node ``i`` of
+        ``tree.nodes`` draws them from ``node_generator(seed, i)``."""
         super().__init__(cfg, tree)
         self.device = resolve_device(device)
         self.auto = tree_map(lambda t: t.to(self.device), auto_params)
@@ -97,7 +98,7 @@ class FedEEC(FLAlgorithm):
             else:
                 p = init_fn(node_generator(seed, i), cfg.num_classes,
                             cfg.image_size)
-            p = tree_map(lambda t: t.to(self.device), p)
+            p = tree_map(lambda t: t.to(self.device, copy=True), p)
             self.params[v] = p
             self.opt[v] = adamw_init(p)
             self.skr[v] = skr_init(cfg.num_classes, cfg.queue_len, self.device)
@@ -161,8 +162,8 @@ class FedEEC(FLAlgorithm):
             def loss_fn(p):
                 return bsbodp.non_leaf_loss(apply_fn(p, bx), by, tq, beta)
         l, g = value_and_grad(loss_fn, params)
-        params, opt = adamw_update(g, opt, params, lr=self.cfg.lr,
-                                   weight_decay=0.0)
+        params, opt = adamw_update_(g, opt, params, lr=self.cfg.lr,
+                                    weight_decay=0.0)
         return params, opt, l
 
     # ------------------------------------------------------------- protocol

@@ -1,5 +1,5 @@
 // Fused distillation loss over the vocabulary axis, forward and backward,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), on fp32 or bf16 logits.
 //
 // Replaces the TPU kernels repro/kernels/distill_loss.py:_fwd_kernel and
 // repro/kernels/distill_loss.py:_bwd_kernel (launched by _distill_loss_fwd
@@ -11,6 +11,13 @@
 //   backward  dz[r, j] = g[r] * (lw * (p_j - [j == y])
 //                                + beta * p_j * ((z_j - logZ - t_j) - KL)),
 //             p_j = exp(z_j - logZ)
+//
+// z and t share one element type, fp32 or bf16, as the TPU kernel takes
+// them: it reads either as fp32 (astype(float32)) and writes dz in z's
+// dtype. So here: every element is widened to fp32 as it is loaded, all
+// arithmetic and the online state are fp32, loss and stats are fp32, and
+// dz is rounded once to z's type. The LM training loss is the bf16 case
+// (beta = 0, t all zeros, V = 128256 for llama3.2-3b).
 //
 // What bounds them on an H100: both are streaming passes with a handful of
 // flops per element, so at the LM shapes (V in the thousands to 128k) the
@@ -27,18 +34,49 @@
 // when V is small, so one 128-thread block serves four rows, and a whole
 // 256-thread block when V is large. The gold logit is read directly at
 // z[y]. The backward is elementwise from the saved (logZ, KL), with a
-// grid-stride loop and coalesced accesses. Both launch on the caller's
-// stream and allocate nothing.
+// grid-stride loop and coalesced accesses. In bf16, where every row starts
+// on a 16-byte boundary (V % 8 == 0 and 16-byte aligned pointers), both
+// kernels move 8 elements per 16-byte load and store; otherwise they take
+// one element at a time. Both launch on the caller's stream and allocate
+// nothing.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kWarp = 32;
+constexpr int kVec = 8;  // bf16 elements per 16-byte access
 
 struct Online {
   float m, l, sz, st;
 };
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* out) {
+  const __nv_bfloat162* two = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < kVec / 2; ++i) {
+    const float2 f = __bfloat1622float2(two[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float* in) {
+  uint4 u;
+  __nv_bfloat162* two = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < kVec / 2; ++i) two[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+  return u;
+}
 
 __device__ __forceinline__ void push(Online& s, float z, float t) {
   if (z > s.m) {
@@ -76,15 +114,13 @@ __device__ __forceinline__ Online warp_merge(Online s) {
 }
 
 // WARP_PER_ROW: each warp owns one row (blockDim.x / 32 rows per block);
-// otherwise the whole block owns row blockIdx.x.
-template <bool WARP_PER_ROW>
-__global__ void distill_fwd_kernel(const float* __restrict__ z,
-                                   const float* __restrict__ t,
-                                   const int* __restrict__ y,
-                                   float* __restrict__ loss,
-                                   float* __restrict__ stats,
-                                   long long rows, int V, float beta,
-                                   float lw) {
+// otherwise the whole block owns row blockIdx.x. VEC (bf16 only): the row
+// is read 8 elements per 16-byte load.
+template <typename T, bool WARP_PER_ROW, bool VEC>
+__global__ void distill_fwd_kernel(const T* __restrict__ z, const T* __restrict__ t,
+                                   const int* __restrict__ y, float* __restrict__ loss,
+                                   float* __restrict__ stats, long long rows, int V,
+                                   float beta, float lw) {
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   long long row;
@@ -99,11 +135,23 @@ __global__ void distill_fwd_kernel(const float* __restrict__ z,
     tid = threadIdx.x;
     nthreads = blockDim.x;
   }
-  const float* zr = z + row * V;
-  const float* tr = t + row * V;
+  const T* zr = z + row * V;
+  const T* tr = t + row * V;
 
   Online s{kNeg, 0.0f, 0.0f, 0.0f};
-  for (int j = tid; j < V; j += nthreads) push(s, zr[j], tr[j]);
+  if constexpr (VEC) {
+    const uint4* zv = reinterpret_cast<const uint4*>(zr);
+    const uint4* tv = reinterpret_cast<const uint4*>(tr);
+    for (int j = tid; j < V / kVec; j += nthreads) {
+      float zf[kVec], tf[kVec];
+      unpack8(zv[j], zf);
+      unpack8(tv[j], tf);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) push(s, zf[i], tf[i]);
+    }
+  } else {
+    for (int j = tid; j < V; j += nthreads) push(s, widen(zr[j]), widen(tr[j]));
+  }
   s = warp_merge(s);
 
   if constexpr (!WARP_PER_ROW) {
@@ -121,7 +169,8 @@ __global__ void distill_fwd_kernel(const float* __restrict__ z,
     const int label = y[row];
     // the wrapper validates labels; an out-of-range one yields NaN, never
     // an out-of-bounds read
-    const float zy = (label >= 0 && label < V) ? zr[label] : __int_as_float(0x7fc00000);
+    const float zy =
+        (label >= 0 && label < V) ? widen(zr[label]) : __int_as_float(0x7fc00000);
     const float ce = logz - zy;
     const float kl = s.sz / s.l - logz - s.st / s.l;
     loss[row] = lw * ce + beta * kl;
@@ -130,25 +179,56 @@ __global__ void distill_fwd_kernel(const float* __restrict__ z,
   }
 }
 
-__global__ void distill_bwd_kernel(const float* __restrict__ z,
-                                   const float* __restrict__ t,
-                                   const int* __restrict__ y,
-                                   const float* __restrict__ stats,
-                                   const float* __restrict__ g,
-                                   float* __restrict__ dz, long long total,
-                                   int V, float beta, float lw) {
+__device__ __forceinline__ float dz_of(float zi, float ti, bool gold, float logz, float kl,
+                                       float g, float beta, float lw) {
+  const float sp = expf(zi - logz);
+  const float d = lw * (sp - (gold ? 1.0f : 0.0f)) + beta * sp * ((zi - logz - ti) - kl);
+  return g * d;
+}
+
+template <typename T>
+__global__ void distill_bwd_kernel(const T* __restrict__ z, const T* __restrict__ t,
+                                   const int* __restrict__ y, const float* __restrict__ stats,
+                                   const float* __restrict__ g, T* __restrict__ dz,
+                                   long long total, int V, float beta, float lw) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += stride) {
     const long long row = i / V;
     const int col = (int)(i - row * V);
+    put(dz + i, dz_of(widen(z[i]), widen(t[i]), col == y[row], stats[2 * row],
+                      stats[2 * row + 1], g[row], beta, lw));
+  }
+}
+
+// bf16 with V % 8 == 0: element i = 8 * iv; the 8 elements lie in one row
+__global__ void distill_bwd_vec_kernel(const __nv_bfloat16* __restrict__ z,
+                                       const __nv_bfloat16* __restrict__ t,
+                                       const int* __restrict__ y,
+                                       const float* __restrict__ stats,
+                                       const float* __restrict__ g,
+                                       __nv_bfloat16* __restrict__ dz, long long total_vec,
+                                       int V, float beta, float lw) {
+  const uint4* zv = reinterpret_cast<const uint4*>(z);
+  const uint4* tv = reinterpret_cast<const uint4*>(t);
+  uint4* dv = reinterpret_cast<uint4*>(dz);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long iv = (long long)blockIdx.x * blockDim.x + threadIdx.x; iv < total_vec;
+       iv += stride) {
+    const long long i = iv * kVec;
+    const long long row = i / V;
+    const int col = (int)(i - row * V);
     const float logz = stats[2 * row];
     const float kl = stats[2 * row + 1];
-    const float zi = z[i];
-    const float sp = expf(zi - logz);
-    const float onehot = col == y[row] ? 1.0f : 0.0f;
-    const float d = lw * (sp - onehot) + beta * sp * ((zi - logz - t[i]) - kl);
-    dz[i] = g[row] * d;
+    const float gr = g[row];
+    const int label = y[row];
+    float zf[kVec], tf[kVec], out[kVec];
+    unpack8(zv[iv], zf);
+    unpack8(tv[iv], tf);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      out[k] = dz_of(zf[k], tf[k], col + k == label, logz, kl, gr, beta, lw);
+    dv[iv] = pack8(out);
   }
 }
 
@@ -157,23 +237,41 @@ int grid_for(long long total, int threads) {
   return (int)(blocks < 4096 ? blocks : 4096);
 }
 
-}  // namespace
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-extern "C" int distill_loss_fwd(const float* z, const float* t, const int* y,
-                                float* loss, float* stats, long long rows,
-                                int V, float beta, float lw,
-                                cudaStream_t stream) {
-  if (rows == 0) return (int)cudaGetLastError();
+template <typename T, bool VEC>
+void fwd(const T* z, const T* t, const int* y, float* loss, float* stats, long long rows,
+         int V, float beta, float lw, cudaStream_t stream) {
   if (V <= 4096) {
     constexpr int threads = 128;  // four rows per block
     const long long rows_per_block = threads / kWarp;
     const int blocks = (int)((rows + rows_per_block - 1) / rows_per_block);
-    distill_fwd_kernel<true><<<blocks, threads, 0, stream>>>(
+    distill_fwd_kernel<T, true, VEC><<<blocks, threads, 0, stream>>>(
         z, t, y, loss, stats, rows, V, beta, lw);
   } else {
-    distill_fwd_kernel<false><<<(int)rows, 256, 0, stream>>>(
+    distill_fwd_kernel<T, false, VEC><<<(int)rows, 256, 0, stream>>>(
         z, t, y, loss, stats, rows, V, beta, lw);
   }
+}
+
+}  // namespace
+
+extern "C" int distill_loss_fwd(const float* z, const float* t, const int* y, float* loss,
+                                float* stats, long long rows, int V, float beta, float lw,
+                                cudaStream_t stream) {
+  if (rows == 0) return (int)cudaGetLastError();
+  fwd<float, false>(z, t, y, loss, stats, rows, V, beta, lw, stream);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int distill_loss_fwd_bf16(const __nv_bfloat16* z, const __nv_bfloat16* t,
+                                     const int* y, float* loss, float* stats, long long rows,
+                                     int V, float beta, float lw, cudaStream_t stream) {
+  if (rows == 0) return (int)cudaGetLastError();
+  if (V % kVec == 0 && aligned16(z) && aligned16(t))
+    fwd<__nv_bfloat16, true>(z, t, y, loss, stats, rows, V, beta, lw, stream);
+  else
+    fwd<__nv_bfloat16, false>(z, t, y, loss, stats, rows, V, beta, lw, stream);
   return (int)cudaGetLastError();
 }
 
@@ -184,7 +282,25 @@ extern "C" int distill_loss_bwd(const float* z, const float* t, const int* y,
   const long long total = rows * (long long)V;
   if (total == 0) return (int)cudaGetLastError();
   constexpr int threads = 256;
-  distill_bwd_kernel<<<grid_for(total, threads), threads, 0, stream>>>(
+  distill_bwd_kernel<float><<<grid_for(total, threads), threads, 0, stream>>>(
       z, t, y, stats, g, dz, total, V, beta, lw);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int distill_loss_bwd_bf16(const __nv_bfloat16* z, const __nv_bfloat16* t,
+                                     const int* y, const float* stats, const float* g,
+                                     __nv_bfloat16* dz, long long rows, int V, float beta,
+                                     float lw, cudaStream_t stream) {
+  const long long total = rows * (long long)V;
+  if (total == 0) return (int)cudaGetLastError();
+  constexpr int threads = 256;
+  if (V % kVec == 0 && aligned16(z) && aligned16(t) && aligned16(dz)) {
+    const long long total_vec = total / kVec;
+    distill_bwd_vec_kernel<<<grid_for(total_vec, threads), threads, 0, stream>>>(
+        z, t, y, stats, g, dz, total_vec, V, beta, lw);
+  } else {
+    distill_bwd_kernel<__nv_bfloat16><<<grid_for(total, threads), threads, 0, stream>>>(
+        z, t, y, stats, g, dz, total, V, beta, lw);
+  }
   return (int)cudaGetLastError();
 }

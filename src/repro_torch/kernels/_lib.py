@@ -34,15 +34,17 @@ NVCC_FLAGS = (
 
 launches: dict[str, int] = {
     "distill_loss_fwd": 0, "distill_loss_bwd": 0, "skr_rectify": 0,
-    "flash_attention": 0, "rwkv6_scan": 0,
+    "flash_attention": 0, "flash_attention_empty_rows": 0, "rwkv6_scan": 0,
 }
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # z, t, y, loss, stats, rows, V, beta, lw, stream
+    # z, t, y, loss, stats, rows, V, beta, lw, stream (z, t fp32; _bf16: bf16)
     "distill_loss_fwd": [_P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
-    # z, t, y, stats, g, dz, rows, V, beta, lw, stream
+    "distill_loss_fwd_bf16": [_P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
+    # z, t, y, stats, g, dz, rows, V, beta, lw, stream (z, t, dz fp32; _bf16: bf16)
     "distill_loss_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
+    "distill_loss_bwd_bf16": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
     # p, label, p_c, do, qbar, out, rows, C, stream
     "skr_rectify": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
     # q, k, v, o, B, Sq, Sk, N, K, H, is_bf16, causal, window, q_offset,
@@ -57,6 +59,8 @@ _SIGNATURES = {
     # k_len, scale, chunk, splits, stream (Sq = 1)
     "flash_attention_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
                                _I, _F, _I, _I, _P],
+    # v, o, B, Sq, Sk, N, K, H, is_bf16, causal, window, q_offset, stream
+    "flash_attention_empty_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
     # r, k, v, w, u, s0, y, sT, B, T, H, hd, stream
     "rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -149,6 +153,17 @@ def launch(name: str, device: torch.device, *args, count_as: str | None = None) 
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
     launches[count_as or name] += 1
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record a call to a kernel that has no
+    backward (a launch through ``data_ptr`` leaves its output with no
+    ``grad_fn``, so the gradient would be dropped without a word)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires grad; "
+            "call it under torch.no_grad() (training attention runs "
+            "repro_torch.models.attention.mha)")
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -14,8 +14,11 @@ batched ``(B, N, V)``; ``distill_loss`` is the 2-D B=1 wrapper. The op is a
     dz = g * [lw * (softmax(z) - onehot_y) + beta * softmax(z) * ((z - logZ - t) - KL)].
 
 Gradients flow to the logits only (the teacher is a constant under online
-distillation). On a CUDA tensor the wrapper launches the kernels or raises;
-on a CPU tensor it computes the plain version in ``ref.py``.
+distillation). z and t are fp32 or bf16, one dtype for both, as the TPU
+kernel takes them: the kernels widen every element to fp32, compute and
+keep loss and stats in fp32, and write dz in z's dtype (bf16 is the LM
+training loss's case). On a CUDA tensor the wrapper launches the kernels or
+raises; on a CPU tensor it computes the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -24,15 +27,19 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ref as R
 
+# entry-point suffix per logits dtype; both count as distill_loss_fwd / _bwd launches
+_ENTRY = {torch.float32: "", torch.bfloat16: "_bf16"}
+
 
 def _check(z, t, y):
     if z.dim() != 3 or t.shape != z.shape or y.shape != z.shape[:2]:
         raise ValueError(
             f"distill_loss: want z, t (B, N, V) and y (B, N); got "
             f"{tuple(z.shape)}, {tuple(t.shape)}, {tuple(y.shape)}")
-    if z.dtype != torch.float32 or t.dtype != torch.float32:
+    if z.dtype not in _ENTRY or t.dtype != z.dtype:
         raise TypeError(
-            f"distill_loss: the kernel takes fp32 z and t, got {z.dtype}, {t.dtype}")
+            f"distill_loss: the kernel takes fp32 or bf16 z and t of one dtype, got "
+            f"{z.dtype}, {t.dtype}")
     if z.shape[-1] == 0:
         raise ValueError("distill_loss: empty vocabulary axis")
     if not (z.device == t.device == y.device):
@@ -44,9 +51,9 @@ def _fwd_cuda(z, t, y32, beta, label_weight):
     B, N, V = z.shape
     loss = torch.empty((B, N), dtype=torch.float32, device=z.device)
     stats = torch.empty((B, N, 2), dtype=torch.float32, device=z.device)
-    _lib.launch("distill_loss_fwd", z.device, z.data_ptr(), t.data_ptr(),
-                y32.data_ptr(), loss.data_ptr(), stats.data_ptr(), B * N, V,
-                float(beta), float(label_weight))
+    _lib.launch("distill_loss_fwd" + _ENTRY[z.dtype], z.device, z.data_ptr(),
+                t.data_ptr(), y32.data_ptr(), loss.data_ptr(), stats.data_ptr(), B * N,
+                V, float(beta), float(label_weight), count_as="distill_loss_fwd")
     return loss, stats
 
 
@@ -54,9 +61,10 @@ def _bwd_cuda(z, t, y32, stats, g, beta, label_weight):
     _lib.check_cuda("distill_loss", z, t, y32, stats, g)
     B, N, V = z.shape
     dz = torch.empty_like(z)
-    _lib.launch("distill_loss_bwd", z.device, z.data_ptr(), t.data_ptr(),
-                y32.data_ptr(), stats.data_ptr(), g.data_ptr(), dz.data_ptr(),
-                B * N, V, float(beta), float(label_weight))
+    _lib.launch("distill_loss_bwd" + _ENTRY[z.dtype], z.device, z.data_ptr(),
+                t.data_ptr(), y32.data_ptr(), stats.data_ptr(), g.data_ptr(),
+                dz.data_ptr(), B * N, V, float(beta), float(label_weight),
+                count_as="distill_loss_bwd")
     return dz
 
 
@@ -83,8 +91,7 @@ class DistillLoss(torch.autograd.Function):
             dz = _bwd_cuda(z, t, y, stats, g.contiguous(), ctx.beta,
                            ctx.label_weight)
         else:
-            dz = g[..., None] * R.distill_loss_grad_ref(
-                z, y, t, ctx.beta, ctx.label_weight)
+            dz = R.distill_loss_grad_ref(z, y, t, ctx.beta, ctx.label_weight, g=g)
         return dz, None, None, None, None
 
 
@@ -92,8 +99,8 @@ def distill_loss_batched(logits, teacher_logprobs, labels, beta=1.0,
                          label_weight=1.0):
     """Per-row fused CE + beta*KL over stacked pairs.
 
-    logits/teacher_logprobs: (B, N, V) fp32; labels: (B, N) in [0, V).
-    Returns (B, N) losses from one forward launch (and one backward launch
+    logits/teacher_logprobs: (B, N, V), both fp32 or both bf16; labels:
+    (B, N) in [0, V). Returns (B, N) fp32 losses from one forward launch (and one backward launch
     under autograd). Differentiable w.r.t. ``logits`` only."""
     return DistillLoss.apply(logits, teacher_logprobs, labels, beta,
                              label_weight)

@@ -22,8 +22,22 @@ the plain version in ``ref.py``:
 - ``"simt"``, ``repro_torch/csrc/flash_attention.cu``: the rest of prefill
   (fp32, head_dim 32 or 256), on the fp32 cores.
 
-``_lib.launches["flash_attention"]`` counts the calls that launch a kernel;
-``variant_launches`` counts them per variant.
+A query row whose visible key range is empty (a window that ends before
+the keys do, ROADMAP C8) gets the mean of v over all Sk keys, as the plain
+version and the reference's jnp ``mha`` give (a softmax over Sk equal
+masked scores); the Pallas kernel writes 0 there. ``_has_empty_rows``
+finds such calls from ints alone, and the wrapper then launches
+``csrc/flash_attention_empty_rows.cu`` after the picked kernel, which
+overwrites those rows.
+
+The kernels have no backward (nor has the TPU kernel): on a CUDA tensor the
+wrapper raises if grad mode is on and an input requires grad, rather than
+return an output with no ``grad_fn``.
+
+``_lib.launches["flash_attention"]`` counts the calls that launch a kernel,
+``variant_launches`` counts them per variant, and
+``_lib.launches["flash_attention_empty_rows"]`` the launches of the
+empty-row kernel.
 """
 from __future__ import annotations
 
@@ -76,6 +90,19 @@ def _decode_plan(B: int, K: int, k_len: int, q_offset: int, causal: bool,
     return j_lo, chunk, -(-n // chunk)
 
 
+def _has_empty_rows(Sq: int, Sk: int, q_offset: int, causal: bool, window: int) -> bool:
+    """Whether a query row at q_offset + i, i < Sq, sees no key. The rows
+    that see some key are those with qpos >= 0 (causal) and qpos <= Sk +
+    window - 2 (window > 0): one interval, so an empty row exists iff the
+    first or the last row is empty."""
+    def empty(qpos):
+        j_hi = min(Sk - 1, qpos) if causal else Sk - 1
+        j_lo = max(0, qpos - window + 1) if window > 0 else 0
+        return j_lo > j_hi
+
+    return Sq > 0 and (empty(q_offset) or empty(q_offset + Sq - 1))
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
@@ -100,6 +127,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     if not q.is_cuda:
         return R.flash_attention_ref(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
+    _lib.refuse_grad("flash_attention", q, k, v)
     B, Sq, N, H = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if H not in HEAD_DIMS:
@@ -127,4 +155,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
         _lib.launch("flash_attention", q.device, *ptrs, B, Sq, Sk, N, K, H,
                     int(q.dtype == torch.bfloat16), *mask)
     variant_launches[variant] += 1
+    if _has_empty_rows(Sq, Sk, int(q_offset), bool(causal), int(window)):
+        _lib.launch("flash_attention_empty_rows", q.device, v.data_ptr(), out.data_ptr(), B,
+                    Sq, Sk, N, K, H, int(q.dtype == torch.bfloat16), int(bool(causal)),
+                    int(window), int(q_offset))
     return out

@@ -5,9 +5,9 @@ On a CUDA tensor each op launches its hand-written kernel (built at first
 use) or raises; on a CPU tensor it runs the plain version in ``ref.py``.
 ``launches`` counts kernel launches by name (``distill_loss_fwd``,
 ``distill_loss_bwd``, ``skr_rectify``, ``flash_attention``,
-``rwkv6_scan``); ``reset_launches`` zeroes it, and also
-``kernels.flash_attention.variant_launches``, flash_attention's launches
-per kernel (``sm90``, ``simt``, ``decode``).
+``flash_attention_empty_rows``, ``rwkv6_scan``); ``reset_launches`` zeroes
+it, and also ``kernels.flash_attention.variant_launches``,
+flash_attention's launches per kernel (``sm90``, ``simt``, ``decode``).
 """
 from __future__ import annotations
 

@@ -44,10 +44,12 @@ def distill_loss_ref(logits, labels, teacher_logprobs, beta, label_weight=1.0):
     """Per-row: CE(softmax(z), y) + beta * KL(softmax(z) || exp(tlq)).
 
     logits: (..., V) student logits; labels (...) int; teacher_logprobs:
-    (..., V) log of the (possibly rectified) teacher probs. Returns per-row
-    losses (...).
+    (..., V) log of the (possibly rectified) teacher probs, in logits'
+    dtype. Both are read as fp32, as the TPU kernel reads them. Returns fp32
+    per-row losses (...).
     """
     logits = logits.to(torch.float32)
+    teacher_logprobs = teacher_logprobs.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1, keepdim=True)
     logp = logits - logz
     ce = -logp.gather(-1, labels.long()[..., None])[..., 0]
@@ -57,9 +59,13 @@ def distill_loss_ref(logits, labels, teacher_logprobs, beta, label_weight=1.0):
 
 
 def distill_loss_grad_ref(logits, labels, teacher_logprobs, beta,
-                          label_weight=1.0):
-    """d(per-row loss)/d logits — the reference for the backward kernel."""
+                          label_weight=1.0, *, g=None):
+    """d(per-row loss)/d logits, times the per-row cotangent ``g`` (...)
+    when given — the reference for the backward kernel. Computed in fp32 and
+    rounded once to logits' dtype, as the TPU kernel writes dz."""
+    dtype = logits.dtype
     logits = logits.to(torch.float32)
+    teacher_logprobs = teacher_logprobs.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1, keepdim=True)
     logp = logits - logz
     sp = torch.exp(logp)
@@ -68,10 +74,38 @@ def distill_loss_grad_ref(logits, labels, teacher_logprobs, beta,
     kl = torch.sum(sp * (logp - teacher_logprobs), dim=-1, keepdim=True)
     dce = sp - onehot
     dkl = sp * ((logp - teacher_logprobs) - kl)
-    return label_weight * dce + beta * dkl
+    dz = label_weight * dce + beta * dkl
+    if g is not None:
+        dz = g.to(torch.float32)[..., None] * dz
+    return dz.to(dtype)
 
 
 distill_loss_batched_ref = distill_loss_ref
+
+
+@torch.no_grad()
+def distill_loss_grad_bf16_bound(want, logits, teacher_logprobs, beta, *, g=None):
+    """How far a bf16 dz may lie from ``want`` (the plain version's dz) when
+    both were computed in fp32 and rounded once: one bf16 ulp of |want|
+    (2^-7 |want|), and nothing more at beta = 0, where dz = g lw (p - onehot)
+    and no two terms cancel. At beta > 0, beta's term can cancel lw p, and
+    the bracket (logp - t) - KL then carries the fp32 errors of logZ and KL
+    (sums over V in other orders), which the bound allows as 2^-16 of the
+    terms they come from: g beta p (|logZ| + |logp - t| + |KL|) per element.
+    Returns an fp32 tensor of want's shape."""
+    bound = 2.0**-7 * want.to(torch.float32).abs()
+    if not beta:
+        return bound
+    z = logits.to(torch.float32)
+    t = teacher_logprobs.to(torch.float32)
+    logz = torch.logsumexp(z, dim=-1, keepdim=True)
+    logp = z - logz
+    sp = torch.exp(logp)
+    kl = torch.sum(sp * (logp - t), dim=-1, keepdim=True)
+    slack = 2.0**-16 * beta * sp * (logz.abs() + (logp - t).abs() + kl.abs())
+    if g is not None:
+        slack = g.to(torch.float32).abs()[..., None] * slack
+    return bound + slack
 
 
 def softmax_xent_ref(logits, labels):

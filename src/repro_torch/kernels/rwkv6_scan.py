@@ -10,7 +10,9 @@ r, k, v, w (B, T, H, hd) are cast to fp32, as the reference does; u (H, hd)
 and s0 (B, H, hd, hd) too. Returns y (B, T, H, hd) and the final state
 (B, H, hd, hd), both fp32. Any T, with no padding. On a CUDA tensor the
 wrapper launches the kernel or raises; on a CPU tensor it computes the plain
-version in ``ref.py``.
+version in ``ref.py``. The kernel has no backward (nor has the TPU kernel),
+so on a CUDA tensor the wrapper raises if grad mode is on and an input
+requires grad, rather than return outputs with no ``grad_fn``.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ def rwkv6_scan(r, k, v, w, u, s0):
         raise ValueError("rwkv6_scan: inputs must share a device")
     if not r.is_cuda:
         return R.rwkv6_scan_ref(r, k, v, w, u, s0)
+    _lib.refuse_grad("rwkv6_scan", r, k, v, w, u, s0)
     if hd not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan: the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     r, k, v, w, u, s0 = (t.to(torch.float32) for t in (r, k, v, w, u, s0))

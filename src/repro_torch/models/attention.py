@@ -1,17 +1,22 @@
-"""Attention: GQA (full / sliding-window / causal) with a KV cache.
+"""Attention: GQA (full / sliding-window / causal, chunked online-softmax)
+with a KV cache.
 
 Counterpart of the GQA part of ``repro.models.attention``; MLA and cross
-attention wait (ROADMAP A4).
+attention wait (ROADMAP A6.3).
 
 Conventions
 -----------
 * q/k/v layout: (batch, seq, heads, head_dim).
 * KV caches: dict(k=(B, S, K, H), v=(B, S, K, H)).
-* ``attn_forward`` computes attention with ``ops.flash_attention``: the
-  hand-written kernel on the card, its plain version
-  (``kernels.ref.flash_attention_ref``) on the CPU. The reference's jnp
-  ``mha`` has no counterpart here; the tests hold ``ops.flash_attention``
-  to it directly.
+* ``mha`` is the reference's jnp attention in torch ops (einsum, softmax),
+  differentiated by autograd, as the reference's is by XLA. It is the
+  training path: ``attn_forward(train=True)``, which ``forward_train``
+  asks for through ``apply_block``.
+* Prefill and decode (``train=False``) compute attention with
+  ``ops.flash_attention``: the hand-written kernel on the card, its plain
+  version (``kernels.ref.flash_attention_ref``) on the CPU. The kernels
+  have no backward (nor have the TPU kernels), and their wrappers raise on
+  the card if an input requires grad.
 """
 from __future__ import annotations
 
@@ -42,14 +47,77 @@ def _split_heads(x, n, hd):
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
+NEG_INF = -1e30
+
+
+def mha(q, k, v, *, q_positions, k_positions, causal: bool = True, window: int = 0,
+        chunk: int = 0, valid_len=None):
+    """Grouped-query attention with absolute-position masking.
+
+    q: (B, Sq, N, H); k/v: (B, Sk, K, Hv). N % K == 0. Scores, softmax and
+    output are fp32; the result has q's dtype.
+    window > 0 limits attention to the trailing `window` positions.
+    chunk > 0 (and Sk > chunk) runs an online softmax over KV chunks of
+    ``chunk`` keys (Sk % chunk == 0), the reference's ``lax.scan`` as a loop.
+    valid_len: optional scalar — kv positions >= valid_len are masked.
+    """
+    B, Sq, N, H = q.shape
+    K = k.shape[2]
+    G = N // K
+    scale = H**-0.5
+    qf = (q.to(torch.float32) * scale).reshape(B, Sq, K, G, H)
+
+    def mask_for(kpos):
+        # (Sq, Ck) boolean validity mask from absolute positions
+        m = torch.ones((Sq, kpos.shape[0]), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= q_positions[:, None] >= kpos[None, :]
+        if window:
+            m &= kpos[None, :] > (q_positions[:, None] - window)
+        if valid_len is not None:
+            m &= kpos[None, :] < valid_len
+        return m
+
+    if not chunk or k.shape[1] <= chunk:
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(torch.float32))
+        s = torch.where(mask_for(k_positions), s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+        return o.reshape(B, Sq, N, v.shape[-1]).to(q.dtype)
+
+    # --- online softmax over KV chunks (flash-style) ---------------------
+    Sk = k.shape[1]
+    assert Sk % chunk == 0, (Sk, chunk)
+    m_i = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l_i = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, Sq, v.shape[-1]), dtype=torch.float32, device=q.device)
+    for c in range(Sk // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, k[:, sl].to(torch.float32))
+        s = torch.where(mask_for(k_positions[sl]), s, NEG_INF)
+        m_new = torch.maximum(m_i, s.amax(dim=-1))
+        alpha = torch.exp(m_i - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_i = l_i * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p, v[:, sl].to(torch.float32))
+        m_i = m_new
+    o = acc / torch.clamp_min(l_i, 1e-30)[..., None]
+    o = o.reshape(B, K * G, Sq, -1).transpose(1, 2)
+    return o.to(q.dtype)
+
+
 def attn_forward(cfg, params, x, *, positions, theta: float, window: int = 0,
                  cache: Optional[dict] = None, cache_pos: Optional[int] = None,
-                 kv_mult: int = 1, return_kv: bool = False):
+                 chunk: int = 0, kv_mult: int = 1, return_kv: bool = False,
+                 train: bool = False):
     """Self-attention forward.
 
     Modes:
-      * train/prefill: cache is None; full-sequence causal attention.
-        return_kv=True additionally returns the (k, v) to seed a cache.
+      * train/prefill: cache is None; full-sequence causal attention, by
+        ``mha`` (with ``chunk``) when ``train``, else by
+        ``ops.flash_attention``. return_kv=True additionally returns the
+        (k, v) to seed a cache.
       * decode: cache holds (B, S, K, H); x is (B, 1, d); cache_pos is the
         write/attend position, a Python int, so nothing is read back from
         the card. The new k/v are written into the cache in place (the same
@@ -73,8 +141,12 @@ def attn_forward(cfg, params, x, *, positions, theta: float, window: int = 0,
     k = apply_rope(k, sin, cos)
 
     if cache is None:
-        o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=True, window=window, q_offset=0)
+        if train:
+            o = mha(q, k, v, q_positions=positions, k_positions=positions, causal=True,
+                    window=window, chunk=chunk)
+        else:
+            o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=True, window=window, q_offset=0)
         y = mm(o.reshape(B, S, n * hd), params["wo"])
         if return_kv:
             return y, {"k": k, "v": v}

@@ -74,7 +74,7 @@ def pretrain_autoencoder(seed: int, images, *, image: int, embed_dim: int = 32,
     ``device``. The init is drawn from a CPU generator seeded with ``seed``;
     the batch indices from a generator on ``device`` seeded with 1, so the
     loop never waits on the host."""
-    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.optim import adamw_init, adamw_update_
     from repro_torch.tree import tree_map, value_and_grad
 
     dev = torch.device(device)
@@ -94,5 +94,5 @@ def pretrain_autoencoder(seed: int, images, *, image: int, embed_dim: int = 32,
         idx = torch.randint(0, n, (min(batch, n),), generator=batch_gen,
                             device=dev)
         _, g = value_and_grad(loss_fn, params, x[idx])
-        params, opt = adamw_update(g, opt, params, lr=lr, weight_decay=0.0)
+        params, opt = adamw_update_(g, opt, params, lr=lr, weight_decay=0.0)
     return params

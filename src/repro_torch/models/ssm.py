@@ -3,7 +3,7 @@
 Counterpart of the RWKV6 part of ``repro.models.ssm``. The recurrence of
 ``rwkv6_time_mix`` is one ``ops.rwkv6_scan`` call: the hand-written kernel
 on the card, its plain version on the CPU. ``rwkv6_time_mix_chunked`` (a
-training lever) and Mamba2 wait (ROADMAP A4).
+training lever) and Mamba2 wait (ROADMAP A6.2, A6.3).
 
 Layouts: x (B, S, d). Recurrent state:
   {"tm_x": (B, d), "cm_x": (B, d), "s": (B, H, hd, hd) fp32}

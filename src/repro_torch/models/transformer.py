@@ -1,20 +1,25 @@
-"""Transformer assembly for the LM serving path.
+"""Transformer assembly for the LM serving and training paths.
 
 Counterpart of ``repro.models.transformer`` for the block kinds the port
 runs: ``attn`` (GQA + MLP) and ``rwkv6`` (time-mix + channel-mix). An
 ``ArchConfig`` describes the model as ``head_blocks + pattern*n_repeats +
 tail_blocks``. The repeated unit keeps the reference's stacked layout (each
 ``params["unit"]`` leaf has a leading ``n_repeats`` axis), and
-``_backbone`` loops over the repeats where the reference scans.
+``_backbone`` loops over the repeats where the reference scans; with
+``opts.remat`` the training forward recomputes each repeat in the backward
+pass (``torch.utils.checkpoint``), where the reference wraps the scanned
+unit in ``jax.checkpoint``.
 
 Every other block kind (``local_attn``, ``mla``, ``moe``, ``mla_moe``,
 ``mamba2``, ``shared_attn``), encoder-decoder models, media frontends and
-learned position embeddings raise ``NotImplementedError``; the training
-entry points (``forward_train``, ``lm_loss_chunked``) are not here yet
-(ROADMAP A4).
+learned position embeddings raise ``NotImplementedError`` (ROADMAP A6.3).
+``forward_train`` runs ``attn`` models only: training an ``rwkv6`` model
+waits for the chunked time mix (ROADMAP A6.2), since ``rwkv6_scan`` has no
+backward.
 
 Entry points:
   init_params(cfg, opts, seed=, device=)      -> param tree
+  forward_train(cfg, opts, params, batch)     -> (loss, {"ce", "lb_loss", "router_z"})
   forward_prefill(cfg, opts, params, batch)   -> last-position logits
   forward_decode(cfg, opts, params, batch, states) -> (logits, states)
   init_cache(cfg, opts, B, S, dtype, device=) -> decode state tree
@@ -31,7 +36,10 @@ from typing import Any
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
@@ -44,7 +52,7 @@ from repro_torch.models.layers import (
     mm,
     padded_vocab,
 )
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PORTED_KINDS = ("attn", "rwkv6")
 
@@ -53,16 +61,21 @@ PORTED_KINDS = ("attn", "rwkv6")
 class ModelOpts:
     """Build/runtime options orthogonal to the architecture definition.
 
-    Only the reference's fields that the ported code reads; each other
-    field comes with the code that reads it (ROADMAP A4).
+    Only the reference's fields that the ported code reads, with the
+    reference's defaults; each other field comes with the code that reads
+    it (ROADMAP A6).
     """
 
     kv_mult: int = 1  # KV-head replication for tensor parallelism
+    attn_chunk: int = 0  # online-softmax KV chunk of the training attention (0 = one block)
+    remat: bool = True  # activation checkpointing around each repeat (training)
+    loss_chunk: int = 512  # sequence chunk for the LM loss (avoids (B,S,V))
+    use_kernels: bool = False  # LM loss through ops.fused_softmax_xent
 
 
-def _unported(what: str) -> NotImplementedError:
+def _unported(what: str, item: str = "A6.3") -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A4); the port runs "
+        f"{what} is not ported to repro_torch yet (ROADMAP {item}); the port runs "
         f"block kinds {PORTED_KINDS}")
 
 
@@ -117,14 +130,17 @@ def init_block_state(cfg, kind: str, opts: ModelOpts, batch: int, seq: int, dtyp
 
 
 def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
-                cache_pos=None):
-    """Returns (x, new_state). state is None in prefill (full-sequence) mode."""
+                cache_pos=None, train: bool = False):
+    """Returns (x, new_state). state is None in prefill and training
+    (full-sequence) mode; ``train`` selects the training attention
+    (``attention.mha`` under autograd) over the forward-only kernel."""
     decode = state is not None and cache_pos is not None
     if kind == "attn":
         h = apply_norm(cfg, p["ln1"], x)
         y, new_state = A.attn_forward(
             cfg, p["attn"], h, positions=positions, theta=cfg.rope_theta, window=0,
-            cache=state if decode else None, cache_pos=cache_pos, kv_mult=opts.kv_mult)
+            cache=state if decode else None, cache_pos=cache_pos, chunk=opts.attn_chunk,
+            kv_mult=opts.kv_mult, train=train)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
         x = x + apply_mlp(cfg, p["mlp"], h)
@@ -198,29 +214,47 @@ def _write_state(dst: dict, new: dict) -> None:
             dst[k].copy_(t)
 
 
-def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None):
+def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
+              train: bool = False):
     """Run head blocks, the repeated unit, and tail blocks.
 
-    states: None (prefill) or {"head": [..], "unit": stacked, "tail": [..]},
-    updated in place. Returns the final-normed hidden states."""
+    states: None (prefill, training) or {"head": [..], "unit": stacked,
+    "tail": [..]}, updated in place. ``train``: the training forward, whose
+    repeats are checkpointed when ``opts.remat``. Returns the final-normed
+    hidden states."""
     for i, blk in enumerate(cfg.head_blocks):
         st = states["head"][i] if states else None
         x, ns = apply_block(cfg, opts, blk.kind, params["head_blocks"][i], x,
-                            positions=positions, state=st, cache_pos=cache_pos)
+                            positions=positions, state=st, cache_pos=cache_pos, train=train)
         if ns is not None:
             _write_state(st, ns)
-    for r in range(cfg.n_repeats):
+
+    # each stacked leaf split into its repeats once: under autograd the
+    # backward of one unbind is one stack, where indexing t[r] per repeat
+    # would add a zero-filled gradient of the whole stack per repeat
+    split = [t.unbind(0) for t in tree_leaves(params["unit"])]
+    unit = [tree_unflatten(params["unit"], [ts[r] for ts in split])
+            for r in range(cfg.n_repeats)]
+
+    def repeat(x, r):
         for i, blk in enumerate(cfg.pattern):
-            p = tree_map(lambda t: t[r], params["unit"][f"blk{i}"])
+            p = unit[r][f"blk{i}"]
             st = tree_map(lambda t: t[r], states["unit"][f"blk{i}"]) if states else None
             x, ns = apply_block(cfg, opts, blk.kind, p, x, positions=positions, state=st,
-                                cache_pos=cache_pos)
+                                cache_pos=cache_pos, train=train)
             if ns is not None:
                 _write_state(st, ns)
+        return x
+
+    for r in range(cfg.n_repeats):
+        if train and opts.remat:
+            x = checkpoint(repeat, x, r, use_reentrant=False)
+        else:
+            x = repeat(x, r)
     for i, blk in enumerate(cfg.tail_blocks):
         st = states["tail"][i] if states else None
         x, ns = apply_block(cfg, opts, blk.kind, params["tail_blocks"][i], x,
-                            positions=positions, state=st, cache_pos=cache_pos)
+                            positions=positions, state=st, cache_pos=cache_pos, train=train)
         if ns is not None:
             _write_state(st, ns)
     return apply_norm(cfg, params["final_norm"], x)
@@ -235,8 +269,66 @@ def _embed_tokens(cfg, params, tokens):
 
 
 # ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def lm_loss_chunked(cfg, opts, h, w_vocab, labels):
+    """Next-token CE without materializing (B, S, V). h: (B, S, d) hidden
+    states (already shifted alignment: predict labels[t] from h[t]).
+
+    The sequence goes in chunks of ``opts.loss_chunk`` (cut down to a
+    divisor of S), a loop where the reference scans. ``opts.use_kernels``:
+    logits in the compute dtype through ``ops.fused_softmax_xent`` (the
+    ``distill_loss`` kernels on the card, forward and backward, one launch
+    each per chunk); otherwise fp32 logits, logsumexp minus the gold logit.
+    Returns the mean over B * S tokens, fp32."""
+    B, Sq, d = h.shape
+    chunk = min(opts.loss_chunk, Sq)
+    while Sq % chunk:
+        chunk -= 1
+    hc = h.reshape(B, Sq // chunk, chunk, d)
+    lc = labels.reshape(B, Sq // chunk, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(Sq // chunk):
+        h_i, l_i = hc[:, i], lc[:, i]
+        logits = mm(h_i, w_vocab.T.to(h_i.dtype))
+        if opts.use_kernels:
+            logits = mask_padded_logits(logits, cfg.vocab_size)
+            loss = ops.fused_softmax_xent(logits.reshape(-1, logits.shape[-1]),
+                                          l_i.reshape(-1))
+            total = total + loss.sum()
+        else:
+            logits = mask_padded_logits(logits.to(torch.float32), cfg.vocab_size)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, l_i.long()[..., None])[..., 0]
+            total = total + (logz - gold).sum()
+    return total / (B * Sq)
+
+
+# ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+
+def forward_train(cfg, opts, params, batch):
+    """batch: tokens (B, S) int, labels (B, S) int. Returns the scalar
+    training loss and {"ce", "lb_loss", "router_z"} (the router terms are 0:
+    no ported block has a router). Attention runs ``attention.mha`` under
+    autograd, checkpointed per repeat with ``opts.remat``."""
+    _check_ported(cfg)
+    kinds = sorted({b.kind for b in cfg.blocks} - {"attn"})
+    if kinds:
+        raise _unported(f"training block kinds {kinds}", "A6.2, A6.3")
+    tokens = batch["tokens"]
+    x = _embed_tokens(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    h = _backbone(cfg, opts, params, x, positions=positions, train=True)
+    loss = lm_loss_chunked(cfg, opts, h, _logits_matrix(cfg, params), batch["labels"])
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"lb_loss": zero, "router_z": zero}
+    total = loss + cfg.router_aux_weight * (aux["lb_loss"] + 0.1 * aux["router_z"])
+    return total, {"ce": loss, **aux}
 
 
 def forward_prefill(cfg, opts, params, batch):

@@ -1,2 +1,7 @@
-"""Functional optimizers over parameter trees of tensors."""
-from repro_torch.optim.optimizers import adamw_init, adamw_update  # noqa: F401
+"""Functional optimizers and LR schedules over parameter trees of tensors."""
+from repro_torch.optim.optimizers import (  # noqa: F401
+    adamw_init,
+    adamw_update_,
+    clip_by_global_norm,
+)
+from repro_torch.optim.schedule import cosine_schedule, linear_warmup_cosine  # noqa: F401

@@ -1,20 +1,40 @@
-"""AdamW as a pure function over parameter trees.
+"""AdamW and global-norm clipping over parameter trees.
 
-Counterpart of ``repro.optim.optimizers.adamw_*``, matched term for term:
-b2 = 0.95 by default, eps added outside the square root, fp32 moments
-whatever the parameter dtype, an integer step counter, and no weight decay
-on parameters with fewer than two dimensions (norm scales, biases).
-``torch.optim.AdamW`` differs on each of these, so the port does not use it.
+Counterpart of ``repro.optim.optimizers.adamw_*`` and
+``clip_by_global_norm``, matched term for term: b2 = 0.95 by default, eps
+added outside the square root, fp32 moments whatever the parameter dtype,
+an integer step counter, and no weight decay on parameters with fewer than
+two dimensions (norm scales, biases). ``torch.optim.AdamW`` differs on each
+of these, so the port does not use it.
 
 API:
   state = adamw_init(params)
-  new_params, new_state = adamw_update(grads, state, params, lr=..., ...)
+  params, state = adamw_update_(grads, state, params, lr=..., ...)  # in place
+  grads, norm = clip_by_global_norm(grads, max_norm)
+
+The reference's ``adamw_update`` is pure; ``adamw_update_`` computes its
+update with the same fp32 operations, leaf by leaf, into ``params`` and
+``state`` themselves: at llama3.2-3b's size the fp32 moments alone are 8
+bytes a parameter (25.7 GB), and a second copy of them would not fit on an
+NVIDIA H100 80GB HBM3 beside the weights, gradients and activations
+(``launch.steps``). Its callers (the LM train step, FedEEC's student steps,
+the autoencoder's pre-training) keep no other reference to the old trees.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale ``grads`` so that their global L2 norm is at most ``max_norm``.
+    The norm is taken in fp32 over the leaves in tree order; each leaf is
+    scaled in fp32 and cast back to its dtype. Returns (grads, norm)."""
+    leaves = tree_leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
+    scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gn
 
 
 def adamw_init(params):
@@ -28,7 +48,7 @@ def adamw_init(params):
 
 
 @torch.no_grad()
-def adamw_update(
+def adamw_update_(
     grads,
     state,
     params,
@@ -39,29 +59,29 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
 ):
+    """One AdamW step written into the leaves of ``params``, ``state["m"]``
+    and ``state["v"]`` one leaf at a time, so no second copy of the moments
+    or the parameters is ever held. The fp32 expressions are the
+    reference's, term for term. Returns (params, state), the same objects,
+    with ``state["step"]`` advanced (a new tensor)."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - b1**t
     bc2 = 1.0 - b2**t
-
-    def upd(p, g, m, v):
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["m"]), tree_leaves(state["v"])):
         g = g.to(torch.float32)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * torch.square(g)
-        mhat = m / bc1
-        vhat = v / bc2
-        delta = mhat / (torch.sqrt(vhat) + eps)
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * torch.square(g))
+        del g
+        delta = m / bc1
+        delta.div_(torch.sqrt_(v / bc2).add_(eps))
         wd = weight_decay if p.ndim >= 2 else 0.0  # no decay on norms/biases
         pf = p.to(torch.float32)
-        newp = pf - lr * (delta + wd * pf)
-        return newp.to(p.dtype), m, v
-
-    out = [
-        upd(*leaves) for leaves in zip(
-            tree_leaves(params), tree_leaves(grads),
-            tree_leaves(state["m"]), tree_leaves(state["v"]))
-    ]
-    new_params = tree_unflatten(params, [o[0] for o in out])
-    new_m = tree_unflatten(params, [o[1] for o in out])
-    new_v = tree_unflatten(params, [o[2] for o in out])
-    return new_params, {"step": step, "m": new_m, "v": new_v}
+        delta.add_(wd * pf).mul_(lr)
+        if pf is p:
+            p.sub_(delta)
+        else:
+            p.copy_(pf.sub_(delta))
+    state["step"] = step
+    return params, state

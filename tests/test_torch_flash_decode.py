@@ -8,7 +8,9 @@ The emulation repeats what the kernel does: q scaled by scale * log2 e in
 fp32; per (batch, kv head, split) the scores of the split's keys, their
 maximum m_s, l_s = sum 2^(s - m_s) and acc_s = sum 2^(s - m_s) v; then, in
 split order, m* = max m_s, l = sum l_s 2^(m_s - m*) and o = sum acc_s
-2^(m_s - m*) / max(l, 1e-30), rounded once to the output dtype. Inside a
+2^(m_s - m*) / max(l, 1e-30), rounded once to the output dtype; a query
+that sees no key gets the mean of v, which the wrapper's empty-row kernel
+(``csrc/flash_attention_empty_rows.cu``) writes after it. Inside a
 split the kernel sums in another order (lane groups and warps merged at the
 end), which moves results by fp32 noise only. It lives here and is never on
 the port's path; on the card the kernel itself is held to the plain version
@@ -23,6 +25,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.models.attention import mha as jax_mha
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ref as R
 
 BF16_ULP = 2.0**-7  # one bf16 ulp of x is at most 2^-7 |x|
 LOG2E = 1.0 / math.log(2.0)
@@ -95,6 +98,9 @@ def _emulate_decode(q, k, v, *, causal=True, window=0, q_offset=0):
                 l = l + ls_ * f
                 acc = acc + a * f[:, None]
             out[b, 0, rows] = acc / torch.clamp_min(l, 1e-30)[:, None]
+            if FA._has_empty_rows(1, Sk, q_offset, causal, window):
+                # the empty-row kernel the wrapper launches after this one
+                out[b, 0, rows] = v[b, :, kvh].float().sum(0) / Sk
     return out
 
 
@@ -161,17 +167,47 @@ def test_emulation_matches_mha_valid_len(B, Sk, N, K, H, causal, window, q_offse
     assert ((got - torch.from_numpy(np.array(want))).abs() <= 3e-5).all()
 
 
-def test_no_visible_key_gives_zero_as_pallas():
-    """A window that ends before the cache does (qpos - window + 1 > k_len -
-    1) leaves no visible key: the plan has no split, the kernel's merge
-    writes acc / max(l, 1e-30) = 0, and so does the Pallas kernel, which
-    reaches no kv block. (The plain version and jnp ``mha`` average every v
-    there instead; no ported model reaches such a row.)"""
+def test_no_visible_key_averages_v_as_the_oracle_though_pallas_writes_zero():
+    """ROADMAP C8: a window that ends before the cache does (qpos - window +
+    1 > k_len - 1) leaves no visible key. The numerics oracle
+    (``flash_attention_ref``, the port's plain version) and the jnp ``mha``
+    average every v there (a softmax over equal -1e30 scores), and the port
+    follows them: the plan has no split, and the wrapper's empty-row kernel
+    writes the mean of v. The Pallas kernel, which reaches no kv block,
+    writes 0: the reference's odd one out, recorded here."""
     q, k, v = _inputs(2, 33, 6, 2, 64, seed=3)
     kw = dict(causal=True, window=8, q_offset=100)
     assert FA._decode_plan(2, 2, 33, 100, True, 8)[2] == 0
-    assert torch.equal(_emulate_decode(q, k, v, **kw), torch.zeros_like(q))
+    assert FA._has_empty_rows(1, 33, 100, True, 8)
+    got = _emulate_decode(q, k, v, **kw)
+    oracle = R.flash_attention_ref(q, k, v, **kw)
+    assert (got - oracle).abs().max() <= 3e-5
+    want = jax_mha(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                   q_positions=jnp.asarray([100]), k_positions=jnp.arange(33), window=8)
+    assert (got - torch.from_numpy(np.array(want))).abs().max() <= 3e-5
     assert torch.equal(_pallas(q, k, v, jnp.float32, **kw), torch.zeros_like(q))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 1, 8])
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(1, 33, 100), (1, 33, 39), (1, 33, 40),
+                                             (16, 16, 0), (64, 64, 40), (8, 20, -3),
+                                             (4, 10, 30)])
+def test_empty_rows_found_from_ints(causal, window, Sq, Sk, q_offset):
+    """``_has_empty_rows`` (which checks the first and the last row) against
+    each row's range, and the plain version's output on such rows against
+    the mean of v."""
+    rows = [i for i in range(Sq)
+            if _range(Sk, q_offset + i, causal, window)[0] >
+            _range(Sk, q_offset + i, causal, window)[1]]
+    assert FA._has_empty_rows(Sq, Sk, q_offset, causal, window) == bool(rows)
+    if rows:
+        rng = np.random.default_rng(0)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   for s in ((1, Sq, 4, 8), (1, Sk, 2, 8), (1, Sk, 2, 8)))
+        o = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        mean = v[0].mean(0).repeat_interleave(2, dim=0)  # (N, H)
+        assert (o[0, rows] - mean).abs().max() <= 1e-6
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

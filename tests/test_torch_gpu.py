@@ -61,6 +61,71 @@ def test_distill_loss_matches_plain(cuda, B, N, V, beta):
     torch.testing.assert_close(dz, want_dz, rtol=1e-5, atol=1e-6)
 
 
+# bf16 logits, as the LM training loss feeds them: the loss (fp32) within
+# 1e-5 relative plus 1e-6; dz (bf16) within ref.distill_loss_grad_bf16_bound:
+# one bf16 ulp of |want| (both sides round nearly the same fp32 value once),
+# and at beta > 0 also 2^-16 of the element's terms that beta's term cancels
+@pytest.mark.parametrize("B,N,V", [(1, 8, 10), (3, 37, 1000), (2, 5, 1003), (4, 256, 2048),
+                                   (1, 1024, 128256)])
+@pytest.mark.parametrize("beta", [0.0, 1.5])
+def test_distill_loss_bf16_matches_plain(cuda, B, N, V, beta):
+    z, t, y, w = _distill_inputs(B, N, V, cuda)
+    z, t = z.bfloat16(), (t if beta else torch.zeros_like(t)).bfloat16()
+    zk = z.clone().requires_grad_(True)
+    loss = distill_loss_batched(zk, t, y, beta, 1.0)
+    (dz,) = torch.autograd.grad(loss, zk, w)
+    want = R.distill_loss_batched_ref(z, y, t, beta, 1.0)
+    want_dz = R.distill_loss_grad_ref(z, y, t, beta, 1.0, g=w)
+    torch.cuda.synchronize()
+    assert loss.dtype == torch.float32 and dz.dtype == torch.bfloat16
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=1e-6)
+    d = (dz.float() - want_dz.float()).abs()
+    bound = R.distill_loss_grad_bf16_bound(want_dz, z, t, beta, g=w)
+    assert (d <= bound).all(), (d / bound).max()
+
+
+def test_training_loss_runs_through_the_kernels(cuda):
+    """train_lm on the card (reduced llama3.2-3b) with use_kernels: one
+    forward and one backward distill_loss launch per loss chunk, finite
+    losses, device time in the profiled last step, and the same first-step
+    loss as use_kernels=False."""
+    from repro_torch.launch.train import train_lm
+
+    ops.reset_launches()
+    res = train_lm("llama3.2-3b", steps=3, batch=2, seq=64, use_kernels=True, log_every=1,
+                   profile_last=1)
+    assert ops.launches["distill_loss_fwd"] == ops.launches["distill_loss_bwd"] == 3
+    assert np.isfinite(res.losses).all()
+    assert res.profile["busy_s"] > 0 and res.profile["kernels_per_step"] > 0
+    plain = train_lm("llama3.2-3b", steps=1, batch=2, seq=64, use_kernels=False)
+    np.testing.assert_allclose(res.losses[0], plain.losses[0], rtol=1e-5)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One make_train_step of reduced llama3.2-3b in fp32 from the same
+    params and batch: loss 1e-5 relative, grad norm 1e-4 relative."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.loader import token_batches
+    from repro_torch.launch.steps import default_opts, make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    cfg = reduced(get_arch("llama3.2-3b"))
+    opts = default_opts(cfg, attn_chunk=0, remat=False, use_kernels=True)
+    params = init_params(cfg, opts, seed=0, device="cpu")
+    b = next(token_batches(np.random.default_rng(0), cfg.vocab_size, 2, 32))
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d), params)
+        batch = {k: torch.from_numpy(v).to(d, torch.int64) for k, v in b.items()}
+        _, _, m = make_train_step(cfg, opts, lr=1e-2)(p, adamw_init(p), batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    (lg, gg), (lc, gc) = out
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(gg, gc, rtol=1e-4)
+
+
 @pytest.mark.parametrize("B,N,C", [(1, 8, 10), (4, 8, 10), (4, 256, 1024)])
 def test_skr_rectify_exact(cuda, B, N, C):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -84,7 +149,8 @@ def test_launches_are_counted(cuda):
                      torch.ones(8, dtype=torch.bool, device=cuda),
                      torch.full((8,), 0.5, device=cuda))
     assert ops.launches == {"distill_loss_fwd": 1, "distill_loss_bwd": 1, "skr_rectify": 1,
-                            "flash_attention": 0, "rwkv6_scan": 0}
+                            "flash_attention": 0, "flash_attention_empty_rows": 0,
+                            "rwkv6_scan": 0}
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
@@ -212,13 +278,42 @@ def test_flash_attention_decode_repeats_bitwise(cuda, q_offset):
     assert torch.equal(a, b)
 
 
-def test_flash_attention_decode_with_no_visible_key_writes_zeros(cuda):
-    """ROADMAP C8: a window that ends before the cache does leaves no key;
-    the kernel writes 0, as the TPU kernel does when it reaches no kv block."""
-    q, k, v = _attn_inputs(2, 1, 33, 6, 2, 64, torch.float32, cuda)
-    got = ops.flash_attention(q, k, v, window=8, q_offset=100)
+# ROADMAP C8: rows whose visible key range is empty (a window that ends
+# before the keys do) get the mean of v over every key, as the plain version
+# and the reference's jnp mha give; the Pallas kernel writes 0 there. One
+# case per kernel the wrapper picks, each followed by the empty-row kernel;
+# bound as above
+@pytest.mark.parametrize("B,Sq,Sk,N,K,H,window,q_offset,dtype,variant", [
+    (2, 1, 33, 6, 2, 64, 8, 100, torch.float32, "decode"),
+    (2, 1, 33, 6, 2, 64, 8, 100, torch.bfloat16, "decode"),
+    (1, 64, 64, 8, 2, 32, 8, 40, torch.float32, "simt"),
+    (1, 128, 100, 24, 8, 128, 16, 40, torch.bfloat16, "sm90"),
+])
+def test_flash_attention_with_no_visible_key_averages_v(cuda, B, Sq, Sk, N, K, H, window,
+                                                        q_offset, dtype, variant):
+    from repro_torch.kernels.flash_attention import variant_launches
+
+    q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    want = R.flash_attention_ref(q, k, v, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert torch.equal(got, torch.zeros_like(q))
+    assert variant_launches[variant] == 1 and sum(variant_launches.values()) == 1
+    assert ops.launches["flash_attention_empty_rows"] == 1
+    rtol, atol = (2.0**-7, 1e-6) if dtype == torch.bfloat16 else (0.0, 3e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_forward_only_kernels_refuse_inputs_that_require_grad(cuda):
+    q, k, v = _attn_inputs(1, 8, 8, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(True), k, v)
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    ins = list(_rwkv_inputs(1, 5, 2, 16, cuda))
+    ins[3].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rwkv6_scan(*ins)
 
 
 def test_flash_attention_decode_failed_launch_raises(cuda):

@@ -32,7 +32,8 @@ def test_no_jax_or_repro_import(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"fedeec.py", "engine.py", "distill_loss.py", "chip_smoke.py",
-            "flash_attention.py", "rwkv6_scan.py", "serve.py", "transformer.py"} <= names
+            "flash_attention.py", "rwkv6_scan.py", "serve.py", "transformer.py",
+            "train.py", "steps.py", "loader.py", "schedule.py", "optimizers.py"} <= names
 
 
 def _no_card():
@@ -75,6 +76,63 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             forward_decode(cfg, opts, params, {"token": torch.zeros((1, 1), dtype=torch.long),
                                                "pos": 0}, init_cache(cfg, opts, 1, 4))
+
+
+def test_train_lm_defaults_to_cuda_and_raises_without_a_card():
+    from repro_torch.launch import train
+
+    with _no_card():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.train_lm("llama3.2-3b", steps=1, batch=1, seq=4)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--steps", "1", "--batch", "1", "--seq", "4"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--fl", "--rounds", "1"])
+
+
+def _on_the_card():
+    """Every tensor claims to lie on a card, so a wrapper takes its CUDA
+    path (which, here, stops before anything reaches the card)."""
+    return mock.patch.object(torch.Tensor, "is_cuda", new=property(lambda self: True))
+
+
+def _attn(requires_grad):
+    q, k, v = (torch.zeros(s, requires_grad=requires_grad)
+               for s in ((1, 4, 2, 32), (1, 4, 1, 32), (1, 4, 1, 32)))
+    return q, k, v
+
+
+def _scan(requires_grad):
+    B, T, H, hd = 1, 3, 2, 16
+    ins = [torch.zeros((B, T, H, hd)) for _ in range(4)]
+    ins += [torch.zeros((H, hd)), torch.zeros((B, H, hd, hd))]
+    ins[0].requires_grad_(requires_grad)
+    return ins
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "rwkv6_scan"])
+def test_forward_only_kernels_refuse_inputs_that_require_grad(kernel):
+    """The flash_attention and rwkv6_scan kernels have no backward: on a
+    card their wrappers raise when grad mode is on and an input requires
+    grad, instead of returning an output with no grad_fn (a gradient
+    dropped without a word). Under no_grad, or with no such input, the
+    guard lets the call through (here it then stops at the kernel build)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    fn, make = ((lambda a: flash_attention(*a), _attn) if kernel == "flash_attention"
+                else (lambda a: rwkv6_scan(*a), _scan))
+    with _on_the_card():
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(make(True))
+        for ins, ctx in ((make(True), torch.no_grad()), (make(False), torch.enable_grad())):
+            with ctx, mock.patch.object(_lib, "launch", side_effect=RuntimeError("launched")):
+                with pytest.raises(RuntimeError, match="launched"):
+                    fn(ins)
+    # on the CPU the plain version runs under autograd
+    out = fn(make(True))
+    assert (out[0] if kernel == "rwkv6_scan" else out).grad_fn is not None
 
 
 def test_decode_profiler_needs_a_card():

@@ -1,4 +1,4 @@
-"""The port's functional AdamW against the JAX package's."""
+"""The port's AdamW (in place) against the JAX package's (pure)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from repro.optim import adamw_init as jax_init, adamw_update as jax_update
-from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.optim import adamw_init, adamw_update_
 from repro_torch.tree import tree_leaves
 
 
@@ -27,14 +27,14 @@ def _tree(seed):
 def test_adamw_matches_jax(steps, weight_decay):
     p = _tree(0)
     jp = jax.tree.map(jnp.asarray, p)
-    tp = jax.tree.map(torch.from_numpy, p)
+    tp = jax.tree.map(torch.tensor, p)  # a copy: the port updates it in place
     jo, to = jax_init(jp), adamw_init(tp)
     for s in range(steps):
         g = _tree(s + 1)
         jp, jo = jax_update(jax.tree.map(jnp.asarray, g), jo, jp, lr=1e-2,
                             weight_decay=weight_decay)
-        tp, to = adamw_update(jax.tree.map(torch.from_numpy, g), to, tp,
-                              lr=1e-2, weight_decay=weight_decay)
+        tp, to = adamw_update_(jax.tree.map(torch.from_numpy, g), to, tp,
+                               lr=1e-2, weight_decay=weight_decay)
     for a, b in zip(jax.tree.leaves(jp), tree_leaves(tp)):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-6)
     for k in ("m", "v"):
@@ -47,6 +47,6 @@ def test_adamw_matches_jax(steps, weight_decay):
 def test_no_decay_below_two_dims():
     p = {"w": torch.ones(2, 2), "b": torch.ones(2)}
     g = {"w": torch.zeros(2, 2), "b": torch.zeros(2)}
-    new, _ = adamw_update(g, adamw_init(p), p, lr=0.5, weight_decay=0.1)
+    new, _ = adamw_update_(g, adamw_init(p), p, lr=0.5, weight_decay=0.1)
     assert torch.all(new["w"] < 1.0)
-    assert torch.equal(new["b"], p["b"])
+    assert torch.equal(new["b"], torch.ones(2))

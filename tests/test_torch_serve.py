@@ -90,7 +90,7 @@ def test_prefill_step_is_forward_prefill():
 
     cfg = reduced(get_arch("llama3.2-3b"))
     opts = default_opts(cfg)
-    assert opts == ModelOpts(kv_mult=1)
+    assert opts == ModelOpts(kv_mult=1, attn_chunk=1024, remat=True)
     p = init_params(cfg, opts, seed=3, device="cpu")
     toks = torch.from_numpy(_prompts(cfg.vocab_size, 2, 6, 3)).long()
     assert torch.equal(make_prefill_step(cfg, opts)(p, {"tokens": toks}),
