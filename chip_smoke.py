@@ -3,6 +3,8 @@
 LM serving path and the LM training path.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rwkv-chunks  # only phases 1-2 and the chunked
+                                         # rwkv6_scan at each chunk length
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
@@ -21,7 +23,10 @@ the result line:
    bf16 prefill and the SIMT kernel for the rest; each case names the one
    that served it, at every decode case the SIMT kernel, launched
    directly, is held to the same bound, and rows that see no key (ROADMAP
-   C8) go through each of the three and the empty-row kernel), then the
+   C8) go through each of the three and the empty-row kernel; rwkv6_scan
+   has two: the sequential kernel for T <= 16 and the chunked scan for
+   longer T, and each case names the one that served it, extreme decays
+   included), then the
    FedEEC kernels' device time (a CUDA graph of many launches between CUDA
    events) beside the plain version's, the bound and, where one PyTorch
    call computes the same function, that call's time;
@@ -37,7 +42,9 @@ the result line:
    call at batch 1, with the launch counters zeroed before and held after
    to the counts the layer list predicts (the prefill step's attention on
    the tensor-core kernel, every decode step's on the split-KV decode
-   kernel, none on the SIMT kernel); then, for llama3.2-3b, decode steps
+   kernel, none on the SIMT kernel; the prefill step's scans on the chunked
+   kernel, every decode step's on the sequential one); then, for
+   llama3.2-3b, decode steps
    at position 4095 of a full cache of random values: wall ms per step
    (host clock, ending in a sync) and device ms per step (the union of
    kernel intervals under ``torch.profiler``), with the attention kernel's
@@ -58,7 +65,10 @@ the result line:
    the card the loss with ``use_kernels`` on against off;
 10. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
    attention kernel, launched directly, at the prefill shape beside the
-   tensor-core one and at the decode shapes beside the decode one; and
+   tensor-core one and at the decode shapes beside the decode one; the
+   sequential rwkv6_scan kernel, launched directly, at the prefill shape
+   beside the chunked one, and the chunked one's three kernels' device ms
+   under the profiler; and
    distill_loss at the training shape in bf16, forward and backward,
    beside ``F.cross_entropy`` on the same logits, printed on a line of its
    own. They come last, so that nothing the timing leaves allocated enters
@@ -90,6 +100,7 @@ TPU_KERNELS = {
     "flash_attention_simt": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_decode": "src/repro/kernels/flash_attention.py:32",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:25",
+    "rwkv6_scan_chunked": "src/repro/kernels/rwkv6_scan.py:25",
 }
 SOURCES = {
     "distill_loss_fwd": "src/repro_torch/csrc/distill_loss.cu",
@@ -99,10 +110,13 @@ SOURCES = {
     "flash_attention_simt": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_decode": "src/repro_torch/csrc/flash_attention_decode.cu",
     "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
+    "rwkv6_scan_chunked": "src/repro_torch/csrc/rwkv6_scan_chunked.cu",
 }
-# the kernels' JSON rows: flash_attention's three CUDA kernels each have one
+# the kernels' JSON rows: flash_attention's three CUDA kernels each have
+# one, and so have rwkv6_scan's two
 VARIANTS = {"flash_attention": "sm90", "flash_attention_simt": "simt",
             "flash_attention_decode": "decode"}
+RWKV_VARIANTS = {"rwkv6_scan": "seq", "rwkv6_scan_chunked": "chunked"}
 
 
 def fail(msg: str) -> None:
@@ -390,7 +404,12 @@ C8_CASES = [
 ]
 FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128)  # llama3.2-3b, one 4096-token prompt
 FLASH_DECODE = (8, 1, 4096, 24, 8, 128)  # 8 requests against a 4096-long cache
-RWKV_CASES = [(2, 32, 4, 16), (1, 40, 2, 32), (3, 16, 1, 64)]
+# (B, T, H, hd, extreme): T <= 16 runs the sequential kernel, longer T the
+# chunked scan (ragged last chunks, many chunks, hd 128); extreme puts
+# w = 1e-30 at every 7th step and w = 1 in half the rows of every 5th
+RWKV_CASES = [(2, 32, 4, 16, False), (1, 40, 2, 32, False), (3, 16, 1, 64, False),
+              (2, 1000, 32, 64, False), (1, 65, 4, 16, False), (1, 129, 2, 128, False),
+              (1, 300, 4, 64, True), (2, 13, 2, 32, True)]
 RWKV_PREFILL = (1, 1024, 32, 64)  # rwkv6-1.6b, one 1024-token prompt
 RWKV_DECODE = (8, 1, 32, 64)  # 8 requests, one step
 
@@ -493,24 +512,40 @@ def _rwkv_inputs(B, T, H, hd, dev, seed=0):
     return r, k, v, w, u, s0
 
 
+def _extreme_w(w):
+    w = w.clone()
+    w[:, ::7] = 1e-30
+    w[:, 3::5, :, ::2] = 1.0
+    return w
+
+
 def check_rwkv6_scan(dev):
-    """y and the final state within 3e-5 (fp32 sums in another order)."""
+    """y and the final state within 3e-5 (fp32 sums in another order), each
+    case through the kernel ``_variant`` picks, which the line names; the
+    worst error per variant."""
     import torch
 
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan import _variant, rwkv6_scan, variant_launches
 
-    worst = 0.0
-    for B, T, H, hd in RWKV_CASES + [RWKV_PREFILL, RWKV_DECODE]:
-        ins = _rwkv_inputs(B, T, H, hd, dev)
-        y, sT = rwkv6_scan(*ins)
-        yr, sTr = R.rwkv6_scan_ref(*ins)
+    worst = dict.fromkeys(variant_launches, 0.0)
+    for B, T, H, hd, extreme in RWKV_CASES + [(*RWKV_PREFILL, False), (*RWKV_DECODE, False)]:
+        r, k, v, w, u, s0 = _rwkv_inputs(B, T, H, hd, dev)
+        if extreme:
+            w = _extreme_w(w)
+        before = dict(variant_launches)
+        y, sT = rwkv6_scan(r, k, v, w, u, s0)
+        served = [n for n in variant_launches if variant_launches[n] > before[n]]
+        yr, sTr = R.rwkv6_scan_ref(r, k, v, w, u, s0)
         torch.cuda.synchronize()
         ey, es = (y - yr).abs().max().item(), (sT - sTr).abs().max().item()
-        worst = max(worst, ey, es)
-        ok = ey <= 3e-5 and es <= 3e-5
-        print(f"rwkv6_scan {(B, T, H, hd)}: y max|err| {ey:.3e}  state max|err| {es:.3e}  "
-              f"{'ok' if ok else 'MISMATCH'}")
+        variant = _variant(T)
+        worst[variant] = max(worst[variant], ey, es)
+        ok = ey <= 3e-5 and es <= 3e-5 and bool(torch.isfinite(y).all())
+        print(f"rwkv6_scan {(B, T, H, hd)}{' extreme w' if extreme else ''} [{'+'.join(served)}]: "
+              f"y max|err| {ey:.3e}  state max|err| {es:.3e}  {'ok' if ok else 'MISMATCH'}")
+        if served != [variant]:
+            fail(f"rwkv6_scan at {(B, T, H, hd)}: served by {served}, the rule picks {variant}")
         if not ok:
             fail(f"rwkv6_scan disagrees with its plain version at {(B, T, H, hd)}")
     return worst
@@ -761,19 +796,23 @@ def time_lm_kernels(dev):
     """Times at the LM serving path's shapes: flash_attention in bf16 at the
     4096-token prefill and at a decode step of 8 requests with the queries
     at position 63 (the middle of the serve run's 128 positions) and 4095
-    (a full cache); rwkv6_scan at a 1024-token prefill and a decode step.
+    (a full cache); rwkv6_scan at a 1024-token prefill (the chunked scan)
+    and a decode step (the sequential kernel).
     The bound counts q, o and the k/v rows the masks leave (each read or
     written once) against 3.35 TB/s, and 4 H flops per unmasked (q, k) pair
     and q head against the bf16 tensor-core peak (989 TFLOP/s: the card
     could run this bf16 attention there); for the scan, r, k, v, w, u, s0
-    read and y, sT written once, and 7 hd^2 flops per token and head against
-    the fp32 peak (67 TFLOP/s: its inputs and state are fp32). The library
+    read and y, sT written once, and 5 hd^2 + 5 hd flops per token and head
+    (an FMA as two: y's FMA and the state's multiply and FMA per element of
+    S, and the O(hd) bonus term) against the fp32 peak (67 TFLOP/s: its
+    inputs and state are fp32). The library
     call for attention is F.scaled_dot_product_attention on the same
     tensors (is_causal at prefill; unmasked over the cache's first pos + 1
     rows at decode); the scan has none. The wrapper runs the tensor-core
     kernel at prefill and the split-KV kernel at decode; at each of those
     shapes the SIMT attention kernel, which it no longer picks there, is
-    launched directly, timed beside them and held to the same bound."""
+    launched directly, timed beside them and held to the same bound; so is
+    the sequential rwkv6_scan kernel at the prefill shape."""
     import torch
     import torch.nn.functional as F
 
@@ -813,14 +852,121 @@ def time_lm_kernels(dev):
         want = plain().float()
         if ((out.float() - want).abs() > BF16_ULP * want.abs() + 1e-6).any():
             fail(f"the SIMT flash_attention kernel disagrees at the {tag} shape, q_offset {qo}")
+    rows.update(time_rwkv_kernels(dev))
+    return rows
+
+
+def time_rwkv_kernels(dev):
+    """rwkv6_scan at the prefill and decode shapes through the wrapper (the
+    chunked scan and the sequential kernel), and the sequential kernel,
+    launched directly, at the prefill shape."""
+    import torch
+
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rwkv6_scan import _variant as _rwkv_variant
+
+    rows = {}
     for tag, (B, T, H, hd) in [("prefill", RWKV_PREFILL), ("decode", RWKV_DECODE)]:
         ins = _rwkv_inputs(B, T, H, hd, dev)
-        rows[("rwkv6_scan", tag, None)] = _timed(
-            "rwkv6_scan", tag, f"{(B, T, H, hd)} fp32",
-            lambda: ops.rwkv6_scan(*ins), lambda: R.rwkv6_scan_ref(*ins), None,
-            4 * (5 * B * T * H * hd + H * hd + 2 * B * H * hd * hd), 7 * hd * hd * T * H * B,
-            launches=10 if tag == "prefill" else TIMED_LAUNCHES)
+        shape = f"{(B, T, H, hd)} fp32"
+        nbytes = 4 * (5 * B * T * H * hd + H * hd + 2 * B * H * hd * hd)
+        flops = (5 * hd * hd + 5 * hd) * T * H * B
+        n = 10 if tag == "prefill" else TIMED_LAUNCHES
+        plain = lambda: R.rwkv6_scan_ref(*ins)  # noqa: E731
+        name = "rwkv6_scan_chunked" if _rwkv_variant(T) == "chunked" else "rwkv6_scan"
+        rows[(name, tag, None)] = _timed(name, tag, shape, lambda: ops.rwkv6_scan(*ins),
+                                         plain, None, nbytes, flops, launches=n)
+        if tag == "prefill":
+            y, sT = torch.empty_like(ins[0]), torch.empty_like(ins[-1])
+            seq = lambda: _lib.launch(  # noqa: E731
+                "rwkv6_scan", dev, *(t.data_ptr() for t in ins), y.data_ptr(),
+                sT.data_ptr(), B, T, H, hd)
+            rows[("rwkv6_scan", tag, None)] = _timed(
+                "rwkv6_scan", "prefill (seq, launched directly)", shape, seq, plain, None,
+                nbytes, flops, launches=n)
+            yr, sTr = plain()
+            err = max((y - yr).abs().max().item(), (sT - sTr).abs().max().item())
+            print(f"  the sequential kernel at the prefill shape: max|err| {err:.3e} "
+                  f"{'ok' if err <= 3e-5 else 'MISMATCH'}")
+            if err > 3e-5:
+                fail("the sequential rwkv6_scan kernel disagrees at the prefill shape")
+            profile_rwkv_phases(dev, ins)
     return rows
+
+
+RWKV_CHUNKS = (16, 32, 64, 128)
+
+
+def time_rwkv_chunks(dev):
+    """``python3 chip_smoke.py --rwkv-chunks``: the chunked scan at the
+    prefill shape, its C entry launched directly at each chunk length of
+    ``RWKV_CHUNKS`` (the wrapper always passes ``CHUNK``), each held to the
+    plain version at 3e-5: what ``CHUNK`` was chosen from."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ref as R
+
+    B, T, H, hd = RWKV_PREFILL
+    ins = _rwkv_inputs(B, T, H, hd, dev)
+    yr, sTr = R.rwkv6_scan_ref(*ins)
+    y, sT, rp = torch.empty_like(ins[0]), torch.empty_like(ins[-1]), torch.empty_like(ins[0])
+    for L in RWKV_CHUNKS:
+        st = torch.empty((B, H, -(-T // L), hd, hd), device=dev)
+        pend = torch.empty((B, H, -(-T // L), hd), device=dev)
+        fn = lambda: _lib.launch(  # noqa: E731
+            "rwkv6_scan_chunked", dev, *(t.data_ptr() for t in ins), y.data_ptr(),
+            sT.data_ptr(), st.data_ptr(), rp.data_ptr(), pend.data_ptr(), B, T, H, hd, L,
+            count_as="rwkv6_scan")
+        fn()
+        torch.cuda.synchronize()
+        err = max((y - yr).abs().max().item(), (sT - sTr).abs().max().item())
+        print(f"rwkv6_scan_chunked {RWKV_PREFILL} chunk {L}: {device_ms(fn, 10):.5f} ms "
+              f"device, max|err| {err:.3e} {'ok' if err <= 3e-5 else 'MISMATCH'}")
+        if err > 3e-5:
+            fail(f"the chunked rwkv6_scan kernel disagrees at chunk {L}")
+        del st, pend
+
+
+PROFILE_LEAD_IN = 32
+
+
+def profile_rwkv_phases(dev, ins, calls=10):
+    """Each of the chunked scan's three kernels' device ms per launch under
+    ``torch.profiler``, over ``calls`` calls of the wrapper. The window
+    opens with ``PROFILE_LEAD_IN`` small kernels and a sync: in a process
+    that has run the profiler before, a window can lose its first few
+    kernel records (a host pause before the first launch does not help), so
+    the lead-in takes that loss and the line says how much of it was seen.
+    Fails unless the profiler saw exactly one launch of each kernel per
+    call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    phases = ("local_pass", "chunk_scan", "correct")
+    x = torch.zeros(1, device=dev)
+    ops.rwkv6_scan(*ins)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            x.add_(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            ops.rwkv6_scan(*ins)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = {p: [e.time_range.elapsed_us() for e in kernels if p in e.name] for p in phases}
+    lead_in = len(kernels) - sum(len(t) for t in us.values())
+    print(f"rwkv6_scan_chunked kernels, device ms per launch (profiler, {calls} calls; "
+          f"{lead_in} of {PROFILE_LEAD_IN} lead-in kernels seen): "
+          + ", ".join(f"{p} {sum(t) / len(t) / 1e3:.5f}" for p, t in us.items() if t))
+    seen = {p: len(t) for p, t in us.items()}
+    if any(n != calls for n in seen.values()):
+        fail(f"the profiler saw {seen} chunked-scan kernels in {calls} calls")
 
 
 LM_ARCHS = (("llama3.2-3b", 4096), ("rwkv6-1.6b", 1024))  # (arch, prefill step length)
@@ -846,6 +992,7 @@ def drive_lm_path(dev, arch, prefill_len):
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import variant_launches
+    from repro_torch.kernels.rwkv6_scan import variant_launches as rwkv_launches
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import default_opts, make_prefill_step
     from repro_torch.models.layers import padded_vocab
@@ -860,6 +1007,7 @@ def drive_lm_path(dev, arch, prefill_len):
     res = serve(arch, use_reduced=False, device=dev, **LM_SERVE)
     serve_peak = torch.cuda.max_memory_allocated()
     serve_variants = dict(variant_launches)
+    serve_rwkv = dict(rwkv_launches)
 
     opts = default_opts(cfg)
     params = init_params(cfg, opts, seed=1, device=dev)
@@ -878,6 +1026,11 @@ def drive_lm_path(dev, arch, prefill_len):
     # decode steps' (Sq = 1) on the split-KV decode kernel, none on the SIMT
     # kernel (both serving models are bf16 at head_dim 64 or 128)
     want_variants = {"sm90": n_attn, "simt": 0, "decode": want["flash_attention"] - n_attn}
+    # the prefill step's scans (T = prefill_len) on the chunked kernel, the
+    # decode steps' (T = 1) on the sequential one
+    rwkv = dict(rwkv_launches)
+    n_rwkv = sum(b.kind == "rwkv6" for b in cfg.blocks)
+    want_rwkv = {"seq": want["rwkv6_scan"] - n_rwkv, "chunked": n_rwkv}
     finite = bool(torch.isfinite(logits).all())
     peak = torch.cuda.max_memory_allocated()
 
@@ -893,6 +1046,8 @@ def drive_lm_path(dev, arch, prefill_len):
     print(f"launches: {counts}  predicted from the layer list: {want}")
     print(f"flash_attention launches per kernel: {variants} (serve alone: {serve_variants}) "
           f" predicted: {want_variants}")
+    print(f"rwkv6_scan launches per kernel: {rwkv} (serve alone: {serve_rwkv})  "
+          f"predicted: {want_rwkv}")
     V = cfg.vocab_size
     if res.tokens.shape != (LM_SERVE["num_requests"], LM_SERVE["gen_len"]):
         fail(f"{arch}: generated tokens have shape {res.tokens.shape}")
@@ -907,6 +1062,8 @@ def drive_lm_path(dev, arch, prefill_len):
     if variants != want_variants or serve_variants["sm90"] != 0:
         fail(f"{arch}: flash_attention kernels {variants} (serve {serve_variants}), "
              f"predicted {want_variants}")
+    if rwkv != want_rwkv or serve_rwkv["chunked"] != 0:
+        fail(f"{arch}: rwkv6_scan kernels {rwkv} (serve {serve_rwkv}), predicted {want_rwkv}")
     if max(counts.values()) <= 0:
         fail(f"{arch}: no kernel was launched on the serving path")
     full_cache = time_decode_at(dev, cfg, opts, params, LM_SERVE["cache_len"] - 1) \
@@ -914,7 +1071,7 @@ def drive_lm_path(dev, arch, prefill_len):
     del params, logits
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, variants, dict(
+    return counts, {**variants, **rwkv}, dict(
         serve_prefill_s=res.prefill_s, gen_s=res.gen_s, tokens_per_s=res.tokens_per_s,
         ms_per_step=res.ms_per_step, prefill_step_s=prefill_s, peak_mib=peak / 2**20,
         **full_cache)
@@ -1206,6 +1363,10 @@ def main() -> None:
 
     dev, name, count, smi = check_device()
     build_kernels()
+    if sys.argv[1:] == ["--rwkv-chunks"]:
+        phase("rwkv6_scan_chunked at each chunk length")
+        time_rwkv_chunks(dev)
+        return
 
     phase("kernels vs plain versions")
     err = dict(zip(("distill_loss_fwd", "distill_loss_bwd"), check_distill_loss(dev)))
@@ -1214,7 +1375,8 @@ def main() -> None:
     err["skr_rectify"] = check_skr_rectify(dev)
     flash_err = check_flash_attention(dev)
     err.update({k: flash_err[VARIANTS[k]] for k in VARIANTS})
-    err["rwkv6_scan"] = check_rwkv6_scan(dev)
+    rwkv_err = check_rwkv6_scan(dev)
+    err.update({k: rwkv_err[v] for k, v in RWKV_VARIANTS.items()})
     phase("kernel times")
     times = time_kernels(dev)
     time_skr_queue_pass(dev)
@@ -1228,13 +1390,14 @@ def main() -> None:
 
     # each JSON row counts its own CUDA kernel's launches: flash_attention's
     # the tensor-core kernel's, flash_attention_simt's the SIMT kernel's,
-    # flash_attention_decode's the split-KV decode kernel's
-    counts.update(dict.fromkeys(("rwkv6_scan", *VARIANTS), 0))
+    # flash_attention_decode's the split-KV decode kernel's; rwkv6_scan's
+    # the sequential kernel's, rwkv6_scan_chunked's the chunked scan's
+    lm_variants = {**VARIANTS, **RWKV_VARIANTS}
+    counts.update(dict.fromkeys(lm_variants, 0))
     for arch, prefill_len in LM_ARCHS:
         phase(f"LM serving path: {arch}, full width and depth, bf16")
-        lm_counts, variants, _ = drive_lm_path(dev, arch, prefill_len)
-        counts["rwkv6_scan"] += lm_counts["rwkv6_scan"]
-        for k, variant in VARIANTS.items():
+        _, variants, _ = drive_lm_path(dev, arch, prefill_len)
+        for k, variant in lm_variants.items():
             counts[k] += variants[variant]
     for arch, _ in LM_ARCHS:
         phase(f"LM parity: {arch}, full width, two layers, fp32, the card vs the CPU")
@@ -1254,14 +1417,14 @@ def main() -> None:
     pick = {"distill_loss_fwd": ("main", 0.0), "distill_loss_bwd": ("main", 1.5),
             "skr_rectify": ("main", None), "flash_attention": ("prefill", 0),
             "flash_attention_simt": ("decode", 4095), "flash_attention_decode": ("decode", 4095),
-            "rwkv6_scan": ("prefill", None)}
+            "rwkv6_scan": ("decode", None), "rwkv6_scan_chunked": ("prefill", None)}
     kernels = []
     for k, (tag, beta) in pick.items():
         row = times[(k, tag, beta)]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": TPU_KERNELS[k],
             "launches": counts[k], "max_abs_err": err[k],
-            **({"variant": VARIANTS[k]} if k in VARIANTS else {}), **row,
+            **({"variant": lm_variants[k]} if k in lm_variants else {}), **row,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,11 +12,13 @@
 // padding.
 //
 // What bounds it on an H100: each token and head reads 4 hd floats and
-// writes hd (20 hd bytes) against about 7 hd^2 fp32 flops, some 22 flops a
-// byte at hd = 64, close to the card's fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20), so the bound is operations by a little. In practice the
+// writes hd (20 hd bytes) against 5 hd^2 + 5 hd fp32 flops (an FMA counted
+// as two: per element of S, one FMA for y and a multiply and an FMA for
+// the state), some 16 flops a byte at hd = 64, under the card's fp32 ridge
+// (67 TFLOP/s over 3.35 TB/s = 20), so the bound is bytes. In practice the
 // sequential time axis limits it: one (b, h) pair's steps cannot overlap,
-// and B * H blocks (32 at prefill with B = 1) leave most SMs idle.
+// and B * H blocks (32 at prefill with B = 1) leave most SMs idle; long
+// sequences run csrc/rwkv6_scan_chunked.cu instead.
 //
 // What the design does about it (RWKV's own CUDA design, which the TPU
 // kernel's docstring cites): one thread block per (b, h) with hd threads;

@@ -63,6 +63,9 @@ _SIGNATURES = {
     "flash_attention_empty_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
     # r, k, v, w, u, s0, y, sT, B, T, H, hd, stream
     "rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # r, k, v, w, u, s0, y, sT, st, rp, pend, B, T, H, hd, chunk, stream
+    "rwkv6_scan_chunked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -7,7 +7,9 @@ use) or raises; on a CPU tensor it runs the plain version in ``ref.py``.
 ``distill_loss_bwd``, ``skr_rectify``, ``flash_attention``,
 ``flash_attention_empty_rows``, ``rwkv6_scan``); ``reset_launches`` zeroes
 it, and also ``kernels.flash_attention.variant_launches``,
-flash_attention's launches per kernel (``sm90``, ``simt``, ``decode``).
+flash_attention's launches per kernel (``sm90``, ``simt``, ``decode``), and
+``kernels.rwkv6_scan.variant_launches``, rwkv6_scan's (``seq``,
+``chunked``).
 """
 from __future__ import annotations
 

@@ -157,3 +157,41 @@ def rwkv6_scan_ref(r, k, v, w, u, s0):
         s = w[:, t, :, :, None] * s + kv
     y = torch.stack(ys, 1) if ys else r.new_zeros(r.shape)
     return y, s
+
+
+def rwkv6_scan_chunked_ref(r, k, v, w, u, s0, chunk):
+    """``rwkv6_scan_ref`` by the chunked state-passing form that
+    ``csrc/rwkv6_scan_chunked.cu`` computes, phase by phase (for the tests;
+    the op never runs it):
+
+    1. each chunk of ``chunk`` steps from a zero state: y_local_t = r_t ·
+       S_local + (r_t · (u ⊙ k_t)) v_t; r_t ⊙ P_t, with P_t the product of
+       w since the chunk began (plain fp32 products: finite for any w in
+       [0, 1]); the chunk's end state dS and full product P_end;
+    2. the entry state of each chunk, S ← diag(P_end) S + dS from s0;
+    3. y_t += (r_t ⊙ P_t) · S_entry.
+    """
+    r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
+    uu = u.to(torch.float32)
+    s = s0.to(torch.float32)
+    T = r.shape[1]
+    y, rp = torch.empty_like(r), torch.empty_like(r)
+    bounds = [(c0, min(T, c0 + chunk)) for c0 in range(0, T, chunk)]
+    ends = []
+    for c0, c1 in bounds:
+        sl = torch.zeros_like(s)
+        p = torch.ones_like(w[:, 0])
+        for t in range(c0, c1):
+            a = (r[:, t] * uu * k[:, t]).sum(-1, keepdim=True)
+            y[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t], sl) + a * v[:, t]
+            sl = w[:, t, :, :, None] * sl + k[:, t, :, :, None] * v[:, t, :, None, :]
+            rp[:, t] = r[:, t] * p
+            p = p * w[:, t]
+        ends.append((sl, p))
+    entries = []
+    for ds, p_end in ends:
+        entries.append(s)
+        s = p_end[..., None] * s + ds
+    for (c0, c1), se in zip(bounds, entries):
+        y[:, c0:c1] += torch.einsum("bthi,bhij->bthj", rp[:, c0:c1], se)
+    return y, s

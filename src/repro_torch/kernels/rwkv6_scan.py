@@ -1,5 +1,5 @@
-"""RWKV6 ("Finch") time-mix recurrence, forward only: the wrapper around the
-CUDA kernel in ``repro_torch/csrc/rwkv6_scan.cu``.
+"""RWKV6 ("Finch") time-mix recurrence, forward only: the wrapper around two
+CUDA kernels for the one TPU kernel.
 
 Counterpart of ``repro.kernels.rwkv6_scan``. Per batch row and head, with
 the fp32 hd x hd state S starting at s0:
@@ -9,10 +9,23 @@ the fp32 hd x hd state S starting at s0:
 r, k, v, w (B, T, H, hd) are cast to fp32, as the reference does; u (H, hd)
 and s0 (B, H, hd, hd) too. Returns y (B, T, H, hd) and the final state
 (B, H, hd, hd), both fp32. Any T, with no padding. On a CUDA tensor the
-wrapper launches the kernel or raises; on a CPU tensor it computes the plain
-version in ``ref.py``. The kernel has no backward (nor has the TPU kernel),
-so on a CUDA tensor the wrapper raises if grad mode is on and an input
-requires grad, rather than return outputs with no ``grad_fn``.
+wrapper launches the kernel ``_variant(T)`` picks, or raises (it never
+retries on the other kernel); on a CPU tensor it computes the plain version
+in ``ref.py``:
+
+- ``"seq"``, ``repro_torch/csrc/rwkv6_scan.cu``: T <= ``SEQ_MAX_T`` (decode
+  steps), one block per (b, h) stepping through time;
+- ``"chunked"``, ``repro_torch/csrc/rwkv6_scan_chunked.cu``: longer T
+  (prefill), the time axis cut into chunks of ``CHUNK`` steps run in
+  parallel from a zero state and joined by a scan over the chunks' end
+  states (``ref.rwkv6_scan_chunked_ref`` is the same algorithm in torch).
+
+The kernels have no backward (nor has the TPU kernel), so on a CUDA tensor
+the wrapper raises if grad mode is on and an input requires grad, rather
+than return outputs with no ``grad_fn``.
+
+``_lib.launches["rwkv6_scan"]`` counts the calls that launch a kernel,
+``variant_launches`` counts them per variant.
 """
 from __future__ import annotations
 
@@ -22,6 +35,16 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels import ref as R
 
 HEAD_DIMS = (16, 32, 64, 128)
+CHUNK = 64  # steps per chunk of the chunked kernel
+SEQ_MAX_T = 16  # the longest T the sequential kernel takes (at most CHUNK)
+
+variant_launches = _lib.counter(("seq", "chunked"))
+
+
+def _variant(T: int) -> str:
+    """Which kernel a CUDA call runs: the sequential one for short T (a
+    decode step), the chunked scan for the rest."""
+    return "seq" if T <= SEQ_MAX_T else "chunked"
 
 
 def rwkv6_scan(r, k, v, w, u, s0):
@@ -47,7 +70,22 @@ def rwkv6_scan(r, k, v, w, u, s0):
     _lib.check_cuda("rwkv6_scan", r, k, v, w, u, s0)
     y = torch.empty_like(r)
     sT = torch.empty_like(s0)
-    _lib.launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
-                B, T, H, hd)
+    variant = _variant(T)
+    if variant == "seq":
+        _lib.launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
+                    B, T, H, hd)
+    else:
+        # the kernel stages r, k, v, w with 16-byte copies: a view that
+        # starts off that grid is copied to a fresh allocation
+        r, k, v, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, w))
+        nc = -(-T // CHUNK)
+        st = torch.empty((B, H, nc, hd, hd), dtype=torch.float32, device=r.device)
+        rp = torch.empty_like(r)
+        pend = torch.empty((B, H, nc, hd), dtype=torch.float32, device=r.device)
+        _lib.launch("rwkv6_scan_chunked", r.device, r.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(),
+                    sT.data_ptr(), st.data_ptr(), rp.data_ptr(), pend.data_ptr(), B, T, H,
+                    hd, CHUNK, count_as="rwkv6_scan")
+    variant_launches[variant] += 1
     return y, sT

@@ -371,6 +371,87 @@ def test_rwkv6_scan_matches_plain(cuda, B, T, H, hd):
     torch.testing.assert_close(sT, sTr, rtol=0, atol=3e-5)
 
 
+def _extreme_w(w):
+    """Every 7th step forgets the state (w = 1e-30); half the rows of every
+    5th step keep it whole (w = 1)."""
+    w = w.clone()
+    w[:, ::7] = 1e-30
+    w[:, 3::5, :, ::2] = 1.0
+    return w
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["sigmoid_w", "extreme_w"])
+@pytest.mark.parametrize("B,T,H,hd", [(2, 17, 4, 16), (1, 65, 4, 16), (3, 200, 2, 32),
+                                      (2, 1000, 32, 64), (1, 129, 2, 128)])
+def test_rwkv6_scan_chunked_matches_plain(cuda, B, T, H, hd, extreme):
+    """T past SEQ_MAX_T runs the chunked scan: ragged last chunks, many
+    chunks, and decays of exactly 1e-30 and 1."""
+    from repro_torch.kernels.rwkv6_scan import variant_launches
+
+    r, k, v, w, u, s0 = _rwkv_inputs(B, T, H, hd, cuda)
+    if extreme:
+        w = _extreme_w(w)
+    ops.reset_launches()
+    y, sT = ops.rwkv6_scan(r, k, v, w, u, s0)
+    yr, sTr = R.rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert variant_launches == {"seq": 0, "chunked": 1} and ops.launches["rwkv6_scan"] == 1
+    torch.testing.assert_close(y, yr, rtol=0, atol=3e-5)
+    torch.testing.assert_close(sT, sTr, rtol=0, atol=3e-5)
+
+
+def test_rwkv6_scan_chunked_kernel_with_no_steps_keeps_the_state(cuda):
+    r, k, v, w, u, s0 = _rwkv_inputs(2, 0, 2, 16, cuda)
+    y, sT = torch.empty_like(r), torch.empty_like(s0)
+    st = torch.empty(0, device=cuda)
+    _lib.launch("rwkv6_scan_chunked", cuda, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
+                st.data_ptr(), st.data_ptr(), st.data_ptr(), 2, 0, 2, 16, 64,
+                count_as="rwkv6_scan")
+    torch.cuda.synchronize()
+    assert torch.equal(sT, s0)
+
+
+def test_rwkv6_scan_seq_kernel_launched_directly_at_a_long_sequence(cuda):
+    """The sequential kernel, which the wrapper keeps for decode, still
+    holds at a prefill length when launched directly."""
+    r, k, v, w, u, s0 = _rwkv_inputs(1, 300, 4, 64, cuda)
+    w = _extreme_w(w)
+    y, sT = torch.empty_like(r), torch.empty_like(s0)
+    _lib.launch("rwkv6_scan", cuda, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(), 1, 300, 4, 64)
+    yr, sTr = R.rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yr, rtol=0, atol=3e-5)
+    torch.testing.assert_close(sT, sTr, rtol=0, atol=3e-5)
+
+
+def test_rwkv6_scan_chunked_takes_unaligned_views(cuda):
+    """r starting one float into its storage: the wrapper copies it to an
+    aligned allocation for the kernel's 16-byte staging."""
+    r, k, v, w, u, s0 = _rwkv_inputs(1, 80, 2, 32, cuda)
+    flat = torch.empty(r.numel() + 1, device=cuda)
+    ru = flat[1:].view(r.shape)
+    ru.copy_(r)
+    assert ru.is_contiguous() and ru.data_ptr() % 16
+    y, sT = ops.rwkv6_scan(ru, k, v, w, u, s0)
+    yr, sTr = R.rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yr, rtol=0, atol=3e-5)
+    torch.testing.assert_close(sT, sTr, rtol=0, atol=3e-5)
+
+
+def test_rwkv6_scan_variants_are_counted(cuda):
+    from repro_torch.kernels.rwkv6_scan import variant_launches
+
+    ops.reset_launches()
+    ops.rwkv6_scan(*_rwkv_inputs(8, 1, 32, 64, cuda))  # a decode step
+    ops.rwkv6_scan(*_rwkv_inputs(1, 16, 2, 16, cuda))  # SEQ_MAX_T
+    ops.rwkv6_scan(*_rwkv_inputs(1, 1024, 32, 64, cuda))  # a prefill
+    assert variant_launches == {"seq": 2, "chunked": 1}
+    assert ops.launches["rwkv6_scan"] == 3
+
+
 def test_lm_kernel_launches_are_counted(cuda):
     ops.reset_launches()
     ops.flash_attention(*_attn_inputs(1, 4, 4, 2, 1, 32, torch.float32, cuda))
