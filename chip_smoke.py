@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: the FedEEC trainer, the
-LM serving path and the LM training path.
+"""Smoke run of the PyTorch port on one CUDA card: the FedEEC trainer (the
+plain path and the simulator's scenario path), the LM serving path and the
+LM training path.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rwkv-chunks  # only phases 1-2 and the chunked
@@ -36,7 +37,19 @@ the result line:
 5. FedEEC parity: the card against the CPU (the port's plain path, which
    the CPU tests hold to the JAX package) on small inputs: one student
    step's loss and gradient per model, and one tiny FedEEC round;
-6. LM serving, for llama3.2-3b then rwkv6-1.6b at full width and depth in
+6. FedEEC on the simulator: the 11 named scenarios at the gate
+   configuration of ``benchmarks/tables/scenarios.json`` (4 clients, 2
+   edges, cnn2 edge and cloud, 2 rounds, no eval) on the card, each event
+   signature held to the table (``lossy_links`` to the reference's
+   serial-dispatch signature, ROADMAP C9) and the fault counters of
+   ``lossy_links`` and ``regional_outage`` to ``BENCH_faults.json``; then
+   ``run_experiment("fedeec", FLConfig(), rounds=3,
+   scenario="mobile_clients")`` at full width, with the launch counters
+   zeroed before and held after to a CPU replay of the same schedule (cnn2
+   at every tier), whose event log must equal the card's without its evals:
+   round host s, simulated s, event counts, dispatch stats, comm bytes,
+   accuracy curve and peak memory;
+7. LM serving, for llama3.2-3b then rwkv6-1.6b at full width and depth in
    bf16: ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
    64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
    call at batch 1, with the launch counters zeroed before and held after
@@ -49,21 +62,21 @@ the result line:
    (host clock, ending in a sync) and device ms per step (the union of
    kernel intervals under ``torch.profiler``), with the attention kernel's
    share;
-7. LM parity: each architecture at full width, two layers, fp32, on the
+8. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
    128-token prefill;
-8. LM training: ``train_lm("llama3.2-3b", use_reduced=False, steps=4,
+9. LM training: ``train_lm("llama3.2-3b", use_reduced=False, steps=4,
    batch=2, seq=1024, use_kernels=True)``, full width and depth in bf16,
    with the launch counters zeroed before and held after to steps x
    seq / loss_chunk distill_loss launches each way (and none of the
    forward-only attention kernels): wall s, tokens/s, loss and grad norm
    per step, and the peak memory; then one step's breakdown under
    ``torch.profiler`` (device busy ms, idle share, top kernels);
-9. training parity: llama3.2-3b at full width, two layers, fp32, one
+10. training parity: llama3.2-3b at full width, two layers, fp32, one
    ``make_train_step`` on the card and on the CPU from the same params and
    ``token_batches`` batch (loss, grad norm, every gradient leaf), and on
    the card the loss with ``use_kernels`` on against off;
-10. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
+11. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
    attention kernel, launched directly, at the prefill shape beside the
    tensor-core one and at the decode shapes beside the decode one; the
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
@@ -792,6 +805,159 @@ def check_round_parity(dev):
         fail("the card's FedEEC round differs from the CPU's in comm bytes or rng draws")
 
 
+# the gate configuration of benchmarks/tables/scenarios.json (the table's
+# generator, benchmarks/fl_tables.py:scenario_signatures): FLConfig with
+# these fields, 4 clients, 2 edges, 2 rounds, no eval
+SIM_GATE = dict(samples_per_client=16, test_samples=64, image_size=8, embed_dim=16,
+                edge_model="cnn2", cloud_model="cnn2")
+# where the port's serial dispatch gives the reference's serial signature,
+# not the table's (written with batched dispatch, which under faults draws
+# transfer outcomes in another item order): ROADMAP.md C9, pinned against
+# the JAX package by tests/test_torch_sim_engine.py
+SIM_SERIAL_DISPATCH = {"fedeec/lossy_links": "a777706636504be1"}
+SIM_FAULT_COUNTERS = ("sim_transfer_failures_total", "sim_transfer_retries_total",
+                      "sim_pairs_abandoned_total", "sim_pair_timeouts_total",
+                      "sim_departures_total", "sim_regional_outages_total",
+                      "sim_link_flaps_total")
+
+
+def check_sim_signatures(dev):
+    """Every named scenario at the gate configuration on the card: the
+    event signature equal to the tracked table's, and the fault counters
+    of lossy_links and regional_outage equal to BENCH_faults.json's."""
+    import torch
+
+    from repro_torch.configs.fedeec_paper import paper_setting
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.scenarios import get_scenario, list_scenarios
+
+    table = json.loads((ROOT / "benchmarks" / "tables" / "scenarios.json").read_text())
+    faults = json.loads((ROOT / "BENCH_faults.json").read_text())
+    cfg = paper_setting("synth_cifar10", 4, 2, **SIM_GATE)
+    t0 = time.perf_counter()
+    for name in list_scenarios():
+        key = f"fedeec/{name}"
+        _, tree, client_data, auto = build_problem(cfg, device=dev)
+        trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=dev)
+        engine = SimEngine(trainer, get_scenario(name), seed=cfg.seed)
+        sig = engine.run(2).signature()
+        torch.cuda.synchronize()
+        want = SIM_SERIAL_DISPATCH.get(key, table[key])
+        snap = engine.metrics.snapshot()
+        got = {c: int(snap.get(c, {}).get("value", 0)) for c in SIM_FAULT_COUNTERS}
+        note = " (the reference's serial dispatch, ROADMAP C9)" if key in SIM_SERIAL_DISPATCH else ""
+        print(f"{name:<16} signature {sig} want {want}{note}  "
+              f"events {len(engine.log.entries)}  failed pairs {len(trainer.failed_pairs)}")
+        if sig != want:
+            fail(f"scenario {name}: the card's event signature {sig} != {want}")
+        if name in ("lossy_links", "regional_outage"):
+            tracked = {c: faults[name][c] for c in SIM_FAULT_COUNTERS}
+            print(f"{'':<16} fault counters {got}")
+            if got != tracked:
+                fail(f"scenario {name}: fault counters {got} != BENCH_faults.json {tracked}")
+    print(f"11 gate runs on the card: {time.perf_counter() - t0:.3f} s")
+
+
+def replay_sim_schedule(cfg, scenario, rounds, dev):
+    """The scenario run's schedule replayed on the CPU with cnn2 at every
+    tier (pair steps, bytes and times do not depend on the models), from
+    the same problem (the autoencoder cached on the card): its event log
+    without evals, and the kernel launches the card's run must make, added
+    up per executed item: the child as student steps x (2 if it holds data
+    else 1) forward and backward, the parent as student steps, and 2 x
+    steps rectifications."""
+    from dataclasses import replace
+
+    from repro_torch.core.fedeec import FedEEC
+    from repro_torch.fl.engine import build_problem
+    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.scenarios import get_scenario
+
+    small = replace(cfg, end_model="cnn2", edge_model="cnn2", cloud_model="cnn2")
+    _, tree, cd, auto = build_problem(small, device=dev)
+    trainer = FedEEC(small, tree, cd, auto, seed=small.seed, device="cpu")
+    want = dict.fromkeys(("distill_loss_fwd", "distill_loss_bwd", "skr_rectify"), 0)
+    execute = trainer.execute
+
+    def counted(item):
+        k = item.steps
+        fwd = k * (2 if item.node in cd else 1) + k
+        want["distill_loss_fwd"] += fwd
+        want["distill_loss_bwd"] += fwd
+        want["skr_rectify"] += 2 * k
+        execute(item)
+
+    trainer.execute = counted
+    engine = SimEngine(trainer, get_scenario(scenario), seed=small.seed)
+    t0 = time.perf_counter()
+    engine.run(rounds)
+    print(f"CPU replay (cnn2 at every tier, no eval): {time.perf_counter() - t0:.3f} s, "
+          f"{len(engine.log.entries)} events")
+    return _without_evals(engine.log.entries), want
+
+
+def _without_evals(entries):
+    return [{k: v for k, v in e.items() if k != "ord"} for e in entries if e["kind"] != "eval"]
+
+
+def drive_sim_path(dev):
+    """``run_experiment("fedeec", FLConfig(), rounds=3,
+    scenario="mobile_clients")`` on the card, full width, with the launch
+    counters zeroed just before and read just after, held to the CPU
+    replay's prediction; the card's log without its evals equal to the
+    replay's."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.engine import build_problem, run_experiment
+    from repro_torch.kernels import ops
+
+    cfg, rounds, scenario = FLConfig(), 3, "mobile_clients"
+    build_problem(cfg, device=dev)  # the autoencoder, cached since the main path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = run_experiment("fedeec", cfg, rounds=rounds, scenario=scenario, device=dev)
+    counts = {k: ops.launches[k] for k in ("distill_loss_fwd", "distill_loss_bwd",
+                                           "skr_rectify")}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    host = sum(res.round_s)
+    print(f"round host s (churn + items, ending in a sync): {res.round_s}")
+    print(f"run wall s (rounds + evals): {res.wall_s:.3f}  rounds' share "
+          f"{host / res.wall_s:.3f}")
+    print(f"simulated s: {res.sim_wall_s}  sim curve: {res.sim_curve}")
+    print(f"event counts: {res.event_counts}")
+    print(f"event signature: {res.event_signature}")
+    print(f"dispatch stats: {res.dispatch_stats}")
+    print(f"comm bytes: {res.comm_bytes}")
+    print(f"cloud accuracy curve: {res.acc_curve}")
+    print(f"peak max_memory_allocated: {peak:.1f} MiB")
+    print(f"launches: {counts}")
+    log, want = replay_sim_schedule(cfg, scenario, rounds, dev)
+    print(f"launches predicted by the CPU replay: {want}")
+    if len(res.acc_curve) != rounds or not all(
+            math.isfinite(a) and 0.0 <= a <= 1.0 for a in res.acc_curve):
+        fail(f"bad accuracy curve {res.acc_curve}")
+    if res.event_counts.get("migrate", 0) == 0:
+        fail("mobile_clients migrated no client: the run did not exercise migration")
+    if res.dispatch_stats["batched_dispatches"] != 0:
+        fail(f"serial dispatch expected, got {res.dispatch_stats}")
+    if _without_evals(res.event_log) != log:
+        fail("the card's event log (without evals) differs from the CPU replay's")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the scenario path")
+        if n != want[name]:
+            fail(f"kernel {name}: {n} launches on the scenario path, the replay "
+                 f"predicts {want[name]}")
+    return counts
+
+
 def time_lm_kernels(dev):
     """Times at the LM serving path's shapes: flash_attention in bf16 at the
     4096-token prefill and at a decode step of 8 requests with the queries
@@ -1387,6 +1553,12 @@ def main() -> None:
     phase("parity: the card vs the CPU on small inputs")
     check_step_parity(dev)
     check_round_parity(dev)
+
+    phase("FedEEC on the simulator: the 11 gate scenarios, then "
+          "run_experiment('fedeec', FLConfig(), rounds=3, scenario='mobile_clients')")
+    check_sim_signatures(dev)
+    for k, n in drive_sim_path(dev).items():
+        counts[k] += n
 
     # each JSON row counts its own CUDA kernel's launches: flash_attention's
     # the tensor-core kernel's, flash_attention_simt's the SIMT kernel's,

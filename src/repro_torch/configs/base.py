@@ -367,6 +367,6 @@ class FLConfig:
     embed_dim: int = 32
     seed: int = 0
 
-    # network simulation: name of a scenario, or "" for the plain
-    # (round-counted) execution path — the only path the port runs so far
+    # network simulation (repro_torch.sim): name of a registered scenario,
+    # or "" for the plain (round-counted, no simulated clock) execution path
     scenario: str = ""

@@ -4,8 +4,8 @@ The paper evaluates on SVHN / CIFAR-10 / CINIC-10 with 50/100/500 clients and
 5/10/20 edges. The datasets are class-conditional synthetic stand-ins with
 matching shape and class count (see ``repro_torch.data.synthetic``);
 experiment scale is reduced while preserving every algorithmic knob (β, γ,
-T, B, Dirichlet α, tiers). The presets that name a scenario need the
-simulator, which the port does not have yet.
+T, B, Dirichlet α, tiers). The presets that name a scenario run through
+the simulator (``repro_torch.sim``).
 """
 from dataclasses import replace
 

@@ -16,6 +16,10 @@ Parameters, optimizer and SKR states live on ``device``. The embedding
 stores stay host numpy, indexed by draws from ``np.random.default_rng(seed)``
 in the reference's order, so a run consumes the generator call for call as
 the reference does.
+
+Under the simulator (``repro_torch.sim``) every pair runs alone: the
+trainer keeps the base class's ``batch_signature`` (``None``), so dispatch
+is serial (ROADMAP.md A2 brings the batched pair path).
 """
 from __future__ import annotations
 
@@ -106,6 +110,19 @@ class FedEEC(FLAlgorithm):
 
         self.client_data = client_data
         self.embeddings: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        # per-row provenance of every embedding store: which device each
+        # sample came from (index into the sorted device list). Drives
+        # cohort-weighted bridge sampling under population-scale
+        # scenarios; maintained at the same three sites as the stores
+        # themselves (init / gather / migrate)
+        self.embed_src: dict[str, np.ndarray] = {}
+        self._src_names: list[str] = sorted(client_data)
+        self._src_pos: dict[str, int] = {
+            v: i for i, v in enumerate(self._src_names)}
+        self._bridge_p_cache: dict[str, np.ndarray] = {}
+        # (node, peer, reason) of BSBODP pairs lost to faults — the
+        # knowledge that never agglomerated
+        self.failed_pairs: list[tuple[str, str, str]] = []
         self._init_phase()
 
     # ------------------------------------------------------------------ init
@@ -121,6 +138,8 @@ class FedEEC(FLAlgorithm):
                 x, y = self.client_data[v]
                 eps = encode(self.auto, self._to_device(x)).cpu().numpy()
                 self.embeddings[v] = (eps, y.copy())
+                self.embed_src[v] = np.full(
+                    len(y), self._src_pos[v], dtype=np.int32)
                 # upload (ε, y): (|ε| + 1) per sample — Table VII init term
                 link = self.comm.link_kind(self.tree, v)
                 self.comm.record(link, eps.size + len(y), "init-embed")
@@ -129,15 +148,17 @@ class FedEEC(FLAlgorithm):
         self._gather_children(self.tree.root)
 
     def _gather_children(self, v):
-        es, ys = [], []
+        es, ys, ss = [], [], []
         for c in self.tree.children[v]:
             e, y = self.embeddings[c]
             es.append(e)
             ys.append(y)
+            ss.append(self.embed_src[c])
             if v != self.tree.root:
                 link = self.comm.link_kind(self.tree, v)
                 self.comm.record(link, e.size + y.size, "relay-embed")
         self.embeddings[v] = (np.concatenate(es), np.concatenate(ys))
+        self.embed_src[v] = np.concatenate(ss)
 
     # ----------------------------------------------------------------- steps
 
@@ -185,7 +206,7 @@ class FedEEC(FLAlgorithm):
 
         steps = self.pair_steps(v_s, v_t)
         for _ in range(steps):
-            idx = self.rng.choice(n, size=bs, replace=n < bs)
+            idx = self._bridge_choice(pair_node, n, bs)
             y_b = self._to_device(labels[idx]).long()
             with torch.no_grad():
                 bridge = decode(self.auto, self._to_device(eps[idx]),
@@ -208,6 +229,31 @@ class FedEEC(FLAlgorithm):
                 self.params[v_s], self.opt[v_s], _ = self._student_step(
                     self.model_of[v_s], False, self.params[v_s],
                     self.opt[v_s], bridge, y_b, tq)
+
+    def _bridge_choice(self, node: str, n: int, bs: int) -> np.ndarray:
+        """Bridge-sample index draw over ``node``'s embedding store. With
+        default size-1 cohorts this is the uniform draw; under a
+        population-scale scenario rows are drawn proportionally to their
+        source device's cohort size (``rng.choice`` with ``p=``, which
+        consumes the generator differently, as the reference's does)."""
+        if not self._cohort_sizes:
+            return self.rng.choice(n, size=bs, replace=n < bs)
+        return self.rng.choice(n, size=bs, replace=n < bs,
+                               p=self._bridge_p(node))
+
+    def _bridge_p(self, node: str) -> np.ndarray:
+        p = self._bridge_p_cache.get(node)
+        if p is None:
+            sizes = np.array([float(self.cohort_size(nm))
+                              for nm in self._src_names])
+            w = sizes[self.embed_src[node]]
+            p = w / w.sum()
+            self._bridge_p_cache[node] = p
+        return p
+
+    def set_cohort_sizes(self, sizes) -> None:
+        super().set_cohort_sizes(sizes)
+        self._bridge_p_cache.clear()
 
     def bsbodp_pair(self, v1: str, v2: str):
         """Algorithm 1/2: both directions."""
@@ -248,6 +294,30 @@ class FedEEC(FLAlgorithm):
     def execute(self, item: WorkItem) -> None:
         self.bsbodp_pair(item.node, item.peer)
 
+    def on_item_failed(self, item: WorkItem, reason: str) -> None:
+        """A BSBODP pair was lost to faults. The pair never executed:
+        neither direction distilled and the teacher's SKR queue never saw
+        the bridge batch, so the pair is out of this round's agglomeration
+        by construction. Record the loss so callers can see what went
+        missing."""
+        self.failed_pairs.append((item.node, item.peer, reason))
+
+    def _rebuild_embed_src(self) -> None:
+        """Provenance from (topology, client_data), in the same child order
+        the stores concatenate — row i of a store and of its provenance
+        always describe the same sample."""
+        self.embed_src = {}
+        for v in self.tree.post_order():
+            if v in self.client_data:
+                self.embed_src[v] = np.full(
+                    len(self.embeddings[v][1]), self._src_pos[v],
+                    dtype=np.int32)
+            else:
+                parts = [self.embed_src[c] for c in self.tree.children[v]]
+                self.embed_src[v] = (np.concatenate(parts) if parts
+                                     else np.zeros((0,), dtype=np.int32))
+        self._bridge_p_cache.clear()
+
     def _model_params(self, node: str):
         return self.params[node]
 
@@ -268,19 +338,23 @@ class FedEEC(FLAlgorithm):
             if v not in self.client_data
         }
         for v in sorted(affected, key=self.tree.tier, reverse=True):
-            es, ys = [], []
+            es, ys, ss = [], [], []
             for c in self.tree.children[v]:
                 e, y = self.embeddings[c]
                 es.append(e)
                 ys.append(y)
+                ss.append(self.embed_src[c])
             if es:
                 self.embeddings[v] = (np.concatenate(es), np.concatenate(ys))
+                self.embed_src[v] = np.concatenate(ss)
             else:
                 self.embeddings[v] = (
                     np.zeros((0,) + self.embeddings[node][0].shape[1:],
                              dtype=self.embeddings[node][0].dtype),
                     np.zeros((0,), dtype=self.embeddings[node][1].dtype),
                 )
+                self.embed_src[v] = np.zeros((0,), dtype=np.int32)
+        self._bridge_p_cache.clear()
         # charge the subtree's (ε, y) upload on every hop of the new path
         eps, ys_ = self.embeddings[node]
         hop = node

@@ -21,14 +21,17 @@ share one)::
     def _build(cfg, tree, client_data, auto, *, device):
         return MyAlg(cfg, tree, client_data, device=device)
 
-The simulator's batched dispatch, participation masks, refusal hooks,
-fault hooks, checkpoint state, weighted cohorts and tracer spans come with
-the port's simulator slice.
+The simulator (``repro_torch.sim``) drives the same trainers through the
+hooks below: participation masks, refusal hooks, fault hooks and weighted
+cohorts. Its dispatch is serial: ``batch_signature`` returns ``None`` for
+every item, and ``execute_batch`` is the serial fallback (ROADMAP.md A2
+brings the batched pair path). Checkpoint state and tracer spans come with
+ROADMAP.md A4 and A5.
 """
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Callable, NamedTuple
+from typing import Callable, Iterable, NamedTuple, Optional
 
 from repro_torch.core.protocols import Protocol
 from repro_torch.core.topology import Tree, link_kind
@@ -66,7 +69,7 @@ class MigrationRefused(RuntimeError):
 
 class FLAlgorithm(ABC):
     """Abstract FL trainer: work-item decomposition + protocol-gated
-    migration, over a shared ``Tree``."""
+    migration + participation masking, over a shared ``Tree``."""
 
     #: interaction protocol governing migration legality (§IV-E)
     protocol: Protocol | None = None
@@ -75,7 +78,10 @@ class FLAlgorithm(ABC):
         self.cfg = cfg
         self.tree = tree
         self.comm = CommMeter()
+        self.participation: frozenset[str] | None = None
         self._round = 0
+        self._refuse_hooks: list[Callable[[str, str, str], None]] = []
+        self._cohort_sizes: dict[str, int] = {}
 
     # -- round decomposition ----------------------------------------------
 
@@ -90,37 +96,96 @@ class FLAlgorithm(ABC):
     def execute(self, item: WorkItem) -> None:
         """Run one work item, recording its traffic on ``self.comm``."""
 
+    # -- dispatch groups -----------------------------------------------------
+
+    def batch_signature(self, item: WorkItem):
+        """Hashable dispatch-compatibility key for ``item``, or ``None``
+        when the item must run alone. The simulator may hand a group of
+        items whose signatures compare equal, and that share no participant
+        node, to :meth:`execute_batch` as one dispatch. The default opts
+        every item out of coalescing."""
+        return None
+
+    def execute_batch(self, items: list[WorkItem]) -> None:
+        """Run a group of same-signature, participant-disjoint items: the
+        serial fallback. An override must record the same per-item comm
+        bytes as serial execution would."""
+        for item in items:
+            self.execute(item)
+
     def begin_round(self, round: int) -> None:
         """Pre-round hook (e.g. DemLearn re-clustering). May migrate."""
 
     def end_round(self, round: int) -> None:
         """Post-round barrier across items (e.g. cloud aggregation)."""
 
+    def on_item_failed(self, item: WorkItem, reason: str) -> None:
+        """A scheduled item was lost to faults (``reason`` in
+        {"abandoned", "timeout", "departed"}). The item was never executed,
+        so no state or comm traffic exists to roll back; overrides record
+        the loss. The default is a no-op."""
+
+    # -- weighted cohorts ---------------------------------------------------
+
+    def set_cohort_sizes(self, sizes: dict[str, int]) -> None:
+        """Declare each materialized device as the representative of a
+        homogeneous cohort of ``sizes[v]`` identical devices. The simulator
+        calls this once at construction when the scenario declares a
+        ``population``; by default every cohort has size 1."""
+        self._cohort_sizes = {str(v): int(n) for v, n in sizes.items()}
+
+    def cohort_size(self, v: str) -> int:
+        """Cohort multiplicity of device ``v`` (an int, 1 by default)."""
+        return self._cohort_sizes.get(v, 1)
+
+    # -- participation ------------------------------------------------------
+
+    def set_participation(self, mask: Optional[Iterable[str]]) -> None:
+        """Restrict data-holding devices to ``mask`` (None = everyone).
+        Non-device nodes always participate."""
+        self.participation = None if mask is None else frozenset(mask)
+
+    def participates(self, v: str) -> bool:
+        if self.participation is None or not self.tree.is_device(v):
+            return True
+        return v in self.participation
+
     # -- plain (round-counted) execution ------------------------------------
 
     def train_round(self) -> None:
-        """One round with every node online."""
+        """One round over the participating nodes (every node, unless a
+        mask was set)."""
         r = self._round
         self.begin_round(r)
-        for item in self.work_items(r, lambda v: True):
-            self.execute(item)
+        for item in self.work_items(r, self.participates):
+            if self.participates(item.node) and (
+                not item.peer or self.participates(item.peer)
+            ):
+                self.execute(item)
         self.end_round(r)
         self._round += 1
 
     # -- migration (§IV-E) ---------------------------------------------------
 
+    def on_migrate_refused(self, hook: Callable[[str, str, str], None]) -> None:
+        """Register a callback fired with (node, target, reason) whenever a
+        migration is refused — the simulator logs these."""
+        self._refuse_hooks.append(hook)
+
     def migrate(self, node: str, new_parent: str) -> None:
         """Re-parent ``node`` under ``new_parent`` iff the declared
         protocol's relation allows it; raise :class:`MigrationRefused`
-        otherwise."""
+        (after notifying refuse hooks) otherwise."""
         if self.protocol is not None and not self.protocol.allows_migration(
             self._model_params, node, new_parent
         ):
+            for hook in self._refuse_hooks:
+                hook(node, new_parent, "protocol")
             raise MigrationRefused(node, new_parent, self.protocol)
         self._do_migrate(node, new_parent)
 
     def try_migrate(self, node: str, new_parent: str) -> bool:
-        """Non-raising :meth:`migrate`."""
+        """Non-raising :meth:`migrate`; refuse hooks still fire."""
         try:
             self.migrate(node, new_parent)
         except MigrationRefused:

@@ -3,10 +3,12 @@ dataset / partition / topology / autoencoder, runs the selected algorithm
 for R rounds, and records the cloud-model accuracy curve and the
 communication bytes (the quantities behind paper Tables III-VII and Fig. 5).
 
-The port runs the plain (round-counted) path. The simulated-network path
-and its options (``scenario``, ``faults``, checkpoint/resume, ``tracer``,
-``profile_sim``) raise ``NotImplementedError`` until the port's simulator,
-fault and observability slices land (ROADMAP.md, queue A).
+With a ``scenario`` (name or ``ScenarioConfig``), rounds run inside the
+discrete-event EEC-NET simulator (``repro_torch.sim``): churn fires at
+round boundaries, pair work is priced by link bandwidth/latency, faults are
+injected, and the accuracy curve is reported against simulated seconds.
+Checkpoint/resume and ``tracer`` raise ``NotImplementedError`` until
+ROADMAP.md A4 and A5.
 
 Everything runs on ``device``, which defaults to ``"cuda"`` and raises
 without a card unless the caller passes ``device="cpu"``.
@@ -39,11 +41,39 @@ class RunResult:
     comm_bytes: dict[str, float] = field(default_factory=dict)
     wall_s: float = 0.0
     # host seconds of each round's training, ending in a device sync
+    # (on the scenario path: churn and items; outside the event log)
     round_s: list[float] = field(default_factory=list)
+    # simulated-network quantities (set when a scenario drives the run)
+    scenario: str = ""
+    sim_times: list[float] = field(default_factory=list)  # seconds per eval
+    sim_wall_s: float = 0.0  # simulated length of the whole run
+    event_counts: dict[str, int] = field(default_factory=dict)
+    event_log: list[dict] = field(default_factory=list)
+    event_signature: str = ""
+    # metrics-registry snapshot of the run (repro_torch.obs.metrics),
+    # outside the event log
+    metrics: dict[str, dict] = field(default_factory=dict)
 
     @property
     def final_acc(self) -> float:
         return self.acc_curve[-1] if self.acc_curve else 0.0
+
+    @property
+    def dispatch_stats(self) -> dict[str, int]:
+        """Pair-coalescing counters, a view over ``metrics``."""
+        def val(name: str) -> int:
+            return int(self.metrics.get(name, {}).get("value", 0))
+        return {
+            "items": val("sim_dispatch_items_total"),
+            "dispatches": val("sim_dispatches_total"),
+            "batched_dispatches": val("sim_batched_dispatches_total"),
+            "batched_items": val("sim_batched_items_total"),
+        }
+
+    @property
+    def sim_curve(self) -> list[tuple[float, float]]:
+        """(simulated seconds, accuracy) points."""
+        return list(zip(self.sim_times, self.acc_curve))
 
 
 # LRU of pre-trained autoencoders: parameter sweeps cycle through many
@@ -119,27 +149,55 @@ def run_experiment(
     profile_sim: bool = False,
     device="cuda",
 ) -> RunResult:
-    """Run ``algorithm`` for R rounds on ``device`` (plain path)."""
-    if scenario is not None or cfg.scenario or profile_sim:
-        _not_ported("the simulated-network path (scenario=, profile_sim=)",
-                    "the simulator slice")
-    if faults is not None or stop_after is not None:
-        _not_ported("the fault plane (faults=, stop_after=)",
-                    "the simulator slice")
+    """Run ``algorithm`` for R rounds on ``device``.
+
+    ``scenario`` (a name from ``repro_torch.sim.scenarios`` or a
+    ``ScenarioConfig``; falls back to ``cfg.scenario``) switches to the
+    event-driven simulated-network path. ``faults`` (a ``FaultPlan`` or
+    plan name, scenario path only) overrides the scenario's plan; byzantine
+    plans rewrite client labels BEFORE trainer construction, so FedEEC's
+    embedding stores see the noise. ``stop_after`` ends the run early (no
+    final eval); ``profile_sim`` records the simulator's host phase times
+    as gauges in ``metrics``. Checkpoint/resume (ROADMAP.md A4) and
+    ``tracer`` (A5) raise ``NotImplementedError``.
+    """
     if checkpoint_every or checkpoint_dir or resume_from:
-        _not_ported("checkpoint/resume", "the checkpoint item")
+        _not_ported("checkpoint/resume", "A4")
     if tracer is not None:
-        _not_ported("tracing (tracer=)", "the simulator slice's repro.obs port")
+        _not_ported("tracing (tracer=)", "A5")
     dev = resolve_device(device)
 
+    scenario = scenario if scenario is not None else (cfg.scenario or None)
+    sc = None
+    if scenario is not None:
+        from repro_torch.sim.scenarios import get_scenario
+
+        sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
+    if isinstance(faults, str):
+        from repro_torch.sim.faults import get_fault_plan
+
+        faults = get_fault_plan(faults)
+    plan = faults if faults is not None else (
+        sc.faults if sc is not None else None)
+
     ds, tree, client_data, auto = build_problem(cfg, device=dev)
+    if plan is not None and plan.label_noise_frac > 0:
+        from repro_torch.sim.faults import apply_label_noise
+
+        client_data, _ = apply_label_noise(
+            plan, client_data, cfg.seed, cfg.num_classes)
     trainer = create_algorithm(algorithm, cfg, tree, client_data, auto,
                                device=dev)
     rounds = rounds if rounds is not None else cfg.rounds
     res = RunResult(algorithm, cfg)
     t0 = time.perf_counter()
-    _run_plain(trainer, ds, res, rounds, eval_every, verbose,
-               migration_round, dev)
+    if sc is not None:
+        _run_simulated(trainer, sc, cfg, ds, res, rounds, eval_every,
+                       verbose, dev, faults=faults, stop_after=stop_after,
+                       profile_sim=profile_sim)
+    else:
+        _run_plain(trainer, ds, res, rounds, eval_every, verbose,
+                   migration_round, dev)
     res.comm_bytes = trainer.comm.summary()
     res.wall_s = time.perf_counter() - t0
     return res
@@ -182,3 +240,32 @@ def _run_plain(trainer, ds, res, rounds, eval_every, verbose,
             res.best_acc = max(res.best_acc, acc)
             if verbose:
                 print(f"  [{res.algorithm}] round {r+1:3d}  cloud acc {acc:.4f}", flush=True)
+
+
+def _run_simulated(trainer, sc, cfg, ds, res, rounds, eval_every, verbose,
+                   dev, *, faults=None, stop_after=None, profile_sim=False):
+    from repro_torch.sim.engine import SimEngine
+
+    engine = SimEngine(trainer, sc, seed=cfg.seed, faults=faults,
+                       profile=profile_sim)
+
+    def eval_fn():
+        return accuracy(trainer.cloud_apply(), trainer.cloud_params(),
+                        ds.x_test, ds.y_test)
+
+    log = engine.run(rounds, eval_fn=eval_fn, eval_every=eval_every,
+                     stop_after=stop_after, sync=lambda: _sync(dev))
+    res.scenario = sc.name
+    res.round_s = list(engine.round_s)
+    for t, acc in engine.acc_points:
+        res.sim_times.append(t)
+        res.acc_curve.append(acc)
+        res.best_acc = max(res.best_acc, acc)
+        if verbose:
+            print(f"  [{res.algorithm}/{sc.name}] sim t={t:8.1f}s "
+                  f"cloud acc {acc:.4f}", flush=True)
+    res.sim_wall_s = engine.now
+    res.event_counts = log.counts()
+    res.event_log = log.entries
+    res.event_signature = log.signature()
+    res.metrics = engine.metrics.snapshot()

@@ -1,18 +1,25 @@
 """Where a FedEEC round's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.fl.profile_round
+    PYTHONPATH=src python -m repro_torch.fl.profile_round --scenario mobile_clients
 
-Builds the problem at ``FLConfig()`` defaults on the card, runs one plain
-round (it pays the one-off set-up), times the next round without the
+Builds the problem at ``FLConfig()`` defaults on the card, runs one round
+(it pays the one-off set-up), times the next round without the
 profiler, then runs one more round under
 ``torch.profiler`` and reports: the round's host wall time, the device's
 busy time (the union of kernel intervals) and idle share, the number of
 kernels launched, and the kernels that take the most device time. The
 profiler slows the host, so the idle share is reported against the
-unprofiled round's wall time too.
+unprofiled round's wall time too. The rounds are plain rounds, or with
+``--scenario`` the simulator's rounds of that scenario (churn, scheduling
+and the pairs that run; the engine's host time is inside the round). A
+scenario's timed and profiled rounds are consecutive rounds, whose churn
+can run different pairs, so there the profiled round's own idle share is
+the consistent one.
 """
 from __future__ import annotations
 
+import argparse
 import time
 
 TOP = 12  # kernels and host operators listed
@@ -33,7 +40,13 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="repro_torch.fl.profile_round")
+    ap.add_argument("--scenario", default="",
+                    help="run the simulator's rounds of this scenario "
+                         "instead of plain rounds")
+    args = ap.parse_args(argv)
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -45,16 +58,26 @@ def main() -> None:
     cfg = FLConfig()
     _, tree, client_data, auto = build_problem(cfg, device="cuda")
     trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device="cuda")
-    trainer.train_round()
+    step = trainer.train_round
+    if args.scenario:
+        from repro_torch.sim.engine import SimEngine
+        from repro_torch.sim.scenarios import get_scenario
+
+        engine = SimEngine(trainer, get_scenario(args.scenario), seed=cfg.seed)
+
+        def step():
+            engine.run(len(engine.round_s) + 1)
+
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.train_round()
+    step()
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_round()
+        step()
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -65,6 +88,8 @@ def main() -> None:
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     print(f"device: {torch.cuda.get_device_name(0)}")
+    if args.scenario:
+        print(f"scenario {args.scenario}: events so far {engine.log.counts()}")
     print(f"round wall s: {wall_plain:.4f} unprofiled, {wall_prof:.4f} profiled")
     print(f"device busy s: {busy_s:.4f}  idle share: {1 - busy_s / wall_plain:.4f} of the "
           f"unprofiled round, {1 - busy_s / wall_prof:.4f} of the profiled one")

@@ -175,6 +175,35 @@ def test_fedeec_runs_through_the_kernels(cuda):
     assert all(ops.launches[k] > 0 for k in fedeec_kernels)
 
 
+def test_mobile_clients_on_the_card_matches_the_table(cuda):
+    """The gate configuration of ``benchmarks/tables/scenarios.json``
+    (4 clients, 2 edges, cnn2 edge and cloud, 2 rounds, no eval) through
+    ``mobile_clients`` on the card: the tracked signature, with every pair
+    through the kernels."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.configs.fedeec_paper import paper_setting
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.scenarios import get_scenario
+
+    table = json.loads((Path(__file__).resolve().parent.parent / "benchmarks" / "tables"
+                        / "scenarios.json").read_text())
+    cfg = paper_setting("synth_cifar10", 4, 2, samples_per_client=16, test_samples=64,
+                        image_size=8, embed_dim=16, edge_model="cnn2", cloud_model="cnn2")
+    _, tree, client_data, auto = build_problem(cfg, device=cuda)
+    trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=cuda)
+    engine = SimEngine(trainer, get_scenario("mobile_clients"), seed=cfg.seed)
+    ops.reset_launches()
+    log = engine.run(2)
+    assert log.signature() == table["fedeec/mobile_clients"]
+    assert log.count("migrate") > 0
+    assert all(ops.launches[k] > 0 for k in ("distill_loss_fwd", "distill_loss_bwd",
+                                             "skr_rectify"))
+
+
 # --- the LM serving kernels ---------------------------------------------------
 
 

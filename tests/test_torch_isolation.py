@@ -33,7 +33,12 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"fedeec.py", "engine.py", "distill_loss.py", "chip_smoke.py",
             "flash_attention.py", "rwkv6_scan.py", "serve.py", "transformer.py",
-            "train.py", "steps.py", "loader.py", "schedule.py", "optimizers.py"} <= names
+            "train.py", "steps.py", "loader.py", "schedule.py", "optimizers.py",
+            "events.py", "churn.py", "faults.py", "scenarios.py", "network.py",
+            "runner.py", "metrics.py"} <= names
+    sim = {p.name for p in PORT_FILES if p.parent.name == "sim"}
+    assert {"engine.py", "events.py", "churn.py", "faults.py", "scenarios.py",
+            "network.py", "runner.py"} <= sim
 
 
 def _no_card():
@@ -50,6 +55,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     with _no_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_experiment("fedeec", cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_experiment("fedeec", cfg, scenario="stable")
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_problem(cfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -175,14 +182,22 @@ def test_unported_model_features_raise(change):
 
 
 def test_unported_options_raise():
+    """Tracing waits for ROADMAP A5 and checkpoint/resume for A4, on the
+    plain path and the scenario path alike (scenario= and faults= run
+    since the simulator slice)."""
     from repro_torch.fl.engine import run_experiment
+    from repro_torch.sim import runner
 
     cfg = FLConfig(num_clients=2, num_edges=1, samples_per_client=4, test_samples=8,
                    image_size=8, embed_dim=16)
-    for kw in ({"scenario": "stable"}, {"faults": "lossy"}, {"checkpoint_every": 1},
-               {"tracer": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_experiment("fedeec", cfg, device="cpu", **kw)
+    for kw, item in (({"checkpoint_every": 1}, "A4"), ({"checkpoint_dir": "ck"}, "A4"),
+                     ({"resume_from": "ck"}, "A4"), ({"tracer": object()}, "A5")):
+        for scenario in (None, "stable"):
+            with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+                run_experiment("fedeec", cfg, device="cpu", scenario=scenario, **kw)
+    for argv in (["--trace", "t.json"], ["--explain-rounds"], ["--checkpoint-every", "1"],
+                 ["--resume", "ck"], ["--verify-resume"]):
+        assert runner.main(argv + ["--device", "cpu"]) == 2
 
 
 def test_registry_has_the_slice_algorithms():
