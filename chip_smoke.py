@@ -6,6 +6,8 @@ LM training path.
     python3 chip_smoke.py
     python3 chip_smoke.py --rwkv-chunks  # only phases 1-2 and the chunked
                                          # rwkv6_scan at each chunk length
+    python3 chip_smoke.py --distill      # only phases 1-2 and distill_loss's
+                                         # checks and times
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
@@ -17,9 +19,14 @@ the result line:
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` and print
    nvcc's registers / shared memory / spills per kernel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the main paths' shapes and the bench shapes (distill_loss on
-   fp32 and on bf16 logits, the latter up to the LM training loss's
-   (1, 1024, 128256); flash_attention has three kernels: the split-KV
+   card, at the main paths' shapes and the bench shapes (distill_loss: both
+   entries, the t entry and the cross-entropy entry that takes no teacher,
+   each case naming the kernels that served it (``regs`` or ``stream``
+   forward, ``rows`` or ``slices`` backward), on fp32 and on bf16 logits up
+   to the LM training loss's (1, 1024, 128256), at and across each
+   variant's threshold, on logits off a 16-byte boundary, and the CE entry
+   bit for bit against the t entry on an all-zero t; then a check that the
+   CE forward allocates nothing of the logits' size; flash_attention has three kernels: the split-KV
    decode kernel for every call with one query, the tensor-core kernel for
    bf16 prefill and the SIMT kernel for the rest; each case names the one
    that served it, at every decode case the SIMT kernel, launched
@@ -30,7 +37,9 @@ the result line:
    included), then the
    FedEEC kernels' device time (a CUDA graph of many launches between CUDA
    events) beside the plain version's, the bound and, where one PyTorch
-   call computes the same function, that call's time;
+   call computes the same function, that call's time (distill_loss's
+   entries at (1, 8, 10) and at (4, 256, 2048) fp32, the latter also cold:
+   rotating through inputs past the 50 MB L2);
 4. FedEEC: ``run_experiment("fedeec", FLConfig(), rounds=3)`` on the card,
    with the launch counters zeroed just before and read just after, each
    held to the count the trainer's ``pair_steps`` predicts;
@@ -82,13 +91,14 @@ the result line:
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
    beside the chunked one, and the chunked one's three kernels' device ms
    under the profiler; and
-   distill_loss at the training shape in bf16, forward and backward,
-   beside ``F.cross_entropy`` on the same logits, printed on a line of its
-   own. They come last, so that nothing the timing leaves allocated enters
-   a main path's peak memory.
+   distill_loss at the training shape in bf16, both entries forward and
+   backward, beside ``F.cross_entropy`` on the same logits, printed on a
+   line of its own. They come last, so that nothing the timing leaves
+   allocated enters a main path's peak memory.
 
-It ends with the kernels' JSON line, nvidia-smi's line and, last,
-``{"ok": true, "device": {...}}``.
+It ends with the kernels' JSON line (distill_loss has a row per entry and
+direction, each with its launches per variant), nvidia-smi's line and,
+last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -108,6 +118,8 @@ TIMED_LAUNCHES = 200
 TPU_KERNELS = {
     "distill_loss_fwd": "src/repro/kernels/distill_loss.py:53",
     "distill_loss_bwd": "src/repro/kernels/distill_loss.py:95",
+    "distill_loss_fwd_ce": "src/repro/kernels/distill_loss.py:53",
+    "distill_loss_bwd_ce": "src/repro/kernels/distill_loss.py:95",
     "skr_rectify": "src/repro/kernels/skr_rectify.py:33",
     "flash_attention": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_simt": "src/repro/kernels/flash_attention.py:32",
@@ -118,6 +130,8 @@ TPU_KERNELS = {
 SOURCES = {
     "distill_loss_fwd": "src/repro_torch/csrc/distill_loss.cu",
     "distill_loss_bwd": "src/repro_torch/csrc/distill_loss.cu",
+    "distill_loss_fwd_ce": "src/repro_torch/csrc/distill_loss.cu",
+    "distill_loss_bwd_ce": "src/repro_torch/csrc/distill_loss.cu",
     "skr_rectify": "src/repro_torch/csrc/skr_rectify.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_simt": "src/repro_torch/csrc/flash_attention.cu",
@@ -130,6 +144,21 @@ SOURCES = {
 VARIANTS = {"flash_attention": "sm90", "flash_attention_simt": "simt",
             "flash_attention_decode": "decode"}
 RWKV_VARIANTS = {"rwkv6_scan": "seq", "rwkv6_scan_chunked": "chunked"}
+# distill_loss's JSON rows per entry of ``distill_loss.variant_launches``,
+# and those launches summed over the main paths' runs
+DISTILL_ROWS = {"fwd": "distill_loss_fwd", "bwd": "distill_loss_bwd",
+                "fwd_ce": "distill_loss_fwd_ce", "bwd_ce": "distill_loss_bwd_ce"}
+MAIN_DISTILL: dict[str, int] = {}
+
+
+def add_distill_launches() -> None:
+    """Add distill_loss's launches per entry and variant since the last
+    ``reset_launches`` to MAIN_DISTILL: called right after a main path's
+    run, where its launch counts are read."""
+    from repro_torch.kernels.distill_loss import variant_launches
+
+    for k, n in variant_launches.items():
+        MAIN_DISTILL[k] = MAIN_DISTILL.get(k, 0) + n
 
 
 def fail(msg: str) -> None:
@@ -247,89 +276,151 @@ def _distill_inputs(B, N, V, dev, seed=0):
     return z, t, y
 
 
-def check_distill_loss(dev):
-    """Forward within 1e-5 relative (fp32 sums in another order); gradient
-    within 1e-6 absolute plus 1e-5 relative (a one-ulp difference in logZ
-    scales each dz element by about 1e-6 of itself)."""
+def _unaligned(x):
+    """x's values in a contiguous tensor that starts one element past a
+    16-byte boundary: every row peels a head and a tail."""
     import torch
 
-    from repro_torch.kernels import ref as R
-    from repro_torch.kernels.distill_loss import distill_loss_batched
-
-    worst_fwd = worst_bwd = 0.0
-    for B, N, V in [(1, 8, 10), (4, 8, 10), (3, 37, 1000), (4, 256, 2048),
-                    (2, 64, 128256)]:
-        for beta in (0.0, 1.5):
-            z, t, y = _distill_inputs(B, N, V, dev)
-            zk = z.clone().requires_grad_(True)
-            loss = distill_loss_batched(zk, t, y, beta, 1.0)
-            (dz,) = torch.autograd.grad(loss.sum(), zk)
-            want = R.distill_loss_batched_ref(z, y, t, beta, 1.0)
-            want_dz = R.distill_loss_grad_ref(z, y, t, beta, 1.0)
-            torch.cuda.synchronize()
-            e_fwd = (loss - want).abs().max().item()
-            e_bwd = (dz - want_dz).abs().max().item()
-            worst_fwd, worst_bwd = max(worst_fwd, e_fwd), max(worst_bwd, e_bwd)
-            ok_fwd = torch.allclose(loss, want, rtol=1e-5, atol=1e-6)
-            ok_bwd = torch.allclose(dz, want_dz, rtol=1e-5, atol=1e-6)
-            print(f"distill_loss ({B},{N},{V}) beta={beta}: fwd max|err| {e_fwd:.3e}"
-                  f"  grad max|err| {e_bwd:.3e}  {'ok' if ok_fwd and ok_bwd else 'MISMATCH'}")
-            if not (ok_fwd and ok_bwd):
-                fail(f"distill_loss disagrees with its plain version at ({B},{N},{V}) beta={beta}")
-    return worst_fwd, worst_bwd
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
-DISTILL_BF16_SHAPES = [(1, 8, 10), (3, 37, 1000), (4, 256, 2048)]
+# (B, N, V): FedEEC's rows (V = 10), vocabularies no multiple of 4 or 8, the
+# fp32 bench shape, fp32's register-layout threshold (16 KB: V = 4096) and
+# bf16's (V = 8192) from both sides, and llama3.2-3b's vocabulary
+DISTILL_SHAPES = [(1, 8, 10), (4, 8, 10), (3, 37, 1000), (2, 33, 4095), (2, 33, 4096),
+                  (2, 33, 4097), (4, 256, 2048), (2, 64, 128256)]
+DISTILL_BF16_SHAPES = [(1, 8, 10), (3, 37, 1000), (2, 5, 1003), (2, 33, 4095), (2, 33, 4096),
+                       (2, 33, 4097), (2, 17, 8191), (2, 17, 8192), (2, 17, 8193),
+                       (4, 256, 2048)]
+# the cases also run on logits one element off a 16-byte boundary
+DISTILL_UNALIGNED = {(3, 37, 1000), (2, 33, 4097), (2, 5, 1003), (2, 17, 8193)}
 TRAIN_LOSS_SHAPE = (1, 1024, 128256)  # llama3.2-3b, batch 2 x loss_chunk 512 rows
 
 
-def check_distill_loss_bf16(dev):
-    """bf16 logits, as the LM training loss feeds them (beta = 0 with an
-    all-zero t, as ``fused_softmax_xent`` passes it) and with a bf16 teacher
-    at beta = 1.5. The loss (fp32) within 1e-5 relative plus 1e-6, as in
-    fp32; dz (bf16) within ``ref.distill_loss_grad_bf16_bound``: both sides
-    compute in fp32 and round once, so one bf16 ulp of |want| and nothing
-    more at beta = 0; at beta = 1.5, where beta's term can cancel lw * p,
-    also 2^-16 of that element's terms g beta p (|logZ| + |logp - t| +
-    |KL|), for the fp32 errors of logZ and KL. Returns the worst errors
-    (fwd, bwd)."""
+def _distill_case(dev, B, N, V, dtype, beta, unaligned):
+    """One case through each entry that computes it (the t entry; at beta
+    = 0 also the CE entry, with no t), against the plain versions on the
+    same inputs, and the CE entry against the t entry on an all-zero t, bit
+    for bit (one template). Returns per entry (loss err, dz err, dz share
+    of its bound) and the variants that served the case."""
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.distill_loss import distill_loss_batched
+    from repro_torch.kernels.distill_loss import (
+        _bwd_variant,
+        _fwd_variant,
+        distill_loss_batched,
+        softmax_xent_batched,
+        variant_launches,
+    )
 
-    worst_fwd = worst_bwd = 0.0
-    for B, N, V in DISTILL_BF16_SHAPES + [TRAIN_LOSS_SHAPE]:
-        for beta in (0.0, 1.5):
-            z, t, y = _distill_inputs(B, N, V, dev)
-            z = z.bfloat16()
-            t = (t if beta else torch.zeros_like(t)).bfloat16()
-            w = torch.randn((B, N), generator=torch.Generator(device=dev).manual_seed(5),
-                            device=dev)
-            zk = z.clone().requires_grad_(True)
-            loss = distill_loss_batched(zk, t, y, beta, 1.0)
-            (dz,) = torch.autograd.grad(loss, zk, w)
-            want = R.distill_loss_batched_ref(z, y, t, beta, 1.0)
-            want_dz = R.distill_loss_grad_ref(z, y, t, beta, 1.0, g=w).float()
-            torch.cuda.synchronize()
-            e_fwd = (loss - want).abs().max().item()
-            d = (dz.float() - want_dz).abs()
-            e_bwd = d.max().item()
-            bound = R.distill_loss_grad_bf16_bound(want_dz, z, t, beta, g=w)
-            share = (d / bound).nan_to_num(0.0).max().item()  # 0 / 0: equal zeros
-            ulps = (d > BF16_ULP * want_dz.abs()).sum().item()
-            worst_fwd, worst_bwd = max(worst_fwd, e_fwd), max(worst_bwd, e_bwd)
-            ok = (loss.dtype == torch.float32 and dz.dtype == torch.bfloat16
-                  and torch.allclose(loss, want, rtol=1e-5, atol=1e-6)
-                  and bool((d <= bound).all()))
-            print(f"distill_loss bf16 ({B},{N},{V}) beta={beta}: fwd max|err| {e_fwd:.3e}  "
-                  f"dz max|err| {e_bwd:.3e}, {share:.3f} of the bound, {ulps} elements past "
-                  f"one ulp of |want| alone  {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                fail(f"bf16 distill_loss disagrees with its plain version at ({B},{N},{V}) "
-                     f"beta={beta}")
-            del z, t, zk, loss, dz, want, want_dz, d, bound
-    return worst_fwd, worst_bwd
+    z, t, y = _distill_inputs(B, N, V, dev)
+    z, t = z.to(dtype), (t if beta else torch.zeros_like(t)).to(dtype)
+    if unaligned:
+        # at beta = 0, t shares z's phase (the t entry's forward on 16-byte
+        # loads, as the CE entry's); at beta = 1.5 it does not (scalar loads)
+        z, t = _unaligned(z), (_unaligned(t) if beta == 0.0 else t)
+    w = torch.randn((B, N), generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    out, got = {}, {}
+    for entry in ("t", "ce") if beta == 0.0 else ("t",):
+        ops.reset_launches()
+        zk = z.clone() if not unaligned else _unaligned(z)
+        zk.requires_grad_(True)
+        loss = (distill_loss_batched(zk, t, y, beta, 1.0) if entry == "t"
+                else softmax_xent_batched(zk, y))
+        (dz,) = torch.autograd.grad(loss, zk, w)
+        served = {k: n for k, n in variant_launches.items() if n}
+        want = R.distill_loss_batched_ref(z, y, t, beta, 1.0)
+        want_dz = R.distill_loss_grad_ref(z, y, t, beta, 1.0, g=w)
+        torch.cuda.synchronize()
+        name = "" if entry == "t" else "_ce"
+        rule = {f"fwd{name}:{_fwd_variant(B * N, V, dtype)[0]}": 1,
+                f"bwd{name}:{_bwd_variant(V, dtype)[0]}": 1}
+        if served != rule:
+            fail(f"distill_loss {entry} entry at {(B, N, V)} {dtype}: served by {served}, "
+                 f"the rule picks {rule}")
+        e_fwd = (loss - want).abs().max().item()
+        d = (dz.float() - want_dz.float()).abs()
+        if dtype == torch.float32:
+            bound = 1e-6 + 1e-5 * want_dz.abs()
+        else:
+            bound = R.distill_loss_grad_bf16_bound(want_dz.float(), z, t, beta, g=w)
+        share = (d / bound).nan_to_num(0.0).max().item()  # 0 / 0: equal zeros
+        ok = (loss.dtype == torch.float32 and dz.dtype == dtype
+              and torch.allclose(loss, want, rtol=1e-5, atol=1e-6) and bool((d <= bound).all()))
+        print(f"distill_loss {entry:2s} {str(dtype)[6:]} ({B},{N},{V}) beta={beta}"
+              f"{' unaligned' if unaligned else ''} [{', '.join(served)}]: fwd max|err| "
+              f"{e_fwd:.3e}  dz max|err| {d.max().item():.3e}, {share:.3f} of its bound  "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"distill_loss {entry} entry disagrees with its plain version at "
+                 f"({B},{N},{V}) {dtype} beta={beta}")
+        out[entry] = (e_fwd, d.max().item())
+        got[entry] = (loss, dz)
+    if "ce" in got and not (torch.equal(got["ce"][0], got["t"][0])
+                            and torch.equal(got["ce"][1], got["t"][1])):
+        fail(f"distill_loss at ({B},{N},{V}) {dtype}: the CE entry differs from the t "
+             "entry on an all-zero t")
+    return out
+
+
+def check_distill_loss(dev):
+    """Every entry and variant against its plain version, fp32 then bf16.
+    fp32: forward within 1e-5 relative plus 1e-6 (sums in another order);
+    gradient within 1e-6 absolute plus 1e-5 relative (a one-ulp difference
+    in logZ scales each dz element by about 1e-6 of itself). bf16 logits,
+    as the LM training loss feeds them to the CE entry (and at beta = 1.5
+    with a bf16 teacher): the loss (fp32) as in fp32; dz (bf16) within
+    ``ref.distill_loss_grad_bf16_bound``: both sides compute in fp32 and
+    round once, so one bf16 ulp of |want| and nothing more at beta = 0; at
+    beta = 1.5, where beta's term can cancel lw * p, also 2^-16 of that
+    element's terms g beta p (|logZ| + |logp - t| + |KL|). At beta = 0 the
+    CE entry must give the t entry's bits on an all-zero t. Returns the
+    worst errors per JSON row."""
+    import torch
+
+    worst = dict.fromkeys(("distill_loss_fwd", "distill_loss_bwd", "distill_loss_fwd_ce",
+                           "distill_loss_bwd_ce"), 0.0)
+    cases = ([(s, torch.float32) for s in DISTILL_SHAPES]
+             + [(s, torch.bfloat16) for s in DISTILL_BF16_SHAPES + [TRAIN_LOSS_SHAPE]])
+    for (B, N, V), dtype in cases:
+        for unaligned in (False, True) if (B, N, V) in DISTILL_UNALIGNED else (False,):
+            for beta in (0.0, 1.5):
+                for entry, (e_fwd, e_bwd) in _distill_case(dev, B, N, V, dtype, beta,
+                                                           unaligned).items():
+                    sfx = "" if entry == "t" else "_ce"
+                    worst["distill_loss_fwd" + sfx] = max(worst["distill_loss_fwd" + sfx],
+                                                          e_fwd)
+                    worst["distill_loss_bwd" + sfx] = max(worst["distill_loss_bwd" + sfx],
+                                                          e_bwd)
+        torch.cuda.empty_cache()
+    return worst
+
+
+def check_ce_allocates_no_teacher(dev):
+    """The CE entry's forward at the training shape allocates its loss,
+    stats and int32 labels, and no (N, V) tensor."""
+    import torch
+
+    from repro_torch.kernels.distill_loss import softmax_xent_batched
+
+    B, N, V = TRAIN_LOSS_SHAPE
+    z, _, y = _distill_inputs(B, N, V, dev)
+    z = z.bfloat16().requires_grad_(True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss = softmax_xent_batched(z, y)
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - before
+    print(f"softmax_xent forward at {TRAIN_LOSS_SHAPE} bf16: {grew} bytes allocated "
+          f"(one (N, V) bf16 tensor is {z.numel() * 2})")
+    if grew >= z.numel() * 2 // 8:
+        fail("the CE entry's forward allocated a tensor of the logits' size")
+    del loss, z
 
 
 def check_skr_rectify(dev):
@@ -579,42 +670,115 @@ def _timed(name, tag, shape, kernel, plain, library, nbytes, ops,
                 library_ms=library_ms)
 
 
+COLD_COPIES = 8  # inputs rotated through for a cold-L2 time: 8 x 8.4 MB of z at (4, 256, 2048)
+
+
+def _distill_bounds(entry, direction, n, V, itemsize):
+    """Bytes and fp32 operations an entry must move and do: z (and t for
+    the t entry) read once, dz written once; labels, stats, loss and the
+    cotangent once (16 bytes a row either way); exp counted as one op."""
+    reads = (1 if entry == "ce" else 2) + (1 if direction == "bwd" else 0)
+    ops = {("ce", "fwd"): 5, ("t", "fwd"): 7, ("ce", "bwd"): 6, ("t", "bwd"): 11}
+    return itemsize * reads * n * V + 16 * n, ops[(entry, direction)] * n * V
+
+
+def time_distill(dev, tag, B, N, V, dtype, entries, cold=False, launches=TIMED_LAUNCHES):
+    """Device ms of each (entry, beta) in ``entries`` at (B, N, V), forward
+    and backward, through the launch functions with labels already
+    validated, beside the plain versions and, for every beta = 0 forward,
+    ``F.cross_entropy`` on the same logits. ``cold``: each timed run
+    rotates through COLD_COPIES sets of inputs (above the 50 MB L2), and so
+    do the plain version and the library call. Returns JSON rows keyed
+    (row name, tag, beta)."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.distill_loss import _bwd_cuda, _bwd_variant, _fwd_cuda, _fwd_variant
+
+    n, it = B * N, dtype.itemsize
+    copies = [_distill_inputs(B, N, V, dev, seed=c) for c in range(COLD_COPIES if cold else 1)]
+    # each operand's copies side by side in one allocation, so that a
+    # rotation reads its entry's inputs and nothing else lies between them
+    zs, ts, ys = (torch.stack([c[i] for c in copies]) for i in range(3))
+    del copies
+    zs, ts = zs.to(dtype), ts.to(dtype)
+    ins = [(zs[c], ts[c], ys[c], ys[c].to(torch.int32)) for c in range(len(zs))]
+    g = torch.ones((B, N), device=dev)
+
+    def rotating(fn):
+        k = itertools.count()
+        return lambda: fn(*ins[next(k) % len(ins)])
+
+    lib_ms = device_ms(rotating(lambda z, t, y, y32: F.cross_entropy(
+        z.view(-1, V), y.view(-1), reduction="none")), launches)
+    rows = {}
+    for entry, beta in entries:
+        sfx = "_ce" if entry == "ce" else ""
+        stats = [_fwd_cuda(z, None if entry == "ce" else t, y32, beta, 1.0)[1]
+                 for z, t, y, y32 in ins]
+        shape = f"({B},{N},{V}) {str(dtype)[6:]} beta={beta}{' cold' if cold else ''}"
+        for direction in ("fwd", "bwd"):
+            if direction == "fwd":
+                kernel = rotating(lambda z, t, y, y32: _fwd_cuda(
+                    z, None if entry == "ce" else t, y32, beta, 1.0))
+                plain = rotating(lambda z, t, y, y32: R.distill_loss_batched_ref(
+                    z, y, t, beta, 1.0) if entry == "t" else R.softmax_xent_ref(z, y))
+                variant = _fwd_variant(n, V, dtype)[0]
+            else:
+                k = itertools.count()
+
+                def kernel():
+                    i = next(k) % len(ins)
+                    z, t, _, y32 = ins[i]
+                    return _bwd_cuda(z, None if entry == "ce" else t, y32, stats[i], g, beta,
+                                     1.0)
+
+                plain = rotating(lambda z, t, y, y32: R.distill_loss_grad_ref(
+                    z, y, t, beta, 1.0, g=g) if entry == "t" else R.softmax_xent_grad_ref(
+                    z, y, 1.0, g=g))
+                variant = _bwd_variant(V, dtype)[0]
+            ms, eager = device_ms(kernel, launches), eager_ms(kernel, launches)
+            plain_ms = device_ms(plain, launches)
+            library_ms = lib_ms if direction == "fwd" and beta == 0.0 else None
+            b, by = bound_ms(*_distill_bounds(entry, direction, n, V, it))
+            name = f"distill_loss_{direction}{sfx}"
+            print(f"{name} [{variant}] {tag} {shape}: kernel {ms:.5f} ms device "
+                  f"({eager:.5f} ms eager)  plain {plain_ms:.5f} ms  bound {b:.6f} ms ({by}), "
+                  f"{b / ms:.2f} of it"
+                  + (f"  F.cross_entropy {library_ms:.5f} ms" if library_ms is not None else ""))
+            rows[(name, tag, beta)] = dict(shape=shape, variant=variant, ms=ms,
+                                           plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                           library_ms=library_ms)
+    del ins, zs, ts, ys
+    torch.cuda.empty_cache()
+    return rows
+
+
+DISTILL_TIMED = [("ce", 0.0), ("t", 0.0), ("t", 1.5)]
+
+
 def time_kernels(dev):
     """Times at the main path's shape (FedEEC: 8 rows of 10 classes) and at
     the LM bench shapes. Device times come from CUDA graphs of many calls;
     the eager time per call is printed beside. Each kernel is timed through
     its launch function with labels already validated. The bound counts
     each input read once and each output written once, against 3.35 TB/s,
-    and the fp32 operations (exp counted as one) against 67 TFLOP/s."""
+    and the fp32 operations (exp counted as one) against 67 TFLOP/s.
+    distill_loss at (4, 256, 2048) fp32 (16.8 MB of z and t) fits in the
+    L2, so it is timed both warm (as in earlier runs) and cold."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import _lib
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.distill_loss import _bwd_cuda, _fwd_cuda
 
     rows = {}
-    for tag, (B, N, V) in [("main", (1, 8, 10)), ("lm", (4, 256, 2048))]:
-        for beta in (0.0, 1.5):
-            z, t, y = _distill_inputs(B, N, V, dev)
-            y32 = y.to(torch.int32)
-            n = B * N
-            _, stats = _fwd_cuda(z, t, y32, beta, 1.0)
-            g = torch.ones((B, N), device=dev)
-            shape = f"({B},{N},{V}) beta={beta}"
-            # the library call computes the same function only at beta = 0
-            ce = ((lambda: F.cross_entropy(z.view(-1, V), y.view(-1), reduction="none"))
-                  if beta == 0.0 else None)
-            rows[("distill_loss_fwd", tag, beta)] = _timed(
-                "distill_loss_fwd", tag, shape,
-                lambda: _fwd_cuda(z, t, y32, beta, 1.0),
-                lambda: R.distill_loss_batched_ref(z, y, t, beta, 1.0), ce,
-                4 * (2 * n * V + n) + 4 * 3 * n, 7 * n * V)
-            rows[("distill_loss_bwd", tag, beta)] = _timed(
-                "distill_loss_bwd", tag, shape,
-                lambda: _bwd_cuda(z, t, y32, stats, g, beta, 1.0),
-                lambda: g[..., None] * R.distill_loss_grad_ref(z, y, t, beta, 1.0), None,
-                4 * (3 * n * V + 4 * n), 11 * n * V)
+    rows.update(time_distill(dev, "main", 1, 8, 10, torch.float32, DISTILL_TIMED))
+    rows.update(time_distill(dev, "lm", 4, 256, 2048, torch.float32, DISTILL_TIMED))
+    rows.update(time_distill(dev, "lm_cold", 4, 256, 2048, torch.float32, DISTILL_TIMED,
+                             cold=True))
     for tag, (B, N, C) in [("main", (1, 8, 10)), ("lm", (4, 256, 1024))]:
         probs, labels, qbar, counts = _skr_inputs(B, N, C, dev)
         labels = labels.long()
@@ -695,6 +859,7 @@ def drive_main_path(dev):
     res = run_experiment("fedeec", cfg, rounds=rounds, device=dev)
     counts = {k: ops.launches[k] for k in ("distill_loss_fwd", "distill_loss_bwd",
                                            "skr_rectify")}
+    add_distill_launches()
     torch.cuda.synchronize()
     print(f"round wall s (train, ending in a sync): {res.round_s}")
     print(f"run wall s (rounds + evals): {res.wall_s:.3f}")
@@ -924,6 +1089,7 @@ def drive_sim_path(dev):
     res = run_experiment("fedeec", cfg, rounds=rounds, scenario=scenario, device=dev)
     counts = {k: ops.launches[k] for k in ("distill_loss_fwd", "distill_loss_bwd",
                                            "skr_rectify")}
+    add_distill_launches()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**20
     host = sum(res.round_s)
@@ -1393,6 +1559,7 @@ def drive_train_path(dev):
     res = train_lm("llama3.2-3b", use_reduced=False, use_kernels=True, device=dev,
                    log_every=1, profile_last=1, **LM_TRAIN)
     counts = dict(ops.launches)
+    add_distill_launches()
     peak = torch.cuda.max_memory_allocated()
     want = LM_TRAIN["steps"] * per_step
     for i, (s_, loss, gn) in enumerate(zip(res.step_s, res.losses, res.grad_norms)):
@@ -1481,39 +1648,22 @@ def check_train_parity(dev):
 
 
 def time_train_loss_kernels(dev):
-    """distill_loss at the training shape, bf16 logits, beta = 0 with an
-    all-zero t (as ``fused_softmax_xent`` passes it): forward and backward
-    device ms beside the plain versions and, for the forward,
-    ``F.cross_entropy`` on the same bf16 logits. The bound counts z and t
-    read once (and, for the backward, dz written once) in bf16, the labels,
-    the fp32 loss, stats and cotangent once, against 3.35 TB/s; the fp32
-    operations against 67 TFLOP/s."""
+    """distill_loss at the training shape, bf16 logits: the CE entry (the
+    one the training loss runs) and the t entry at beta = 0 (what the
+    training loss launched, on an all-zero t, before the CE entry existed;
+    its time does not depend on t's values), forward
+    and backward device ms beside the plain versions and, for the
+    forwards, ``F.cross_entropy`` on the same bf16 logits. The bound counts
+    the bytes each entry moves (z, and t for the t entry, read once; dz
+    written once; in bf16) and 16 bytes a row of labels, stats, loss and
+    cotangent, against 3.35 TB/s; the fp32 operations against 67 TFLOP/s."""
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import ref as R
-    from repro_torch.kernels.distill_loss import _bwd_cuda, _fwd_cuda
 
     B, N, V = TRAIN_LOSS_SHAPE
-    z, _, y = _distill_inputs(B, N, V, dev)
-    z = z.bfloat16()
-    t = torch.zeros_like(z)
-    y32 = y.to(torch.int32)
-    _, stats = _fwd_cuda(z, t, y32, 0.0, 1.0)
-    g = torch.ones((B, N), device=dev)
-    n = B * N
-    shape = f"({B},{N},{V}) bf16 beta=0.0"
-    rows = {}
-    rows["distill_loss_fwd"] = _timed(
-        "distill_loss_fwd", "train", shape, lambda: _fwd_cuda(z, t, y32, 0.0, 1.0),
-        lambda: R.distill_loss_batched_ref(z, y, t, 0.0, 1.0),
-        lambda: F.cross_entropy(z.view(-1, V), y.view(-1), reduction="none"),
-        2 * 2 * n * V + 4 * n + 4 * 3 * n, 7 * n * V, launches=20)
-    rows["distill_loss_bwd"] = _timed(
-        "distill_loss_bwd", "train", shape, lambda: _bwd_cuda(z, t, y32, stats, g, 0.0, 1.0),
-        lambda: R.distill_loss_grad_ref(z, y, t, 0.0, 1.0, g=g), None,
-        2 * 3 * n * V + 4 * 4 * n, 11 * n * V, launches=20)
-    print("distill_loss at the training shape: " + json.dumps(rows))
+    rows = time_distill(dev, "train", B, N, V, torch.bfloat16, [("ce", 0.0), ("t", 0.0)],
+                        launches=20)
+    print("distill_loss at the training shape: "
+          + json.dumps({f"{k[0]} beta={k[2]}": v for k, v in rows.items()}))
     return rows
 
 
@@ -1533,11 +1683,17 @@ def main() -> None:
         phase("rwkv6_scan_chunked at each chunk length")
         time_rwkv_chunks(dev)
         return
+    if sys.argv[1:] == ["--distill"]:
+        phase("distill_loss: every entry and variant vs the plain versions, and times")
+        check_distill_loss(dev)
+        check_ce_allocates_no_teacher(dev)
+        time_kernels(dev)
+        time_train_loss_kernels(dev)
+        return
 
     phase("kernels vs plain versions")
-    err = dict(zip(("distill_loss_fwd", "distill_loss_bwd"), check_distill_loss(dev)))
-    for k, e in zip(("distill_loss_fwd", "distill_loss_bwd"), check_distill_loss_bf16(dev)):
-        err[k] = max(err[k], e)
+    err = check_distill_loss(dev)
+    check_ce_allocates_no_teacher(dev)
     err["skr_rectify"] = check_skr_rectify(dev)
     flash_err = check_flash_attention(dev)
     err.update({k: flash_err[VARIANTS[k]] for k in VARIANTS})
@@ -1584,9 +1740,27 @@ def main() -> None:
     # a main path's peak memory is read
     phase("kernel times at the LM serving and training shapes")
     times.update(time_lm_kernels(dev))
-    time_train_loss_kernels(dev)
+    times.update(time_train_loss_kernels(dev))
 
-    pick = {"distill_loss_fwd": ("main", 0.0), "distill_loss_bwd": ("main", 1.5),
+    # distill_loss's rows are its two entries (the t entry, the CE entry),
+    # each launching the kernel its variant rule picks; launches per entry
+    # and variant over the main paths' runs
+    distill = {}
+    for key, n in MAIN_DISTILL.items():
+        entry, variant = key.split(":")
+        distill.setdefault(DISTILL_ROWS[entry], {})[variant] = n
+    for k in ("distill_loss_fwd", "distill_loss_bwd"):
+        total = sum(distill[k].values()) + sum(distill[k + "_ce"].values())
+        if total != counts[k]:
+            fail(f"{k}: {total} launches by entry and variant, {counts[k]} counted")
+    for k, by_variant in distill.items():
+        counts[k] = sum(by_variant.values())
+        if counts[k] <= 0:
+            fail(f"{k} was not launched on the main paths")
+    print(f"distill_loss launches on the main paths, by entry and variant: {distill}")
+
+    pick = {"distill_loss_fwd": ("main", 1.5), "distill_loss_bwd": ("main", 1.5),
+            "distill_loss_fwd_ce": ("main", 0.0), "distill_loss_bwd_ce": ("main", 0.0),
             "skr_rectify": ("main", None), "flash_attention": ("prefill", 0),
             "flash_attention_simt": ("decode", 4095), "flash_attention_decode": ("decode", 4095),
             "rwkv6_scan": ("decode", None), "rwkv6_scan_chunked": ("prefill", None)}
@@ -1596,7 +1770,8 @@ def main() -> None:
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": TPU_KERNELS[k],
             "launches": counts[k], "max_abs_err": err[k],
-            **({"variant": lm_variants[k]} if k in lm_variants else {}), **row,
+            **({"variant": lm_variants[k]} if k in lm_variants else {}),
+            **({"variant_launches": distill[k]} if k in distill else {}), **row,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -39,12 +39,18 @@ launches: dict[str, int] = {
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # z, t, y, loss, stats, rows, V, beta, lw, stream (z, t fp32; _bf16: bf16)
-    "distill_loss_fwd": [_P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
-    "distill_loss_fwd_bf16": [_P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
-    # z, t, y, stats, g, dz, rows, V, beta, lw, stream (z, t, dz fp32; _bf16: bf16)
-    "distill_loss_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
-    "distill_loss_bwd_bf16": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _P],
+    # z, t, y, loss, stats, rows, V, beta, lw, layout, threads, stream
+    # (z, t fp32; _bf16: bf16); the CE entries (_ce) take no t and no beta
+    "distill_loss_fwd": [_P, _P, _P, _P, _P, _LL, _I, _F, _F, _I, _I, _P],
+    "distill_loss_fwd_bf16": [_P, _P, _P, _P, _P, _LL, _I, _F, _F, _I, _I, _P],
+    "distill_loss_fwd_ce": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
+    "distill_loss_fwd_ce_bf16": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
+    # z, t, y, stats, g, dz, rows, V, beta, lw, threads, slices, stream
+    # (z, t, dz fp32; _bf16: bf16); the CE entries (_ce) take no t and no beta
+    "distill_loss_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _I, _I, _P],
+    "distill_loss_bwd_bf16": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _I, _I, _P],
+    "distill_loss_bwd_ce": [_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
+    "distill_loss_bwd_ce_bf16": [_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     # p, label, p_c, do, qbar, out, rows, C, stream
     "skr_rectify": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
     # q, k, v, o, B, Sq, Sk, N, K, H, is_bf16, causal, window, q_offset,

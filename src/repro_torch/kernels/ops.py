@@ -6,20 +6,21 @@ use) or raises; on a CPU tensor it runs the plain version in ``ref.py``.
 ``launches`` counts kernel launches by name (``distill_loss_fwd``,
 ``distill_loss_bwd``, ``skr_rectify``, ``flash_attention``,
 ``flash_attention_empty_rows``, ``rwkv6_scan``); ``reset_launches`` zeroes
-it, and also ``kernels.flash_attention.variant_launches``,
-flash_attention's launches per kernel (``sm90``, ``simt``, ``decode``), and
+it, and also ``kernels.distill_loss.variant_launches``, distill_loss's
+launches per entry and kernel (``fwd:regs``, ``fwd_ce:stream``,
+``bwd_ce:slices``, ...), ``kernels.flash_attention.variant_launches``,
+flash_attention's (``sm90``, ``simt``, ``decode``), and
 ``kernels.rwkv6_scan.variant_launches``, rwkv6_scan's (``seq``,
 ``chunked``).
 """
 from __future__ import annotations
-
-import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels._lib import launches, reset_launches  # noqa: F401
 from repro_torch.kernels.distill_loss import (
     distill_loss as _distill_loss,
     distill_loss_batched as _distill_loss_batched,
+    softmax_xent as _softmax_xent,
 )
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6
@@ -31,8 +32,9 @@ from repro_torch.kernels.skr_rectify import (
 
 
 def fused_softmax_xent(logits, labels):
-    """Per-row CE without materializing softmax (beta=0 distill_loss)."""
-    return _distill_loss(logits, torch.zeros_like(logits), labels, 0.0, 1.0)
+    """Per-row CE without materializing softmax: distill_loss's CE entry
+    (beta = 0), which takes no teacher, so none is allocated."""
+    return _softmax_xent(logits, labels)
 
 
 def fused_distill_loss(logits, teacher_logprobs, labels, *, beta: float,

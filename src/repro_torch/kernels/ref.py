@@ -108,12 +108,28 @@ def distill_loss_grad_bf16_bound(want, logits, teacher_logprobs, beta, *, g=None
     return bound + slack
 
 
-def softmax_xent_ref(logits, labels):
-    """Plain CE per row (the beta=0 special case used for the LM loss)."""
+def softmax_xent_ref(logits, labels, label_weight=1.0):
+    """Plain lw * CE per row (the beta=0 special case used for the LM loss):
+    the CE entry's forward, with no teacher. fp32 per-row losses (...)."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return logz - gold
+    return label_weight * (logz - gold)
+
+
+def softmax_xent_grad_ref(logits, labels, label_weight=1.0, *, g=None):
+    """d(lw * CE per row)/d logits, times the per-row cotangent ``g`` when
+    given: the CE entry's backward. Computed in fp32 and rounded once to
+    logits' dtype."""
+    dtype = logits.dtype
+    logits = logits.to(torch.float32)
+    sp = torch.exp(logits - torch.logsumexp(logits, dim=-1, keepdim=True))
+    onehot = (labels.long()[..., None] == torch.arange(
+        logits.shape[-1], device=logits.device)).to(torch.float32)
+    dz = label_weight * (sp - onehot)
+    if g is not None:
+        dz = g.to(torch.float32)[..., None] * dz
+    return dz.to(dtype)
 
 
 # --- flash attention ---------------------------------------------------------

@@ -12,8 +12,8 @@ Counterpart of ``repro.launch.train``. Two planes:
 Both run on the card by default; ``--device cpu`` (or ``device="cpu"``)
 runs the plain path on the CPU. ``train_lm`` runs ``make_train_step`` with
 the reference's options (``attn_chunk=0, remat=False``); ``use_kernels``
-sends the LM loss through the ``distill_loss`` kernels (bf16 logits at full
-size). ``profile_last`` runs the last steps under ``torch.profiler`` and
+sends the LM loss through ``distill_loss``'s cross-entropy kernels (bf16
+logits at full size, no teacher tensor). ``profile_last`` runs the last steps under ``torch.profiler`` and
 reports where their device time goes. Checkpointing is not ported yet
 (ROADMAP A4).
 """

@@ -279,9 +279,10 @@ def lm_loss_chunked(cfg, opts, h, w_vocab, labels):
 
     The sequence goes in chunks of ``opts.loss_chunk`` (cut down to a
     divisor of S), a loop where the reference scans. ``opts.use_kernels``:
-    logits in the compute dtype through ``ops.fused_softmax_xent`` (the
-    ``distill_loss`` kernels on the card, forward and backward, one launch
-    each per chunk); otherwise fp32 logits, logsumexp minus the gold logit.
+    logits in the compute dtype through ``ops.fused_softmax_xent`` (on the
+    card ``distill_loss``'s cross-entropy entry, which takes no teacher,
+    forward and backward, one launch each per chunk); otherwise fp32
+    logits, logsumexp minus the gold logit.
     Returns the mean over B * S tokens, fp32."""
     B, Sq, d = h.shape
     chunk = min(opts.loss_chunk, Sq)

@@ -84,6 +84,103 @@ def test_distill_loss_bf16_matches_plain(cuda, B, N, V, beta):
     assert (d <= bound).all(), (d / bound).max()
 
 
+def _unaligned(x):
+    """x's values in a contiguous tensor one element past a 16-byte
+    boundary: every row peels a head and a tail."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _held(loss, dz, z, t, y, w, beta):
+    want = R.distill_loss_batched_ref(z, y, t, beta, 1.0)
+    want_dz = R.distill_loss_grad_ref(z, y, t, beta, 1.0, g=w)
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=1e-6)
+    d = (dz.float() - want_dz.float()).abs()
+    if z.dtype == torch.float32:
+        bound = 1e-6 + 1e-5 * want_dz.abs()
+    else:
+        bound = R.distill_loss_grad_bf16_bound(want_dz.float(), z, t, beta, g=w)
+    assert (d <= bound).all(), (d / bound).max()
+
+
+# each kernel at and across its variant's threshold (16 KB rows: fp32 V =
+# 4096, bf16 V = 8192), with row counts that fill no whole block (4 rows a
+# 128-thread block at 32 threads a row), on logits that start on a 16-byte
+# boundary or one element past it; the t entry at beta 0 and 1.5, the CE
+# entry at beta 0, which must give the t entry's bits on an all-zero t
+@pytest.mark.parametrize("B,N,V,dtype", [
+    (1, 5, 10, torch.float32), (3, 7, 513, torch.float32), (1, 33, 4095, torch.float32),
+    (1, 33, 4096, torch.float32), (1, 33, 4097, torch.float32), (2, 3, 1003, torch.bfloat16),
+    (1, 17, 8191, torch.bfloat16), (1, 17, 8192, torch.bfloat16),
+    (1, 17, 8193, torch.bfloat16), (1, 300, 20000, torch.bfloat16),
+])
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_distill_loss_variants_match_plain(cuda, B, N, V, dtype, unaligned):
+    from repro_torch.kernels.distill_loss import (
+        _bwd_variant,
+        _fwd_variant,
+        softmax_xent_batched,
+        variant_launches,
+    )
+
+    z, t, y, w = _distill_inputs(B, N, V, cuda)
+    z, t = z.to(dtype), t.to(dtype)
+    if unaligned:
+        z = _unaligned(z)
+    zero = torch.zeros_like(z) if not unaligned else _unaligned(torch.zeros_like(z))
+    fwd, bwd = _fwd_variant(B * N, V, dtype)[0], _bwd_variant(V, dtype)[0]
+    got = {}
+    for entry, tt, beta in (("t", t, 1.5), ("t", zero, 0.0), ("ce", None, 0.0)):
+        ops.reset_launches()
+        zk = z.detach().clone() if not unaligned else _unaligned(z)
+        zk.requires_grad_(True)
+        loss = (distill_loss_batched(zk, tt, y, beta, 1.0) if entry == "t"
+                else softmax_xent_batched(zk, y))
+        (dz,) = torch.autograd.grad(loss, zk, w)
+        torch.cuda.synchronize()
+        sfx = "" if entry == "t" else "_ce"
+        assert {k: n for k, n in variant_launches.items() if n} == {
+            f"fwd{sfx}:{fwd}": 1, f"bwd{sfx}:{bwd}": 1}
+        _held(loss, dz, z, zero if tt is None else tt, y, w, beta)
+        got[(entry, beta)] = (loss, dz)
+    assert torch.equal(got[("ce", 0.0)][0], got[("t", 0.0)][0])
+    assert torch.equal(got[("ce", 0.0)][1], got[("t", 0.0)][1])
+
+
+def test_ce_entry_allocates_no_teacher(cuda):
+    """At the training shape the CE forward allocates its loss, stats and
+    int32 labels, and nothing of the logits' size."""
+    from repro_torch.kernels.distill_loss import softmax_xent_batched
+
+    z, _, y, _ = _distill_inputs(1, 1024, 128256, cuda)
+    z = z.bfloat16().requires_grad_(True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss = softmax_xent_batched(z, y)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before < z.numel() * 2 // 8
+    del loss
+
+
+def test_distill_loss_entries_refuse_bad_launches(cuda):
+    """The C entries return an error, and launch nothing, for a variant
+    that does not hold the row."""
+    z, _, y, _ = _distill_inputs(1, 4, 5000, cuda)
+    y32 = y.to(torch.int32)
+    loss = torch.empty((1, 4), device=cuda)
+    stats = torch.empty((1, 4, 2), device=cuda)
+    with pytest.raises(RuntimeError):  # 5000 fp32 do not fit 256 threads x 64 bytes
+        _lib.launch("distill_loss_fwd_ce", cuda, z.data_ptr(), y32.data_ptr(), loss.data_ptr(),
+                    stats.data_ptr(), 4, 5000, 1.0, 0, 256, count_as="distill_loss_fwd")
+    dz = torch.empty_like(z)
+    with pytest.raises(RuntimeError):  # one 16 KB slice for a 20 KB row
+        _lib.launch("distill_loss_bwd_ce", cuda, z.data_ptr(), y32.data_ptr(), stats.data_ptr(),
+                    loss.data_ptr(), dz.data_ptr(), 4, 5000, 1.0, 256, 1,
+                    count_as="distill_loss_bwd")
+
+
 def test_training_loss_runs_through_the_kernels(cuda):
     """train_lm on the card (reduced llama3.2-3b) with use_kernels: one
     forward and one backward distill_loss launch per loss chunk, finite
