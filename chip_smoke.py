@@ -34,15 +34,23 @@ the result line:
    C8) go through each of the three and the empty-row kernel; rwkv6_scan
    has two: the sequential kernel for T <= 16 and the chunked scan for
    longer T, and each case names the one that served it, extreme decays
-   included), then the
+   included; skr_rectify has two entries: the map alone, exact, and the
+   fused entry, SKR's queue pass and map in one launch, with count, head
+   and q exact and Q within 1e-6, at a teacher step of the main path, four
+   pairs, (4, 256, 1024), repeated labels and more rows than a chunk), then the
    FedEEC kernels' device time (a CUDA graph of many launches between CUDA
    events) beside the plain version's, the bound and, where one PyTorch
    call computes the same function, that call's time (distill_loss's
    entries at (1, 8, 10) and at (4, 256, 2048) fp32, the latter also cold:
-   rotating through inputs past the 50 MB L2);
+   rotating through inputs past the 50 MB L2; skr_rectify's map and fused
+   entry at (1, 8, 10) and (4, 256, 1024), queues of 20), and SKR per
+   teacher step issued eagerly as the main path issues it, beside the
+   loop of torch ops it replaced and the other label check, with the torch
+   ops each dispatches;
 4. FedEEC: ``run_experiment("fedeec", FLConfig(), rounds=3)`` on the card,
    with the launch counters zeroed just before and read just after, each
-   held to the count the trainer's ``pair_steps`` predicts;
+   held to the count the trainer's ``pair_steps`` predicts (SKR: one
+   launch of the fused entry a teacher step, none of the map alone);
 5. FedEEC parity: the card against the CPU (the port's plain path, which
    the CPU tests hold to the JAX package) on small inputs: one student
    step's loss and gradient per model, and one tiny FedEEC round;
@@ -97,7 +105,8 @@ the result line:
    allocated enters a main path's peak memory.
 
 It ends with the kernels' JSON line (distill_loss has a row per entry and
-direction, each with its launches per variant), nvidia-smi's line and,
+direction, each with its launches per variant; skr_rectify a row per
+entry, ``skr_rectify`` the fused one), nvidia-smi's line and,
 last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -121,6 +130,7 @@ TPU_KERNELS = {
     "distill_loss_fwd_ce": "src/repro/kernels/distill_loss.py:53",
     "distill_loss_bwd_ce": "src/repro/kernels/distill_loss.py:95",
     "skr_rectify": "src/repro/kernels/skr_rectify.py:33",
+    "skr_rectify_map": "src/repro/kernels/skr_rectify.py:33",
     "flash_attention": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_simt": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_decode": "src/repro/kernels/flash_attention.py:32",
@@ -133,6 +143,7 @@ SOURCES = {
     "distill_loss_fwd_ce": "src/repro_torch/csrc/distill_loss.cu",
     "distill_loss_bwd_ce": "src/repro_torch/csrc/distill_loss.cu",
     "skr_rectify": "src/repro_torch/csrc/skr_rectify.cu",
+    "skr_rectify_map": "src/repro_torch/csrc/skr_rectify.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_simt": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_decode": "src/repro_torch/csrc/flash_attention_decode.cu",
@@ -149,16 +160,24 @@ RWKV_VARIANTS = {"rwkv6_scan": "seq", "rwkv6_scan_chunked": "chunked"}
 DISTILL_ROWS = {"fwd": "distill_loss_fwd", "bwd": "distill_loss_bwd",
                 "fwd_ce": "distill_loss_fwd_ce", "bwd_ce": "distill_loss_bwd_ce"}
 MAIN_DISTILL: dict[str, int] = {}
+# skr_rectify's launches per entry (the map, the fused queue pass + map)
+# summed over the main paths' runs; the JSON has a row for each
+MAIN_SKR: dict[str, int] = {}
+SKR_ROWS = {"fused": "skr_rectify", "map": "skr_rectify_map"}
 
 
-def add_distill_launches() -> None:
-    """Add distill_loss's launches per entry and variant since the last
-    ``reset_launches`` to MAIN_DISTILL: called right after a main path's
-    run, where its launch counts are read."""
+def add_variant_launches() -> None:
+    """Add distill_loss's launches per entry and variant, and skr_rectify's
+    per entry, since the last ``reset_launches`` to MAIN_DISTILL and
+    MAIN_SKR: called right after a main path's run, where its launch counts
+    are read."""
     from repro_torch.kernels.distill_loss import variant_launches
+    from repro_torch.kernels.skr_rectify import variant_launches as skr_variants
 
     for k, n in variant_launches.items():
         MAIN_DISTILL[k] = MAIN_DISTILL.get(k, 0) + n
+    for k, n in skr_variants.items():
+        MAIN_SKR[k] = MAIN_SKR.get(k, 0) + n
 
 
 def fail(msg: str) -> None:
@@ -424,11 +443,16 @@ def check_ce_allocates_no_teacher(dev):
 
 
 def check_skr_rectify(dev):
-    """Exact: the same division and product per element on both sides."""
+    """The map exact: the same division and product per element on both
+    sides. The fused entry (queue pass + map): count, head and q exact (q
+    only stores copies of p_c); Q within 1e-6 absolute, because the kernel
+    sums a queue in slot order and the plain version with ``torch.sum``.
+    Returns the largest error of each entry."""
     import torch
 
+    from repro_torch.kernels import _lib
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.skr_rectify import skr_rectify_batched
+    from repro_torch.kernels.skr_rectify import skr_process_batched, skr_rectify_batched
 
     for B, N, C in [(1, 8, 10), (4, 8, 10), (4, 256, 1024)]:
         probs, labels, qbar, counts = _skr_inputs(B, N, C, dev)
@@ -436,11 +460,50 @@ def check_skr_rectify(dev):
         want = R.skr_rectify_batched_ref(probs, labels, qbar, counts)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        print(f"skr_rectify ({B},{N},{C}): max|err| {err:.3e}  "
+        print(f"skr_rectify [map] ({B},{N},{C}): max|err| {err:.3e}  "
               f"{'exact' if torch.equal(got, want) else 'MISMATCH'}")
         if not torch.equal(got, want):
             fail(f"skr_rectify is not exact at ({B},{N},{C})")
-    return 0.0
+    worst = 0.0
+    # (B, N, C, Bq, classes the labels come from): the main path's teacher
+    # step, four pairs, the bench shape, labels from 2 classes (later rows
+    # see earlier pushes, heads wrap), and more rows than a chunk of 1024
+    for B, N, C, Bq, classes in [(1, 8, 10, 20, None), (4, 8, 10, 20, None),
+                                 (4, 256, 1024, 20, None), (2, 64, 10, 4, 2),
+                                 (2, 1500, 10, 20, 3)]:
+        ins = _skr_state(B, N, C, Bq, dev, classes)
+        got = skr_process_batched(*ins)
+        want = R.skr_process_batched_ref(*ins)
+        torch.cuda.synchronize()
+        err = (got[0] - want[0]).abs().max().item()
+        same_state = all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+        differ = int((got[0] != want[0]).sum())
+        pushes = int((ins[0].argmax(-1) == ins[1]).sum())
+        rectified = int((got[0] != ins[0]).any(-1).sum())
+        print(f"skr_rectify [fused] ({B},{N},{C}, Bq {Bq}): Q max|err| {err:.3e} "
+              f"({differ} of {got[0].numel()} elements differ)  count/head/q "
+              f"{'exact' if same_state else 'MISMATCH'}  rows pushed {pushes}, "
+              f"rectified {rectified}")
+        if not same_state:
+            fail(f"skr_rectify's fused entry: the queue state differs at ({B},{N},{C},{Bq})")
+        if err > 1e-6:
+            fail(f"skr_rectify's fused entry: Q max|err| {err:.3e} > 1e-6 at ({B},{N},{C},{Bq})")
+        worst = max(worst, err)
+    _lib.raise_faults(dev)  # no fault flagged
+    # a fault reaches the host through the pinned words: raised at the next
+    # label check on the card, once
+    probs, labels, *state = _skr_state(1, 8, 10, 20, dev)
+    bad = labels.clone()
+    bad[0, 5] = 10
+    skr_process_batched(probs, bad, *state)
+    try:
+        _lib.check_labels("distill_loss", labels, 10)
+    except ValueError as e:
+        print(f"skr_rectify [fused] an out-of-range label raised at the next label check: {e}")
+    else:
+        fail("skr_rectify's fused entry: an out-of-range label was not reported")
+    _lib.raise_faults(dev)
+    return {"skr_rectify": worst, "skr_rectify_map": 0.0}
 
 
 def _skr_inputs(B, N, C, dev):
@@ -452,6 +515,24 @@ def _skr_inputs(B, N, C, dev):
     qbar = torch.rand((B, C), generator=g, device=dev) * 0.8 + 0.1
     counts = torch.randint(0, 3, (B, C), generator=g, device=dev, dtype=torch.int32)
     return probs, labels, qbar, counts
+
+
+def _skr_state(B, N, C, Bq, dev, classes=None):
+    """A teacher step's probs and int64 labels (from ``classes`` classes if
+    given) and a partly filled queue state with heads anywhere."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    labels = torch.randint(0, classes or C, (B, N), generator=g, device=dev)
+    z = torch.randn((B, N, C), generator=g, device=dev) * 2
+    # about half the rows correctly attributed, so that they push
+    boost = torch.rand((B, N, 1), generator=g, device=dev) < 0.5
+    z.scatter_add_(-1, labels[..., None], boost * 6.0)
+    probs = torch.softmax(z, -1)
+    q = torch.rand((B, C, Bq), generator=g, device=dev) * 0.8 + 0.1
+    count = torch.randint(0, Bq + 1, (B, C), generator=g, device=dev, dtype=torch.int32)
+    head = torch.randint(0, Bq, (B, C), generator=g, device=dev, dtype=torch.int32)
+    return probs, labels, q, count, head
 
 
 def _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, seed=0):
@@ -793,34 +874,145 @@ def time_kernels(dev):
                         do.data_ptr(), qb.data_ptr(), out.data_ptr(), B * N, C)
 
         n = B * N
-        rows[("skr_rectify", tag, None)] = _timed(
-            "skr_rectify", tag, f"({B},{N},{C})", launch,
+        rows[("skr_rectify_map", tag, None)] = _timed(
+            "skr_rectify [map]", tag, f"({B},{N},{C})", launch,
             lambda: R.skr_rectify_rows_ref(probs, labels, p_c, do, qb), None,
             4 * 2 * n * C + n * (4 + 4 + 1 + 4), 2 * n * C)
         torch.cuda.synchronize()
         if not torch.equal(out, R.skr_rectify_rows_ref(probs, labels, p_c, do, qb)):
             fail("the timed skr_rectify launches disagree with the plain version")
+    rows.update(time_skr_fused(dev))
+    return rows
+
+
+def time_skr_fused(dev):
+    """The fused SKR entry (queue pass + map) through its launch function,
+    at the main path's teacher step (1, 8, 10, queues of 20) and at (4,
+    256, 1024, 20). Its plain version is a loop of about 20 torch ops a
+    row, so at the second shape a graph holds one call of it, not 200. The
+    bound counts probs and int64 labels read, Q written, and the state
+    (q, count, head) read and written once; operations, 2·n·C + n·Bq (the
+    argmax, the map's products, at most Bq adds a row for the queue mean),
+    bind nowhere near."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ref as R
+
+    rows = {}
+    for tag, (B, N, C, Bq), plain_launches in [("main", (1, 8, 10, 20), TIMED_LAUNCHES),
+                                               ("lm", (4, 256, 1024, 20), 1)]:
+        probs, labels, q, count, head = ins = _skr_state(B, N, C, Bq, dev)
+        out, new_q = torch.empty_like(probs), torch.empty_like(q)
+        ints = torch.zeros(2 * B * C + B, dtype=torch.int32, device=dev)  # err words zero
+
+        def launch():
+            _lib.launch("skr_process", dev, probs.data_ptr(), labels.data_ptr(), 1,
+                        q.data_ptr(), count.data_ptr(), head.data_ptr(), out.data_ptr(),
+                        new_q.data_ptr(), ints.data_ptr(), ints[B * C:].data_ptr(),
+                        ints[2 * B * C:].data_ptr(), B, N, C, Bq, count_as="skr_rectify")
+
+        def plain():
+            return R.skr_process_batched_ref(*ins)
+
+        n = B * N
+        ms, eager = device_ms(launch), eager_ms(launch)
+        plain_ms = device_ms(plain, plain_launches)
+        b, by = bound_ms(4 * 2 * n * C + 8 * n + 2 * (4 * B * C * Bq + 8 * B * C) + 4 * B,
+                         2 * n * C + n * Bq)
+        shape = f"({B},{N},{C}) Bq {Bq}"
+        print(f"skr_rectify [fused] {tag} {shape}: kernel {ms:.5f} ms device ({eager:.5f} ms "
+              f"eager)  plain {plain_ms:.5f} ms  bound {b:.6f} ms ({by}), {b / ms:.3f} of it")
+        rows[("skr_rectify", tag, None)] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                                                bound_ms=b, bound_by=by, library_ms=None)
+        torch.cuda.synchronize()
+        want = plain()
+        got = (out, new_q, ints[:B * C].view(B, C), ints[B * C:2 * B * C].view(B, C))
+        if not all(torch.equal(a, w) for a, w in zip(got[1:], want[1:])) or \
+                (got[0] - want[0]).abs().max().item() > 1e-6 or ints[2 * B * C:].any():
+            fail("the timed skr_rectify fused launches disagree with the plain version")
     return rows
 
 
 def time_skr_queue_pass(dev):
-    """The SKR queue pass (a torch loop over the rows, no kernel of its
-    own) with its one rectify launch, per teacher step at FedEEC's shape:
-    8 rows, 10 classes, queues of 20, issued eagerly as the main path
-    issues it."""
-    from repro_torch.core.skr import skr_init, skr_process_batch
+    """SKR per teacher step at FedEEC's shape (8 rows, 10 classes, queues
+    of 20), issued eagerly as the main path issues it:
+    ``skr_process_batch``, one fused launch and no read-back (its fault
+    words are read at the caller's next sync; the line is printed under
+    the name the loop of torch ops had before the fused entry,
+    'skr_process_batch (8 rows, 10 classes, queue 20)'). Beside it: that
+    loop, which is now the plain version, on the card; the fused entry with
+    a sync and a read of its fault words after each call (what a read-back
+    per launch costs); and the fused launch behind ``_lib.check_labels``
+    instead of the fault words. Then the torch ops each dispatches per call
+    (the kernel's launch goes through ctypes and is not among them)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
 
-    probs, labels, _, _ = _skr_inputs(1, 8, 10, dev)
-    state = skr_init(10, 20, dev)
-    ms = eager_ms(lambda: skr_process_batch(state, probs[0], labels[0]))
-    print(f"skr_process_batch (8 rows, 10 classes, queue 20): {ms:.4f} ms per call, eager")
+    from repro_torch.core.skr import skr_process_batch
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ref as R
+
+    probs, labels, q, count, head = (t[0] for t in _skr_state(1, 8, 10, 20, dev))
+    state = {"q": q, "count": count, "head": head}
+
+    def fused():
+        return skr_process_batch(state, probs, labels)
+
+    def plain():
+        return R.skr_process_ref(probs, labels, q, count, head)
+
+    def synced():
+        out = skr_process_batch(state, probs, labels)
+        _lib.raise_faults(dev)
+        return out
+
+    def checked():
+        y32 = _lib.check_labels("skr_process", labels, 10)
+        out, new_q = torch.empty_like(probs), torch.empty_like(q)
+        ints = torch.empty(21, dtype=torch.int32, device=dev)
+        _lib.launch("skr_process", dev, probs.data_ptr(), y32.data_ptr(), 0, q.data_ptr(),
+                    count.data_ptr(), head.data_ptr(), out.data_ptr(), new_q.data_ptr(),
+                    ints.data_ptr(), ints[10:].data_ptr(), ints[20:].data_ptr(), 1, 8, 10, 20,
+                    count_as="skr_rectify")
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = self.views = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            self.views += func.is_view
+            return func(*args, **(kwargs or {}))
+
+    fns = (("fused", fused), ("plain", plain), ("synced", synced), ("checked", checked))
+    ms = {name: eager_ms(fn) for name, fn in fns}
+    ops = {}
+    for name, fn in fns:
+        with Count() as c:
+            fn()
+        ops[name] = (c.ops, c.ops - c.views)
+    torch.cuda.synchronize()
+    print(f"skr_process_batch (8 rows, 10 classes, queue 20): {ms['fused']:.4f} ms per call, "
+          f"eager (one fused launch; {ops['fused'][1]} non-view torch ops of "
+          f"{ops['fused'][0]} dispatched)")
+    print(f"  the plain version (the queue-pass loop of torch ops, the map in torch ops): "
+          f"{ms['plain']:.4f} ms per call, eager ({ops['plain'][1]} non-view torch ops of "
+          f"{ops['plain'][0]})")
+    print(f"  the fused entry with a sync and a read of its fault words after each call: "
+          f"{ms['synced']:.4f} ms per call, eager")
+    print(f"  the fused launch with _lib.check_labels before it instead of the fault words: "
+          f"{ms['checked']:.4f} ms per call, eager ({ops['checked'][1]} non-view torch ops "
+          f"of {ops['checked'][0]})")
 
 
 def expected_launches(cfg, rounds, dev):
     """Kernel launches ``rounds`` plain FedEEC rounds make, from the
     trainer's own ``pair_steps``: per student step one forward and one
     backward (two of each for a data-holding leaf: local CE and bridge
-    loss); per teacher step one rectification."""
+    loss); per teacher step one launch of SKR's fused entry (queue pass
+    and rectification), and none of the map alone."""
     from repro_torch.fl.api import create_algorithm
     from repro_torch.fl.engine import build_problem
 
@@ -844,6 +1036,7 @@ def drive_main_path(dev):
     from repro_torch.configs.base import FLConfig
     from repro_torch.fl.engine import build_problem, run_experiment
     from repro_torch.kernels import ops
+    from repro_torch.kernels.skr_rectify import variant_launches as skr_variants
 
     cfg, rounds = FLConfig(), 3
     print(f"config: {cfg}")
@@ -859,7 +1052,8 @@ def drive_main_path(dev):
     res = run_experiment("fedeec", cfg, rounds=rounds, device=dev)
     counts = {k: ops.launches[k] for k in ("distill_loss_fwd", "distill_loss_bwd",
                                            "skr_rectify")}
-    add_distill_launches()
+    skr_split = dict(skr_variants)
+    add_variant_launches()
     torch.cuda.synchronize()
     print(f"round wall s (train, ending in a sync): {res.round_s}")
     print(f"run wall s (rounds + evals): {res.wall_s:.3f}")
@@ -869,6 +1063,7 @@ def drive_main_path(dev):
     print(f"launches: {counts}")
     want = expected_launches(cfg, rounds, dev)
     print(f"launches predicted from pair_steps: {want}")
+    print(f"skr_rectify launches by entry: {skr_split}")
     if len(res.acc_curve) != rounds or not all(
             math.isfinite(a) and 0.0 <= a <= 1.0 for a in res.acc_curve):
         fail(f"bad accuracy curve {res.acc_curve}")
@@ -877,6 +1072,8 @@ def drive_main_path(dev):
             fail(f"kernel {name} was not launched on the main path")
         if n != want[name]:
             fail(f"kernel {name}: {n} launches, pair_steps predicts {want[name]}")
+    if skr_split != {"map": 0, "fused": want["skr_rectify"]}:
+        fail(f"skr_rectify by entry {skr_split}: one fused launch a teacher step predicted")
     return counts
 
 
@@ -1032,7 +1229,7 @@ def replay_sim_schedule(cfg, scenario, rounds, dev):
     without evals, and the kernel launches the card's run must make, added
     up per executed item: the child as student steps x (2 if it holds data
     else 1) forward and backward, the parent as student steps, and 2 x
-    steps rectifications."""
+    steps launches of SKR's fused entry, one a teacher step."""
     from dataclasses import replace
 
     from repro_torch.core.fedeec import FedEEC
@@ -1080,6 +1277,7 @@ def drive_sim_path(dev):
     from repro_torch.configs.base import FLConfig
     from repro_torch.fl.engine import build_problem, run_experiment
     from repro_torch.kernels import ops
+    from repro_torch.kernels.skr_rectify import variant_launches as skr_variants
 
     cfg, rounds, scenario = FLConfig(), 3, "mobile_clients"
     build_problem(cfg, device=dev)  # the autoencoder, cached since the main path
@@ -1089,7 +1287,8 @@ def drive_sim_path(dev):
     res = run_experiment("fedeec", cfg, rounds=rounds, scenario=scenario, device=dev)
     counts = {k: ops.launches[k] for k in ("distill_loss_fwd", "distill_loss_bwd",
                                            "skr_rectify")}
-    add_distill_launches()
+    skr_split = dict(skr_variants)
+    add_variant_launches()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**20
     host = sum(res.round_s)
@@ -1106,6 +1305,7 @@ def drive_sim_path(dev):
     print(f"launches: {counts}")
     log, want = replay_sim_schedule(cfg, scenario, rounds, dev)
     print(f"launches predicted by the CPU replay: {want}")
+    print(f"skr_rectify launches by entry: {skr_split}")
     if len(res.acc_curve) != rounds or not all(
             math.isfinite(a) and 0.0 <= a <= 1.0 for a in res.acc_curve):
         fail(f"bad accuracy curve {res.acc_curve}")
@@ -1121,6 +1321,9 @@ def drive_sim_path(dev):
         if n != want[name]:
             fail(f"kernel {name}: {n} launches on the scenario path, the replay "
                  f"predicts {want[name]}")
+    if skr_split != {"map": 0, "fused": want["skr_rectify"]}:
+        fail(f"skr_rectify by entry {skr_split} on the scenario path: one fused launch a "
+             f"teacher step predicted")
     return counts
 
 
@@ -1559,7 +1762,7 @@ def drive_train_path(dev):
     res = train_lm("llama3.2-3b", use_reduced=False, use_kernels=True, device=dev,
                    log_every=1, profile_last=1, **LM_TRAIN)
     counts = dict(ops.launches)
-    add_distill_launches()
+    add_variant_launches()
     peak = torch.cuda.max_memory_allocated()
     want = LM_TRAIN["steps"] * per_step
     for i, (s_, loss, gn) in enumerate(zip(res.step_s, res.losses, res.grad_norms)):
@@ -1694,7 +1897,7 @@ def main() -> None:
     phase("kernels vs plain versions")
     err = check_distill_loss(dev)
     check_ce_allocates_no_teacher(dev)
-    err["skr_rectify"] = check_skr_rectify(dev)
+    err.update(check_skr_rectify(dev))
     flash_err = check_flash_attention(dev)
     err.update({k: flash_err[VARIANTS[k]] for k in VARIANTS})
     rwkv_err = check_rwkv6_scan(dev)
@@ -1758,12 +1961,23 @@ def main() -> None:
         if counts[k] <= 0:
             fail(f"{k} was not launched on the main paths")
     print(f"distill_loss launches on the main paths, by entry and variant: {distill}")
+    # skr_rectify's rows are its two entries: the fused queue pass + map
+    # (the main paths' one launch a teacher step) and the map alone
+    skr = {SKR_ROWS[k]: n for k, n in MAIN_SKR.items()}
+    if sum(skr.values()) != counts["skr_rectify"]:
+        fail(f"skr_rectify: {skr} launches by entry, {counts['skr_rectify']} counted")
+    counts.update(skr)
+    if counts["skr_rectify"] <= 0:
+        fail("skr_rectify's fused entry was not launched on the main paths")
+    print(f"skr_rectify launches on the main paths, by entry: {MAIN_SKR}")
 
     pick = {"distill_loss_fwd": ("main", 1.5), "distill_loss_bwd": ("main", 1.5),
             "distill_loss_fwd_ce": ("main", 0.0), "distill_loss_bwd_ce": ("main", 0.0),
-            "skr_rectify": ("main", None), "flash_attention": ("prefill", 0),
+            "skr_rectify": ("main", None), "skr_rectify_map": ("main", None),
+            "flash_attention": ("prefill", 0),
             "flash_attention_simt": ("decode", 4095), "flash_attention_decode": ("decode", 4095),
             "rwkv6_scan": ("decode", None), "rwkv6_scan_chunked": ("prefill", None)}
+    skr_variant = {row: v for v, row in SKR_ROWS.items()}
     kernels = []
     for k, (tag, beta) in pick.items():
         row = times[(k, tag, beta)]
@@ -1771,6 +1985,8 @@ def main() -> None:
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": TPU_KERNELS[k],
             "launches": counts[k], "max_abs_err": err[k],
             **({"variant": lm_variants[k]} if k in lm_variants else {}),
+            **({"variant": skr_variant[k], "variant_launches": MAIN_SKR}
+               if k in skr_variant else {}),
             **({"variant_launches": distill[k]} if k in distill else {}), **row,
         })
     print(json.dumps({"kernels": kernels}))

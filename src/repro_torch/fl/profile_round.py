@@ -8,7 +8,9 @@ Builds the problem at ``FLConfig()`` defaults on the card, runs one round
 profiler, then runs one more round under
 ``torch.profiler`` and reports: the round's host wall time, the device's
 busy time (the union of kernel intervals) and idle share, the number of
-kernels launched, and the kernels that take the most device time. The
+kernels launched, the port's kernel launches by name (SKR's by entry: one
+``fused`` launch a teacher step), and the kernels that take the most
+device time. The
 profiler slows the host, so the idle share is reported against the
 unprofiled round's wall time too. The rounds are plain rounds, or with
 ``--scenario`` the simulator's rounds of that scenario (churn, scheduling
@@ -54,6 +56,8 @@ def main(argv=None) -> None:
     from repro_torch.configs.base import FLConfig
     from repro_torch.fl.api import create_algorithm
     from repro_torch.fl.engine import build_problem
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.skr_rectify import variant_launches as skr_variants
 
     cfg = FLConfig()
     _, tree, client_data, auto = build_problem(cfg, device="cuda")
@@ -75,6 +79,7 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
@@ -94,6 +99,8 @@ def main(argv=None) -> None:
     print(f"device busy s: {busy_s:.4f}  idle share: {1 - busy_s / wall_plain:.4f} of the "
           f"unprofiled round, {1 - busy_s / wall_prof:.4f} of the profiled one")
     print(f"kernels launched in the round: {len(kernels)}")
+    print(f"port kernel launches in the round: {dict(ops.launches)}; skr_rectify by "
+          f"entry: {dict(skr_variants)}")
     print("top kernels by device time (total ms, count, mean us):")
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:TOP]
     for name, ts in top:

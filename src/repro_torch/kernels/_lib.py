@@ -11,6 +11,11 @@ is compiled or loaded when this module is imported.
 launches its kernel and nowhere else. A TPU kernel with two CUDA variants
 keeps one name there; its wrapper keeps a per-variant count of its own,
 registered with ``counter`` so that ``reset_launches`` zeroes it too.
+
+A kernel that checks its inputs reports a fault in pinned host words
+(``fault_words``) that are read at the caller's next sync on the card
+(``check_labels``' or ``raise_faults``), so that no launch waits for a
+read-back of its own.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -53,6 +59,9 @@ _SIGNATURES = {
     "distill_loss_bwd_ce_bf16": [_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     # p, label, p_c, do, qbar, out, rows, C, stream
     "skr_rectify": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
+    # p, label, label_is_i64, q, count, head, out, q_out, count_out,
+    # head_out, err, B, N, C, Bq, stream
+    "skr_process": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, o, B, Sq, Sk, N, K, H, is_bf16, causal, window, q_offset,
     # k_len, scale, stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
@@ -187,9 +196,58 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def check_labels(name: str, labels: torch.Tensor, n: int) -> torch.Tensor:
     """Labels as int32 after checking they lie in [0, n). On a card the
-    check reads one flag back to the host."""
+    check reads one flag back to the host; that sync also reports the
+    kernels' faults (``check_faults``)."""
     if labels.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"{name}: labels must be int32 or int64, got {labels.dtype}")
-    if labels.numel() and not bool(((labels >= 0) & (labels < n)).all()):
-        raise ValueError(f"{name}: labels must lie in [0, {n})")
+    if labels.numel():
+        if not bool(((labels >= 0) & (labels < n)).all()):
+            raise ValueError(f"{name}: labels must lie in [0, {n})")
+        if labels.is_cuda:
+            check_faults(labels.device)
     return labels.to(torch.int32).contiguous()
+
+
+# Fault words: pinned host memory, mapped into the card's address space,
+# that a kernel ORs fault bits into (over the bus, and only on a fault), so
+# that no launch reads a flag back. They are read, and zeroed, at the next
+# sync the caller makes anyway on the launches' stream (``check_labels``'s),
+# or by ``raise_faults``, which makes one. Keyed by (kernel, device index);
+# each entry holds the words and the function that turns set bits into the
+# exception to raise.
+_faults: dict[tuple[str, int], tuple[np.ndarray, torch.Tensor, object]] = {}
+
+
+def fault_words(name: str, device: torch.device, n: int, report) -> torch.Tensor:
+    """At least ``n`` int32 fault words for kernel ``name`` on ``device``,
+    zero until a launch sets one; ``report(bits)`` gives the exception that
+    a set word raises. Growing them first syncs ``device`` and reads the
+    old ones."""
+    key = (name, device.index)
+    held = _faults.get(key)
+    if held is None or held[0].size < n:
+        if held is not None:
+            raise_faults(device)
+        words = torch.zeros(max(n, 64), dtype=torch.int32, pin_memory=True)
+        held = _faults[key] = (words.numpy(), words, report)
+    return held[1]
+
+
+def check_faults(device: torch.device) -> None:
+    """Raise if a kernel on ``device`` set a fault word, and zero the words.
+    Call it only after a sync that covers the launches' stream."""
+    for (name, index), (words, _, report) in _faults.items():
+        if index == device.index and words.any():
+            bits = int(np.bitwise_or.reduce(words))
+            words[:] = 0
+            raise report(bits)
+
+
+def raise_faults(device: torch.device | str = "cuda") -> None:
+    """Wait for ``device``'s work, then ``check_faults``: for a caller that
+    makes no sync of its own after a launch."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.synchronize(device)
+    check_faults(device)

@@ -6,7 +6,9 @@ use) or raises; on a CPU tensor it runs the plain version in ``ref.py``.
 ``launches`` counts kernel launches by name (``distill_loss_fwd``,
 ``distill_loss_bwd``, ``skr_rectify``, ``flash_attention``,
 ``flash_attention_empty_rows``, ``rwkv6_scan``); ``reset_launches`` zeroes
-it, and also ``kernels.distill_loss.variant_launches``, distill_loss's
+it, and also ``kernels.skr_rectify.variant_launches``, skr_rectify's
+launches per entry (``map``, ``fused``),
+``kernels.distill_loss.variant_launches``, distill_loss's
 launches per entry and kernel (``fwd:regs``, ``fwd_ce:stream``,
 ``bwd_ce:slices``, ...), ``kernels.flash_attention.variant_launches``,
 flash_attention's (``sm90``, ``simt``, ``decode``), and
@@ -25,9 +27,9 @@ from repro_torch.kernels.distill_loss import (
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6
 from repro_torch.kernels.skr_rectify import (
+    skr_process_rows as _skr_process_rows,
     skr_rectify as _skr,
     skr_rectify_batched as _skr_batched,
-    skr_rectify_rows,  # noqa: F401
 )
 
 
@@ -58,6 +60,12 @@ def skr_rectify(probs, labels, qbar, counts):
 def skr_rectify_batched(probs, labels, qbar, counts):
     """Stacked (B, N, C) rectification with per-pair (B, C) queue stats."""
     return _skr_batched(probs, labels, qbar, counts)
+
+
+def skr_process(probs, labels, q, count, head):
+    """SKR's Algorithm 2 for one teacher step (N, C): the queue pass and
+    Eq. (31) in one launch. Returns (Q, q, count, head)."""
+    return _skr_process_rows(probs, labels, q, count, head)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):

@@ -37,6 +37,48 @@ def skr_rectify_ref(probs, labels, qbar, counts):
 skr_rectify_batched_ref = skr_rectify_ref
 
 
+def skr_process_ref(probs, labels, q, count, head):
+    """SKR's Algorithm 2 for one pair, as ``repro.core.skr.skr_process_batch``
+    computes it: a sequential queue pass over the rows (later rows of a
+    class see the pushes of earlier rows), then Eq. (31) on every row.
+    probs (N, C) fp32; labels (N,); q (C, Bq) fp32; count, head (C,) int32.
+    Returns (Q, q, count, head), the state in new tensors."""
+    C, Bq = q.shape
+    N = labels.shape[0]
+    dev = probs.device
+    labels = labels.long()
+    cls = torch.arange(C, device=dev)
+    slot = torch.arange(Bq, device=dev)
+    p_c = probs.gather(1, labels[:, None])[:, 0]
+    correct = probs.argmax(dim=1) == labels
+    seen_cnt = count.new_zeros(N)
+    seen_qbar = q.new_zeros(N)
+    q, count, head = q.clone(), count.clone(), head.clone()
+    for i in range(N):
+        c = labels[i:i + 1]
+        cnt = count.gather(0, c)
+        hd = head.gather(0, c)
+        qrow = q.index_select(0, c)[0]
+        seen_cnt[i:i + 1] = cnt
+        seen_qbar[i:i + 1] = torch.sum(qrow * (slot < cnt)) / torch.clamp_min(cnt, 1)
+        # push on correct attribution
+        push = (cls == c) & correct[i]
+        q = torch.where(push[:, None] & (slot == hd)[None, :], p_c[i], q)
+        head = torch.where(push, (hd + 1) % Bq, head)
+        count = torch.where(push, torch.clamp_max(cnt + 1, Bq), count)
+    do = ~correct & (seen_cnt > 0)
+    return skr_rectify_rows_ref(probs, labels, p_c, do, seen_qbar), q, count, head
+
+
+def skr_process_batched_ref(probs, labels, q, count, head):
+    """``skr_process_ref`` for B independent pairs: probs (B, N, C), labels
+    (B, N), q (B, C, Bq), count and head (B, C)."""
+    if probs.shape[0] == 0:
+        return probs.clone(), q.clone(), count.clone(), head.clone()
+    pairs = [skr_process_ref(*a) for a in zip(probs, labels, q, count, head)]
+    return tuple(torch.stack(x) for x in zip(*pairs))
+
+
 # --- distill loss (fused CE + beta*KL over the vocab axis) ------------------
 
 

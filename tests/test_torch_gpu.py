@@ -15,7 +15,12 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.kernels import _lib, ops
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.distill_loss import distill_loss_batched
-from repro_torch.kernels.skr_rectify import skr_rectify_batched, skr_rectify_rows
+from repro_torch.kernels.skr_rectify import (
+    skr_process_batched,
+    skr_rectify_batched,
+    skr_rectify_rows,
+)
+from repro_torch.kernels.skr_rectify import variant_launches as skr_variants
 
 pytestmark = pytest.mark.gpu
 
@@ -234,6 +239,93 @@ def test_skr_rectify_exact(cuda, B, N, C):
     want = R.skr_rectify_batched_ref(probs, labels, qbar, counts)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _skr_state(B, N, C, Bq, dev, classes=None, seed=1):
+    """probs, labels (int64, from ``classes`` classes if given, so labels
+    repeat and later rows see earlier pushes) and a partly filled queue
+    state with heads anywhere."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    labels = torch.randint(0, classes or C, (B, N), generator=g, device=dev)
+    z = torch.randn((B, N, C), generator=g, device=dev) * 2
+    # about half the rows correctly attributed, so that they push
+    boost = torch.rand((B, N, 1), generator=g, device=dev) < 0.5
+    z.scatter_add_(-1, labels[..., None], boost * 6.0)
+    probs = torch.softmax(z, -1)
+    q = torch.rand((B, C, Bq), generator=g, device=dev) * 0.8 + 0.1
+    count = torch.randint(0, Bq + 1, (B, C), generator=g, device=dev, dtype=torch.int32)
+    head = torch.randint(0, Bq, (B, C), generator=g, device=dev, dtype=torch.int32)
+    return probs, labels, q, count, head
+
+
+# count, head and q exact (q only stores copies of p_c); Q within 1e-6: the
+# kernel sums a queue in slot order, the plain version with torch.sum
+@pytest.mark.parametrize("B,N,C,Bq,classes", [
+    (1, 8, 10, 20, None), (4, 8, 10, 20, None), (4, 256, 1024, 20, None),
+    (2, 64, 10, 4, 2),      # repeated labels: pushes wrap the heads
+    (2, 1500, 10, 20, 3),   # more rows than the kernel's chunk
+])
+def test_skr_process_matches_plain(cuda, B, N, C, Bq, classes):
+    ins = _skr_state(B, N, C, Bq, cuda, classes)
+    got = skr_process_batched(*ins)
+    want = R.skr_process_batched_ref(*ins)
+    torch.cuda.synchronize()
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-6
+    # int32 labels take the kernel's other instantiation
+    got32 = skr_process_batched(ins[0], ins[1].to(torch.int32), *ins[2:])
+    assert all(torch.equal(a, b) for a, b in zip(got, got32))
+    _lib.raise_faults(cuda)  # no fault flagged
+
+
+def test_skr_process_is_one_launch_per_teacher_step(cuda):
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+
+    cfg = FLConfig(num_clients=4, num_edges=2, samples_per_client=16,
+                   test_samples=64, image_size=8, embed_dim=16)
+    _, tree, client_data, auto = build_problem(cfg, device=cuda)
+    trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=cuda)
+    teacher_steps = sum(trainer.pair_steps(s, t) for v, p in trainer.round_pairs()
+                        for s, t in ((v, p), (p, v)))
+    ops.reset_launches()
+    trainer.train_round()
+    assert teacher_steps > 0
+    assert ops.launches["skr_rectify"] == teacher_steps
+    assert skr_variants == {"map": 0, "fused": teacher_steps}
+
+
+def test_skr_process_raises_on_bad_labels_and_state(cuda):
+    """The kernel flags a fault in a pinned word; it raises at the next sync
+    on the card: ``_lib.raise_faults``, or on the main path the label check
+    of the student step that reads Q."""
+    probs, labels, q, count, head = _skr_state(2, 8, 10, 4, cuda)
+    for bad in (10, -1):
+        y = labels.clone()
+        y[1, 3] = bad
+        skr_process_batched(probs, y, q, count, head)
+        with pytest.raises(ValueError, match="label"):
+            _lib.raise_faults(cuda)
+    skr_process_batched(probs, labels, q, count + 5, head)
+    with pytest.raises(ValueError, match="count"):
+        _lib.raise_faults(cuda)
+    skr_process_batched(probs, labels, q, count, head + 4)
+    with pytest.raises(ValueError, match="head"):
+        _lib.raise_faults(cuda)
+    y = labels.clone()
+    y[0, 0] = 10
+    skr_process_batched(probs, y, q, count, head)
+    with pytest.raises(ValueError, match="skr_process"):
+        _lib.check_labels("distill_loss", labels, 10)
+    _lib.raise_faults(cuda)  # reported once: the words are zero again
+    with pytest.raises(ValueError):  # non-contiguous probs
+        skr_process_batched(probs.transpose(0, 1).contiguous().transpose(0, 1), labels, q,
+                            count, head)
+    # the card is fine afterwards
+    got = skr_process_batched(probs, labels, q, count, head)
+    assert torch.equal(got[2], R.skr_process_batched_ref(probs, labels, q, count, head)[2])
+    _lib.raise_faults(cuda)
 
 
 def test_launches_are_counted(cuda):
