@@ -53,19 +53,26 @@ the result line:
    launch of the fused entry a teacher step, none of the map alone);
 5. FedEEC parity: the card against the CPU (the port's plain path, which
    the CPU tests hold to the JAX package) on small inputs: one student
-   step's loss and gradient per model, and one tiny FedEEC round;
-6. FedEEC on the simulator: the 11 named scenarios at the gate
-   configuration of ``benchmarks/tables/scenarios.json`` (4 clients, 2
-   edges, cnn2 edge and cloud, 2 rounds, no eval) on the card, each event
-   signature held to the table (``lossy_links`` to the reference's
-   serial-dispatch signature, ROADMAP C9) and the fault counters of
-   ``lossy_links`` and ``regional_outage`` to ``BENCH_faults.json``; then
+   step's loss and gradient per model, one coalesced group's student step
+   (three stacked students) per model, and one tiny FedEEC round;
+6. FedEEC on the simulator, with the trainer's coalesced dispatch: the 11
+   named scenarios at the gate configuration of
+   ``benchmarks/tables/scenarios.json`` (4 clients, 2 edges, cnn2 edge and
+   cloud, 2 rounds, no eval) on the card, each event signature held to the
+   table and the fault counters of ``lossy_links`` and ``regional_outage``
+   to ``BENCH_faults.json``, and ``lossy_links`` once more with serial
+   dispatch forced, held to its serial signature (ROADMAP C9); then
    ``run_experiment("fedeec", FLConfig(), rounds=3,
    scenario="mobile_clients")`` at full width, with the launch counters
    zeroed before and held after to a CPU replay of the same schedule (cnn2
-   at every tier), whose event log must equal the card's without its evals:
+   at every tier; a coalesced group's launches counted once a group step),
+   whose event log without evals and dispatch stats must equal the card's:
    round host s, simulated s, event counts, dispatch stats, comm bytes,
-   accuracy curve and peak memory;
+   accuracy curve and peak memory; then serial against coalesced dispatch
+   at ``FLConfig()`` for ``mobile_clients`` and ``flash_crowd``: two runs
+   each, driven a round at a time (serial, batched, batched, serial), with
+   round host s and launches by name, the launches saved held to what the
+   groups predict;
 7. LM serving, for llama3.2-3b then rwkv6-1.6b at full width and depth in
    bf16: ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
    64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
@@ -102,7 +109,10 @@ the result line:
    distill_loss at the training shape in bf16, both entries forward and
    backward, beside ``F.cross_entropy`` on the same logits, printed on a
    line of its own. They come last, so that nothing the timing leaves
-   allocated enters a main path's peak memory.
+   allocated enters a main path's peak memory;
+12. the next round of each serial and batched run of 6 under
+   ``torch.profiler``: kernels in the round, device busy s and idle share
+   (last, after every other profiler window).
 
 It ends with the kernels' JSON line (distill_loss has a row per entry and
 direction, each with its launches per variant; skr_rectify a row per
@@ -185,8 +195,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name}  (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def eager_ms(fn, launches: int = TIMED_LAUNCHES) -> float:
@@ -1119,6 +1132,67 @@ def check_step_parity(dev):
                 fail(f"{name}: the card's student step disagrees with the CPU's")
 
 
+def check_group_step_parity(dev):
+    """One coalesced group's student step (B = 3 stacked students, the
+    model through ``torch.func.vmap``, the losses through the kernels'
+    (B, N, V) entries) on the card and on the CPU from the same parameters
+    and inputs, for each FL model and both losses: each pair's loss within
+    1e-5 relative and the stacked gradient within 1e-5 absolute, the bounds
+    of ``check_step_parity``, with the models in fp64 and their logits
+    entering the fp32 loss. In fp32 the card's grouped convolutions round
+    differently from the CPU's by about 3e-6, and a pre-activation that
+    close to ReLU's kink takes the other branch on one device, moving the
+    gradients below it by up to 1e-3 of their scale: the fp32 step's
+    difference is printed beside the fp64 one, and held to nothing."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bsbodp
+    from repro_torch.core.fedeec import node_generator
+    from repro_torch.models.registry import get_fl_model
+    from repro_torch.tree import tree_leaves, tree_map, tree_stack, value_and_grad
+
+    B = 3
+    rng = np.random.default_rng(1)
+    x = rng.random((B, 8, 16, 16, 3))
+    lx = rng.random((B, 8, 16, 16, 3))
+    y, ly = rng.integers(0, 10, (B, 8)), rng.integers(0, 10, (B, 8))
+    q = rng.random((B, 8, 10)).astype(np.float32) ** 3
+    q /= q.sum(-1, keepdims=True)
+    for i, name in enumerate(("cnn1", "resnet10", "resnet18")):
+        init, apply1 = get_fl_model(name)
+        vapply = torch.func.vmap(apply1)
+        P32 = tree_stack([init(node_generator(1, B * i + b), 10, 16) for b in range(B)])
+        for leaf in (False, True):
+            diffs = {}
+            for dtype in (torch.float64, torch.float32):
+                P = tree_map(lambda a: a.to(dtype), P32)
+                apply = lambda p, a: vapply(p, a.to(dtype)).float()
+                out = {}
+                for d in (dev, torch.device("cpu")):
+                    t = lambda a: torch.as_tensor(a).to(d)
+                    if leaf:
+                        fn = lambda pp: bsbodp.leaf_loss_batched(
+                            apply(pp, t(lx)), t(ly), apply(pp, t(x)), t(y), t(q), 1.5, 1.0)
+                    else:
+                        fn = lambda pp: bsbodp.non_leaf_loss_batched(apply(pp, t(x)), t(y),
+                                                                     t(q), 1.5)
+                    pp = tree_map(lambda a: a.to(d), P)
+                    with torch.no_grad():
+                        losses = fn(pp).cpu()
+                    _, g = value_and_grad(lambda p: fn(p).sum(), pp)
+                    out[d.type] = (losses, [a.cpu() for a in tree_leaves(g)])
+                (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+                diffs[dtype] = (float(((lg - lc).abs() / lc.abs()).max()),
+                                max((a - b).abs().max().item() for a, b in zip(gg, gc)))
+            (rel, err), (rel32, err32) = diffs[torch.float64], diffs[torch.float32]
+            print(f"{name} {'leaf' if leaf else 'non-leaf'} group step (B = {B}), fp64 model: "
+                  f"losses max rel diff {rel:.3e}, grad max|diff| {err:.3e}; fp32 model "
+                  f"(not held): {rel32:.3e}, {err32:.3e}")
+            if rel > 1e-5 or err > 1e-5:
+                fail(f"{name}: the card's group step disagrees with the CPU's")
+
+
 def check_round_parity(dev):
     """One FedEEC round (tiny config) on the card and on the CPU from the
     same parameters: comm bytes and the numpy rng state identical, every
@@ -1172,10 +1246,11 @@ def check_round_parity(dev):
 # these fields, 4 clients, 2 edges, 2 rounds, no eval
 SIM_GATE = dict(samples_per_client=16, test_samples=64, image_size=8, embed_dim=16,
                 edge_model="cnn2", cloud_model="cnn2")
-# where the port's serial dispatch gives the reference's serial signature,
-# not the table's (written with batched dispatch, which under faults draws
-# transfer outcomes in another item order): ROADMAP.md C9, pinned against
-# the JAX package by tests/test_torch_sim_engine.py
+# the signature with forced serial dispatch (batch_signature -> None) where
+# it differs from the table's, written with coalesced dispatch: under
+# faults serial dispatch draws transfer outcomes in another item order
+# (ROADMAP.md C9, fixed); pinned against the JAX package by
+# tests/test_torch_sim_engine.py
 SIM_SERIAL_DISPATCH = {"fedeec/lossy_links": "a777706636504be1"}
 SIM_FAULT_COUNTERS = ("sim_transfer_failures_total", "sim_transfer_retries_total",
                       "sim_pairs_abandoned_total", "sim_pair_timeouts_total",
@@ -1184,9 +1259,11 @@ SIM_FAULT_COUNTERS = ("sim_transfer_failures_total", "sim_transfer_retries_total
 
 
 def check_sim_signatures(dev):
-    """Every named scenario at the gate configuration on the card: the
-    event signature equal to the tracked table's, and the fault counters
-    of lossy_links and regional_outage equal to BENCH_faults.json's."""
+    """Every named scenario at the gate configuration on the card, with
+    the trainer's coalesced dispatch: the event signature equal to the
+    tracked table's, and the fault counters of lossy_links and
+    regional_outage equal to BENCH_faults.json's; then lossy_links once
+    more with serial dispatch forced, held to SIM_SERIAL_DISPATCH."""
     import torch
 
     from repro_torch.configs.fedeec_paper import paper_setting
@@ -1199,37 +1276,58 @@ def check_sim_signatures(dev):
     faults = json.loads((ROOT / "BENCH_faults.json").read_text())
     cfg = paper_setting("synth_cifar10", 4, 2, **SIM_GATE)
     t0 = time.perf_counter()
-    for name in list_scenarios():
+    runs = [(name, False) for name in list_scenarios()]
+    runs += [(key[len("fedeec/"):], True) for key in SIM_SERIAL_DISPATCH]
+    for name, serial in runs:
         key = f"fedeec/{name}"
         _, tree, client_data, auto = build_problem(cfg, device=dev)
         trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=dev)
+        if serial:
+            trainer.batch_signature = lambda item: None
         engine = SimEngine(trainer, get_scenario(name), seed=cfg.seed)
         sig = engine.run(2).signature()
         torch.cuda.synchronize()
-        want = SIM_SERIAL_DISPATCH.get(key, table[key])
+        want = SIM_SERIAL_DISPATCH[key] if serial else table[key]
         snap = engine.metrics.snapshot()
         got = {c: int(snap.get(c, {}).get("value", 0)) for c in SIM_FAULT_COUNTERS}
-        note = " (the reference's serial dispatch, ROADMAP C9)" if key in SIM_SERIAL_DISPATCH else ""
+        note = " (forced serial dispatch, ROADMAP C9)" if serial else ""
+        stats = engine.dispatch_stats
         print(f"{name:<16} signature {sig} want {want}{note}  "
-              f"events {len(engine.log.entries)}  failed pairs {len(trainer.failed_pairs)}")
+              f"events {len(engine.log.entries)}  failed pairs {len(trainer.failed_pairs)}  "
+              f"dispatches {stats['dispatches']} of {stats['items']} items, "
+              f"{stats['batched_dispatches']} batched")
         if sig != want:
             fail(f"scenario {name}: the card's event signature {sig} != {want}")
-        if name in ("lossy_links", "regional_outage"):
+        if serial and stats["batched_dispatches"]:
+            fail(f"scenario {name}: forced serial dispatch ran {stats}")
+        if name in ("lossy_links", "regional_outage") and not serial:
             tracked = {c: faults[name][c] for c in SIM_FAULT_COUNTERS}
             print(f"{'':<16} fault counters {got}")
             if got != tracked:
                 fail(f"scenario {name}: fault counters {got} != BENCH_faults.json {tracked}")
-    print(f"11 gate runs on the card: {time.perf_counter() - t0:.3f} s")
+    print(f"{len(runs)} gate runs on the card: {time.perf_counter() - t0:.3f} s")
 
 
-def replay_sim_schedule(cfg, scenario, rounds, dev):
+def item_launches(item, client_data) -> dict:
+    """The FedEEC kernels' launches of one pair item, or of one coalesced
+    group of such items (a group step launches each kernel once): each
+    direction's steps take a student step, one distill_loss launch each
+    way (two when the student, the child, holds data), and a teacher step,
+    one launch of SKR's fused entry."""
+    k = item.steps
+    fwd = k * (2 if item.node in client_data else 1) + k
+    return {"distill_loss_fwd": fwd, "distill_loss_bwd": fwd, "skr_rectify": 2 * k}
+
+
+def replay_sim_schedule(cfg, scenario, rounds, dev, serial=False):
     """The scenario run's schedule replayed on the CPU with cnn2 at every
-    tier (pair steps, bytes and times do not depend on the models), from
-    the same problem (the autoencoder cached on the card): its event log
-    without evals, and the kernel launches the card's run must make, added
-    up per executed item: the child as student steps x (2 if it holds data
-    else 1) forward and backward, the parent as student steps, and 2 x
-    steps launches of SKR's fused entry, one a teacher step."""
+    tier (pair steps, bytes, times and the dispatch groups do not depend
+    on the models: a signature separates leaf pairs from edge pairs
+    whatever the tiers' models are), from the same problem (the
+    autoencoder cached on the card): its event log without evals, its
+    dispatch stats, and the kernel launches the card's run must make,
+    added up per dispatch (``item_launches``, a coalesced group counting
+    as one item). ``serial`` forces serial dispatch."""
     from dataclasses import replace
 
     from repro_torch.core.fedeec import FedEEC
@@ -1240,24 +1338,32 @@ def replay_sim_schedule(cfg, scenario, rounds, dev):
     small = replace(cfg, end_model="cnn2", edge_model="cnn2", cloud_model="cnn2")
     _, tree, cd, auto = build_problem(small, device=dev)
     trainer = FedEEC(small, tree, cd, auto, seed=small.seed, device="cpu")
+    if serial:
+        trainer.batch_signature = lambda item: None
     want = dict.fromkeys(("distill_loss_fwd", "distill_loss_bwd", "skr_rectify"), 0)
-    execute = trainer.execute
+    execute, execute_batch = trainer.execute, trainer.execute_batch
+
+    def count(item):
+        for name, n in item_launches(item, cd).items():
+            want[name] += n
 
     def counted(item):
-        k = item.steps
-        fwd = k * (2 if item.node in cd else 1) + k
-        want["distill_loss_fwd"] += fwd
-        want["distill_loss_bwd"] += fwd
-        want["skr_rectify"] += 2 * k
+        count(item)
         execute(item)
 
-    trainer.execute = counted
+    def counted_batch(items):
+        if len(items) == 1:  # execute_batch hands a lone item to execute
+            return counted(items[0])
+        count(items[0])  # one launch of each a group step, whatever its size
+        execute_batch(items)
+
+    trainer.execute, trainer.execute_batch = counted, counted_batch
     engine = SimEngine(trainer, get_scenario(scenario), seed=small.seed)
     t0 = time.perf_counter()
     engine.run(rounds)
     print(f"CPU replay (cnn2 at every tier, no eval): {time.perf_counter() - t0:.3f} s, "
-          f"{len(engine.log.entries)} events")
-    return _without_evals(engine.log.entries), want
+          f"{len(engine.log.entries)} events, dispatch stats {engine.dispatch_stats}")
+    return _without_evals(engine.log.entries), want, engine.dispatch_stats
 
 
 def _without_evals(entries):
@@ -1266,10 +1372,10 @@ def _without_evals(entries):
 
 def drive_sim_path(dev):
     """``run_experiment("fedeec", FLConfig(), rounds=3,
-    scenario="mobile_clients")`` on the card, full width, with the launch
-    counters zeroed just before and read just after, held to the CPU
-    replay's prediction; the card's log without its evals equal to the
-    replay's."""
+    scenario="mobile_clients")`` on the card, full width, with coalesced
+    dispatch and the launch counters zeroed just before and read just
+    after, held to the CPU replay's prediction; the card's log without its
+    evals and its dispatch stats equal to the replay's."""
     import math
 
     import torch
@@ -1303,7 +1409,7 @@ def drive_sim_path(dev):
     print(f"cloud accuracy curve: {res.acc_curve}")
     print(f"peak max_memory_allocated: {peak:.1f} MiB")
     print(f"launches: {counts}")
-    log, want = replay_sim_schedule(cfg, scenario, rounds, dev)
+    log, want, stats = replay_sim_schedule(cfg, scenario, rounds, dev)
     print(f"launches predicted by the CPU replay: {want}")
     print(f"skr_rectify launches by entry: {skr_split}")
     if len(res.acc_curve) != rounds or not all(
@@ -1311,8 +1417,9 @@ def drive_sim_path(dev):
         fail(f"bad accuracy curve {res.acc_curve}")
     if res.event_counts.get("migrate", 0) == 0:
         fail("mobile_clients migrated no client: the run did not exercise migration")
-    if res.dispatch_stats["batched_dispatches"] != 0:
-        fail(f"serial dispatch expected, got {res.dispatch_stats}")
+    if res.dispatch_stats != stats or stats["batched_dispatches"] <= 0:
+        fail(f"dispatch stats {res.dispatch_stats}: the CPU replay's {stats}, with "
+             f"coalesced groups, expected")
     if _without_evals(res.event_log) != log:
         fail("the card's event log (without evals) differs from the CPU replay's")
     for name, n in counts.items():
@@ -1325,6 +1432,118 @@ def drive_sim_path(dev):
         fail(f"skr_rectify by entry {skr_split} on the scenario path: one fused launch a "
              f"teacher step predicted")
     return counts
+
+
+# serial against coalesced dispatch at FLConfig(): (scenario, timed rounds)
+DISPATCH_COMPARE = (("mobile_clients", 2), ("flash_crowd", 2))
+DISPATCH_KERNELS = ("distill_loss_fwd", "distill_loss_bwd", "skr_rectify")
+
+
+def compare_dispatch(dev):
+    """Serial against coalesced dispatch at ``FLConfig()`` on the card, for
+    each scenario of DISPATCH_COMPARE: two trainers in one process, one
+    with serial dispatch forced on the instance (``batch_signature`` ->
+    None), each driven through ``SimEngine`` with no eval, a round at a
+    time in the order serial, batched, then batched, serial: every round's
+    host s (churn and items, ending in a sync), the port's launches by name
+    and the dispatch stats. The two runs' event signatures must be equal
+    (no faults: the schedule does not depend on the dispatch), and the
+    serial run's launches must exceed the batched run's by what its groups
+    predict: (size - 1) x a member's launches, for each group. Returns the
+    engines, for ``profile_dispatch``."""
+    import torch
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+    from repro_torch.kernels import ops
+    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.scenarios import get_scenario
+
+    cfg = FLConfig()
+    held = []
+    for scenario, rounds in DISPATCH_COMPARE:
+        engines, launches, saved = {}, {}, dict.fromkeys(DISPATCH_KERNELS, 0)
+        for mode in ("serial", "batched"):
+            _, tree, cd, auto = build_problem(cfg, device=dev)
+            trainer = create_algorithm("fedeec", cfg, tree, cd, auto, device=dev)
+            if mode == "serial":
+                trainer.batch_signature = lambda item: None
+            else:
+                execute_batch = trainer.execute_batch
+
+                def counted_batch(items, cd=cd, execute_batch=execute_batch, saved=saved):
+                    for name, n in item_launches(items[0], cd).items():
+                        saved[name] += (len(items) - 1) * n
+                    execute_batch(items)
+
+                trainer.execute_batch = counted_batch
+            engines[mode] = SimEngine(trainer, get_scenario(scenario), seed=cfg.seed)
+            launches[mode] = dict.fromkeys(DISPATCH_KERNELS, 0)
+        for r in range(rounds):
+            for mode in ("serial", "batched") if r % 2 == 0 else ("batched", "serial"):
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                engines[mode].run(r + 1, sync=torch.cuda.synchronize)
+                for k in DISPATCH_KERNELS:
+                    launches[mode][k] += ops.launches[k]
+        for mode, engine in engines.items():
+            print(f"{scenario} {mode:<7}: round host s {engine.round_s}  launches "
+                  f"{launches[mode]}  dispatch stats {engine.dispatch_stats}")
+        if engines["serial"].log.signature() != engines["batched"].log.signature():
+            fail(f"{scenario}: the serial and batched runs' event signatures differ")
+        if not any(saved.values()) or any(
+                launches["serial"][k] - launches["batched"][k] != saved[k]
+                for k in DISPATCH_KERNELS):
+            fail(f"{scenario}: serial launches {launches['serial']} - batched "
+                 f"{launches['batched']} != the groups' {saved}")
+        host = {m: sum(e.round_s) for m, e in engines.items()}
+        print(f"{scenario}: round host s over {rounds} rounds, serial {host['serial']:.4f}, "
+              f"batched {host['batched']:.4f} (batched / serial "
+              f"{host['batched'] / host['serial']:.4f}); launches saved by the groups: {saved}")
+        held.append((scenario, rounds, engines))
+    return held
+
+
+def profile_dispatch(held):
+    """The next round of each ``compare_dispatch`` run under
+    ``torch.profiler``, serial then batched: the kernels launched in the
+    round, the device's busy s and idle share, and the port's launches.
+    Run last: a later profiler window in a process can lose its first few
+    kernel records (PR 18), which matters to a window of a few kernels and
+    not to a round's 10^5."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl.profile_round import busy_us
+    from repro_torch.kernels import ops
+
+    for scenario, rounds, engines in held:
+        for mode, engine in engines.items():
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            # device activity only: the host ops of a round number in the
+            # millions, and reading them back took minutes
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                engine.run(rounds + 1, sync=torch.cuda.synchronize)
+                wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            # the raw records: building prof.events()' tree of a round's
+            # records took 40 s a round
+            kernels = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA]
+            if not kernels:
+                fail("the profiler recorded no device activity")
+            busy = busy_us(kernels) / 1e9
+            print(f"{scenario} {mode:<7} round {rounds + 1} under the profiler: "
+                  f"{len(kernels)} kernels, device busy {busy:.4f} s of {wall:.4f} s "
+                  f"(idle share {1 - busy / wall:.4f}), port launches "
+                  f"{ {k: ops.launches[k] for k in DISPATCH_KERNELS} }, "
+                  f"dispatch stats {engine.dispatch_stats}; the trace read in "
+                  f"{time.perf_counter() - t1:.1f} s")
 
 
 def time_lm_kernels(dev):
@@ -1911,6 +2130,7 @@ def main() -> None:
 
     phase("parity: the card vs the CPU on small inputs")
     check_step_parity(dev)
+    check_group_step_parity(dev)
     check_round_parity(dev)
 
     phase("FedEEC on the simulator: the 11 gate scenarios, then "
@@ -1918,6 +2138,9 @@ def main() -> None:
     check_sim_signatures(dev)
     for k, n in drive_sim_path(dev).items():
         counts[k] += n
+    phase("serial against coalesced dispatch at FLConfig(): "
+          + ", ".join(f"{s} ({r} rounds)" for s, r in DISPATCH_COMPARE))
+    held = compare_dispatch(dev)
 
     # each JSON row counts its own CUDA kernel's launches: flash_attention's
     # the tensor-core kernel's, flash_attention_simt's the SIMT kernel's,
@@ -1944,6 +2167,9 @@ def main() -> None:
     phase("kernel times at the LM serving and training shapes")
     times.update(time_lm_kernels(dev))
     times.update(time_train_loss_kernels(dev))
+    phase("serial against coalesced dispatch: the next round of each under the profiler")
+    profile_dispatch(held)
+    del held
 
     # distill_loss's rows are its two entries (the t entry, the CE entry),
     # each launching the kernel its variant rule picks; launches per entry

@@ -17,6 +17,11 @@ fused op has no clamp, so the losses subtract relu(CE_row - cap), computed
 in plain torch, whose gradient cancels the op's CE gradient exactly where
 the reference's vanishes. The reference's student-side clamp inside
 ``kl_div`` moves each term by at most about 5.5e-11 and is not reproduced.
+
+``non_leaf_loss_batched`` and ``leaf_loss_batched`` are the losses of B
+coalesced pairs stacked along a leading axis ((B, N, V) logits): each
+returns the (B,) per-pair losses from one launch of each fused entry, and
+the gradient of their sum gives every pair its own loss's gradient.
 """
 from __future__ import annotations
 
@@ -25,7 +30,12 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ops import fused_distill_loss, fused_softmax_xent
+from repro_torch.kernels.ops import (
+    fused_distill_loss,
+    fused_distill_loss_batched,
+    fused_softmax_xent,
+    fused_softmax_xent_batched,
+)
 
 # -log(1e-12) in fp32: the largest CE softmax_ce_with_probs can return
 CE_CAP = float(-torch.log(torch.tensor(1e-12, dtype=torch.float32)))
@@ -47,17 +57,19 @@ def kl_div(p, q):
 
 
 def _ce_over_cap(logits, labels):
-    """Per-row CE in excess of the reference's clamp, relu(CE - cap)."""
+    """Per-row CE in excess of the reference's clamp, relu(CE - cap), over
+    the rows of (N, V) or (B, N, V) logits."""
     ce = torch.logsumexp(logits, dim=-1) - logits.gather(
-        1, labels.long()[:, None])[:, 0]
+        -1, labels.long()[..., None])[..., 0]
     return F.relu(ce - CE_CAP)
 
 
 def _distill_rows(student_logits, labels, teacher_probs, beta, weight):
-    """weight · (CE + β·KL) per row, through the fused op."""
+    """weight · (CE + β·KL) per row of (N, V) or stacked (B, N, V) logits,
+    through the fused op (its batched entry for the latter)."""
     t = torch.log(torch.clamp_min(teacher_probs, 1e-12))
-    rows = fused_distill_loss(student_logits, t, labels, beta=weight * beta,
-                              label_weight=weight)
+    op = fused_distill_loss_batched if student_logits.dim() == 3 else fused_distill_loss
+    rows = op(student_logits, t, labels, beta=weight * beta, label_weight=weight)
     return rows - weight * _ce_over_cap(student_logits, labels)
 
 
@@ -84,6 +96,22 @@ def leaf_loss(
     ce_local = softmax_xent(student_logits_local, labels_local)
     return ce_local + torch.mean(_distill_rows(
         student_logits_bridge, labels_bridge, teacher_probs, beta, gamma))
+
+
+def non_leaf_loss_batched(student_logits, labels, teacher_probs, beta: float):
+    """``non_leaf_loss`` of B stacked pairs: logits and teacher_probs
+    (B, N, V), labels (B, N). Returns the (B,) per-pair losses."""
+    return _distill_rows(student_logits, labels, teacher_probs, beta, 1.0).mean(-1)
+
+
+def leaf_loss_batched(student_logits_local, labels_local, student_logits_bridge,
+                      labels_bridge, teacher_probs, beta: float, gamma: float):
+    """``leaf_loss`` of B stacked pairs ((B, N, V) logits, (B, N) labels):
+    the (B,) per-pair losses, the local CE through one launch of the CE
+    entry."""
+    ce_local = fused_softmax_xent_batched(student_logits_local, labels_local).mean(-1)
+    return ce_local + _distill_rows(student_logits_bridge, labels_bridge, teacher_probs,
+                                    beta, gamma).mean(-1)
 
 
 def softmax_xent(logits, labels):

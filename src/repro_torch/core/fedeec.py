@@ -1,5 +1,5 @@
 """FedEEC: recursive knowledge agglomeration over the EEC-NET (Algorithm 3),
-counterpart of ``repro.core.fedeec`` (its serial path).
+counterpart of ``repro.core.fedeec``.
 
 Two phases per run:
   * Init: every leaf encodes its private data with the frozen encoder and
@@ -17,9 +17,15 @@ stores stay host numpy, indexed by draws from ``np.random.default_rng(seed)``
 in the reference's order, so a run consumes the generator call for call as
 the reference does.
 
-Under the simulator (``repro_torch.sim``) every pair runs alone: the
-trainer keeps the base class's ``batch_signature`` (``None``), so dispatch
-is serial (ROADMAP.md A2 brings the batched pair path).
+Under the simulator (``repro_torch.sim``) pairs that share a
+``batch_signature`` and no node coalesce into one ``execute_batch``: each
+step of the group runs the B pairs' models stacked leafwise
+(``tree_stack``), the model through ``torch.func.vmap`` of its
+``apply_fn`` and the loss and SKR through the kernels' (B, N, V) entries
+outside the vmap, so a group's student step is one ``distill_loss``
+forward and backward launch (two for data-holding students) and its
+teacher step one fused SKR launch, whatever B is. The rng draws go in the
+reference's batched order (pair-major within a step).
 """
 from __future__ import annotations
 
@@ -35,8 +41,8 @@ from repro_torch.device import resolve_device
 from repro_torch.fl.api import FLAlgorithm, WorkItem, register_algorithm
 from repro_torch.models.autoencoder import decode, encode
 from repro_torch.models.registry import get_fl_model
-from repro_torch.optim import adamw_init, adamw_update_
-from repro_torch.tree import tree_map, value_and_grad
+from repro_torch.optim import adamw_init, adamw_update_, adamw_update_stacked_
+from repro_torch.tree import tree_map, tree_stack, tree_unstack, value_and_grad
 
 
 def node_generator(seed: int, i: int) -> torch.Generator:
@@ -163,8 +169,14 @@ class FedEEC(FLAlgorithm):
     # ----------------------------------------------------------------- steps
 
     @torch.no_grad()
-    def _teacher_step(self, model_name, params, skr_state, bridge_x, labels):
+    def _teacher_step(self, model_name, params, skr_state, bridge_x, labels,
+                      stacked=False):
+        """``stacked``: B teachers of one architecture, params and SKR
+        states stacked leafwise and bridge_x (B, bs, ...); the model runs
+        under ``torch.func.vmap``."""
         apply_fn = get_fl_model(model_name)[1]
+        if stacked:
+            apply_fn = torch.func.vmap(apply_fn)
         z = apply_fn(params, bridge_x)
         probs = torch.softmax(z / self.cfg.temperature, dim=-1)
         new_state, q = skr_process_batch(skr_state, probs, labels)
@@ -187,13 +199,36 @@ class FedEEC(FLAlgorithm):
                                     weight_decay=0.0)
         return params, opt, l
 
+    def _student_step_batched(self, model_name, leaf: bool, params, opt, bx, by,
+                              tq, lx=None, ly=None):
+        """``_student_step`` for B stacked students of one architecture.
+        Only the model is vmapped; the losses take its (B, N, V) outputs.
+        The gradient is that of the sum over pairs of each pair's loss, so
+        pair b's slice is its own loss's gradient. Returns the sum."""
+        apply_fn = torch.func.vmap(get_fl_model(model_name)[1])
+        beta, gamma = self.cfg.beta, self.cfg.gamma
+        if leaf:
+            def loss_fn(p):
+                zl = apply_fn(p, lx)
+                zb = apply_fn(p, bx)
+                return bsbodp.leaf_loss_batched(zl, ly, zb, by, tq, beta,
+                                                gamma).sum()
+        else:
+            def loss_fn(p):
+                return bsbodp.non_leaf_loss_batched(apply_fn(p, bx), by, tq,
+                                                    beta).sum()
+        l, g = value_and_grad(loss_fn, params)
+        params, opt = adamw_update_stacked_(g, opt, params, lr=self.cfg.lr,
+                                            weight_decay=0.0)
+        return params, opt, l
+
     # ------------------------------------------------------------- protocol
 
     def _bsbodp_directional(self, v_s: str, v_t: str):
         """One direction: v_t teaches v_s over bridge samples of the shared
         (= intersection of leaf sets = student∩teacher subtree) embeddings."""
         cfg = self.cfg
-        pair_node = v_s if self.tree.parent.get(v_s) == v_t else v_t
+        pair_node = self._pair_child(v_s, v_t)
         eps, labels = self.embeddings[pair_node]
         n = len(labels)
         if n == 0:  # subtree emptied by migration — nothing to distill over
@@ -260,10 +295,71 @@ class FedEEC(FLAlgorithm):
         self._bsbodp_directional(v1, v2)
         self._bsbodp_directional(v2, v1)
 
+    def _pair_child(self, v1: str, v2: str) -> str:
+        """The child side of pair (v1, v2) — owner of the shared embeddings."""
+        return v1 if self.tree.parent.get(v1) == v2 else v2
+
+    def _bsbodp_directional_batched(self, pairs: list[tuple[str, str]]):
+        """Batched ``_bsbodp_directional``: B same-signature pairs with
+        disjoint node sets run each step once over stacked (params, opt,
+        SKR) trees. Per-pair numerics match serial execution given the same
+        per-pair rng draws; the draws go pair-major within a step (the
+        reference's order), not step-major within a pair. Each node gets
+        its own tensors back (``tree_unstack``)."""
+        cfg = self.cfg
+        B = len(pairs)
+        v_s0, v_t0 = pairs[0]
+        children = [self._pair_child(vs, vt) for vs, vt in pairs]
+        embs = [self.embeddings[c] for c in children]
+        bs = min(cfg.batch_size, len(embs[0][1]))
+        steps = self.pair_steps(v_s0, v_t0)
+        is_leaf = v_s0 in self.client_data
+        m_t, m_s = self.model_of[v_t0], self.model_of[v_s0]
+        links = [self.comm.link_kind(self.tree, c) for c in children]
+
+        P_t = tree_stack([self.params[vt] for _, vt in pairs])
+        S_t = tree_stack([self.skr[vt] for _, vt in pairs])
+        P_s = tree_stack([self.params[vs] for vs, _ in pairs])
+        O_s = tree_stack([self.opt[vs] for vs, _ in pairs])
+
+        for _ in range(steps):
+            idx = [self._bridge_choice(c, len(e[1]), bs)
+                   for c, e in zip(children, embs)]
+            e_b = np.stack([e[0][i] for e, i in zip(embs, idx)])
+            y_b = self._to_device(np.stack([e[1][i] for e, i in zip(embs, idx)])).long()
+            with torch.no_grad():
+                flat = decode(self.auto, self._to_device(
+                    e_b.reshape((-1,) + e_b.shape[2:])), cfg.image_size)
+            bridge = flat.reshape((B, bs) + flat.shape[1:])
+            probs, q, S_t = self._teacher_step(m_t, P_t, S_t, bridge, y_b,
+                                               stacked=True)
+            tq = q if self.use_skr else probs
+            for link in links:
+                self.comm.record(link, bs * (cfg.num_classes + 1), "logits")
+            if is_leaf:
+                lxs, lys = [], []
+                for vs, _ in pairs:
+                    lx, ly = self.client_data[vs]
+                    li = self.rng.choice(len(ly), size=min(bs, len(ly)),
+                                         replace=len(ly) < bs)
+                    lxs.append(lx[li])
+                    lys.append(ly[li])
+                P_s, O_s, _ = self._student_step_batched(
+                    m_s, True, P_s, O_s, bridge, y_b, tq,
+                    self._to_device(np.stack(lxs)),
+                    self._to_device(np.stack(lys)).long())
+            else:
+                P_s, O_s, _ = self._student_step_batched(
+                    m_s, False, P_s, O_s, bridge, y_b, tq)
+
+        for (vs, vt), p, o, st in zip(pairs, tree_unstack(P_s, B),
+                                      tree_unstack(O_s, B), tree_unstack(S_t, B)):
+            self.params[vs], self.opt[vs], self.skr[vt] = p, o, st
+
     def pair_steps(self, v1: str, v2: str) -> int:
         """Distill steps one direction of pair (v1, v2) runs — the single
         formula ``_bsbodp_directional`` and its callers use."""
-        pair_node = v1 if self.tree.parent.get(v1) == v2 else v2
+        pair_node = self._pair_child(v1, v2)
         n = len(self.embeddings[pair_node][1])
         if n == 0:
             return 0
@@ -293,6 +389,38 @@ class FedEEC(FLAlgorithm):
 
     def execute(self, item: WorkItem) -> None:
         self.bsbodp_pair(item.node, item.peer)
+
+    def batch_signature(self, item: WorkItem):
+        """Pairs coalesce when both sides' architectures, leaf-ness, step
+        count, and every per-step batch shape agree — exactly the fields
+        that make the stacked dispatch shape-compatible and the per-item
+        comm bytes identical."""
+        if item.kind != "pair" or item.steps <= 0:
+            return None
+        v, p = item.node, item.peer
+        n = len(self.embeddings[self._pair_child(v, p)][1])
+        if n == 0:
+            return None
+        bs = min(self.cfg.batch_size, n)
+        sig = ("pair", self.model_of[v], self.model_of[p],
+               v in self.client_data, p in self.client_data, item.steps, bs)
+        for u in (v, p):
+            if u in self.client_data:
+                n_local = len(self.client_data[u][1])
+                sig += (min(bs, n_local), n_local < bs)
+        return sig
+
+    def execute_batch(self, items: list[WorkItem]) -> None:
+        """Coalesced BSBODP: each direction of every pair in the group as
+        stacked steps (child-as-student for all pairs, then parent-as-
+        student; pairs share no node, so interleaving the directions across
+        pairs changes no pair's own numerics)."""
+        if len(items) == 1:
+            self.execute(items[0])
+            return
+        pairs = [(it.node, it.peer) for it in items]
+        self._bsbodp_directional_batched([(v, p) for v, p in pairs])
+        self._bsbodp_directional_batched([(p, v) for v, p in pairs])
 
     def on_item_failed(self, item: WorkItem, reason: str) -> None:
         """A BSBODP pair was lost to faults. The pair never executed:

@@ -17,12 +17,15 @@ sample with label c:
 class see the pushes of earlier rows, as the reference's ``lax.scan``
 does) in one call of ``ops.skr_process``: on the card one kernel launch
 runs the queue pass and the rectification of a teacher step's rows.
+Given B coalesced pairs' states stacked along a leading axis (the
+reference's ``vmap`` of ``skr_process_batch``), it runs the group's
+teacher step in one call of ``ops.skr_process_batched``: one launch.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import skr_process, skr_rectify
+from repro_torch.kernels.ops import skr_process, skr_process_batched, skr_rectify
 
 
 def skr_init(num_classes: int, queue_len: int, device="cpu"):
@@ -58,8 +61,10 @@ def skr_process_batch(state, probs, labels):
 
     probs (N, C); labels (N,) on the same device. Returns (new_state, Q)
     where Q (N, C) is the knowledge to transmit; the new state is in new
-    tensors.
+    tensors. With B pairs stacked (probs (B, N, C), labels (B, N), the
+    states' q (B, C, Bq), count and head (B, C)) pair b's result is that of
+    its own state and rows.
     """
-    Q, q, count, head = skr_process(probs, labels, state["q"], state["count"],
-                                    state["head"])
+    op = skr_process_batched if probs.dim() == 3 else skr_process
+    Q, q, count, head = op(probs, labels, state["q"], state["count"], state["head"])
     return {"q": q, "count": count, "head": head}, Q

@@ -22,11 +22,10 @@ share one)::
         return MyAlg(cfg, tree, client_data, device=device)
 
 The simulator (``repro_torch.sim``) drives the same trainers through the
-hooks below: participation masks, refusal hooks, fault hooks and weighted
-cohorts. Its dispatch is serial: ``batch_signature`` returns ``None`` for
-every item, and ``execute_batch`` is the serial fallback (ROADMAP.md A2
-brings the batched pair path). Checkpoint state and tracer spans come with
-ROADMAP.md A4 and A5.
+hooks below: participation masks, refusal hooks, fault hooks, weighted
+cohorts and dispatch groups (``batch_signature`` / ``execute_batch``:
+FedEEC coalesces its same-shape pairs; the base class runs every item
+alone). Checkpoint state and tracer spans come with ROADMAP.md A4 and A5.
 """
 from __future__ import annotations
 

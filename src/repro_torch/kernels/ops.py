@@ -23,10 +23,12 @@ from repro_torch.kernels.distill_loss import (
     distill_loss as _distill_loss,
     distill_loss_batched as _distill_loss_batched,
     softmax_xent as _softmax_xent,
+    softmax_xent_batched as _softmax_xent_batched,
 )
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6
 from repro_torch.kernels.skr_rectify import (
+    skr_process_batched as _skr_process_batched,
     skr_process_rows as _skr_process_rows,
     skr_rectify as _skr,
     skr_rectify_batched as _skr_batched,
@@ -37,6 +39,12 @@ def fused_softmax_xent(logits, labels):
     """Per-row CE without materializing softmax: distill_loss's CE entry
     (beta = 0), which takes no teacher, so none is allocated."""
     return _softmax_xent(logits, labels)
+
+
+def fused_softmax_xent_batched(logits, labels):
+    """Per-row CE of stacked pairs (B, N, V): one launch of the CE entry
+    forward and one backward for the whole group."""
+    return _softmax_xent_batched(logits, labels)
 
 
 def fused_distill_loss(logits, teacher_logprobs, labels, *, beta: float,
@@ -66,6 +74,13 @@ def skr_process(probs, labels, q, count, head):
     """SKR's Algorithm 2 for one teacher step (N, C): the queue pass and
     Eq. (31) in one launch. Returns (Q, q, count, head)."""
     return _skr_process_rows(probs, labels, q, count, head)
+
+
+def skr_process_batched(probs, labels, q, count, head):
+    """SKR's Algorithm 2 for one teacher step of B stacked pairs: probs
+    (B, N, C), queue states q (B, C, Bq), count and head (B, C), in one
+    launch, one block per pair. Returns (Q, q, count, head)."""
+    return _skr_process_batched(probs, labels, q, count, head)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):

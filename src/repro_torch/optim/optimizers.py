@@ -11,6 +11,8 @@ API:
   state = adamw_init(params)
   params, state = adamw_update_(grads, state, params, lr=..., ...)  # in place
   grads, norm = clip_by_global_norm(grads, max_norm)
+  params, state = adamw_update_stacked_(grads, state, params, lr=...)
+      # B trees stacked leafwise (tree_stack), one step counter each
 
 The reference's ``adamw_update`` is pure; ``adamw_update_`` computes its
 update with the same fp32 operations, leaf by leaf, into ``params`` and
@@ -66,22 +68,58 @@ def adamw_update_(
     with ``state["step"]`` advanced (a new tensor)."""
     step = state["step"] + 1
     t = step.to(torch.float32)
-    bc1 = 1.0 - b1**t
-    bc2 = 1.0 - b2**t
+    bc1, bc2 = 1.0 - b1**t, 1.0 - b2**t
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
-        g = g.to(torch.float32)
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * torch.square(g))
-        del g
-        delta = m / bc1
-        delta.div_(torch.sqrt_(v / bc2).add_(eps))
         wd = weight_decay if p.ndim >= 2 else 0.0  # no decay on norms/biases
-        pf = p.to(torch.float32)
-        delta.add_(wd * pf).mul_(lr)
-        if pf is p:
-            p.sub_(delta)
-        else:
-            p.copy_(pf.sub_(delta))
+        _leaf_update_(p, g, m, v, bc1, bc2, lr, b1, b2, eps, wd)
     state["step"] = step
     return params, state
+
+
+@torch.no_grad()
+def adamw_update_stacked_(
+    grads,
+    state,
+    params,
+    *,
+    lr,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+):
+    """``adamw_update_`` for B trees stacked leafwise along a leading axis
+    (``tree_stack`` of B trees and of their states): ``state["step"]`` is
+    (B,), one counter per tree, since the trees of a group may have taken
+    different numbers of steps. Slice b of every leaf gets exactly
+    ``adamw_update_``'s update of tree b: the same fp32 expressions, with
+    tree b's bias corrections, and weight decay by the rank of tree b's
+    leaf."""
+    step = state["step"] + 1
+    t = step.to(torch.float32)
+    bc1, bc2 = 1.0 - b1**t, 1.0 - b2**t
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["m"]), tree_leaves(state["v"])):
+        # (B, 1, ..., 1): a bare (B,) would broadcast against the last axis
+        shape = (-1,) + (1,) * (p.ndim - 1)
+        wd = weight_decay if p.ndim - 1 >= 2 else 0.0
+        _leaf_update_(p, g, m, v, bc1.view(shape), bc2.view(shape), lr, b1, b2, eps, wd)
+    state["step"] = step
+    return params, state
+
+
+def _leaf_update_(p, g, m, v, bc1, bc2, lr, b1, b2, eps, wd):
+    """The reference's fp32 AdamW expressions for one leaf, in place."""
+    g = g.to(torch.float32)
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * torch.square(g))
+    del g
+    delta = m / bc1
+    delta.div_(torch.sqrt_(v / bc2).add_(eps))
+    pf = p.to(torch.float32)
+    delta.add_(wd * pf).mul_(lr)
+    if pf is p:
+        p.sub_(delta)
+    else:
+        p.copy_(pf.sub_(delta))

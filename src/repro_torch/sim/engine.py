@@ -27,10 +27,11 @@ The engine is host numpy and the standard library: only the trainer's
 ``execute`` touches the card. It follows the reference's arithmetic step
 for step, so the event log, and its signature, is bit-identical to the
 reference's for the same trainer schedule. Dispatch goes through
-``plan_groups`` as in the reference; the port's trainers opt every item
-out of coalescing (``batch_signature`` is ``None``), so every group is a
-singleton. Tracing (``tracer=``) and checkpoint/resume wait for ROADMAP.md
-A5 and A4 and raise ``NotImplementedError``.
+``plan_groups`` as in the reference: items whose ``batch_signature``
+compares equal and that share no participant run as one
+``execute_batch`` call (FedEEC's coalesced pairs); a ``None`` signature
+runs alone. Tracing (``tracer=``) and checkpoint/resume wait for
+ROADMAP.md A5 and A4 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

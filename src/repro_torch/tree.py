@@ -32,6 +32,20 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_stack(trees):
+    """Stack same-structure trees leafwise along a new leading axis: the
+    tree of a group of B trees (``jax.tree.map(jnp.stack)`` of the
+    reference's batched pair path)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(tree, B: int) -> list:
+    """The B trees of a stacked tree, each owning its own tensors: a later
+    in-place update of one (the serial AdamW step) writes neither the
+    group's buffer nor another tree."""
+    return [tree_map(lambda x, b=b: x[b].clone(), tree) for b in range(B)]
+
+
 def value_and_grad(loss_fn: Callable, params, *args):
     """``jax.value_and_grad`` over a parameter tree: the detached loss and a
     tree of gradients shaped like ``params``."""

@@ -389,8 +389,93 @@ def test_mobile_clients_on_the_card_matches_the_table(cuda):
     log = engine.run(2)
     assert log.signature() == table["fedeec/mobile_clients"]
     assert log.count("migrate") > 0
+    assert engine.dispatch_stats["batched_dispatches"] > 0
     assert all(ops.launches[k] > 0 for k in ("distill_loss_fwd", "distill_loss_bwd",
                                              "skr_rectify"))
+
+
+def test_coalesced_group_launches_once_per_group_step(cuda):
+    """A coalesced group of leaf pairs on the card: one fused SKR launch a
+    teacher step, one distill_loss forward and backward a student step
+    (two, the CE entry and the t entry, when the students hold data),
+    whatever the group's size."""
+    from repro_torch.configs.fedeec_paper import paper_setting
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+    from repro_torch.kernels.distill_loss import variant_launches as distill_variants
+    from repro_torch.sim.engine import plan_groups
+    from repro_torch.tree import tree_leaves
+
+    cfg = paper_setting("synth_cifar10", 4, 2, samples_per_client=16, test_samples=64,
+                        image_size=8, embed_dim=16, edge_model="cnn2", cloud_model="cnn2")
+    _, tree, client_data, auto = build_problem(cfg, device=cuda)
+    trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=cuda)
+    items = [it for it in trainer.work_items(0, lambda v: True) if it.node in client_data]
+    group = max(plan_groups(items, trainer.batch_signature), key=len)
+    assert len(group) >= 2
+    k = group[0].steps
+    ops.reset_launches()
+    trainer.execute_batch(group)
+    _lib.raise_faults(cuda)
+    # child as student: the CE entry and the t entry a step; parent: the t entry
+    assert ops.launches["distill_loss_fwd"] == ops.launches["distill_loss_bwd"] == 3 * k
+    assert distill_variants["fwd_ce:regs"] == distill_variants["bwd_ce:rows"] == k
+    assert distill_variants["fwd:regs"] == distill_variants["bwd:rows"] == 2 * k
+    assert ops.launches["skr_rectify"] == 2 * k
+    assert skr_variants == {"map": 0, "fused": 2 * k}
+    for it in group:
+        for v in (it.node, it.peer):
+            assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(trainer.params[v]))
+
+
+@pytest.mark.parametrize("leaf", [False, True])
+@pytest.mark.parametrize("name", ["cnn1", "resnet10", "resnet18"])
+def test_coalesced_step_gradients_match_the_cpu(cuda, name, leaf):
+    """One coalesced student step (B = 3, the model through
+    ``torch.func.vmap``, the losses through the kernels' (B, N, V) entries)
+    on the card against the CPU's, from the same parameters and inputs:
+    each pair's loss within 1e-5 relative, the stacked gradient within 1e-5
+    absolute (``chip_smoke.py``'s bounds for one student step). The models
+    run in fp64 and their logits enter the fp32 loss: in fp32 the card's
+    grouped convolutions and the CPU's round differently by about 3e-6, and
+    a pre-activation that close to ReLU's kink takes the other branch on
+    one device, which moves the gradients below that ReLU by up to 1e-3 of
+    their scale (seen at resnet18 on these inputs); in fp64 no
+    pre-activation lies that close, so the bound holds the batched path
+    itself (stacking, the vmapped backward, the kernels' entries)."""
+    from repro_torch.core import bsbodp
+    from repro_torch.core.fedeec import node_generator
+    from repro_torch.models.registry import get_fl_model
+    from repro_torch.tree import tree_leaves, tree_map, tree_stack, value_and_grad
+
+    B = 3
+    rng = np.random.default_rng(1)
+    x = rng.random((B, 8, 16, 16, 3))
+    lx = rng.random((B, 8, 16, 16, 3))
+    y, ly = rng.integers(0, 10, (B, 8)), rng.integers(0, 10, (B, 8))
+    q = rng.random((B, 8, 10)).astype(np.float32) ** 3
+    q /= q.sum(-1, keepdims=True)
+    init, apply = get_fl_model(name)
+    vapply = torch.func.vmap(apply)
+    apply = lambda p, a: vapply(p, a).float()
+    P = tree_map(torch.Tensor.double,
+                 tree_stack([init(node_generator(1, b), 10, 16) for b in range(B)]))
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a).to(d)
+        if leaf:
+            fn = lambda pp: bsbodp.leaf_loss_batched(apply(pp, t(lx)), t(ly), apply(pp, t(x)),
+                                                     t(y), t(q), 1.5, 1.0)
+        else:
+            fn = lambda pp: bsbodp.non_leaf_loss_batched(apply(pp, t(x)), t(y), t(q), 1.5)
+        pp = tree_map(lambda a: a.to(d), P)
+        with torch.no_grad():
+            losses = fn(pp).cpu()
+        _, g = value_and_grad(lambda p: fn(p).sum(), pp)
+        out[d.type] = (losses, [a.cpu() for a in tree_leaves(g)])
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=0)
+    assert max((a - b).abs().max().item() for a, b in zip(gg, gc)) <= 1e-5
 
 
 # --- the LM serving kernels ---------------------------------------------------

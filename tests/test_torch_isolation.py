@@ -15,6 +15,17 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads a worker: the suite's workers share the cores,
+    and one thread per core each oversubscribes them (the CPU FedEEC run
+    below took over ten minutes in a full parallel run without this)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -35,7 +46,7 @@ def test_scan_covers_the_package():
             "flash_attention.py", "rwkv6_scan.py", "serve.py", "transformer.py",
             "train.py", "steps.py", "loader.py", "schedule.py", "optimizers.py",
             "events.py", "churn.py", "faults.py", "scenarios.py", "network.py",
-            "runner.py", "metrics.py"} <= names
+            "runner.py", "metrics.py", "quickstart.py", "scenario_sweep.py", "tree.py"} <= names
     sim = {p.name for p in PORT_FILES if p.parent.name == "sim"}
     assert {"engine.py", "events.py", "churn.py", "faults.py", "scenarios.py",
             "network.py", "runner.py"} <= sim
@@ -140,6 +151,37 @@ def test_forward_only_kernels_refuse_inputs_that_require_grad(kernel):
     # on the CPU the plain version runs under autograd
     out = fn(make(True))
     assert (out[0] if kernel == "rwkv6_scan" else out).grad_fn is not None
+
+
+def test_examples_default_to_cuda_and_raise_without_a_card():
+    from repro_torch.examples import quickstart, scenario_sweep
+
+    with _no_card():
+        for example in (quickstart, scenario_sweep):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                example.main([])
+
+
+def test_batched_entries_launch_on_the_card_or_raise():
+    """The (B, N, V) entries a coalesced group runs through take their CUDA
+    path on a card's tensors, with no fallback to the plain versions (here
+    the path stops at the launch)."""
+    from repro_torch.kernels import _lib, ops
+
+    B, N, C = 2, 4, 10
+    z, t = torch.zeros((B, N, C)), torch.full((B, N, C), -2.0)
+    y = torch.zeros((B, N), dtype=torch.long)
+    q, cnt = torch.zeros((B, C, 3)), torch.zeros((B, C), dtype=torch.int32)
+    calls = [lambda: ops.fused_distill_loss_batched(z, t, y, beta=1.0),
+             lambda: ops.fused_softmax_xent_batched(z, y),
+             lambda: ops.skr_process_batched(torch.softmax(z, -1), y, q, cnt, cnt.clone())]
+    with _on_the_card(), mock.patch.object(_lib, "launch",
+                                           side_effect=RuntimeError("launched")), \
+            mock.patch.object(_lib, "check_faults"), \
+            mock.patch.object(_lib, "fault_words", return_value=torch.zeros(64)):
+        for call in calls:
+            with pytest.raises(RuntimeError, match="launched"):
+                call()
 
 
 def test_decode_profiler_needs_a_card():

@@ -4,13 +4,13 @@ fault counters of ``BENCH_faults.json`` and the scheduler tiers of
 ``BENCH_sim.json``, read as JSON.
 
 The FedEEC runs are built as the table's generator builds them (4 clients,
-2 edges, 2 rounds, cnn2 edge and cloud, eval off) on the CPU. The port's
-dispatch is serial; the table's ``fedeec/lossy_links`` entry was written
-with the reference's batched dispatch, which under faults draws the
-transfer outcomes in another item order (ROADMAP.md C9). That case is held
-to the reference's serial-dispatch signature, which
-``test_lossy_links_serial_signature_is_the_references`` pins against the
-JAX package.
+2 edges, 2 rounds, cnn2 edge and cloud, eval off) on the CPU, with the
+trainer's coalesced dispatch, as the table's were written. Under faults,
+forced serial dispatch (``batch_signature`` -> ``None``) draws the transfer
+outcomes in another item order and gives another ``fedeec/lossy_links``
+signature (ROADMAP.md C9, fixed):
+``test_lossy_links_serial_signature_is_the_references`` pins both against
+the JAX package.
 """
 import json
 from pathlib import Path
@@ -29,7 +29,8 @@ ROOT = Path(__file__).resolve().parent.parent
 TABLE = json.loads((ROOT / "benchmarks" / "tables" / "scenarios.json").read_text())
 BENCH_FAULTS = json.loads((ROOT / "BENCH_faults.json").read_text())
 BENCH_SIM = json.loads((ROOT / "BENCH_sim.json").read_text())["tiers"]
-# the reference's signature with serial dispatch where the table's differs
+# the reference's signature with forced serial dispatch where the table's
+# (coalesced dispatch) differs
 SERIAL_DISPATCH = {"fedeec/lossy_links": "a777706636504be1"}
 GATE = dict(samples_per_client=16, test_samples=64, image_size=8, embed_dim=16,
             edge_model="cnn2", cloud_model="cnn2")
@@ -46,11 +47,14 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
-def gate_engine(name: str, **engine_kw) -> SimEngine:
-    """Two rounds of FedEEC through scenario ``name``, no eval."""
+def gate_engine(name: str, serial: bool = False, **engine_kw) -> SimEngine:
+    """Two rounds of FedEEC through scenario ``name``, no eval; ``serial``
+    forces serial dispatch."""
     cfg = paper_setting("synth_cifar10", 4, 2, **GATE)
     _, tree, client_data, auto = build_problem(cfg, device="cpu")
     trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device="cpu")
+    if serial:
+        trainer.batch_signature = lambda item: None
     engine = SimEngine(trainer, get_scenario(name), seed=cfg.seed, **engine_kw)
     engine.run(2)
     return engine
@@ -65,9 +69,10 @@ def test_the_table_names_every_scenario():
 def test_fedeec_signature_matches_the_table(name):
     key = f"fedeec/{name}"
     engine = gate_engine(name)
-    assert engine.log.signature() == SERIAL_DISPATCH.get(key, TABLE[key])
+    assert engine.log.signature() == TABLE[key]
     stats = engine.dispatch_stats
-    assert stats["batched_dispatches"] == 0 and stats["items"] == stats["dispatches"] > 0
+    assert stats["dispatches"] == stats["items"] - stats["batched_items"] \
+        + stats["batched_dispatches"] > 0
 
 
 @pytest.mark.parametrize("name", sorted(BENCH_FAULTS))
@@ -79,16 +84,16 @@ def test_fault_counters_match_bench_faults(name):
     for counter, n in want.items():
         if counter.startswith("sim_"):
             assert int(snap.get(counter, {}).get("value", 0)) == n, counter
-    if name != "lossy_links":
-        assert engine.log.signature() == want["signature"]
+    assert engine.log.signature() == want["signature"]
     lost = snap["sim_pairs_abandoned_total"]["value"] + snap["sim_pair_timeouts_total"]["value"]
     assert len(engine.trainer.failed_pairs) == lost
 
 
 def test_lossy_links_serial_signature_is_the_references(monkeypatch):
-    """ROADMAP.md C9: the JAX package with serial dispatch gives the port's
-    signature, with its batched dispatch the table's. The schedule does not
-    depend on the autoencoder's values, so the JAX run skips its pretrain."""
+    """ROADMAP.md C9: forced serial dispatch gives the JAX package and the
+    port one signature, and their coalesced dispatch the table's. The
+    schedule does not depend on the autoencoder's values, so the JAX run
+    skips its pretrain."""
     import jax
 
     import repro.fl.engine as jengine
@@ -109,8 +114,9 @@ def test_lossy_links_serial_signature_is_the_references(monkeypatch):
         engine = JSimEngine(trainer, j_get_scenario("lossy_links"), seed=cfg.seed)
         sigs[serial] = engine.run(2).signature()
     assert sigs[True] == SERIAL_DISPATCH["fedeec/lossy_links"] == \
-        gate_engine("lossy_links").log.signature()
+        gate_engine("lossy_links", serial=True).log.signature()
     assert sigs[False] == TABLE["fedeec/lossy_links"] != sigs[True]
+    assert gate_engine("lossy_links").log.signature() == sigs[False]
 
 
 def test_tracer_and_checkpoints_raise():

@@ -5,9 +5,10 @@ Tiny config: 4 clients, 2 edges, 16 samples each, 8x8 images, embed 16,
 cnn1 / cnn2 / cnn2, 2 rounds. Both runs take their autoencoder and every
 node's initial parameters from the JAX run (converted): the JAX side's
 ``create_algorithm`` is wrapped to keep them, the port's to use them. The
-JAX trainer is held to serial dispatch (``batch_signature`` -> ``None``),
-the port's only dispatch (ROADMAP.md A2 brings the batched pair path),
-because the batched path draws the bridge indices in another order.
+runs here hold both trainers to serial dispatch (``batch_signature`` ->
+``None``, as the reference's tests force it), so that the serial pair path
+stays compared end to end on the scenario path; ``tests/test_torch_batching.py``
+compares the two packages' batched dispatch with ``run_both(serial=False)``.
 """
 import jax
 import numpy as np
@@ -47,15 +48,17 @@ def _np(tree):
 kept: dict = {}
 
 
-def run_both(monkeypatch, **kw):
-    """(JAX result, JAX trainer, port result, port trainer) of one run;
+def run_both(monkeypatch, serial=True, **kw):
+    """(JAX result, JAX trainer, port result, port trainer) of one run,
+    both trainers forced to serial dispatch unless ``serial`` is false;
     ``kept`` holds what the wrappers saw."""
     kept.clear()
     j_create = jengine.create_algorithm
 
     def j_wrap(name, cfg, tree, client_data, auto):
         tr = j_create(name, cfg, tree, client_data, auto)
-        tr.batch_signature = lambda item: None
+        if serial:
+            tr.batch_signature = lambda item: None
         kept.update(trainer=tr, auto=auto, params=dict(tr.params),
                     labels={v: y.copy() for v, (_, y) in client_data.items()})
         return tr
@@ -66,6 +69,8 @@ def run_both(monkeypatch, **kw):
                   for v, p in kept["params"].items()}
         tr = FedEEC(cfg, tree, client_data, auto, use_skr=True, seed=cfg.seed,
                     device=device, params=params)
+        if serial:
+            tr.batch_signature = lambda item: None
         kept["port"] = tr
         return tr
 
@@ -112,6 +117,7 @@ def test_scenario_run_matches_jax(monkeypatch, scenario):
     worst = check_parity(jres, jt, tres, tt)
     print(f"{scenario}: cloud params max|diff| {worst:.3e}")
     assert tres.scenario == scenario and len(tres.round_s) == 2
+    # forced serial on both sides: no group ran as one dispatch
     assert tres.dispatch_stats["batched_dispatches"] == 0
     counts = tres.event_counts
     # each scenario exercised what it is chosen for
