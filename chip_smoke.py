@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the FedEEC trainer (the
-plain path and the simulator's scenario path), the LM serving path and the
-LM training path.
+plain path and the simulator's scenario path), the HierFAVG-family
+baselines, checkpoint and resume, the LM serving path and the LM training
+path.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rwkv-chunks  # only phases 1-2 and the chunked
                                          # rwkv6_scan at each chunk length
     python3 chip_smoke.py --distill      # only phases 1-2 and distill_loss's
                                          # checks and times
+    python3 chip_smoke.py --baselines    # only phases 1-2, 7 and 11's LM
+                                         # checkpoint
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
@@ -73,7 +76,22 @@ the result line:
    each, driven a round at a time (serial, batched, batched, serial), with
    round host s and launches by name, the launches saved held to what the
    groups predict;
-7. LM serving, for llama3.2-3b then rwkv6-1.6b at full width and depth in
+7. the baselines: ``run_experiment(name, FLConfig(), rounds=...)`` for
+   ``hierfavg`` (3 rounds), then ``hiermo``, ``hierqsgd``, ``demlearn`` and
+   ``fedavg`` (1 round each), cnn1 on every node, with the launch counters
+   zeroed before each and held after to one launch of distill_loss's CE
+   entry each way per local step (clients x rounds x local_steps x kappa1,
+   ``regs`` forward, ``rows`` backward), no other kernel and no call of the
+   CE entry's plain version: round host s, accuracy curve, comm bytes and
+   peak memory; one local step's loss and gradient on the card against the
+   CPU; the 11 named scenarios with ``hierfavg`` at the gate configuration,
+   each signature held to the table; and resume on the card: ``fedeec``
+   under ``lossy_links`` and ``hierfavg`` under ``regional_outage`` (the
+   reference test's small config, 4 rounds, an eval every 2) run
+   uninterrupted, stopped after 2 rounds with a snapshot, and resumed, the
+   event log without evals and the eval times held to the uninterrupted
+   run's;
+8. LM serving, for llama3.2-3b then rwkv6-1.6b at full width and depth in
    bf16: ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
    64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
    call at batch 1, with the launch counters zeroed before and held after
@@ -86,21 +104,24 @@ the result line:
    (host clock, ending in a sync) and device ms per step (the union of
    kernel intervals under ``torch.profiler``), with the attention kernel's
    share;
-8. LM parity: each architecture at full width, two layers, fp32, on the
+9. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
    128-token prefill;
-9. LM training: ``train_lm("llama3.2-3b", use_reduced=False, steps=4,
+10. LM training: ``train_lm("llama3.2-3b", use_reduced=False, steps=4,
    batch=2, seq=1024, use_kernels=True)``, full width and depth in bf16,
    with the launch counters zeroed before and held after to steps x
    seq / loss_chunk distill_loss launches each way (and none of the
    forward-only attention kernels): wall s, tokens/s, loss and grad norm
    per step, and the peak memory; then one step's breakdown under
    ``torch.profiler`` (device busy ms, idle share, top kernels);
-10. training parity: llama3.2-3b at full width, two layers, fp32, one
+11. training parity: llama3.2-3b at full width, two layers, fp32, one
    ``make_train_step`` on the card and on the CPU from the same params and
    ``token_batches`` batch (loss, grad norm, every gradient leaf), and on
-   the card the loss with ``use_kernels`` on against off;
-11. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
+   the card the loss with ``use_kernels`` on against off; then
+   ``train_lm(checkpoint=)`` on llama3.2-3b reduced to two layers in bf16,
+   the file read back with the port's ``load_pytree`` and held bit for bit
+   to the card's params and AdamW state;
+12. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
    attention kernel, launched directly, at the prefill shape beside the
    tensor-core one and at the decode shapes beside the decode one; the
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
@@ -110,7 +131,7 @@ the result line:
    backward, beside ``F.cross_entropy`` on the same logits, printed on a
    line of its own. They come last, so that nothing the timing leaves
    allocated enters a main path's peak memory;
-12. the next round of each serial and batched run of 6 under
+13. the next round of each serial and batched run of 6 under
    ``torch.profiler``: kernels in the round, device busy s and idle share
    (last, after every other profiler window).
 
@@ -1434,6 +1455,269 @@ def drive_sim_path(dev):
     return counts
 
 
+# the baselines' main path at FLConfig(): (algorithm, rounds)
+BASELINE_RUNS = (("hierfavg", 3), ("hiermo", 1), ("hierqsgd", 1), ("demlearn", 1),
+                 ("fedavg", 1))
+
+
+def expected_baseline_launches(name, cfg, rounds, dev):
+    """The CE entry's launches ``rounds`` plain rounds of baseline ``name``
+    make, from the trainer's own work items: one forward and one backward
+    per local step, ``steps`` (local_steps x kappa1) of them per client, and
+    every client participates on the plain path."""
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+
+    _, tree, client_data, auto = build_problem(cfg, device=dev)
+    trainer = create_algorithm(name, cfg, tree, client_data, auto, device=dev)
+    return rounds * sum(it.steps for it in trainer.work_items(0, trainer.participates)
+                        if it.kind == "local")
+
+
+def drive_baselines_path(dev):
+    """``run_experiment(name, FLConfig(), rounds=...)`` on the card for each
+    of BASELINE_RUNS (cnn1 on every node, 20 clients, 5 edges, batch 8),
+    with the launch counters zeroed just before each run and read just
+    after: every local step launches distill_loss's CE entry once forward
+    (``regs``) and once backward (``rows``) and no other kernel, as many as
+    the work items predict, and the CE entry's plain versions
+    (``ref.softmax_xent_ref`` / ``softmax_xent_grad_ref``) never run."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.engine import build_problem, run_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.distill_loss import variant_launches
+
+    cfg = FLConfig()
+    build_problem(cfg, device=dev)  # the autoencoder, cached since the main path
+    plain_calls = {"softmax_xent_ref": 0, "softmax_xent_grad_ref": 0}
+    real = {k: getattr(R, k) for k in plain_calls}
+
+    def counted(k):
+        def fn(*a, **kw):
+            plain_calls[k] += 1
+            return real[k](*a, **kw)
+        return fn
+
+    totals = {"distill_loss_fwd": 0, "distill_loss_bwd": 0}
+    for name, rounds in BASELINE_RUNS:
+        want = expected_baseline_launches(name, cfg, rounds, dev)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        plain_calls.update(dict.fromkeys(plain_calls, 0))
+        for k in plain_calls:
+            setattr(R, k, counted(k))
+        ops.reset_launches()
+        try:
+            res = run_experiment(name, cfg, rounds=rounds, device=dev)
+        finally:
+            for k, fn in real.items():
+                setattr(R, k, fn)
+        counts = dict(ops.launches)
+        split = {k: n for k, n in variant_launches.items() if n}
+        add_variant_launches()
+        torch.cuda.synchronize()
+        print(f"{name}, {rounds} round(s): round host s (ending in a sync) {res.round_s}; "
+              f"run wall s {res.wall_s:.3f}")
+        print(f"  cloud accuracy curve {res.acc_curve}; comm bytes {res.comm_bytes}; peak "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"({before:.1f} MiB allocated before the run)")
+        print(f"  distill_loss CE entry launches by variant {split}; predicted "
+              f"{{'fwd_ce:regs': {want}, 'bwd_ce:rows': {want}}} (clients x rounds x "
+              f"local_steps x kappa1); plain version calls {plain_calls}")
+        if len(res.acc_curve) != rounds or not all(
+                math.isfinite(a) and 0.0 <= a <= 1.0 for a in res.acc_curve):
+            fail(f"{name}: bad accuracy curve {res.acc_curve}")
+        if split != {"fwd_ce:regs": want, "bwd_ce:rows": want} or want <= 0:
+            fail(f"{name}: distill_loss launches {split}, predicted {want} CE launches each way")
+        if any(n for k, n in counts.items() if k not in totals):
+            fail(f"{name}: launched another kernel: {counts}")
+        if any(plain_calls.values()):
+            fail(f"{name}: the CE entry's plain version ran on the card: {plain_calls}")
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
+def check_baseline_step_parity(dev):
+    """One baseline local step's loss and gradient (``fl.baselines.
+    local_loss``: cnn1, the CE entry, at a client's batch of 8) on the card
+    and on the CPU from the same parameters and batch, within
+    ``check_step_parity``'s bounds: loss 1e-5 relative, gradient 1e-5
+    absolute."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fl.baselines import local_loss
+    from repro_torch.models.registry import get_fl_model
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+
+    rng = np.random.default_rng(4)
+    x = rng.random((8, 16, 16, 3), dtype=np.float32)
+    y = rng.integers(0, 10, 8)
+    init, apply = get_fl_model("cnn1")
+    p = init(torch.Generator().manual_seed(0), 10, 16)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        xb, yb = torch.as_tensor(x).to(d), torch.as_tensor(y).to(d)
+        loss, g = value_and_grad(lambda q: local_loss(apply, q, xb, yb),
+                                 tree_map(lambda a: a.to(d), p))
+        out[d.type] = (float(loss), [a.cpu() for a in tree_leaves(g)])
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    err = max((a - b).abs().max().item() for a, b in zip(gg, gc))
+    print(f"cnn1 baseline local step: loss {lg:.7f} (card) {lc:.7f} (CPU)  "
+          f"grad max|diff| {err:.3e}")
+    if abs(lg - lc) > 1e-5 * abs(lc) or err > 1e-5:
+        fail("the card's baseline local step disagrees with the CPU's")
+
+
+def check_hierfavg_signatures(dev):
+    """Every named scenario with ``hierfavg`` at the gate configuration on
+    the card (serial dispatch, as the reference's baselines): the event
+    signature equal to the tracked table's."""
+    import torch
+
+    from repro_torch.configs.fedeec_paper import paper_setting
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.scenarios import get_scenario, list_scenarios
+
+    table = json.loads((ROOT / "benchmarks" / "tables" / "scenarios.json").read_text())
+    cfg = paper_setting("synth_cifar10", 4, 2, **SIM_GATE)
+    t0 = time.perf_counter()
+    for name in list_scenarios():
+        _, tree, client_data, auto = build_problem(cfg, device=dev)
+        trainer = create_algorithm("hierfavg", cfg, tree, client_data, auto, device=dev)
+        engine = SimEngine(trainer, get_scenario(name), seed=cfg.seed)
+        sig = engine.run(2).signature()
+        torch.cuda.synchronize()
+        want = table[f"hierfavg/{name}"]
+        print(f"hierfavg/{name:<16} signature {sig} want {want}  "
+              f"events {len(engine.log.entries)}")
+        if sig != want:
+            fail(f"hierfavg/{name}: the card's event signature {sig} != {want}")
+    print(f"{len(list_scenarios())} hierfavg gate runs on the card: "
+          f"{time.perf_counter() - t0:.3f} s")
+
+
+# (algorithm, scenario) resumed on the card, at the reference test's small
+# config (tests/test_faults.py), 4 rounds, an eval every 2
+RESUME_RUNS = (("fedeec", "lossy_links"), ("hierfavg", "regional_outage"))
+RESUME_CFG = dict(num_clients=4, num_edges=2, samples_per_client=16, test_samples=64,
+                  image_size=8, embed_dim=16, edge_model="cnn2", cloud_model="cnn2")
+
+
+def check_resume(dev):
+    """Each of RESUME_RUNS on the card uninterrupted, then stopped after 2
+    rounds with a snapshot (into the gitignored ``checkpoints/``), then
+    resumed: the event log without evals and the eval times must equal the
+    uninterrupted run's. Accuracies are printed, not held bit for bit:
+    card runs are not bitwise repeatable (ROADMAP C5)."""
+    import shutil
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.engine import run_experiment
+
+    for algorithm, scenario in RESUME_RUNS:
+        cfg = FLConfig(scenario=scenario, **RESUME_CFG)
+        ckpt = ROOT / "checkpoints" / f"chip_smoke_{algorithm}_{scenario}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        try:
+            full = run_experiment(algorithm, cfg, rounds=4, eval_every=2, device=dev)
+            run_experiment(algorithm, cfg, rounds=4, eval_every=2, stop_after=2,
+                           checkpoint_every=2, checkpoint_dir=str(ckpt), device=dev)
+            files = sorted(p.name for p in ckpt.iterdir())
+            resumed = run_experiment(algorithm, cfg, rounds=4, eval_every=2,
+                                     resume_from=str(ckpt), device=dev)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        same_log = _without_evals(resumed.event_log) == _without_evals(full.event_log)
+        print(f"{algorithm}/{scenario}: snapshot {files}; uninterrupted signature "
+              f"{full.event_signature}, resumed {resumed.event_signature}; event log "
+              f"without evals equal {same_log}; eval times {resumed.sim_times} vs "
+              f"{full.sim_times}; accuracy {resumed.acc_curve} vs {full.acc_curve} "
+              f"(not held: C5); dispatch stats {full.dispatch_stats}")
+        if files != ["engine.json", "trainer.msgpack"]:
+            fail(f"{algorithm}/{scenario}: snapshot holds {files}")
+        if not same_log or resumed.sim_times != full.sim_times:
+            fail(f"{algorithm}/{scenario}: the resumed run's schedule differs from the "
+                 f"uninterrupted run's")
+
+
+def check_lm_checkpoint(dev):
+    """``train_lm(checkpoint=)`` on the card: llama3.2-3b reduced
+    (``configs.reduced``) to two layers in bf16, 2 steps, the file in the
+    gitignored ``checkpoints/``; read back with the port's
+    ``load_pytree``, every leaf must equal the in-memory params and AdamW
+    state (the trees ``train_lm`` hands to ``convert.lm_to_jax`` /
+    ``lm_adamw_to_jax``, still on the card) bit for bit, bf16 included."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.train import train_lm
+
+    cfg = replace(reduced(get_arch("llama3.2-3b")), n_repeats=2, num_layers=2,
+                  param_dtype="bfloat16", compute_dtype="bfloat16")
+    seen = {}
+    real = {k: getattr(convert, k) for k in ("lm_to_jax", "lm_adamw_to_jax")}
+
+    def keep(k):
+        def fn(tree):
+            seen.setdefault(k, tree)  # lm_adamw_to_jax calls lm_to_jax on the moments
+            return real[k](tree)
+        return fn
+
+    path = ROOT / "checkpoints" / "chip_smoke_lm.msgpack"
+    for k in real:
+        setattr(convert, k, keep(k))
+    try:
+        train_lm(cfg, steps=2, batch=2, seq=64, checkpoint=str(path), device=dev)
+    finally:
+        for k, fn in real.items():
+            setattr(convert, k, fn)
+    size = path.stat().st_size
+    back = load_pytree(str(path))
+    path.unlink()
+
+    def leaves(t):  # both trees in one order: the loaded one's keys are sorted
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+
+    def bits(t):
+        t = torch.as_tensor(t).detach().cpu().contiguous()
+        return str(t.dtype), tuple(t.shape), (
+            t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()
+
+    state = seen["lm_adamw_to_jax"]
+    pairs = [("params", seen["lm_to_jax"], back["params"]),
+             ("m", state["m"], back["opt"]["m"]), ("v", state["v"], back["opt"]["v"]),
+             ("step", state["step"], back["opt"]["step"])]
+    n = bf16 = 0
+    for what, want, got in pairs:
+        for a, b in zip(leaves(want), leaves(got), strict=True):
+            n += 1
+            bf16 += a.dtype == torch.bfloat16
+            if a.device.type != "cuda" or bits(a) != bits(b):
+                fail(f"LM checkpoint: a leaf of {what} differs from the card's tensor")
+    print(f"LM checkpoint of {cfg.name} reduced, 2 layers, bf16: {size} bytes, {n} leaves "
+          f"({bf16} bf16) read back bit for bit equal to the card's params and AdamW state")
+    if bf16 == 0:
+        fail("LM checkpoint: no bf16 leaf was checked")
+
+
 # serial against coalesced dispatch at FLConfig(): (scenario, timed rounds)
 DISPATCH_COMPARE = (("mobile_clients", 2), ("flash_crowd", 2))
 DISPATCH_KERNELS = ("distill_loss_fwd", "distill_loss_bwd", "skr_rectify")
@@ -2089,6 +2373,22 @@ def time_train_loss_kernels(dev):
     return rows
 
 
+def run_baselines_phases(dev) -> dict:
+    """The baselines' main path, their card-vs-CPU step parity, the hierfavg
+    gate signatures and resume on the card; returns the main path's
+    distill_loss launches."""
+    phase("baselines main path: run_experiment(name, FLConfig()) for "
+          + ", ".join(f"{n} ({r} round{'s' * (r > 1)})" for n, r in BASELINE_RUNS))
+    counts = drive_baselines_path(dev)
+    phase("baseline parity: one local step, the card vs the CPU")
+    check_baseline_step_parity(dev)
+    phase("hierfavg on the simulator: the 11 gate scenarios")
+    check_hierfavg_signatures(dev)
+    phase("resume on the card: " + ", ".join(f"{a}/{s}" for a, s in RESUME_RUNS))
+    check_resume(dev)
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -2104,6 +2404,12 @@ def main() -> None:
     if sys.argv[1:] == ["--rwkv-chunks"]:
         phase("rwkv6_scan_chunked at each chunk length")
         time_rwkv_chunks(dev)
+        return
+    if sys.argv[1:] == ["--baselines"]:
+        run_baselines_phases(dev)
+        phase("LM checkpoint: train_lm(checkpoint=) on llama3.2-3b reduced to two layers, "
+              "bf16, read back")
+        check_lm_checkpoint(dev)
         return
     if sys.argv[1:] == ["--distill"]:
         phase("distill_loss: every entry and variant vs the plain versions, and times")
@@ -2141,6 +2447,8 @@ def main() -> None:
     phase("serial against coalesced dispatch at FLConfig(): "
           + ", ".join(f"{s} ({r} rounds)" for s, r in DISPATCH_COMPARE))
     held = compare_dispatch(dev)
+    for k, n in run_baselines_phases(dev).items():
+        counts[k] += n
 
     # each JSON row counts its own CUDA kernel's launches: flash_attention's
     # the tensor-core kernel's, flash_attention_simt's the SIMT kernel's,
@@ -2162,6 +2470,9 @@ def main() -> None:
         counts[k] += n
     phase("training parity: llama3.2-3b, full width, two layers, fp32, the card vs the CPU")
     check_train_parity(dev)
+    phase("LM checkpoint: train_lm(checkpoint=) on llama3.2-3b reduced to two layers, bf16, "
+          "read back")
+    check_lm_checkpoint(dev)
     # timed last, so no graph pool or input of the timing is allocated while
     # a main path's peak memory is read
     phase("kernel times at the LM serving and training shapes")

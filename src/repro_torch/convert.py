@@ -126,7 +126,10 @@ def adamw_to_jax(name: str, state):
 # applied as ``x @ w``, stacked unit leaves), so the leaves copy one to one
 # and never go through ``from_jax``'s HWIO transpose, which would scramble a
 # stacked 4-D leaf. bf16 leaves (``ml_dtypes.bfloat16`` in numpy, which
-# ``torch.from_numpy`` rejects) travel bit for bit as int16.
+# ``torch.from_numpy`` rejects) travel bit for bit as int16. numpy knows
+# bfloat16 by name only where ml_dtypes is loaded, as it is beside JAX;
+# elsewhere a bf16 leaf goes to the host as a bf16 torch tensor, which
+# ``repro_torch.checkpoint`` writes in the same "bfloat16" format.
 
 
 def _leaf_from_jax(a, device):
@@ -137,12 +140,20 @@ def _leaf_from_jax(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _numpy_bfloat16():
+    try:
+        return np.dtype("bfloat16")
+    except TypeError:  # no ml_dtypes in this process
+        return None
+
+
 def _leaf_to_jax(t):
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes  # numpy's bfloat16, as JAX uses it
-
-        return t.contiguous().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        bf16 = _numpy_bfloat16()
+        if bf16 is None:
+            return t
+        return t.contiguous().view(torch.int16).numpy().view(bf16)
     return t.numpy()
 
 

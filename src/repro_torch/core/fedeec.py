@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import bsbodp
 from repro_torch.core.protocols import BSBODP_SKR
@@ -429,6 +430,53 @@ class FedEEC(FLAlgorithm):
         by construction. Record the loss so callers can see what went
         missing."""
         self.failed_pairs.append((item.node, item.peer, reason))
+
+    # -- checkpoint state ----------------------------------------------------
+
+    def state_arrays(self):
+        """Params and AdamW states in the reference's layout
+        (``convert.to_jax`` per node's model), SKR states and the
+        embedding stores as host numpy."""
+        return {
+            "params": {v: convert.to_jax(self.model_of[v], p)
+                       for v, p in self.params.items()},
+            "opt": {v: convert.adamw_to_jax(self.model_of[v], o)
+                    for v, o in self.opt.items()},
+            "skr": {v: {k: t.cpu().numpy() for k, t in st.items()}
+                    for v, st in self.skr.items()},
+            "embeddings": self.embeddings,
+        }
+
+    def state_meta(self) -> dict:
+        meta = super().state_meta()
+        meta["rng"] = self.rng.bit_generator.state
+        meta["failed_pairs"] = [list(t) for t in self.failed_pairs]
+        return meta
+
+    def load_state(self, meta: dict, arrays) -> None:
+        """Every node's params and AdamW state, its step counter included
+        (the batched path's stacked AdamW reads each node's own), onto the
+        trainer's device."""
+        super().load_state(meta, arrays)
+        self.rng.bit_generator.state = meta["rng"]
+        self.failed_pairs = [
+            (str(a), str(b), str(c)) for a, b, c in meta["failed_pairs"]
+        ]
+        dev = self.device
+        self.params = {v: convert.from_jax(self.model_of[v], p, dev)
+                       for v, p in arrays["params"].items()}
+        self.opt = {v: convert.adamw_from_jax(self.model_of[v], o, dev)
+                    for v, o in arrays["opt"].items()}
+        self.skr = {v: {k: torch.from_numpy(np.array(a)).to(dev) for k, a in st.items()}
+                    for v, st in arrays["skr"].items()}
+        # embedding stores are host-side numpy (indexed by the rng draws)
+        self.embeddings = {
+            v: (np.asarray(e), np.asarray(y))
+            for v, (e, y) in arrays["embeddings"].items()
+        }
+        # provenance is derivable from (restored topology, client_data):
+        # rebuilt instead of checkpointed
+        self._rebuild_embed_src()
 
     def _rebuild_embed_src(self) -> None:
         """Provenance from (topology, client_data), in the same child order

@@ -23,9 +23,11 @@ share one)::
 
 The simulator (``repro_torch.sim``) drives the same trainers through the
 hooks below: participation masks, refusal hooks, fault hooks, weighted
-cohorts and dispatch groups (``batch_signature`` / ``execute_batch``:
+cohorts, dispatch groups (``batch_signature`` / ``execute_batch``:
 FedEEC coalesces its same-shape pairs; the base class runs every item
-alone). Checkpoint state and tracer spans come with ROADMAP.md A4 and A5.
+alone) and checkpoint state (``state_arrays`` / ``state_meta`` /
+``load_state``, in the reference's layout, so that either package resumes
+the other's checkpoints). Tracer spans come with ROADMAP.md A5.
 """
 from __future__ import annotations
 
@@ -123,6 +125,28 @@ class FLAlgorithm(ABC):
         {"abandoned", "timeout", "departed"}). The item was never executed,
         so no state or comm traffic exists to roll back; overrides record
         the loss. The default is a no-op."""
+
+    # -- checkpoint state (repro_torch.checkpoint) --------------------------
+
+    def state_arrays(self):
+        """Array tree of the trainer's resumable state, written by
+        ``repro_torch.checkpoint.save_pytree``: host numpy in the
+        reference's layout (``convert.to_jax``). Pair with
+        :meth:`state_meta`."""
+        return {}
+
+    def state_meta(self) -> dict:
+        """JSON-serializable non-array state (round counters, numpy
+        generator states, whose >64-bit ints msgpack cannot hold)."""
+        return {"round": self._round}
+
+    def load_state(self, meta: dict, arrays) -> None:
+        """Restore from :meth:`state_meta` / :meth:`state_arrays` output (the
+        port's or the reference's), onto the trainer's device. Overrides
+        must restore every field their ``state_*`` methods saved: a resumed
+        run's event signature must be bit-identical to an uninterrupted
+        one."""
+        self._round = int(meta.get("round", 0))
 
     # -- weighted cohorts ---------------------------------------------------
 
@@ -239,9 +263,9 @@ def register_algorithm(name: str):
 
 
 def _load_builtin() -> None:
-    # registration side effects live next to the class definitions; the
-    # baselines join with their slice of the port
+    # registration side effects live next to the class definitions
     import repro_torch.core.fedeec  # noqa: F401
+    import repro_torch.fl.baselines  # noqa: F401
 
 
 def create_algorithm(name: str, cfg, tree, client_data, auto, *,

@@ -6,9 +6,10 @@ communication bytes (the quantities behind paper Tables III-VII and Fig. 5).
 With a ``scenario`` (name or ``ScenarioConfig``), rounds run inside the
 discrete-event EEC-NET simulator (``repro_torch.sim``): churn fires at
 round boundaries, pair work is priced by link bandwidth/latency, faults are
-injected, and the accuracy curve is reported against simulated seconds.
-Checkpoint/resume and ``tracer`` raise ``NotImplementedError`` until
-ROADMAP.md A4 and A5.
+injected, and the accuracy curve is reported against simulated seconds;
+there the run can snapshot itself every N rounds and resume from a
+snapshot (the port's or the reference's), bit-identically. ``tracer``
+raises ``NotImplementedError`` until ROADMAP.md A5.
 
 Everything runs on ``device``, which defaults to ``"cuda"`` and raises
 without a card unless the caller passes ``device="cpu"``.
@@ -125,6 +126,21 @@ def build_problem(cfg: FLConfig, *, device="cuda"):
     return ds, tree, client_data, auto
 
 
+def make_trainer(algorithm: str, cfg: FLConfig, tree, client_data, auto, *,
+                 device="cuda"):
+    """Deprecated: resolve algorithm names through the registry instead.
+
+    Kept as a shim so pre-registry callers keep working;
+    ``repro_torch.fl.api.create_algorithm`` is the real API.
+    """
+    warnings.warn(
+        "make_trainer is deprecated; use repro_torch.fl.api.create_algorithm "
+        "(or @register_algorithm for new algorithms)",
+        DeprecationWarning, stacklevel=2,
+    )
+    return create_algorithm(algorithm, cfg, tree, client_data, auto, device=device)
+
+
 def _not_ported(option: str, item: str):
     raise NotImplementedError(
         f"repro_torch.fl.engine: {option} is not ported yet "
@@ -156,13 +172,15 @@ def run_experiment(
     event-driven simulated-network path. ``faults`` (a ``FaultPlan`` or
     plan name, scenario path only) overrides the scenario's plan; byzantine
     plans rewrite client labels BEFORE trainer construction, so FedEEC's
-    embedding stores see the noise. ``stop_after`` ends the run early (no
-    final eval); ``profile_sim`` records the simulator's host phase times
-    as gauges in ``metrics``. Checkpoint/resume (ROADMAP.md A4) and
-    ``tracer`` (A5) raise ``NotImplementedError``.
+    embedding stores see the noise. ``checkpoint_every`` /
+    ``checkpoint_dir`` snapshot the engine every N rounds; ``resume_from``
+    restores a snapshot and continues, bit-identical to an uninterrupted
+    run; ``stop_after`` ends the run early (simulating a kill, no final
+    eval). These four act on the scenario path only; the plain path
+    ignores them, as the reference's does. ``profile_sim`` records the
+    simulator's host phase times as gauges in ``metrics``. ``tracer``
+    (ROADMAP.md A5) raises ``NotImplementedError``.
     """
-    if checkpoint_every or checkpoint_dir or resume_from:
-        _not_ported("checkpoint/resume", "A4")
     if tracer is not None:
         _not_ported("tracing (tracer=)", "A5")
     dev = resolve_device(device)
@@ -193,8 +211,10 @@ def run_experiment(
     t0 = time.perf_counter()
     if sc is not None:
         _run_simulated(trainer, sc, cfg, ds, res, rounds, eval_every,
-                       verbose, dev, faults=faults, stop_after=stop_after,
-                       profile_sim=profile_sim)
+                       verbose, dev, faults=faults,
+                       checkpoint_every=checkpoint_every,
+                       checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+                       stop_after=stop_after, profile_sim=profile_sim)
     else:
         _run_plain(trainer, ds, res, rounds, eval_every, verbose,
                    migration_round, dev)
@@ -243,18 +263,23 @@ def _run_plain(trainer, ds, res, rounds, eval_every, verbose,
 
 
 def _run_simulated(trainer, sc, cfg, ds, res, rounds, eval_every, verbose,
-                   dev, *, faults=None, stop_after=None, profile_sim=False):
+                   dev, *, faults=None, checkpoint_every=0, checkpoint_dir="",
+                   resume_from="", stop_after=None, profile_sim=False):
     from repro_torch.sim.engine import SimEngine
 
     engine = SimEngine(trainer, sc, seed=cfg.seed, faults=faults,
                        profile=profile_sim)
+    if resume_from:
+        engine.restore_checkpoint(resume_from)
 
     def eval_fn():
         return accuracy(trainer.cloud_apply(), trainer.cloud_params(),
                         ds.x_test, ds.y_test)
 
     log = engine.run(rounds, eval_fn=eval_fn, eval_every=eval_every,
-                     stop_after=stop_after, sync=lambda: _sync(dev))
+                     checkpoint_every=checkpoint_every,
+                     checkpoint_path=checkpoint_dir, stop_after=stop_after,
+                     sync=lambda: _sync(dev))
     res.scenario = sc.name
     res.round_s = list(engine.round_s)
     for t, acc in engine.acc_points:

@@ -14,8 +14,10 @@ runs the plain path on the CPU. ``train_lm`` runs ``make_train_step`` with
 the reference's options (``attn_chunk=0, remat=False``); ``use_kernels``
 sends the LM loss through ``distill_loss``'s cross-entropy kernels (bf16
 logits at full size, no teacher tensor). ``profile_last`` runs the last steps under ``torch.profiler`` and
-reports where their device time goes. Checkpointing is not ported yet
-(ROADMAP A4).
+reports where their device time goes. ``checkpoint`` (``--checkpoint
+PATH``) saves ``{"params", "opt"}`` after the run in the reference's
+checkpoint format (``repro_torch.checkpoint``), which
+``repro.checkpoint.load_pytree`` reads as well.
 """
 from __future__ import annotations
 
@@ -27,12 +29,14 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import convert
+from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_arch, list_archs, reduced
-from repro_torch.configs.base import FLConfig
+from repro_torch.configs.base import ArchConfig, FLConfig
 from repro_torch.data.loader import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import default_opts, make_train_step
-from repro_torch.models.transformer import _unported, init_params
+from repro_torch.models.transformer import init_params
 from repro_torch.optim import adamw_init
 from repro_torch.tree import tree_leaves
 
@@ -76,26 +80,29 @@ def _device_breakdown(prof, steps: int, wall_s: float, top: int = 8) -> dict:
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
 
 
-def train_lm(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
+def train_lm(arch: str | ArchConfig, *, steps: int = 50, batch: int = 8,
+             seq: int = 128,
              use_reduced: bool = True, lr: float = 1e-3, seed: int = 0,
              checkpoint: str | None = None, log_every: int = 10,
              use_kernels: bool = False, profile_last: int = 0,
              device="cuda") -> TrainResult:
-    """Train ``arch`` (reduced unless ``use_reduced=False``) for ``steps``
-    steps on ``token_batches`` data. Each batch is made and copied to the
+    """Train ``arch`` (a registered name, reduced unless
+    ``use_reduced=False``, or an ``ArchConfig`` taken as it is) for
+    ``steps`` steps on ``token_batches`` data. Each batch is made and copied to the
     device before its step's clock starts; a step's wall time ends in a
     sync. The last ``profile_last`` steps (fewer than ``steps``) run under
     ``torch.profiler``; ``profile`` then holds their device breakdown, its
     idle share against the wall time of the step before them. Raises if a
-    loss is not finite."""
-    if checkpoint:
-        raise _unported("checkpointing an LM run", "A4")
+    loss is not finite. ``checkpoint`` names a file that receives
+    ``{"params", "opt"}`` after the run, in the reference's layout
+    (``convert.lm_to_jax`` / ``lm_adamw_to_jax``)."""
     if not 0 <= profile_last < steps:
         raise ValueError(f"profile_last {profile_last} must be below steps {steps}")
     dev = resolve_device(device)
-    cfg = get_arch(arch)
-    if use_reduced:
-        cfg = reduced(cfg)
+    if isinstance(arch, ArchConfig):
+        cfg = arch
+    else:
+        cfg = reduced(get_arch(arch)) if use_reduced else get_arch(arch)
     opts = default_opts(cfg, attn_chunk=0, remat=False, use_kernels=use_kernels)
     params = init_params(cfg, opts, seed=seed, device=dev)
     opt_state = adamw_init(params)
@@ -135,6 +142,10 @@ def train_lm(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
             print(f"  {1e3 * sec:10.4f} ms  {name[:90]}")
     if not np.isfinite(res.losses).all():
         raise FloatingPointError(f"{cfg.name}: non-finite loss {res.losses}")
+    if checkpoint:
+        save_pytree(checkpoint, {"params": convert.lm_to_jax(params),
+                                 "opt": convert.lm_adamw_to_jax(opt_state)})
+        print(f"[train_lm] checkpoint -> {checkpoint}")
     print(f"[train_lm] loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f} over {steps} steps")
     return res
 

@@ -30,8 +30,11 @@ reference's for the same trainer schedule. Dispatch goes through
 ``plan_groups`` as in the reference: items whose ``batch_signature``
 compares equal and that share no participant run as one
 ``execute_batch`` call (FedEEC's coalesced pairs); a ``None`` signature
-runs alone. Tracing (``tracer=``) and checkpoint/resume wait for
-ROADMAP.md A5 and A4 and raise ``NotImplementedError``.
+runs alone. ``save_checkpoint`` / ``restore_checkpoint`` snapshot every
+stream a round consumes, in the reference's files (``trainer.msgpack``,
+``engine.json``), so a resumed run is bit-identical to an uninterrupted
+one and either package resumes the other's snapshot. Tracing
+(``tracer=``) waits for ROADMAP.md A5 and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -607,16 +610,17 @@ class SimEngine:
         stop_after: Optional[int] = None,
         sync: Optional[Callable[[], None]] = None,
     ) -> EventLog:
-        """Run rounds ``[0, rounds)``. ``stop_after`` ends the run after
-        that many total rounds WITHOUT the final-round eval (simulating a
-        kill mid run). Each round's host seconds, from its start to the end
-        of its work (churn and items, before its eval), go to
-        ``self.round_s``, outside the event log; ``sync``, when given, is
+        """Run rounds ``[self._round_next, rounds)``. A fresh engine starts
+        at round 0; one restored via :meth:`restore_checkpoint` continues
+        where the snapshot left off, its event signature bit-identical to
+        an uninterrupted run's. ``checkpoint_every`` > 0 snapshots to
+        ``checkpoint_path`` after every N-th round; ``stop_after`` ends the
+        run after that many total rounds WITHOUT the final-round eval
+        (simulating a kill mid run). Each round's host seconds, from its
+        start to the end of its work (churn and items, before its eval), go
+        to ``self.round_s``, outside the event log; ``sync``, when given, is
         called at the end of each round's work, inside that time (e.g. a
-        device synchronize). ``checkpoint_every`` > 0 raises until
-        ROADMAP.md A4."""
-        if checkpoint_every > 0:
-            _not_ported("checkpoint/resume (checkpoint_every=)", "A4")
+        device synchronize)."""
         from time import perf_counter
 
         prof = self._prof
@@ -652,6 +656,9 @@ class SimEngine:
                                     + perf_counter() - _e0)  # analysis: allow[DET001]
                 self.acc_points.append((round(self.now, 6), acc))
                 self.log.note(self.now, "eval", round=r, acc=round(acc, 6))
+            if checkpoint_every > 0 and checkpoint_path and \
+                    (r + 1) % checkpoint_every == 0:
+                self.save_checkpoint(checkpoint_path)
             if stop_after is not None and r + 1 >= stop_after:
                 break
         if prof is not None:
@@ -670,10 +677,115 @@ class SimEngine:
     # -- checkpoint / resume --------------------------------------------------
 
     def save_checkpoint(self, path: str) -> None:
-        _not_ported("checkpoint/resume (save_checkpoint)", "A4")
+        """Snapshot the full simulation state into directory ``path``:
+        ``trainer.msgpack`` (the trainer's arrays via
+        ``repro_torch.checkpoint``) and ``engine.json`` (everything else:
+        generator states carry >64-bit integers, which JSON holds and
+        msgpack does not). Both writes are crash-safe (temp file + atomic
+        replace), and the JSON is written last, so a directory holding
+        ``engine.json`` is always a complete, loadable snapshot."""
+        import json
+        import os
+        import tempfile
+
+        from repro_torch.checkpoint import save_pytree
+
+        os.makedirs(path, exist_ok=True)
+        save_pytree(os.path.join(path, "trainer.msgpack"),
+                    self.trainer.state_arrays())
+        meta = {
+            "round_next": self._round_next,
+            "now": self.now,
+            "acc_points": [[t, a] for t, a in self.acc_points],
+            "queue_seq": self.queue._seq,
+            "log": {"entries": self.log.entries, "ord": self.log._ord},
+            # children list ORDER is saved verbatim: it drives post_order,
+            # hence work-item order, hence the event signature
+            "tree": {
+                "root": self.tree.root,
+                "parent": dict(self.tree.parent),
+                "children": {k: list(v)
+                             for k, v in self.tree.children.items()},
+                "devices": sorted(self.tree.devices),
+            },
+            "churn": {
+                "rng": self.churn.rng.bit_generator.state,
+                "offline_until": self.churn.offline_map(),
+                "stragglers": self.churn.stragglers_sorted,
+            },
+            "faults": self.faults.state() if self.faults is not None
+            else None,
+            "comm": {
+                "bytes": dict(self.trainer.comm.bytes),
+                "events": dict(self.trainer.comm.events),
+            },
+            "trainer": self.trainer.state_meta(),
+        }
+        fd, tmp = tempfile.mkstemp(dir=path, suffix=".json.tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(meta, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, os.path.join(path, "engine.json"))
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        self.metrics.counter("sim_checkpoints_total").inc()
 
     def restore_checkpoint(self, path: str) -> None:
-        _not_ported("checkpoint/resume (restore_checkpoint)", "A4")
+        """Restore a :meth:`save_checkpoint` snapshot (the port's or the
+        reference's) into THIS engine, constructed with the same trainer,
+        scenario and seed. Every stream a round consumes is restored —
+        churn and fault generator states, the queue's seq counter, the log
+        (entries and ord), topology with children-list order, comm totals,
+        and the trainer's params / optimizer states / rng — so the
+        continued run is bit-identical to one that never stopped."""
+        import json
+        import os
+
+        from repro_torch.checkpoint import load_pytree
+
+        with open(os.path.join(path, "engine.json")) as f:
+            meta = json.load(f)
+        arrays = load_pytree(os.path.join(path, "trainer.msgpack"))
+
+        self._round_next = int(meta["round_next"])
+        self.now = float(meta["now"])
+        self.acc_points = [(float(t), float(a))
+                           for t, a in meta["acc_points"]]
+        self.queue._seq = int(meta["queue_seq"])
+        self.log.entries = list(meta["log"]["entries"])
+        self.log._ord = int(meta["log"]["ord"])
+
+        t = meta["tree"]
+        self.tree.parent.clear()
+        self.tree.parent.update({str(k): str(v)
+                                 for k, v in t["parent"].items()})
+        self.tree.children.clear()
+        self.tree.children.update({str(k): [str(c) for c in v]
+                                   for k, v in t["children"].items()})
+        self._lk_cache.clear()  # link tiers of the restored topology
+
+        self.churn.rng.bit_generator.state = meta["churn"]["rng"]
+        self.churn.load_offline(meta["churn"]["offline_until"])
+        self.churn.stragglers = set(meta["churn"]["stragglers"])
+
+        if self.faults is not None and meta["faults"] is not None:
+            self.faults.load_state(meta["faults"])
+
+        comm = self.trainer.comm
+        comm.bytes.clear()
+        comm.bytes.update({str(k): float(v)
+                           for k, v in meta["comm"]["bytes"].items()})
+        comm.events.clear()
+        comm.events.update({str(k): int(v)
+                            for k, v in meta["comm"]["events"].items()})
+
+        self.trainer.load_state(meta["trainer"], arrays)
 
 
 def _not_ported(option: str, item: str):

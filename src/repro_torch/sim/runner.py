@@ -11,11 +11,17 @@ twice with the same seed and checks that the event signatures are
 identical (determinism proof). ``--metrics OUT.json`` writes the
 metrics-registry snapshot, ``--profile-sim`` records the scheduler's host
 phase times, and ``--faults <plan>`` overrides the scenario's fault plan.
+``--checkpoint-every N`` snapshots the run every N rounds (into
+``--checkpoint-dir``, by default ``checkpoints/<scenario>``), ``--resume
+DIR`` continues from a snapshot (the port's or the reference's), and
+``--verify-resume`` stops a second run at the midpoint with a snapshot,
+resumes it to the end and checks it against the uninterrupted run:
+
+    python -m repro_torch.sim.runner --algorithm hierfavg --scenario regional_outage --verify-resume
 
 Runs on the card by default; ``--device cpu`` runs on the CPU. Tracing
-(``--trace``, ``--explain-rounds``) waits for ROADMAP.md A5, checkpointing
-(``--checkpoint-every``, ``--checkpoint-dir``, ``--resume``,
-``--verify-resume``) for A4: those flags exit with a message.
+(``--trace``, ``--explain-rounds``) waits for ROADMAP.md A5: those flags
+exit with a message.
 """
 from __future__ import annotations
 
@@ -23,8 +29,7 @@ import argparse
 import sys
 
 # flag -> the ROADMAP.md item it waits for
-_NOT_PORTED = {"trace": "A5", "explain_rounds": "A5", "checkpoint_every": "A4",
-               "checkpoint_dir": "A4", "resume": "A4", "verify_resume": "A4"}
+_NOT_PORTED = {"trace": "A5", "explain_rounds": "A5"}
 
 
 def build_cfg(args):
@@ -111,12 +116,18 @@ def main(argv=None) -> int:
                     help="fault plan name (repro_torch.sim.faults) overriding "
                          "the scenario's; 'none' disables faults")
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="not ported: ROADMAP.md A4")
+                    help="snapshot engine state every N rounds")
     ap.add_argument("--checkpoint-dir", default="",
-                    help="not ported: ROADMAP.md A4")
-    ap.add_argument("--resume", default="", help="not ported: ROADMAP.md A4")
+                    help="checkpoint directory (default: "
+                         "checkpoints/<scenario> when --checkpoint-every)")
+    ap.add_argument("--resume", default="",
+                    help="resume from a checkpoint directory; the "
+                         "continued run is bit-identical to an "
+                         "uninterrupted one")
     ap.add_argument("--verify-resume", action="store_true",
-                    help="not ported: ROADMAP.md A4")
+                    help="kill-and-resume proof: run to the midpoint, "
+                         "checkpoint, resume to the end, check the event "
+                         "log against the uninterrupted run's")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; 'cpu' for "
                          "a run without a card)")
@@ -162,6 +173,8 @@ def main(argv=None) -> int:
     for name in names:
         args.scenario = name
         cfg = build_cfg(args)
+        ckpt_dir = args.checkpoint_dir or (
+            f"checkpoints/{name}" if args.checkpoint_every else "")
         print(f"scenario={name} algorithm={args.algorithm} "
               f"rounds={args.rounds} clients={cfg.num_clients} "
               f"edges={cfg.num_edges} seed={cfg.seed} device={args.device}"
@@ -169,6 +182,9 @@ def main(argv=None) -> int:
         res = run_experiment(args.algorithm, cfg, rounds=args.rounds,
                              eval_every=args.eval_every, verbose=True,
                              faults=args.faults or None,
+                             checkpoint_every=args.checkpoint_every,
+                             checkpoint_dir=ckpt_dir,
+                             resume_from=args.resume,
                              profile_sim=args.profile_sim,
                              device=args.device)
         describe(res, args.max_events)
@@ -215,8 +231,53 @@ def main(argv=None) -> int:
                   f"{'== original (deterministic)' if same else '!= ORIGINAL'}")
             if not same:
                 rc = 1
+
+        if args.verify_resume and not verify_resume(args, cfg, res):
+            rc = 1
         print()
     return rc
+
+
+def _schedule(res):
+    """The event log without its evals: the schedule, which holds bit for
+    bit on every device."""
+    return [{k: v for k, v in e.items() if k != "ord"}
+            for e in res.event_log if e["kind"] != "eval"]
+
+
+def verify_resume(args, cfg, res) -> bool:
+    """Kill-and-resume proof: stop a run at the midpoint with a checkpoint,
+    resume it to the end, and compare it with the uninterrupted run
+    ``res``. On the CPU the signatures must be equal; on a card, whose
+    runs are not bitwise repeatable (cuDNN's backward, ROADMAP.md C5), the
+    eval entries' accuracies may differ, so the event log without evals
+    and the eval times are held, and the signatures are reported."""
+    import tempfile
+
+    from repro_torch.fl.engine import run_experiment
+
+    half = max(1, args.rounds // 2)
+    with tempfile.TemporaryDirectory() as ckpt:
+        run_experiment(args.algorithm, cfg, rounds=args.rounds,
+                       eval_every=args.eval_every, faults=args.faults or None,
+                       stop_after=half, checkpoint_every=half,
+                       checkpoint_dir=ckpt, device=args.device)
+        res3 = run_experiment(args.algorithm, cfg, rounds=args.rounds,
+                              eval_every=args.eval_every,
+                              faults=args.faults or None, resume_from=ckpt,
+                              device=args.device)
+    same = res3.event_signature == res.event_signature
+    print(f"kill-and-resume signature {res3.event_signature} "
+          f"{'== uninterrupted (checkpoint-resume exact)' if same else '!= UNINTERRUPTED'}")
+    import torch
+
+    if torch.device(args.device).type == "cpu":
+        return same
+    sched = _schedule(res3) == _schedule(res) and res3.sim_times == res.sim_times
+    print(f"kill-and-resume event log without evals and eval times "
+          f"{'== uninterrupted' if sched else '!= UNINTERRUPTED'}; accuracy "
+          f"{res3.acc_curve} vs {res.acc_curve}")
+    return sched
 
 
 if __name__ == "__main__":

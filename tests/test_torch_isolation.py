@@ -1,7 +1,9 @@
-"""The port stands alone: no JAX and nothing of ``repro`` in its package or
-in ``chip_smoke.py``; its entry points run on the card unless the caller
-asks for the CPU."""
+"""The port stands alone: no JAX, nothing of ``repro``, and neither msgpack
+nor ml_dtypes (the card's machine has neither) in its package or in
+``chip_smoke.py``; its entry points run on the card unless the caller asks
+for the CPU."""
 import ast
+import os
 from pathlib import Path
 from unittest import mock
 
@@ -12,7 +14,7 @@ from repro_torch.configs.base import FLConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,7 +48,9 @@ def test_scan_covers_the_package():
             "flash_attention.py", "rwkv6_scan.py", "serve.py", "transformer.py",
             "train.py", "steps.py", "loader.py", "schedule.py", "optimizers.py",
             "events.py", "churn.py", "faults.py", "scenarios.py", "network.py",
-            "runner.py", "metrics.py", "quickstart.py", "scenario_sweep.py", "tree.py"} <= names
+            "runner.py", "metrics.py", "quickstart.py", "scenario_sweep.py", "tree.py",
+            "baselines.py", "checkpoint.py", "protocols.py", "fedeec_vs_baselines.py",
+            "custom_algorithm.py", "dynamic_migration.py"} <= names
     sim = {p.name for p in PORT_FILES if p.parent.name == "sim"}
     assert {"engine.py", "events.py", "churn.py", "faults.py", "scenarios.py",
             "network.py", "runner.py"} <= sim
@@ -59,6 +63,7 @@ def _no_card():
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
     from repro_torch.core.fedeec import FedEEC
     from repro_torch.core.topology import Tree
+    from repro_torch.fl.baselines import FlatFedAvg, HierarchicalFedAvg
     from repro_torch.fl.engine import build_problem, run_experiment
 
     cfg = FLConfig(num_clients=2, num_edges=1, samples_per_client=4, test_samples=8,
@@ -72,6 +77,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
             build_problem(cfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             FedEEC(cfg, Tree.three_tier(1, 2), {}, {})
+        for alg in ("hierfavg", "fedavg"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                run_experiment(alg, cfg, scenario="stable", resume_from="unused")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            HierarchicalFedAvg(cfg, Tree.three_tier(1, 2), {})
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FlatFedAvg(cfg, {})
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -154,10 +166,17 @@ def test_forward_only_kernels_refuse_inputs_that_require_grad(kernel):
 
 
 def test_examples_default_to_cuda_and_raise_without_a_card():
-    from repro_torch.examples import quickstart, scenario_sweep
+    from repro_torch.examples import (
+        custom_algorithm,
+        dynamic_migration,
+        fedeec_vs_baselines,
+        quickstart,
+        scenario_sweep,
+    )
 
     with _no_card():
-        for example in (quickstart, scenario_sweep):
+        for example in (quickstart, scenario_sweep, fedeec_vs_baselines, custom_algorithm,
+                        dynamic_migration):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 example.main([])
 
@@ -223,29 +242,38 @@ def test_unported_model_features_raise(change):
         init_params(cfg, ModelOpts(), device="cpu")
 
 
-def test_unported_options_raise():
-    """Tracing waits for ROADMAP A5 and checkpoint/resume for A4, on the
-    plain path and the scenario path alike (scenario= and faults= run
-    since the simulator slice)."""
+def test_unported_options_raise(tmp_path):
+    """Tracing waits for ROADMAP A5, on the plain path and the scenario
+    path alike, and the runner's tracing flags exit with 2. The checkpoint
+    options run (A4): on the scenario path a snapshot is written and
+    resumed; the plain path ignores them, as the reference's does."""
     from repro_torch.fl.engine import run_experiment
     from repro_torch.sim import runner
 
     cfg = FLConfig(num_clients=2, num_edges=1, samples_per_client=4, test_samples=8,
-                   image_size=8, embed_dim=16)
-    for kw, item in (({"checkpoint_every": 1}, "A4"), ({"checkpoint_dir": "ck"}, "A4"),
-                     ({"resume_from": "ck"}, "A4"), ({"tracer": object()}, "A5")):
-        for scenario in (None, "stable"):
-            with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-                run_experiment("fedeec", cfg, device="cpu", scenario=scenario, **kw)
-    for argv in (["--trace", "t.json"], ["--explain-rounds"], ["--checkpoint-every", "1"],
-                 ["--resume", "ck"], ["--verify-resume"]):
+                   image_size=8, embed_dim=16, end_model="cnn2", edge_model="cnn2",
+                   cloud_model="cnn2", distill_steps=1)
+    for scenario in (None, "stable"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
+            run_experiment("fedeec", cfg, device="cpu", scenario=scenario, tracer=object())
+    ckpt = str(tmp_path / "ck")
+    for scenario in (None, "stable"):
+        res = run_experiment("hierfavg", cfg, rounds=2, device="cpu", scenario=scenario,
+                             checkpoint_every=1, checkpoint_dir=ckpt)
+        assert len(res.acc_curve) == 2
+        assert os.path.isdir(ckpt) == (scenario is not None)
+    resumed = run_experiment("hierfavg", cfg, rounds=2, device="cpu", scenario="stable",
+                             resume_from=ckpt)
+    assert resumed.event_signature == res.event_signature
+    for argv in (["--trace", "t.json"], ["--explain-rounds"]):
         assert runner.main(argv + ["--device", "cpu"]) == 2
 
 
 def test_registry_has_the_slice_algorithms():
     from repro_torch.fl.api import list_algorithms
 
-    assert list_algorithms() == ["fedagg", "fedeec"]
+    assert list_algorithms() == ["demlearn", "fedagg", "fedavg", "fedeec", "hierfavg",
+                                 "hiermo", "hierqsgd"]
 
 
 def test_fedeec_runs_on_cpu_when_asked():

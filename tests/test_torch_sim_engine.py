@@ -47,12 +47,13 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
-def gate_engine(name: str, serial: bool = False, **engine_kw) -> SimEngine:
-    """Two rounds of FedEEC through scenario ``name``, no eval; ``serial``
-    forces serial dispatch."""
+def gate_engine(name: str, serial: bool = False, algorithm: str = "fedeec",
+                **engine_kw) -> SimEngine:
+    """Two rounds of ``algorithm`` (FedEEC by default) through scenario
+    ``name``, no eval; ``serial`` forces serial dispatch."""
     cfg = paper_setting("synth_cifar10", 4, 2, **GATE)
     _, tree, client_data, auto = build_problem(cfg, device="cpu")
-    trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device="cpu")
+    trainer = create_algorithm(algorithm, cfg, tree, client_data, auto, device="cpu")
     if serial:
         trainer.batch_signature = lambda item: None
     engine = SimEngine(trainer, get_scenario(name), seed=cfg.seed, **engine_kw)
@@ -73,6 +74,16 @@ def test_fedeec_signature_matches_the_table(name):
     stats = engine.dispatch_stats
     assert stats["dispatches"] == stats["items"] - stats["batched_items"] \
         + stats["batched_dispatches"] > 0
+
+
+@pytest.mark.parametrize("name", list_scenarios())
+def test_hierfavg_signature_matches_the_table(name):
+    """The baselines keep serial dispatch, as the reference's do: every
+    item runs alone."""
+    engine = gate_engine(name, algorithm="hierfavg")
+    assert engine.log.signature() == TABLE[f"hierfavg/{name}"]
+    stats = engine.dispatch_stats
+    assert stats["dispatches"] == stats["items"] > 0 and stats["batched_dispatches"] == 0
 
 
 @pytest.mark.parametrize("name", sorted(BENCH_FAULTS))
@@ -119,20 +130,27 @@ def test_lossy_links_serial_signature_is_the_references(monkeypatch):
     assert gate_engine("lossy_links").log.signature() == sigs[False]
 
 
-def test_tracer_and_checkpoints_raise():
+def test_tracer_and_checkpoints_raise(tmp_path):
+    """Tracing still waits for ROADMAP A5; the checkpoint calls run (A4):
+    a snapshot every round, and a second engine restored from it stands
+    where the first one stopped."""
     cfg = paper_setting("synth_cifar10", 4, 2, **GATE)
     _, tree, client_data, auto = build_problem(cfg, device="cpu")
     trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device="cpu")
     with pytest.raises(NotImplementedError, match="A5"):
         SimEngine(trainer, get_scenario("stable"), tracer=object())
     engine = SimEngine(trainer, get_scenario("stable"))
-    with pytest.raises(NotImplementedError, match="A4"):
-        engine.run(1, checkpoint_every=1, checkpoint_path="unused")
-    with pytest.raises(NotImplementedError, match="A4"):
-        engine.save_checkpoint("unused")
-    with pytest.raises(NotImplementedError, match="A4"):
-        engine.restore_checkpoint("unused")
-    assert engine.log.entries == [] and trainer._round == 0
+    ckpt = str(tmp_path / "ckpt")
+    engine.run(1, checkpoint_every=1, checkpoint_path=ckpt)
+    assert engine.metrics.counter("sim_checkpoints_total").value == 1
+    engine.save_checkpoint(str(tmp_path / "again"))
+    _, tree2, cd2, auto2 = build_problem(cfg, device="cpu")
+    other = SimEngine(create_algorithm("fedeec", cfg, tree2, cd2, auto2, device="cpu"),
+                      get_scenario("stable"))
+    other.restore_checkpoint(ckpt)
+    assert other.log.entries == engine.log.entries and other.now == engine.now
+    assert other.trainer.rng.bit_generator.state == trainer.rng.bit_generator.state
+    assert other._round_next == 1
 
 
 # ----------------------------------------------------------- scheduler tiers

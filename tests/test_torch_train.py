@@ -249,9 +249,22 @@ def test_rwkv6_training_is_not_ported():
         forward_train(cfg, ModelOpts(), params, {"tokens": tok, "labels": tok})
 
 
-def test_checkpoint_option_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A4"):
-        train_lm(ARCH, steps=1, checkpoint="ckpt", device="cpu")
+def test_checkpoint_option_is_not_ported(tmp_path):
+    """Named when ``checkpoint=`` raised (ROADMAP A4, now ported): the
+    option writes {"params", "opt"} after the run, and the file reads back
+    through the reference's converter to what ``lm_from_jax`` /
+    ``lm_adamw_from_jax`` turn into the same tensors (a step's worth of
+    AdamW state, step counter 1)."""
+    from repro_torch.checkpoint import load_pytree
+
+    path = str(tmp_path / "ckpt.msgpack")
+    res = train_lm(ARCH, steps=1, batch=1, seq=8, checkpoint=path, device="cpu")
+    back = load_pytree(path)
+    params = lm_from_jax(back["params"])
+    state = lm_adamw_from_jax(back["opt"])
+    assert int(state["step"]) == 1
+    assert sum(t.numel() for t in tree_leaves(params)) == res.n_params
+    assert all(torch.isfinite(t).all() for t in tree_leaves((params, state["m"], state["v"])))
 
 
 @pytest.mark.parametrize("steps,profile_last", [(1, 1), (3, 3), (2, -1)])
