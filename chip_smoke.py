@@ -20,7 +20,10 @@ the result line:
 1. device: name, compute capability (must be 9.0), count, nvidia-smi's name
    and power limit, and the TF32 flags the port sets;
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` and print
-   nvcc's registers / shared memory / spills per kernel;
+   nvcc's registers / shared memory / spills per kernel, then one line per
+   instance of the tensor-core attention kernel (head_dim 64, 128, 256) with
+   its registers and local (spill) bytes from ``cudaFuncGetAttributes``
+   (any local byte fails);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main paths' shapes and the bench shapes (distill_loss: both
    entries, the t entry and the cross-entropy entry that takes no teacher,
@@ -31,8 +34,10 @@ the result line:
    bit for bit against the t entry on an all-zero t; then a check that the
    CE forward allocates nothing of the logits' size; flash_attention has three kernels: the split-KV
    decode kernel for every call with one query, the tensor-core kernel for
-   bf16 prefill and the SIMT kernel for the rest; each case names the one
-   that served it, at every decode case the SIMT kernel, launched
+   bf16 prefill (head_dim 64 and 128; 256 through an instance of its own
+   with a TMA producer, at its edges and at gemma3-12b's global and local
+   layer shapes) and the SIMT kernel for the rest; each case names the one
+   (and instance) that served it, at every decode case the SIMT kernel, launched
    directly, is held to the same bound, and rows that see no key (ROADMAP
    C8) go through each of the three and the empty-row kernel; rwkv6_scan
    has two: the sequential kernel for T <= 16 and the chunked scan for
@@ -123,7 +128,13 @@ the result line:
    to the card's params and AdamW state;
 12. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
    attention kernel, launched directly, at the prefill shape beside the
-   tensor-core one and at the decode shapes beside the decode one; the
+   tensor-core one and at the decode shapes beside the decode one;
+   gemma3-12b's global and local attention layers (bf16, head_dim 256, a
+   4096-token prompt) through the tensor-core kernel's TMA instance beside
+   the SIMT kernel launched directly and SDPA (each SDPA call's backend
+   named from the profiler); the SIMT kernel in fp32 at the llama3.2-3b
+   prefill shape, the calls it keeps, beside fp32 SDPA (TF32 off) and the
+   fp32 bound; the
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
    beside the chunked one, and the chunked one's three kernels' device ms
    under the profiler; and
@@ -165,6 +176,7 @@ TPU_KERNELS = {
     "flash_attention": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_simt": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_decode": "src/repro/kernels/flash_attention.py:32",
+    "flash_attention_sm90_h256": "src/repro/kernels/flash_attention.py:32",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:25",
     "rwkv6_scan_chunked": "src/repro/kernels/rwkv6_scan.py:25",
 }
@@ -178,13 +190,16 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_simt": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_decode": "src/repro_torch/csrc/flash_attention_decode.cu",
+    "flash_attention_sm90_h256": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
     "rwkv6_scan_chunked": "src/repro_torch/csrc/rwkv6_scan_chunked.cu",
 }
 # the kernels' JSON rows: flash_attention's three CUDA kernels each have
-# one, and so have rwkv6_scan's two
+# one, the tensor-core kernel's head_dim 256 instance (TMA producer) one of
+# its own, and rwkv6_scan's two kernels one each; the values are the keys of
+# drive_lm_path's launches per kernel
 VARIANTS = {"flash_attention": "sm90", "flash_attention_simt": "simt",
-            "flash_attention_decode": "decode"}
+            "flash_attention_decode": "decode", "flash_attention_sm90_h256": "sm90_h256"}
 RWKV_VARIANTS = {"rwkv6_scan": "seq", "rwkv6_scan_chunked": "chunked"}
 # distill_loss's JSON rows per entry of ``distill_loss.variant_launches``,
 # and those launches summed over the main paths' runs
@@ -317,6 +332,15 @@ def build_kernels():
             print("  " + line.strip())
     if "sm_90a" not in report:
         fail("kernels were not compiled for sm_90a")
+    from repro_torch.kernels.flash_attention import SM90_HEAD_DIMS, sm90_attrs
+
+    for H in SM90_HEAD_DIMS:
+        regs, local = sm90_attrs(H)
+        note = (" (at launch; setmaxnreg: consumers 232, producer 40)" if H == 256 else "")
+        print(f"flash_attention sm90 instance H {H}: {regs} registers a thread{note}, "
+              f"{local} local (spill) bytes a thread")
+        if local:
+            fail(f"the flash_attention sm90 instance at H {H} uses {local} local bytes")
 
 
 def _distill_inputs(B, N, V, dev, seed=0):
@@ -588,6 +612,14 @@ FLASH_CASES = [
     # a window over a kv length that is no tile multiple, and H = 256
     (2, 40, 100, 4, 2, 64, True, 24),
     (1, 17, 33, 2, 1, 256, True, 0),
+    # the head_dim 256 instance's edges in bf16 at gemma3-12b's G = 2
+    # (fp32 on the SIMT kernel): Sq * G no multiple of 128; Sk no multiple
+    # of 64 at q_offset 60; a window across tile edges; non-causal; G = 3
+    (1, 77, 77, 4, 2, 256, True, 0),
+    (2, 40, 100, 4, 2, 256, True, 0),
+    (1, 300, 300, 4, 2, 256, True, 70),
+    (1, 96, 160, 8, 4, 256, False, 0),
+    (2, 77, 77, 6, 2, 256, True, 0),
     # the tensor-core kernel's edges in bf16 (128 rows, 64 keys a tile):
     # Sq * G no multiple of 128; Sk no multiple of 64 at q_offset 60; a
     # window across tile edges; non-causal at G = 4; H = 64 at G = 1
@@ -619,9 +651,16 @@ C8_CASES = [
     (2, 1, 33, 6, 2, 64, True, 8, 100),  # decode: the plan has no split
     (1, 64, 64, 8, 2, 32, True, 8, 40),  # simt (fp32 below; bf16 at H 32 too)
     (1, 128, 100, 24, 8, 128, True, 16, 40),  # sm90 in bf16, simt in fp32
+    (1, 128, 100, 4, 2, 256, True, 16, 40),  # sm90's H 256 instance in bf16
     (1, 64, 64, 8, 2, 64, False, 8, 40),  # non-causal
 ]
 FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128)  # llama3.2-3b, one 4096-token prompt
+# gemma3-12b's attention layers at one 4096-token prompt
+# (src/repro/configs/gemma3_12b.py: 16 q heads over 8 kv heads, head_dim
+# 256), global (causal) and local (a 1024-key sliding window, 40 of its 48
+# layers); not on a main path yet (ROADMAP A6.3)
+GEMMA3_PREFILL = (1, 4096, 4096, 16, 8, 256)
+GEMMA3_WINDOW = 1024
 FLASH_DECODE = (8, 1, 4096, 24, 8, 128)  # 8 requests against a 4096-long cache
 # (B, T, H, hd, extreme): T <= 16 runs the sequential kernel, longer T the
 # chunked scan (ragged last chunks, many chunks, hd 128); extreme puts
@@ -644,11 +683,13 @@ def check_flash_attention(dev):
     looser than that at the main path's shapes, whose outputs are about
     0.01). The prefill and decode shapes also run in fp32 at 3e-5, where
     a dropped or misread kv tile of the 4096-key walk (about 1e-3) fails.
-    Each case names the kernel that served it, and fails unless that is the
-    one ``_variant`` picks. At every decode case (one query) the SIMT
-    kernel, which the wrapper no longer picks there, is also launched
-    directly on the same inputs and held to the same bound. Returns the
-    worst error per kernel."""
+    gemma3-12b's global and local layer shapes run in bf16, through the
+    tensor-core kernel's head_dim 256 instance. Each case names the kernel
+    that served it, and fails unless that is the one ``_variant`` picks (and,
+    for the tensor-core kernel, the instance of its head_dim). At every
+    decode case (one query) the SIMT kernel, which the wrapper no longer
+    picks there, is also launched directly on the same inputs and held to
+    the same bound. Returns the worst error per JSON row (VARIANTS)."""
     import torch
 
     from repro_torch.kernels import _lib
@@ -657,17 +698,20 @@ def check_flash_attention(dev):
         _has_empty_rows,
         _variant,
         flash_attention,
+        sm90_launches,
         variant_launches,
     )
 
     both = (torch.float32, torch.bfloat16)
     cases = [(c, dt) for c in FLASH_CASES for dt in both]
     cases += [((*FLASH_PREFILL, True, 0), dt, 0) for dt in both]
+    cases += [((*GEMMA3_PREFILL, True, w), torch.bfloat16, 0) for w in (0, GEMMA3_WINDOW)]
     cases += [((*FLASH_DECODE, True, 0), dt, off) for dt in both for off in (0, 63, 4095)]
     cases += [((B, 1, Sk, N, K, H, causal, window), dt, off)
               for B, Sk, N, K, H, causal, window, off in DECODE_CASES for dt in both]
     cases += [(c[:8], dt, c[8]) for c in C8_CASES for dt in both]
-    worst = dict.fromkeys(variant_launches, 0.0)
+    worst = dict.fromkeys(VARIANTS, 0.0)
+    row_of = {v: k for k, v in VARIANTS.items()}
 
     def held(tag, got, want, dtype):
         diff = (got.float() - want.float()).abs()
@@ -685,20 +729,25 @@ def check_flash_attention(dev):
         (B, Sq, Sk, N, K, H, causal, window), dtype = case[0], case[1]
         qo = case[2] if len(case) > 2 else (Sk - Sq if causal else 0)
         q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev)
-        before = dict(variant_launches)
+        before, h_before = dict(variant_launches), dict(sm90_launches)
         empty_before = _lib.launches["flash_attention_empty_rows"]
         got = flash_attention(q, k, v, causal=causal, window=window, q_offset=qo)
         served = [n for n in variant_launches if variant_launches[n] > before[n]]
+        instances = [h for h in sm90_launches if sm90_launches[h] > h_before[h]]
         empty = _lib.launches["flash_attention_empty_rows"] - empty_before
         variant = _variant(dtype, Sq, H)
+        row = row_of["sm90_h256" if variant == "sm90" and H == 256 else variant]
         want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=qo)
         torch.cuda.synchronize()
         print(f"flash_attention {(B, Sq, Sk, N, K, H)} causal={causal} window={window} "
               f"q_offset={qo} {str(dtype)[6:]}")
-        err, ok = held("+".join(served + ["empty_rows"] * empty), got, want, dtype)
-        worst[variant] = max(worst[variant], err)
+        err, ok = held("+".join(served + [f"H {h}" for h in instances]
+                                + ["empty_rows"] * empty), got, want, dtype)
+        worst[row] = max(worst[row], err)
         if served != [variant]:
             fail(f"flash_attention at {case}: served by {served}, the rule picks {variant}")
+        if instances != ([H] if variant == "sm90" else []):
+            fail(f"flash_attention at {case}: sm90 instances {instances} launched")
         if empty != int(_has_empty_rows(Sq, Sk, qo, causal, window)):
             fail(f"flash_attention at {case}: {empty} empty-row launches")
         if not ok:
@@ -710,7 +759,7 @@ def check_flash_attention(dev):
                         int(causal), window, qo, Sk, float(H**-0.5))
             torch.cuda.synchronize()
             err, ok = held("simt, launched directly", out, want, dtype)
-            worst["simt"] = max(worst["simt"], err)
+            worst["flash_attention_simt"] = max(worst["flash_attention_simt"], err)
             if not ok:
                 fail(f"the SIMT flash_attention kernel disagrees with its plain version "
                      f"at {case}")
@@ -1830,27 +1879,70 @@ def profile_dispatch(held):
                   f"{time.perf_counter() - t1:.1f} s")
 
 
+def attn_pairs(Sq, Sk, qo, causal, window) -> int:
+    """Unmasked (query, key) pairs: each query's visible key range [j_lo,
+    j_hi] as the kernels' masks leave it, the window included."""
+    total = 0
+    for i in range(Sq):
+        j_hi = min(qo + i, Sk - 1) if causal else Sk - 1
+        j_lo = max(0, qo + i - window + 1) if window > 0 else 0
+        total += max(0, j_hi - j_lo + 1)
+    return total
+
+
+def sdpa_backend(fn) -> str:
+    """Which backend of F.scaled_dot_product_attention ran ``fn``, from the
+    names of the kernels one call launches under ``torch.profiler`` (after
+    a lead-in, as ``profile_rwkv_phases``): flash, efficient
+    (memory-efficient, ``fmha``), cudnn, or math (products and a softmax)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            x.add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    names = sorted(e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and "elementwise" not in e.name and "Memset" not in e.name)
+    low = " ".join(names).lower()
+    # cuDNN's own kernels carry "flash" in their names too, so test it first
+    kind = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
+            else "efficient" if "fmha" in low else "math")
+    return f"{kind} ({'; '.join(n[:70] for n in dict.fromkeys(names))})"
+
+
 def time_lm_kernels(dev):
     """Times at the LM serving path's shapes: flash_attention in bf16 at the
     4096-token prefill and at a decode step of 8 requests with the queries
     at position 63 (the middle of the serve run's 128 positions) and 4095
-    (a full cache); rwkv6_scan at a 1024-token prefill (the chunked scan)
-    and a decode step (the sequential kernel).
+    (a full cache); gemma3-12b's global and local layers (head_dim 256, the
+    tensor-core kernel's TMA instance) at a 4096-token prompt; the SIMT
+    kernel in fp32 at the llama3.2-3b prefill shape, the calls it keeps;
+    rwkv6_scan at a 1024-token prefill (the chunked scan) and a decode step
+    (the sequential kernel).
     The bound counts q, o and the k/v rows the masks leave (each read or
     written once) against 3.35 TB/s, and 4 H flops per unmasked (q, k) pair
-    and q head against the bf16 tensor-core peak (989 TFLOP/s: the card
-    could run this bf16 attention there); for the scan, r, k, v, w, u, s0
-    read and y, sT written once, and 5 hd^2 + 5 hd flops per token and head
-    (an FMA as two: y's FMA and the state's multiply and FMA per element of
-    S, and the O(hd) bonus term) against the fp32 peak (67 TFLOP/s: its
-    inputs and state are fp32). The library
+    and q head (pairs counted with the window) against the bf16
+    tensor-core peak (989 TFLOP/s: the card could run this bf16 attention
+    there) or, in fp32, the fp32 peak (67 TFLOP/s: TF32 is off); for the
+    scan, r, k, v, w, u, s0 read and y, sT written once, and 5 hd^2 + 5 hd
+    flops per token and head (an FMA as two: y's FMA and the state's
+    multiply and FMA per element of S, and the O(hd) bonus term) against
+    the fp32 peak (67 TFLOP/s: its inputs and state are fp32). The library
     call for attention is F.scaled_dot_product_attention on the same
-    tensors (is_causal at prefill; unmasked over the cache's first pos + 1
-    rows at decode); the scan has none. The wrapper runs the tensor-core
-    kernel at prefill and the split-KV kernel at decode; at each of those
-    shapes the SIMT attention kernel, which it no longer picks there, is
-    launched directly, timed beside them and held to the same bound; so is
-    the sequential rwkv6_scan kernel at the prefill shape."""
+    tensors (is_causal at prefill, an explicit boolean mask for a window;
+    unmasked over the cache's first pos + 1 rows at decode), its backend
+    named from the profiler; the scan has none. The wrapper runs the
+    tensor-core kernel at bf16 prefill and the split-KV kernel at decode; at
+    each of those shapes the SIMT attention kernel, which it does not pick
+    there, is launched directly, timed beside them and held to the same
+    bound; so is the sequential rwkv6_scan kernel at the prefill shape."""
     import torch
     import torch.nn.functional as F
 
@@ -1858,38 +1950,57 @@ def time_lm_kernels(dev):
     from repro_torch.kernels import ref as R
 
     rows = {}
-    for tag, (B, Sq, Sk, N, K, H), qo in [("prefill", FLASH_PREFILL, 0),
-                                          ("decode", FLASH_DECODE, 63),
-                                          ("decode", FLASH_DECODE, 4095)]:
-        q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, torch.bfloat16, dev)
+    bf16 = torch.bfloat16
+    for name, tag, (B, Sq, Sk, N, K, H), qo, window, dtype in [
+            ("flash_attention", "prefill", FLASH_PREFILL, 0, 0, bf16),
+            ("flash_attention_decode", "decode", FLASH_DECODE, 63, 0, bf16),
+            ("flash_attention_decode", "decode", FLASH_DECODE, 4095, 0, bf16),
+            ("flash_attention_sm90_h256", "gemma3_global", GEMMA3_PREFILL, 0, 0, bf16),
+            ("flash_attention_sm90_h256", "gemma3_local", GEMMA3_PREFILL, 0, GEMMA3_WINDOW,
+             bf16),
+            ("flash_attention_simt", "prefill_fp32", FLASH_PREFILL, 0, 0, torch.float32)]:
+        q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev)
         n_keys = min(Sk, qo + Sq)
-        pairs = sum(min(qo + i + 1, Sk) for i in range(Sq))
-        nbytes = 2 * (2 * B * Sq * N * H + 2 * B * n_keys * K * H)
-        if tag == "prefill":
+        pairs = attn_pairs(Sq, Sk, qo, True, window)
+        size = q.element_size()
+        nbytes = size * (2 * B * Sq * N * H + 2 * B * n_keys * K * H)
+        peak = BF16_OPS_PER_S if dtype == bf16 else FP32_OPS_PER_S
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if Sq == 1:
+            kc, vc = kt[:, :, :qo + 1], vt[:, :, :qo + 1]
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-                enable_gqa=True)
+                qt, kc, vc, enable_gqa=True)
+        elif window:
+            i = torch.arange(Sq, device=dev)[:, None] + qo
+            j = torch.arange(Sk, device=dev)[None, :]
+            mask = (j <= i) & (j > i - window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
         else:
-            kc, vc = k[:, :qo + 1].transpose(1, 2), v[:, :qo + 1].transpose(1, 2)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q.transpose(1, 2), kc, vc, enable_gqa=True)
-        shape = f"q {(B, Sq, N, H)} kv {(B, Sk, K, H)} q_offset={qo} bf16"
-        name = "flash_attention" if tag == "prefill" else "flash_attention_decode"
-        plain = lambda: R.flash_attention_ref(q, k, v, q_offset=qo)  # noqa: E731
-        launches = 5 if tag == "prefill" else TIMED_LAUNCHES
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        shape = (f"q {(B, Sq, N, H)} kv {(B, Sk, K, H)} q_offset={qo}"
+                 + (f" window={window}" if window else "") + f" {str(dtype)[6:]}")
+        plain = lambda: R.flash_attention_ref(q, k, v, window=window, q_offset=qo)  # noqa: E731
+        launches = TIMED_LAUNCHES if Sq == 1 else 5
+        print(f"SDPA at {tag} {shape}: backend {sdpa_backend(lib)}")
         rows[(name, tag, qo)] = _timed(
-            name, tag, shape, lambda: ops.flash_attention(q, k, v, q_offset=qo), plain, lib,
-            nbytes, 4 * B * N * H * pairs, BF16_OPS_PER_S, launches=launches)
-        out = torch.empty_like(q)
-        simt = lambda: _lib.launch(  # noqa: E731
-            "flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, Sq, Sk, N, K, H, 1, 1, 0, qo, Sk, float(H**-0.5))
-        rows[("flash_attention_simt", tag, qo)] = _timed(
-            "flash_attention_simt", tag, shape, simt, plain, lib, nbytes,
-            4 * B * N * H * pairs, BF16_OPS_PER_S, launches=launches)
-        want = plain().float()
-        if ((out.float() - want).abs() > BF16_ULP * want.abs() + 1e-6).any():
-            fail(f"the SIMT flash_attention kernel disagrees at the {tag} shape, q_offset {qo}")
+            name, tag, shape, lambda: ops.flash_attention(q, k, v, window=window, q_offset=qo),
+            plain, lib, nbytes, 4 * B * N * H * pairs, peak, launches=launches)
+        if name != "flash_attention_simt":
+            out = torch.empty_like(q)
+            simt = lambda: _lib.launch(  # noqa: E731
+                "flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), B, Sq, Sk, N, K, H, int(dtype == bf16), 1, window, qo, Sk,
+                float(H**-0.5))
+            rows[("flash_attention_simt", tag, qo)] = _timed(
+                "flash_attention_simt", tag, shape, simt, plain, lib, nbytes,
+                4 * B * N * H * pairs, peak, launches=launches)
+            want = plain().float()
+            if ((out.float() - want).abs() > BF16_ULP * want.abs() + 1e-6).any():
+                fail(f"the SIMT flash_attention kernel disagrees at the {tag} shape, "
+                     f"q_offset {qo}")
+        del q, k, v, qt, kt, vt
     rows.update(time_rwkv_kernels(dev))
     return rows
 
@@ -2029,7 +2140,7 @@ def drive_lm_path(dev, arch, prefill_len):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import variant_launches
+    from repro_torch.kernels.flash_attention import sm90_launches, variant_launches
     from repro_torch.kernels.rwkv6_scan import variant_launches as rwkv_launches
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import default_opts, make_prefill_step
@@ -2109,7 +2220,11 @@ def drive_lm_path(dev, arch, prefill_len):
     del params, logits
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, {**variants, **rwkv}, dict(
+    # launches per JSON row's kernel: the tensor-core kernel's head_dim 256
+    # instance apart from its head_dim 64 / 128 ones
+    per_kernel = {**variants, **rwkv, "sm90": variants["sm90"] - sm90_launches[256],
+                  "sm90_h256": sm90_launches[256]}
+    return counts, per_kernel, dict(
         serve_prefill_s=res.prefill_s, gen_s=res.gen_s, tokens_per_s=res.tokens_per_s,
         ms_per_step=res.ms_per_step, prefill_step_s=prefill_s, peak_mib=peak / 2**20,
         **full_cache)
@@ -2423,8 +2538,7 @@ def main() -> None:
     err = check_distill_loss(dev)
     check_ce_allocates_no_teacher(dev)
     err.update(check_skr_rectify(dev))
-    flash_err = check_flash_attention(dev)
-    err.update({k: flash_err[VARIANTS[k]] for k in VARIANTS})
+    err.update(check_flash_attention(dev))
     rwkv_err = check_rwkv6_scan(dev)
     err.update({k: rwkv_err[v] for k, v in RWKV_VARIANTS.items()})
     phase("kernel times")
@@ -2451,9 +2565,11 @@ def main() -> None:
         counts[k] += n
 
     # each JSON row counts its own CUDA kernel's launches: flash_attention's
-    # the tensor-core kernel's, flash_attention_simt's the SIMT kernel's,
-    # flash_attention_decode's the split-KV decode kernel's; rwkv6_scan's
-    # the sequential kernel's, rwkv6_scan_chunked's the chunked scan's
+    # the tensor-core kernel's at head_dim 64 / 128, flash_attention_sm90_h256's
+    # its head_dim 256 instance's (no main path has that head_dim yet),
+    # flash_attention_simt's the SIMT kernel's, flash_attention_decode's the
+    # split-KV decode kernel's; rwkv6_scan's the sequential kernel's,
+    # rwkv6_scan_chunked's the chunked scan's
     lm_variants = {**VARIANTS, **RWKV_VARIANTS}
     counts.update(dict.fromkeys(lm_variants, 0))
     for arch, prefill_len in LM_ARCHS:
@@ -2511,8 +2627,9 @@ def main() -> None:
     pick = {"distill_loss_fwd": ("main", 1.5), "distill_loss_bwd": ("main", 1.5),
             "distill_loss_fwd_ce": ("main", 0.0), "distill_loss_bwd_ce": ("main", 0.0),
             "skr_rectify": ("main", None), "skr_rectify_map": ("main", None),
-            "flash_attention": ("prefill", 0),
-            "flash_attention_simt": ("decode", 4095), "flash_attention_decode": ("decode", 4095),
+            "flash_attention": ("prefill", 0), "flash_attention_simt": ("prefill_fp32", 0),
+            "flash_attention_decode": ("decode", 4095),
+            "flash_attention_sm90_h256": ("gemma3_global", 0),
             "rwkv6_scan": ("decode", None), "rwkv6_scan_chunked": ("prefill", None)}
     skr_variant = {row: v for v, row in SKR_ROWS.items()}
     kernels = []

@@ -33,8 +33,9 @@
 // products run on the fp32 cores, not the tensor cores (wgmma and TMA
 // pipelining are later work), so prefill sits well above its tensor-core
 // bound. The wrapper sends it only the prefill calls the tensor-core kernel
-// does not take (fp32, H in {32, 256}); decode goes to
-// flash_attention_decode.cu.
+// does not take: fp32 at every head_dim (the reduced configs' attention)
+// and bf16 at H = 32; bf16 prefill at H in {64, 128, 256} goes to
+// flash_attention_sm90.cu and decode to flash_attention_decode.cu.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

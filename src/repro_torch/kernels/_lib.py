@@ -70,6 +70,9 @@ _SIGNATURES = {
     # scale, stream (bf16 only)
     "flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _I,
                              _F, _P],
+    # H, regs out, local bytes out (no stream)
+    "flash_attention_sm90_attrs": [_I, ctypes.POINTER(ctypes.c_int),
+                                   ctypes.POINTER(ctypes.c_longlong)],
     # q, k, v, o, ws, B, Sk, N, K, H, is_bf16, causal, window, q_offset,
     # k_len, scale, chunk, splits, stream (Sq = 1)
     "flash_attention_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,

@@ -18,9 +18,11 @@ the plain version in ``ref.py``:
   with Sq = 1, fp32 or bf16, any head_dim. The kv range is split across
   blocks by ``_decode_plan`` and the partial softmax states are merged;
 - ``"sm90"``, ``repro_torch/csrc/flash_attention_sm90.cu``: bf16 prefill
-  (Sq > 1) at head_dim 64 or 128, both products on the tensor cores (wgmma);
+  (Sq > 1) at head_dim 64, 128 or 256, both products on the tensor cores
+  (wgmma); head_dim 256 (gemma3-12b's) runs an instance of its own, with a
+  TMA producer warpgroup;
 - ``"simt"``, ``repro_torch/csrc/flash_attention.cu``: the rest of prefill
-  (fp32, head_dim 32 or 256), on the fp32 cores.
+  (fp32 at every head_dim, bf16 at head_dim 32), on the fp32 cores.
 
 A query row whose visible key range is empty (a window that ends before
 the keys do, ROADMAP C8) gets the mean of v over all Sk keys, as the plain
@@ -35,11 +37,15 @@ wrapper raises if grad mode is on and an input requires grad, rather than
 return an output with no ``grad_fn``.
 
 ``_lib.launches["flash_attention"]`` counts the calls that launch a kernel,
-``variant_launches`` counts them per variant, and
-``_lib.launches["flash_attention_empty_rows"]`` the launches of the
-empty-row kernel.
+``variant_launches`` counts them per variant, ``sm90_launches`` the
+``"sm90"`` ones per head_dim (each head_dim is a kernel instance of its
+own), and ``_lib.launches["flash_attention_empty_rows"]`` the launches of
+the empty-row kernel. ``sm90_attrs`` reads an ``"sm90"`` instance's
+registers and local (spill) bytes from the card.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -47,10 +53,11 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels import ref as R
 
 HEAD_DIMS = (32, 64, 128, 256)
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 variant_launches = _lib.counter(("sm90", "simt", "decode"))
+sm90_launches = _lib.counter(SM90_HEAD_DIMS)
 
 # the decode kernel's split plan: fill the card's 132 SMs about four times
 # over with (batch, kv head, split) blocks, but give no split fewer than
@@ -65,8 +72,8 @@ DECODE_CHUNK_ALIGN = 64
 
 def _variant(dtype: torch.dtype, Sq: int, H: int) -> str:
     """Which kernel a CUDA call runs: the split-KV decode kernel for one
-    query, the tensor-core kernel for bf16 prefill at head_dim 64 or 128,
-    the SIMT kernel for the rest."""
+    query, the tensor-core kernel for bf16 prefill at head_dim 64, 128 or
+    256, the SIMT kernel for the rest."""
     if Sq == 1:
         return "decode"
     if dtype == torch.bfloat16 and H in SM90_HEAD_DIMS:
@@ -101,6 +108,17 @@ def _has_empty_rows(Sq: int, Sk: int, q_offset: int, causal: bool, window: int) 
         return j_lo > j_hi
 
     return Sq > 0 and (empty(q_offset) or empty(q_offset + Sq - 1))
+
+
+def sm90_attrs(H: int) -> tuple[int, int]:
+    """(registers a thread, local bytes a thread) of the ``"sm90"`` kernel
+    instance for head_dim H, from ``cudaFuncGetAttributes`` on the card.
+    Local bytes are spills and stack; the kernels are written for none."""
+    regs, local = ctypes.c_int(0), ctypes.c_longlong(0)
+    err = _lib.lib().flash_attention_sm90_attrs(H, ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_sm90_attrs({H}) failed: cudaError {err}")
+    return regs.value, local.value
 
 
 def _check(q, k, v):
@@ -151,6 +169,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     elif variant == "sm90":
         _lib.launch("flash_attention_sm90", q.device, *ptrs, B, Sq, Sk, N, K, H, *mask,
                     count_as="flash_attention")
+        sm90_launches[H] += 1
     else:
         _lib.launch("flash_attention", q.device, *ptrs, B, Sq, Sk, N, K, H,
                     int(q.dtype == torch.bfloat16), *mask)

@@ -1,7 +1,9 @@
 """flash_attention's tensor-core kernel (``csrc/flash_attention_sm90.cu``)
 as far as the CPU can check it: which calls the wrapper sends to it, and a
 plain-torch emulation of its arithmetic held to the JAX package's Pallas
-kernel in interpret mode.
+kernel in interpret mode. Its head_dim 64 / 128 instances and its head_dim
+256 instance (a TMA producer, warp-specialised) compute the same terms in
+the same order, so one emulation holds all three.
 
 The emulation repeats what the kernel does, in the kernel's order: bf16
 inputs; per (batch, kv head) the flattened (query, q head) rows in blocks
@@ -82,17 +84,24 @@ def _pallas(q, k, v, dtype, **kw):
     return torch.from_numpy(np.array(out.astype(jnp.float32)))
 
 
-# the kernel's edges, at most 128 queries and keys: Sq * G no multiple of
+# the kernel's edges, at most 150 queries and keys: Sq * G no multiple of
 # 128; Sk no multiple of 64 with q_offset > 0; a window across tile edges;
-# non-causal at G = 4; H = 64 at G = 1
+# non-causal at G = 4; H = 64 at G = 1; then the same edges at H = 256 and
+# G = 2 (gemma3-12b's head_dim and grouping; its local layers' window of
+# 1024 over 4096 keys scaled down to 40 over 150)
 EDGES = [
     (1, 77, 77, 24, 8, 128, True, 0, 0),
     (2, 40, 100, 6, 2, 128, True, 0, 60),
     (1, 120, 120, 8, 2, 64, True, 70, 0),
     (1, 96, 128, 8, 2, 128, False, 0, 0),
     (2, 100, 100, 4, 4, 64, True, 0, 0),
+    (1, 77, 77, 4, 2, 256, True, 0, 0),
+    (1, 40, 100, 4, 2, 256, True, 0, 60),
+    (1, 150, 150, 4, 2, 256, True, 40, 0),
+    (1, 48, 100, 4, 2, 256, False, 0, 0),
 ]
-IDS = ["rows_ragged", "keys_ragged_offset", "window", "noncausal_g4", "h64_g1"]
+IDS = ["rows_ragged", "keys_ragged_offset", "window", "noncausal_g4", "h64_g1",
+       "h256_rows_ragged", "h256_keys_ragged_offset", "h256_window", "h256_noncausal"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -102,7 +111,7 @@ def test_variant(dtype, Sq, H):
     if Sq == 1:
         want = "decode"
     else:
-        want = "sm90" if dtype == torch.bfloat16 and H in (64, 128) else "simt"
+        want = "sm90" if dtype == torch.bfloat16 and H in (64, 128, 256) else "simt"
     assert FA._variant(dtype, Sq, H) == want
 
 
@@ -144,8 +153,27 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert ops.launches["flash_attention"] == 0
 
 
+def test_cpu_h256_bf16_prefill_takes_the_plain_version_and_counts_nothing():
+    """The call the H = 256 instance takes on a card (bf16 prefill, gemma3's
+    G = 2, a window) computes the plain version on the CPU: equal to
+    ``ref.flash_attention_ref`` bit for bit, and no launch counted."""
+    from repro_torch.kernels import ref as R
+
+    q, k, v = _inputs(1, 40, 40, 4, 2, 256)
+    assert FA._variant(q.dtype, 40, 256) == "sm90"
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, window=16, q_offset=3)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.equal(out, R.flash_attention_ref(q, k, v, window=16, q_offset=3))
+    assert FA.variant_launches == {"sm90": 0, "simt": 0, "decode": 0}
+    assert FA.sm90_launches == {64: 0, 128: 0, 256: 0}
+    assert ops.launches["flash_attention"] == 0
+
+
 def test_reset_launches_zeroes_the_variant_counts():
     FA.variant_launches["sm90"] += 3
     FA.variant_launches["simt"] += 1
+    FA.sm90_launches[256] += 3
     ops.reset_launches()
     assert FA.variant_launches == {"sm90": 0, "simt": 0, "decode": 0}
+    assert FA.sm90_launches == {64: 0, 128: 0, 256: 0}

@@ -513,7 +513,11 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
 
 
 # the tensor-core kernel's edges (128 rows, 64 keys a tile), as in
-# chip_smoke.py, and the llama3.2-3b prefill shape; bound as above
+# chip_smoke.py, and the llama3.2-3b prefill shape; then the head_dim 256
+# instance (TMA producer) at gemma3-12b's G = 2: ragged rows, ragged keys
+# with q_offset, a window across tile edges with q_offset, non-causal, G = 3
+# (128 % G != 0), and gemma3-12b's global and local layers at one
+# 4096-token prompt; bound as above
 @pytest.mark.parametrize("B,Sq,Sk,N,K,H,causal,window,q_offset", [
     (1, 77, 77, 24, 8, 128, True, 0, 0),
     (2, 40, 100, 6, 2, 128, True, 0, 60),
@@ -521,10 +525,17 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
     (1, 96, 160, 8, 2, 128, False, 0, 0),
     (2, 300, 300, 4, 4, 64, True, 0, 0),
     (1, 4096, 4096, 24, 8, 128, True, 0, 0),
+    (1, 77, 77, 4, 2, 256, True, 0, 0),
+    (2, 40, 100, 4, 2, 256, True, 0, 60),
+    (1, 300, 400, 4, 2, 256, True, 70, 100),
+    (1, 96, 160, 8, 4, 256, False, 0, 0),
+    (2, 77, 77, 6, 2, 256, True, 0, 0),
+    (1, 4096, 4096, 16, 8, 256, True, 0, 0),
+    (1, 4096, 4096, 16, 8, 256, True, 1024, 0),
 ])
 def test_flash_attention_sm90_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
                                             q_offset):
-    from repro_torch.kernels.flash_attention import variant_launches
+    from repro_torch.kernels.flash_attention import sm90_launches, variant_launches
 
     q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, torch.bfloat16, cuda)
     ops.reset_launches()
@@ -532,7 +543,20 @@ def test_flash_attention_sm90_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, wi
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
     assert variant_launches == {"sm90": 1, "simt": 0, "decode": 0}
+    assert sm90_launches[H] == 1 and sum(sm90_launches.values()) == 1
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=1e-6)
+
+
+def test_flash_attention_sm90_instances_spill_nothing(cuda):
+    """cudaFuncGetAttributes: no local (spill or stack) bytes in any of the
+    tensor-core kernel's instances."""
+    from repro_torch.kernels.flash_attention import SM90_HEAD_DIMS, sm90_attrs
+
+    for H in SM90_HEAD_DIMS:
+        regs, local = sm90_attrs(H)
+        assert 0 < regs <= 255 and local == 0, (H, regs, local)
+    with pytest.raises(RuntimeError):
+        sm90_attrs(32)
 
 
 # the split-KV decode kernel: the CPU emulation's cases
@@ -591,6 +615,7 @@ def test_flash_attention_decode_repeats_bitwise(cuda, q_offset):
     (2, 1, 33, 6, 2, 64, 8, 100, torch.bfloat16, "decode"),
     (1, 64, 64, 8, 2, 32, 8, 40, torch.float32, "simt"),
     (1, 128, 100, 24, 8, 128, 16, 40, torch.bfloat16, "sm90"),
+    (1, 128, 100, 4, 2, 256, 16, 40, torch.bfloat16, "sm90"),
 ])
 def test_flash_attention_with_no_visible_key_averages_v(cuda, B, Sq, Sk, N, K, H, window,
                                                         q_offset, dtype, variant):
@@ -651,6 +676,13 @@ def test_flash_attention_sm90_rejects_other_head_dims(cuda):
     with pytest.raises(RuntimeError):  # cudaErrorInvalidValue, nothing launched
         _lib.launch("flash_attention_sm90", cuda, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     o.data_ptr(), 1, 16, 16, 2, 1, 32, 1, 0, 0, 16, 32**-0.5)
+    # the head_dim 256 instance refuses a k it cannot map for TMA (off a
+    # 16-byte boundary): the launch raises, and nothing retries it elsewhere
+    q, k, v = _attn_inputs(1, 16, 17, 2, 1, 256, torch.bfloat16, cuda)
+    o = torch.empty_like(q)
+    with pytest.raises(RuntimeError):
+        _lib.launch("flash_attention_sm90", cuda, q.data_ptr(), k.data_ptr() + 2, v.data_ptr(),
+                    o.data_ptr(), 1, 16, 16, 2, 1, 256, 1, 0, 0, 16, 256**-0.5)
 
 
 def _rwkv_inputs(B, T, H, hd, dev, seed=0):
