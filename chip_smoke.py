@@ -21,9 +21,12 @@ the result line:
    and power limit, and the TF32 flags the port sets;
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` and print
    nvcc's registers / shared memory / spills per kernel, then one line per
-   instance of the tensor-core attention kernel (head_dim 64, 128, 256) with
-   its registers and local (spill) bytes from ``cudaFuncGetAttributes``
-   (any local byte fails);
+   instance of the bf16 tensor-core attention kernel (head_dim 64, 128, 256)
+   and of the 3xTF32 attention kernel (fp32 and bf16 at head_dim 32, 64,
+   128, 256) with its registers and local (spill) bytes from
+   ``cudaFuncGetAttributes`` (any local byte fails, but the 3xTF32
+   kernel's bf16 instance's at head_dim 256, which only a direct launch
+   reaches, and which is printed);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main paths' shapes and the bench shapes (distill_loss: both
    entries, the t entry and the cross-entropy entry that takes no teacher,
@@ -36,10 +39,11 @@ the result line:
    decode kernel for every call with one query, the tensor-core kernel for
    bf16 prefill (head_dim 64 and 128; 256 through an instance of its own
    with a TMA producer, at its edges and at gemma3-12b's global and local
-   layer shapes) and the SIMT kernel for the rest; each case names the one
-   (and instance) that served it, at every decode case the SIMT kernel, launched
-   directly, is held to the same bound, and rows that see no key (ROADMAP
-   C8) go through each of the three and the empty-row kernel; rwkv6_scan
+   layer shapes) and the 3xTF32 tensor-core kernel for the rest; each case
+   names the one (and instance) that served it, at every decode case the
+   3xTF32 kernel, launched directly, is held to the same bound, and rows
+   that see no key (ROADMAP C8) go through each of the three and the
+   empty-row kernel; rwkv6_scan
    has two: the sequential kernel for T <= 16 and the chunked scan for
    longer T, and each case names the one that served it, extreme decays
    included; skr_rectify has two entries: the map alone, exact, and the
@@ -102,7 +106,7 @@ the result line:
    call at batch 1, with the launch counters zeroed before and held after
    to the counts the layer list predicts (the prefill step's attention on
    the tensor-core kernel, every decode step's on the split-KV decode
-   kernel, none on the SIMT kernel; the prefill step's scans on the chunked
+   kernel, none on the 3xTF32 kernel; the prefill step's scans on the chunked
    kernel, every decode step's on the sequential one); then, for
    llama3.2-3b, decode steps
    at position 4095 of a full cache of random values: wall ms per step
@@ -126,15 +130,15 @@ the result line:
    ``train_lm(checkpoint=)`` on llama3.2-3b reduced to two layers in bf16,
    the file read back with the port's ``load_pytree`` and held bit for bit
    to the card's params and AdamW state;
-12. LM kernel times, as in 3, at the serving path's shapes, and the SIMT
+12. LM kernel times, as in 3, at the serving path's shapes, and the 3xTF32
    attention kernel, launched directly, at the prefill shape beside the
-   tensor-core one and at the decode shapes beside the decode one;
+   bf16 tensor-core one and at the decode shapes beside the decode one;
    gemma3-12b's global and local attention layers (bf16, head_dim 256, a
    4096-token prompt) through the tensor-core kernel's TMA instance beside
-   the SIMT kernel launched directly and SDPA (each SDPA call's backend
-   named from the profiler); the SIMT kernel in fp32 at the llama3.2-3b
-   prefill shape, the calls it keeps, beside fp32 SDPA (TF32 off) and the
-   fp32 bound; the
+   the 3xTF32 kernel launched directly and SDPA (each SDPA call's backend
+   named from the profiler); the 3xTF32 kernel in fp32 at the llama3.2-3b
+   prefill shape, the calls it serves, beside fp32 SDPA (TF32 off), its
+   3xTF32 bound and the fp32-core bound; the
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
    beside the chunked one, and the chunked one's three kernels' device ms
    under the profiler; and
@@ -164,6 +168,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 TIMED_LAUNCHES = 200
 TPU_KERNELS = {
@@ -174,7 +179,7 @@ TPU_KERNELS = {
     "skr_rectify": "src/repro/kernels/skr_rectify.py:33",
     "skr_rectify_map": "src/repro/kernels/skr_rectify.py:33",
     "flash_attention": "src/repro/kernels/flash_attention.py:32",
-    "flash_attention_simt": "src/repro/kernels/flash_attention.py:32",
+    "flash_attention_tf32x3": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_decode": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_sm90_h256": "src/repro/kernels/flash_attention.py:32",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:25",
@@ -188,7 +193,7 @@ SOURCES = {
     "skr_rectify": "src/repro_torch/csrc/skr_rectify.cu",
     "skr_rectify_map": "src/repro_torch/csrc/skr_rectify.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
-    "flash_attention_simt": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_tf32x3": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_decode": "src/repro_torch/csrc/flash_attention_decode.cu",
     "flash_attention_sm90_h256": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
@@ -198,7 +203,7 @@ SOURCES = {
 # one, the tensor-core kernel's head_dim 256 instance (TMA producer) one of
 # its own, and rwkv6_scan's two kernels one each; the values are the keys of
 # drive_lm_path's launches per kernel
-VARIANTS = {"flash_attention": "sm90", "flash_attention_simt": "simt",
+VARIANTS = {"flash_attention": "sm90", "flash_attention_tf32x3": "tf32x3",
             "flash_attention_decode": "decode", "flash_attention_sm90_h256": "sm90_h256"}
 RWKV_VARIANTS = {"rwkv6_scan": "seq", "rwkv6_scan_chunked": "chunked"}
 # distill_loss's JSON rows per entry of ``distill_loss.variant_launches``,
@@ -332,7 +337,14 @@ def build_kernels():
             print("  " + line.strip())
     if "sm_90a" not in report:
         fail("kernels were not compiled for sm_90a")
-    from repro_torch.kernels.flash_attention import SM90_HEAD_DIMS, sm90_attrs
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        HEAD_DIMS,
+        SM90_HEAD_DIMS,
+        sm90_attrs,
+        tf32x3_attrs,
+    )
 
     for H in SM90_HEAD_DIMS:
         regs, local = sm90_attrs(H)
@@ -341,6 +353,14 @@ def build_kernels():
               f"{local} local (spill) bytes a thread")
         if local:
             fail(f"the flash_attention sm90 instance at H {H} uses {local} local bytes")
+    for dtype in (torch.float32, torch.bfloat16):
+        for H in HEAD_DIMS:
+            regs, local = tf32x3_attrs(H, dtype)
+            print(f"flash_attention tf32x3 instance {str(dtype)[6:]} H {H}: {regs} registers "
+                  f"a thread, {local} local (spill) bytes a thread")
+            if local and not (H == 256 and dtype == torch.bfloat16):
+                fail(f"the flash_attention tf32x3 instance {dtype} H {H} uses {local} "
+                     "local bytes")
 
 
 def _distill_inputs(B, N, V, dev, seed=0):
@@ -613,7 +633,7 @@ FLASH_CASES = [
     (2, 40, 100, 4, 2, 64, True, 24),
     (1, 17, 33, 2, 1, 256, True, 0),
     # the head_dim 256 instance's edges in bf16 at gemma3-12b's G = 2
-    # (fp32 on the SIMT kernel): Sq * G no multiple of 128; Sk no multiple
+    # (fp32 on the 3xTF32 kernel): Sq * G no multiple of 128; Sk no multiple
     # of 64 at q_offset 60; a window across tile edges; non-causal; G = 3
     (1, 77, 77, 4, 2, 256, True, 0),
     (2, 40, 100, 4, 2, 256, True, 0),
@@ -649,8 +669,8 @@ DECODE_CASES = [
 # (B, Sq, Sk, N, K, H, causal, window, q_offset)
 C8_CASES = [
     (2, 1, 33, 6, 2, 64, True, 8, 100),  # decode: the plan has no split
-    (1, 64, 64, 8, 2, 32, True, 8, 40),  # simt (fp32 below; bf16 at H 32 too)
-    (1, 128, 100, 24, 8, 128, True, 16, 40),  # sm90 in bf16, simt in fp32
+    (1, 64, 64, 8, 2, 32, True, 8, 40),  # tf32x3 (fp32 below; bf16 at H 32 too)
+    (1, 128, 100, 24, 8, 128, True, 16, 40),  # sm90 in bf16, tf32x3 in fp32
     (1, 128, 100, 4, 2, 256, True, 16, 40),  # sm90's H 256 instance in bf16
     (1, 64, 64, 8, 2, 64, False, 8, 40),  # non-causal
 ]
@@ -686,9 +706,9 @@ def check_flash_attention(dev):
     gemma3-12b's global and local layer shapes run in bf16, through the
     tensor-core kernel's head_dim 256 instance. Each case names the kernel
     that served it, and fails unless that is the one ``_variant`` picks (and,
-    for the tensor-core kernel, the instance of its head_dim). At every
-    decode case (one query) the SIMT kernel, which the wrapper no longer
-    picks there, is also launched directly on the same inputs and held to
+    for the bf16 tensor-core kernel, the instance of its head_dim). At every
+    decode case (one query) the 3xTF32 kernel, which the wrapper does not
+    pick there, is also launched directly on the same inputs and held to
     the same bound. Returns the worst error per JSON row (VARIANTS)."""
     import torch
 
@@ -758,10 +778,10 @@ def check_flash_attention(dev):
                         out.data_ptr(), B, Sq, Sk, N, K, H, int(dtype == torch.bfloat16),
                         int(causal), window, qo, Sk, float(H**-0.5))
             torch.cuda.synchronize()
-            err, ok = held("simt, launched directly", out, want, dtype)
-            worst["flash_attention_simt"] = max(worst["flash_attention_simt"], err)
+            err, ok = held("tf32x3, launched directly", out, want, dtype)
+            worst["flash_attention_tf32x3"] = max(worst["flash_attention_tf32x3"], err)
             if not ok:
-                fail(f"the SIMT flash_attention kernel disagrees with its plain version "
+                fail(f"the tf32x3 flash_attention kernel disagrees with its plain version "
                      f"at {case}")
             del out
         del q, k, v, got, want
@@ -1922,15 +1942,21 @@ def time_lm_kernels(dev):
     4096-token prefill and at a decode step of 8 requests with the queries
     at position 63 (the middle of the serve run's 128 positions) and 4095
     (a full cache); gemma3-12b's global and local layers (head_dim 256, the
-    tensor-core kernel's TMA instance) at a 4096-token prompt; the SIMT
-    kernel in fp32 at the llama3.2-3b prefill shape, the calls it keeps;
+    tensor-core kernel's TMA instance) at a 4096-token prompt; the 3xTF32
+    kernel in fp32 at the llama3.2-3b prefill shape, the calls it serves,
+    and at the reduced configs' (``configs.reduced``: their q and kv heads
+    at head_dim 32, fp32) for 8 and 128 sequences of their max_seq_len;
     rwkv6_scan at a 1024-token prefill (the chunked scan) and a decode step
     (the sequential kernel).
     The bound counts q, o and the k/v rows the masks leave (each read or
     written once) against 3.35 TB/s, and 4 H flops per unmasked (q, k) pair
     and q head (pairs counted with the window) against the bf16
     tensor-core peak (989 TFLOP/s: the card could run this bf16 attention
-    there) or, in fp32, the fp32 peak (67 TFLOP/s: TF32 is off); for the
+    there) or, in fp32, 3 x 4 H flops against the TF32 tensor-core peak
+    (495 TFLOP/s: fp32-accurate products on the tensor cores take three
+    TF32 products, as the 3xTF32 kernel runs them; plain TF32 misses the
+    fp32 bound), with the bound of 4 H flops at the fp32 cores' 67 TFLOP/s
+    printed beside it; for the
     scan, r, k, v, w, u, s0 read and y, sT written once, and 5 hd^2 + 5 hd
     flops per token and head (an FMA as two: y's FMA and the state's
     multiply and FMA per element of S, and the O(hd) bonus term) against
@@ -1940,17 +1966,21 @@ def time_lm_kernels(dev):
     unmasked over the cache's first pos + 1 rows at decode), its backend
     named from the profiler; the scan has none. The wrapper runs the
     tensor-core kernel at bf16 prefill and the split-KV kernel at decode; at
-    each of those shapes the SIMT attention kernel, which it does not pick
+    each of those shapes the 3xTF32 attention kernel, which it does not pick
     there, is launched directly, timed beside them and held to the same
     bound; so is the sequential rwkv6_scan kernel at the prefill shape."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels import ref as R
 
     rows = {}
     bf16 = torch.bfloat16
+    small = reduced(get_arch("llama3.2-3b"))
+    red = (small.max_seq_len, small.max_seq_len, small.num_heads, small.num_kv_heads,
+           small.head_dim)
     for name, tag, (B, Sq, Sk, N, K, H), qo, window, dtype in [
             ("flash_attention", "prefill", FLASH_PREFILL, 0, 0, bf16),
             ("flash_attention_decode", "decode", FLASH_DECODE, 63, 0, bf16),
@@ -1958,13 +1988,18 @@ def time_lm_kernels(dev):
             ("flash_attention_sm90_h256", "gemma3_global", GEMMA3_PREFILL, 0, 0, bf16),
             ("flash_attention_sm90_h256", "gemma3_local", GEMMA3_PREFILL, 0, GEMMA3_WINDOW,
              bf16),
-            ("flash_attention_simt", "prefill_fp32", FLASH_PREFILL, 0, 0, torch.float32)]:
+            ("flash_attention_tf32x3", "prefill_fp32", FLASH_PREFILL, 0, 0, torch.float32),
+            ("flash_attention_tf32x3", "reduced_fp32_b8", (8, *red), 0, 0, torch.float32),
+            ("flash_attention_tf32x3", "reduced_fp32_b128", (128, *red), 0, 0,
+             torch.float32)]:
         q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev)
         n_keys = min(Sk, qo + Sq)
         pairs = attn_pairs(Sq, Sk, qo, True, window)
         size = q.element_size()
         nbytes = size * (2 * B * Sq * N * H + 2 * B * n_keys * K * H)
-        peak = BF16_OPS_PER_S if dtype == bf16 else FP32_OPS_PER_S
+        flops = 4 * B * N * H * pairs
+        # fp32: three TF32 products a pair on the tensor cores (3xTF32)
+        ops_, peak = (flops, BF16_OPS_PER_S) if dtype == bf16 else (3 * flops, TF32_OPS_PER_S)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if Sq == 1:
             kc, vc = kt[:, :, :qo + 1], vt[:, :, :qo + 1]
@@ -1982,23 +2017,30 @@ def time_lm_kernels(dev):
         shape = (f"q {(B, Sq, N, H)} kv {(B, Sk, K, H)} q_offset={qo}"
                  + (f" window={window}" if window else "") + f" {str(dtype)[6:]}")
         plain = lambda: R.flash_attention_ref(q, k, v, window=window, q_offset=qo)  # noqa: E731
-        launches = TIMED_LAUNCHES if Sq == 1 else 5
+        launches = 5 if Sq * Sk >= 2**20 else TIMED_LAUNCHES  # 5 at a 4096-token prompt
         print(f"SDPA at {tag} {shape}: backend {sdpa_backend(lib)}")
         rows[(name, tag, qo)] = _timed(
             name, tag, shape, lambda: ops.flash_attention(q, k, v, window=window, q_offset=qo),
-            plain, lib, nbytes, 4 * B * N * H * pairs, peak, launches=launches)
-        if name != "flash_attention_simt":
+            plain, lib, nbytes, ops_, peak, launches=launches)
+        if dtype != bf16:
+            fp32_bound, _ = bound_ms(nbytes, flops, FP32_OPS_PER_S)
+            row = rows[(name, tag, qo)]
+            print(f"  {name} {tag}: {row['bound_ms'] / row['ms']:.3f} of its bound "
+                  f"({row['bound_by']}, 3xTF32); "
+                  f"a kernel on the fp32 cores (4 H flops a pair at 67 TFLOP/s) is bound at "
+                  f"{fp32_bound:.6f} ms")
+        if name != "flash_attention_tf32x3":
             out = torch.empty_like(q)
-            simt = lambda: _lib.launch(  # noqa: E731
+            tf32x3 = lambda: _lib.launch(  # noqa: E731
                 "flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), B, Sq, Sk, N, K, H, int(dtype == bf16), 1, window, qo, Sk,
                 float(H**-0.5))
-            rows[("flash_attention_simt", tag, qo)] = _timed(
-                "flash_attention_simt", tag, shape, simt, plain, lib, nbytes,
-                4 * B * N * H * pairs, peak, launches=launches)
+            rows[("flash_attention_tf32x3", tag, qo)] = _timed(
+                "flash_attention_tf32x3", tag, shape, tf32x3, plain, lib, nbytes, ops_, peak,
+                launches=launches)
             want = plain().float()
             if ((out.float() - want).abs() > BF16_ULP * want.abs() + 1e-6).any():
-                fail(f"the SIMT flash_attention kernel disagrees at the {tag} shape, "
+                fail(f"the tf32x3 flash_attention kernel disagrees at the {tag} shape, "
                      f"q_offset {qo}")
         del q, k, v, qt, kt, vt
     rows.update(time_rwkv_kernels(dev))
@@ -2172,9 +2214,9 @@ def drive_lm_path(dev, arch, prefill_len):
     variants = dict(variant_launches)
     n_attn = sum(b.kind == "attn" for b in cfg.blocks)
     # the prefill step's attention layers on the tensor-core kernel, the
-    # decode steps' (Sq = 1) on the split-KV decode kernel, none on the SIMT
-    # kernel (both serving models are bf16 at head_dim 64 or 128)
-    want_variants = {"sm90": n_attn, "simt": 0, "decode": want["flash_attention"] - n_attn}
+    # decode steps' (Sq = 1) on the split-KV decode kernel, none on the
+    # 3xTF32 kernel (both serving models are bf16 at head_dim 64 or 128)
+    want_variants = {"sm90": n_attn, "tf32x3": 0, "decode": want["flash_attention"] - n_attn}
     # the prefill step's scans (T = prefill_len) on the chunked kernel, the
     # decode steps' (T = 1) on the sequential one
     rwkv = dict(rwkv_launches)
@@ -2567,7 +2609,7 @@ def main() -> None:
     # each JSON row counts its own CUDA kernel's launches: flash_attention's
     # the tensor-core kernel's at head_dim 64 / 128, flash_attention_sm90_h256's
     # its head_dim 256 instance's (no main path has that head_dim yet),
-    # flash_attention_simt's the SIMT kernel's, flash_attention_decode's the
+    # flash_attention_tf32x3's the 3xTF32 kernel's, flash_attention_decode's the
     # split-KV decode kernel's; rwkv6_scan's the sequential kernel's,
     # rwkv6_scan_chunked's the chunked scan's
     lm_variants = {**VARIANTS, **RWKV_VARIANTS}
@@ -2627,7 +2669,7 @@ def main() -> None:
     pick = {"distill_loss_fwd": ("main", 1.5), "distill_loss_bwd": ("main", 1.5),
             "distill_loss_fwd_ce": ("main", 0.0), "distill_loss_bwd_ce": ("main", 0.0),
             "skr_rectify": ("main", None), "skr_rectify_map": ("main", None),
-            "flash_attention": ("prefill", 0), "flash_attention_simt": ("prefill_fp32", 0),
+            "flash_attention": ("prefill", 0), "flash_attention_tf32x3": ("prefill_fp32", 0),
             "flash_attention_decode": ("decode", 4095),
             "flash_attention_sm90_h256": ("gemma3_global", 0),
             "rwkv6_scan": ("decode", None), "rwkv6_scan_chunked": ("prefill", None)}

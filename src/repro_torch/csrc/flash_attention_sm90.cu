@@ -4,7 +4,7 @@
 // calls the wrapper (repro_torch/kernels/flash_attention.py:_variant) sends
 // here: q, k, v in bf16, head_dim H in {64, 128, 256}, more than one query
 // (a prefill). Decode (Sq = 1) goes to flash_attention_decode.cu; fp32
-// prefill at every head_dim, and bf16 prefill at H = 32, stay on the SIMT
+// prefill at every head_dim, and bf16 prefill at H = 32, go to the 3xTF32
 // kernel in flash_attention.cu. H = 64 and 128 run flash_sm90_kernel, the
 // design below; H = 256 (gemma3-12b's) runs flash_sm90_h256_kernel, the
 // same arithmetic with a TMA producer, described above it.

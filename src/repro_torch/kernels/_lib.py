@@ -73,6 +73,9 @@ _SIGNATURES = {
     # H, regs out, local bytes out (no stream)
     "flash_attention_sm90_attrs": [_I, ctypes.POINTER(ctypes.c_int),
                                    ctypes.POINTER(ctypes.c_longlong)],
+    # H, is_bf16, regs out, local bytes out (no stream)
+    "flash_attention_attrs": [_I, _I, ctypes.POINTER(ctypes.c_int),
+                              ctypes.POINTER(ctypes.c_longlong)],
     # q, k, v, o, ws, B, Sk, N, K, H, is_bf16, causal, window, q_offset,
     # k_len, scale, chunk, splits, stream (Sq = 1)
     "flash_attention_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,

@@ -21,8 +21,11 @@ the plain version in ``ref.py``:
   (Sq > 1) at head_dim 64, 128 or 256, both products on the tensor cores
   (wgmma); head_dim 256 (gemma3-12b's) runs an instance of its own, with a
   TMA producer warpgroup;
-- ``"simt"``, ``repro_torch/csrc/flash_attention.cu``: the rest of prefill
-  (fp32 at every head_dim, bf16 at head_dim 32), on the fp32 cores.
+- ``"tf32x3"``, ``repro_torch/csrc/flash_attention.cu``: the rest of
+  prefill (fp32 at every head_dim, bf16 at head_dim 32), both products on
+  the tensor cores as 3xTF32 (each operand split into a TF32 high part and
+  a TF32 residual, three mma.sync products accumulated in fp32), which
+  keeps fp32's accuracy.
 
 A query row whose visible key range is empty (a window that ends before
 the keys do, ROADMAP C8) gets the mean of v over all Sk keys, as the plain
@@ -40,8 +43,8 @@ return an output with no ``grad_fn``.
 ``variant_launches`` counts them per variant, ``sm90_launches`` the
 ``"sm90"`` ones per head_dim (each head_dim is a kernel instance of its
 own), and ``_lib.launches["flash_attention_empty_rows"]`` the launches of
-the empty-row kernel. ``sm90_attrs`` reads an ``"sm90"`` instance's
-registers and local (spill) bytes from the card.
+the empty-row kernel. ``sm90_attrs`` and ``tf32x3_attrs`` read an
+instance's registers and local (spill) bytes from the card.
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ HEAD_DIMS = (32, 64, 128, 256)
 SM90_HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
-variant_launches = _lib.counter(("sm90", "simt", "decode"))
+variant_launches = _lib.counter(("sm90", "tf32x3", "decode"))
 sm90_launches = _lib.counter(SM90_HEAD_DIMS)
 
 # the decode kernel's split plan: fill the card's 132 SMs about four times
@@ -72,13 +75,13 @@ DECODE_CHUNK_ALIGN = 64
 
 def _variant(dtype: torch.dtype, Sq: int, H: int) -> str:
     """Which kernel a CUDA call runs: the split-KV decode kernel for one
-    query, the tensor-core kernel for bf16 prefill at head_dim 64, 128 or
-    256, the SIMT kernel for the rest."""
+    query, the bf16 tensor-core kernel for bf16 prefill at head_dim 64,
+    128 or 256, the 3xTF32 kernel for the rest."""
     if Sq == 1:
         return "decode"
     if dtype == torch.bfloat16 and H in SM90_HEAD_DIMS:
         return "sm90"
-    return "simt"
+    return "tf32x3"
 
 
 def _decode_plan(B: int, K: int, k_len: int, q_offset: int, causal: bool,
@@ -110,15 +113,28 @@ def _has_empty_rows(Sq: int, Sk: int, q_offset: int, causal: bool, window: int) 
     return Sq > 0 and (empty(q_offset) or empty(q_offset + Sq - 1))
 
 
-def sm90_attrs(H: int) -> tuple[int, int]:
-    """(registers a thread, local bytes a thread) of the ``"sm90"`` kernel
-    instance for head_dim H, from ``cudaFuncGetAttributes`` on the card.
-    Local bytes are spills and stack; the kernels are written for none."""
+def _attrs(entry: str, *args: int) -> tuple[int, int]:
+    """(registers a thread, local bytes a thread) that C entry ``entry``
+    reads with ``cudaFuncGetAttributes`` for the instance ``args`` name.
+    Local bytes are spills and stack."""
     regs, local = ctypes.c_int(0), ctypes.c_longlong(0)
-    err = _lib.lib().flash_attention_sm90_attrs(H, ctypes.byref(regs), ctypes.byref(local))
+    err = getattr(_lib.lib(), entry)(*args, ctypes.byref(regs), ctypes.byref(local))
     if err != 0:
-        raise RuntimeError(f"flash_attention_sm90_attrs({H}) failed: cudaError {err}")
+        raise RuntimeError(f"{entry}{args} failed: cudaError {err}")
     return regs.value, local.value
+
+
+def sm90_attrs(H: int) -> tuple[int, int]:
+    """(registers, local bytes) a thread of the ``"sm90"`` kernel instance
+    for head_dim H, on the card; the kernels are written for no local
+    bytes."""
+    return _attrs("flash_attention_sm90_attrs", H)
+
+
+def tf32x3_attrs(H: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(registers, local bytes) a thread of the ``"tf32x3"`` kernel
+    instance for head_dim H and dtype, on the card."""
+    return _attrs("flash_attention_attrs", H, int(dtype == torch.bfloat16))
 
 
 def _check(q, k, v):

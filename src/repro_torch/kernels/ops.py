@@ -11,7 +11,7 @@ launches per entry (``map``, ``fused``),
 ``kernels.distill_loss.variant_launches``, distill_loss's
 launches per entry and kernel (``fwd:regs``, ``fwd_ce:stream``,
 ``bwd_ce:slices``, ...), ``kernels.flash_attention.variant_launches``,
-flash_attention's (``sm90``, ``simt``, ``decode``),
+flash_attention's (``sm90``, ``tf32x3``, ``decode``),
 ``kernels.flash_attention.sm90_launches``, the ``sm90`` ones per head_dim,
 and
 ``kernels.rwkv6_scan.variant_launches``, rwkv6_scan's (``seq``,

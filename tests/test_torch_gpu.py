@@ -542,7 +542,7 @@ def test_flash_attention_sm90_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, wi
     got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert variant_launches == {"sm90": 1, "simt": 0, "decode": 0}
+    assert variant_launches == {"sm90": 1, "tf32x3": 0, "decode": 0}
     assert sm90_launches[H] == 1 and sum(sm90_launches.values()) == 1
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=1e-6)
 
@@ -557,6 +557,59 @@ def test_flash_attention_sm90_instances_spill_nothing(cuda):
         assert 0 < regs <= 255 and local == 0, (H, regs, local)
     with pytest.raises(RuntimeError):
         sm90_attrs(32)
+
+
+# the 3xTF32 kernel (csrc/flash_attention.cu) at head_dim 256 in fp32 (64
+# rows a block, 32-key tiles): ragged rows and keys with q_offset, and a
+# window across tile edges; within 3e-5
+@pytest.mark.parametrize("B,Sq,Sk,N,K,H,causal,window,q_offset", [
+    (1, 77, 100, 4, 2, 256, True, 0, 23),
+    (1, 200, 200, 8, 2, 256, True, 70, 0),
+])
+def test_flash_attention_tf32x3_fp32_h256_matches_plain(cuda, B, Sq, Sk, N, K, H, causal,
+                                                        window, q_offset):
+    from repro_torch.kernels.flash_attention import variant_launches
+
+    q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, torch.float32, cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert variant_launches == {"sm90": 0, "tf32x3": 1, "decode": 0}
+    torch.testing.assert_close(got, want, rtol=0.0, atol=3e-5)
+
+
+# decode shapes (one query), which the wrapper sends to the split-KV
+# kernel, launched directly on the 3xTF32 kernel in fp32: llama3.2-3b's
+# step against a full 4096-long cache, and G = 1 at head_dim 32; within 3e-5
+@pytest.mark.parametrize("B,Sk,N,K,H,q_offset", [(8, 4096, 24, 8, 128, 4095),
+                                                 (2, 300, 8, 8, 32, 299)])
+def test_flash_attention_tf32x3_launched_at_decode_matches_plain(cuda, B, Sk, N, K, H,
+                                                                 q_offset):
+    q, k, v = _attn_inputs(B, 1, Sk, N, K, H, torch.float32, cuda)
+    got = torch.empty_like(q)
+    _lib.launch("flash_attention", cuda, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                got.data_ptr(), B, 1, Sk, N, K, H, 0, 1, 0, q_offset, Sk, float(H**-0.5))
+    want = R.flash_attention_ref(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0.0, atol=3e-5)
+
+
+def test_flash_attention_tf32x3_instances_spill_nothing(cuda):
+    """cudaFuncGetAttributes: no local (spill or stack) bytes in the 3xTF32
+    kernel's instances, in fp32 and bf16, but the bf16 one at head_dim 256
+    (reached only by a direct launch), which builds within a thread's 255
+    registers."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, tf32x3_attrs
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for H in HEAD_DIMS:
+            regs, local = tf32x3_attrs(H, dtype)
+            assert 0 < regs <= 255, (H, dtype, regs)
+            if not (H == 256 and dtype == torch.bfloat16):
+                assert local == 0, (H, dtype, regs, local)
+    with pytest.raises(RuntimeError):
+        tf32x3_attrs(48, torch.float32)
 
 
 # the split-KV decode kernel: the CPU emulation's cases
@@ -589,7 +642,7 @@ def test_flash_attention_decode_matches_plain(cuda, B, Sk, N, K, H, causal, wind
     got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert variant_launches == {"sm90": 0, "simt": 0, "decode": 1}
+    assert variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 1}
     assert got.dtype == dtype
     rtol, atol = (2.0**-7, 1e-6) if dtype == torch.bfloat16 else (0.0, 3e-5)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
@@ -613,7 +666,7 @@ def test_flash_attention_decode_repeats_bitwise(cuda, q_offset):
 @pytest.mark.parametrize("B,Sq,Sk,N,K,H,window,q_offset,dtype,variant", [
     (2, 1, 33, 6, 2, 64, 8, 100, torch.float32, "decode"),
     (2, 1, 33, 6, 2, 64, 8, 100, torch.bfloat16, "decode"),
-    (1, 64, 64, 8, 2, 32, 8, 40, torch.float32, "simt"),
+    (1, 64, 64, 8, 2, 32, 8, 40, torch.float32, "tf32x3"),
     (1, 128, 100, 24, 8, 128, 16, 40, torch.bfloat16, "sm90"),
     (1, 128, 100, 4, 2, 256, 16, 40, torch.bfloat16, "sm90"),
 ])
@@ -666,7 +719,7 @@ def test_flash_attention_variants_are_counted(cuda):
                         q_offset=7)  # decode: split-KV
     ops.flash_attention(*(t.float() for t in prefill))  # fp32
     ops.flash_attention(*_attn_inputs(1, 16, 16, 6, 2, 32, torch.bfloat16, cuda))  # H = 32
-    assert variant_launches == {"sm90": 1, "simt": 2, "decode": 1}
+    assert variant_launches == {"sm90": 1, "tf32x3": 2, "decode": 1}
     assert ops.launches["flash_attention"] == 4
 
 
