@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the FedEEC trainer (the
 plain path and the simulator's scenario path), the HierFAVG-family
-baselines, checkpoint and resume, the LM serving path and the LM training
-path.
+baselines, checkpoint and resume, the telemetry plane, the LM serving path
+and the LM training path.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rwkv-chunks  # only phases 1-2 and the chunked
                                          # rwkv6_scan at each chunk length
     python3 chip_smoke.py --distill      # only phases 1-2 and distill_loss's
                                          # checks and times
-    python3 chip_smoke.py --baselines    # only phases 1-2, 7 and 11's LM
+    python3 chip_smoke.py --baselines    # only phases 1-2, 7 and 12's LM
                                          # checkpoint
+    python3 chip_smoke.py --tracing      # only phases 1-2, 6's mobile_clients
+                                         # run and 8
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
@@ -100,7 +102,22 @@ the result line:
    uninterrupted, stopped after 2 rounds with a snapshot, and resumed, the
    event log without evals and the eval times held to the uninterrupted
    run's;
-8. LM serving, for llama3.2-3b then rwkv6-1.6b at full width and depth in
+8. tracing: the 11 gate scenarios of 6 again, each under a ``Tracer``
+   (which takes the simulator's general pricing loop), held to the same
+   table and to one item span per priced item; ``run_experiment("fedeec",
+   FLConfig(), rounds=3, scenario="mobile_clients", tracer=Tracer())``
+   held to 6's untraced run (the event log without evals, eval times and
+   dispatch stats; the signatures printed), its Chrome trace written and
+   read back through ``repro_torch.obs.report``, the categories {churn,
+   dispatch, execute, item, round, eval, kernel}, the ``kernel.*`` spans
+   per op equal to ``kernel_dispatch_seconds``'s observations, to
+   distill_loss's forward launches and to the fused SKR launches, each
+   round span within 2% or 5 ms of ``round_s``, and the traced round host
+   s printed beside the untraced; one traced plain round at ``FLConfig()``
+   with one ``execute`` span per work item; and ``BENCH_obs.json``'s
+   contract at its configuration (metric names, the categories plus
+   ``kernel``, round 0's gate). Its launches stay out of the kernels line;
+9. LM serving, for llama3.2-3b then rwkv6-1.6b at full width and depth in
    bf16: ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
    64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
    call at batch 1, with the launch counters zeroed before and held after
@@ -113,24 +130,24 @@ the result line:
    (host clock, ending in a sync) and device ms per step (the union of
    kernel intervals under ``torch.profiler``), with the attention kernel's
    share;
-9. LM parity: each architecture at full width, two layers, fp32, on the
+10. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
    128-token prefill;
-10. LM training: ``train_lm("llama3.2-3b", use_reduced=False, steps=4,
+11. LM training: ``train_lm("llama3.2-3b", use_reduced=False, steps=4,
    batch=2, seq=1024, use_kernels=True)``, full width and depth in bf16,
    with the launch counters zeroed before and held after to steps x
    seq / loss_chunk distill_loss launches each way (and none of the
    forward-only attention kernels): wall s, tokens/s, loss and grad norm
    per step, and the peak memory; then one step's breakdown under
    ``torch.profiler`` (device busy ms, idle share, top kernels);
-11. training parity: llama3.2-3b at full width, two layers, fp32, one
+12. training parity: llama3.2-3b at full width, two layers, fp32, one
    ``make_train_step`` on the card and on the CPU from the same params and
    ``token_batches`` batch (loss, grad norm, every gradient leaf), and on
    the card the loss with ``use_kernels`` on against off; then
    ``train_lm(checkpoint=)`` on llama3.2-3b reduced to two layers in bf16,
    the file read back with the port's ``load_pytree`` and held bit for bit
    to the card's params and AdamW state;
-12. LM kernel times, as in 3, at the serving path's shapes, and the 3xTF32
+13. LM kernel times, as in 3, at the serving path's shapes, and the 3xTF32
    attention kernel, launched directly, at the prefill shape beside the
    bf16 tensor-core one and at the decode shapes beside the decode one;
    gemma3-12b's global and local attention layers (bf16, head_dim 256, a
@@ -146,7 +163,7 @@ the result line:
    backward, beside ``F.cross_entropy`` on the same logits, printed on a
    line of its own. They come last, so that nothing the timing leaves
    allocated enters a main path's peak memory;
-13. the next round of each serial and batched run of 6 under
+14. the next round of each serial and batched run of 6 under
    ``torch.profiler``: kernels in the round, device busy s and idle share
    (last, after every other profiler window).
 
@@ -1348,17 +1365,21 @@ SIM_FAULT_COUNTERS = ("sim_transfer_failures_total", "sim_transfer_retries_total
                       "sim_link_flaps_total")
 
 
-def check_sim_signatures(dev):
+def check_sim_signatures(dev, traced=False):
     """Every named scenario at the gate configuration on the card, with
     the trainer's coalesced dispatch: the event signature equal to the
     tracked table's, and the fault counters of lossy_links and
     regional_outage equal to BENCH_faults.json's; then lossy_links once
-    more with serial dispatch forced, held to SIM_SERIAL_DISPATCH."""
+    more with serial dispatch forced, held to SIM_SERIAL_DISPATCH.
+    ``traced`` runs each under a ``Tracer``, which takes the simulator's
+    general pricing loop: the same table, and one item span per priced
+    item (one ``pair_start`` each)."""
     import torch
 
     from repro_torch.configs.fedeec_paper import paper_setting
     from repro_torch.fl.api import create_algorithm
     from repro_torch.fl.engine import build_problem
+    from repro_torch.obs.trace import Tracer, tracing
     from repro_torch.sim.engine import SimEngine
     from repro_torch.sim.scenarios import get_scenario, list_scenarios
 
@@ -1374,9 +1395,18 @@ def check_sim_signatures(dev):
         trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=dev)
         if serial:
             trainer.batch_signature = lambda item: None
-        engine = SimEngine(trainer, get_scenario(name), seed=cfg.seed)
-        sig = engine.run(2).signature()
+        tracer = Tracer() if traced else None
+        engine = SimEngine(trainer, get_scenario(name), seed=cfg.seed, tracer=tracer)
+        with tracing(tracer):
+            sig = engine.run(2).signature()
         torch.cuda.synchronize()
+        if traced:
+            n_items = sum(sp.cat == "item" for sp in tracer.spans)
+            print(f"{name:<16} traced: {len(tracer.spans)} spans, {n_items} item spans, "
+                  f"{engine.log.count('pair_start')} pair_start events")
+            if n_items != engine.log.count("pair_start") or n_items == 0:
+                fail(f"scenario {name}: {n_items} item spans for "
+                     f"{engine.log.count('pair_start')} priced items")
         want = SIM_SERIAL_DISPATCH[key] if serial else table[key]
         snap = engine.metrics.snapshot()
         got = {c: int(snap.get(c, {}).get("value", 0)) for c in SIM_FAULT_COUNTERS}
@@ -1395,7 +1425,8 @@ def check_sim_signatures(dev):
             print(f"{'':<16} fault counters {got}")
             if got != tracked:
                 fail(f"scenario {name}: fault counters {got} != BENCH_faults.json {tracked}")
-    print(f"{len(runs)} gate runs on the card: {time.perf_counter() - t0:.3f} s")
+    print(f"{len(runs)} {'traced ' * traced}gate runs on the card: "
+          f"{time.perf_counter() - t0:.3f} s")
 
 
 def item_launches(item, client_data) -> dict:
@@ -1465,7 +1496,8 @@ def drive_sim_path(dev):
     scenario="mobile_clients")`` on the card, full width, with coalesced
     dispatch and the launch counters zeroed just before and read just
     after, held to the CPU replay's prediction; the card's log without its
-    evals and its dispatch stats equal to the replay's."""
+    evals and its dispatch stats equal to the replay's. Returns the
+    launches and the run's result."""
     import math
 
     import torch
@@ -1521,7 +1553,202 @@ def drive_sim_path(dev):
     if skr_split != {"map": 0, "fused": want["skr_rectify"]}:
         fail(f"skr_rectify by entry {skr_split} on the scenario path: one fused launch a "
              f"teacher step predicted")
-    return counts
+    return counts, res
+
+
+# every op of kernels/ops.py, by its kernel_dispatch_seconds label
+KERNEL_LABELS = ("softmax_xent", "softmax_xent_batched", "distill_loss",
+                 "distill_loss_batched", "skr_rectify", "skr_rectify_batched",
+                 "skr_process", "skr_process_batched", "flash_attention", "rwkv6_scan")
+FORWARD_LABELS = KERNEL_LABELS[:4]  # one distill_loss forward launch a call
+TRACED_CATEGORIES = {"churn", "dispatch", "execute", "item", "round", "eval", "kernel"}
+
+
+def _dispatch_counts() -> dict:
+    from repro_torch.obs.metrics import global_registry
+
+    reg = global_registry()
+    return {k: reg.histogram("kernel_dispatch_seconds", kernel=k).count
+            for k in KERNEL_LABELS}
+
+
+def drive_traced_sim_path(dev, untraced):
+    """``run_experiment("fedeec", FLConfig(), rounds=3,
+    scenario="mobile_clients", tracer=Tracer())`` on the card, held to the
+    untraced run ``untraced`` of ``drive_sim_path``: the same schedule; the
+    Chrome trace written and read back through the report CLI; the span
+    categories; per op label, the kernel spans equal to the observations of
+    ``kernel_dispatch_seconds``; the forward ops' spans equal to
+    distill_loss's forward launches (both entries) and the ``skr_process*``
+    spans to the fused entry's; each round span's host seconds within 2% or
+    5 ms of ``round_s``. The launches here are not added to the kernels
+    line's counts (``add_variant_launches`` is not called), so its launch
+    column stays the untraced main paths'."""
+    import contextlib
+    import io
+    import tempfile
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.engine import run_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.distill_loss import variant_launches as distill_variants
+    from repro_torch.kernels.skr_rectify import variant_launches as skr_variants
+    from repro_torch.obs import report
+    from repro_torch.obs.trace import Tracer
+
+    cfg, rounds, scenario = FLConfig(), 3, "mobile_clients"
+    before = _dispatch_counts()
+    ops.reset_launches()
+    tracer = Tracer()
+    res = run_experiment("fedeec", cfg, rounds=rounds, scenario=scenario, tracer=tracer,
+                         device=dev)
+    torch.cuda.synchronize()
+    fwd = sum(n for k, n in distill_variants.items() if k.split(":")[0] in ("fwd", "fwd_ce"))
+    fused, skr_map = skr_variants["fused"], skr_variants["map"]
+    observed = {k: n - before[k] for k, n in _dispatch_counts().items()}
+    spans = Counter(sp.name[len("kernel."):] for sp in tracer.spans if sp.cat == "kernel")
+    cats = Counter(sp.cat for sp in tracer.spans)
+    round_spans = sorted((sp for sp in tracer.spans if sp.cat == "round"),
+                         key=lambda sp: sp.args["round"])
+    span_s = [sp.host_dur for sp in round_spans]
+    print(f"traced round host s (churn + items, ending in a sync): {res.round_s}")
+    print(f"untraced round host s (drive_sim_path):               {untraced.round_s}")
+    print(f"round span host s:                                    {span_s}")
+    print(f"run wall s traced {res.wall_s:.3f}, untraced {untraced.wall_s:.3f}")
+    print(f"spans by category: {dict(sorted(cats.items()))}  instants {len(tracer.instants)}")
+    print(f"kernel spans by op: {dict(sorted(spans.items()))}")
+    print(f"kernel_dispatch_seconds observations by op: "
+          f"{ {k: n for k, n in observed.items() if n} }")
+    print(f"distill_loss forward launches (both entries): {fwd}  by entry and variant: "
+          f"{dict(distill_variants)}")
+    print(f"skr_rectify launches by entry: {dict(skr_variants)}")
+    print(f"event signature traced {res.event_signature}, untraced {untraced.event_signature}"
+          f" ({'equal' if res.event_signature == untraced.event_signature else 'differ'}); "
+          f"cloud accuracy curve traced {res.acc_curve}, untraced {untraced.acc_curve}")
+    # the schedule holds bit for bit; the evals' accuracies may differ
+    # between two runs on the card (cuDNN's backward, ROADMAP C5), and then
+    # so does the signature, which hashes them
+    if _without_evals(res.event_log) != _without_evals(untraced.event_log) or \
+            res.sim_times != untraced.sim_times:
+        fail("the traced run's event log (without evals) or eval times differ from the "
+             "untraced run's")
+    if res.dispatch_stats != untraced.dispatch_stats:
+        fail(f"dispatch stats traced {res.dispatch_stats} != untraced "
+             f"{untraced.dispatch_stats}")
+    if set(cats) != TRACED_CATEGORIES:
+        fail(f"span categories {sorted(cats)} != {sorted(TRACED_CATEGORIES)}")
+    if cats["item"] != res.event_counts.get("pair_start", 0):
+        fail(f"{cats['item']} item spans for {res.event_counts.get('pair_start')} items")
+    if any(spans[k] != observed[k] for k in KERNEL_LABELS) or set(spans) - set(KERNEL_LABELS):
+        fail(f"kernel spans {dict(spans)} != kernel_dispatch_seconds counts {observed}")
+    if sum(spans[k] for k in FORWARD_LABELS) != fwd or fwd <= 0:
+        fail(f"forward op spans {sum(spans[k] for k in FORWARD_LABELS)} != distill_loss "
+             f"forward launches {fwd}")
+    if spans["skr_process"] + spans["skr_process_batched"] != fused or fused <= 0 or skr_map:
+        fail(f"skr_process spans != skr_rectify fused launches {dict(skr_variants)}")
+    if [sp.args["round"] for sp in round_spans] != list(range(rounds)):
+        fail(f"round spans {[sp.name for sp in round_spans]}")
+    for r, (a, b) in enumerate(zip(span_s, res.round_s)):
+        if abs(a - b) > max(0.02 * b, 0.005):
+            fail(f"round {r}: span host s {a} vs round_s {b}, beyond 2% or 5 ms")
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "trace.json")
+        tracer.to_json(path)
+        doc = json.loads(Path(path).read_text())
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = report.main([path, "--json"])
+    file_cats = {e["cat"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    rep = json.loads(out.getvalue()) if rc == 0 else []
+    print(f"trace file: {len(doc['traceEvents'])} events, categories {sorted(file_cats)}; "
+          f"report --json: rc {rc}, " + ", ".join(
+              f"round {r['round']} gated by {r['gate_node']} ({r['gate_factor']}, "
+              f"{r['makespan_s']} sim-s)" for r in rep))
+    if rc != 0 or [r["round"] for r in rep] != list(range(rounds)):
+        fail(f"the report CLI read the trace back with rc {rc}: {rep}")
+    if file_cats != TRACED_CATEGORIES:
+        fail(f"trace file categories {sorted(file_cats)}")
+
+
+def drive_traced_plain_round(dev):
+    """``run_experiment("fedeec", FLConfig(), rounds=1, tracer=Tracer())``
+    on the plain path: one ``execute`` span per work item of the round,
+    the trainer's own items, in its order."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem, run_experiment
+    from repro_torch.obs.trace import Tracer
+
+    cfg = FLConfig()
+    _, tree, client_data, auto = build_problem(cfg, device=dev)
+    trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=dev)
+    items = [(it.kind, it.node, it.peer) for it in trainer.work_items(0, trainer.participates)]
+    del trainer
+    tracer = Tracer()
+    res = run_experiment("fedeec", cfg, rounds=1, tracer=tracer, device=dev)
+    execs = [(sp.name, sp.node, sp.args["peer"]) for sp in tracer.spans
+             if sp.cat == "execute"]
+    cats = sorted({sp.cat for sp in tracer.spans})
+    print(f"plain round: {len(execs)} execute spans for {len(items)} work items, "
+          f"span categories {cats}, round host s {res.round_s}")
+    if execs != [(f"execute {k} {n}", n, p) for k, n, p in items] or not items:
+        fail("the plain round's execute spans are not one per work item")
+    if cats != ["execute", "kernel"]:
+        fail(f"plain round span categories {cats}")
+
+
+def check_bench_obs(dev):
+    """``BENCH_obs.json``'s contract, read as data, at its configuration
+    (``benchmarks/obs_bench.py``: straggler_heavy, 4 clients, 2 edges,
+    cnn2, 1 round): the simulator's metric names, the span categories plus
+    ``kernel`` (the port's FedEEC runs through the kernel ops; the
+    reference's computes in jnp), round 0's gate, and, after one eval,
+    both global metric names."""
+    import numpy as np
+
+    from repro_torch.configs.fedeec_paper import paper_setting
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+    from repro_torch.fl.metrics import accuracy
+    from repro_torch.obs.critical_path import rounds_from_eventlog
+    from repro_torch.obs.metrics import global_registry
+    from repro_torch.obs.trace import Tracer, tracing
+    from repro_torch.sim.engine import SimEngine
+    from repro_torch.sim.scenarios import get_scenario
+
+    bench = json.loads((ROOT / "BENCH_obs.json").read_text())
+    cfg = paper_setting("synth_cifar10", 4, 2, **SIM_GATE)
+    ds, tree, client_data, auto = build_problem(cfg, device=dev)
+    trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=dev)
+    tracer = Tracer()
+    engine = SimEngine(trainer, get_scenario("straggler_heavy"), seed=cfg.seed, tracer=tracer)
+    with tracing(tracer):
+        engine.run(1)
+    accuracy(trainer.cloud_apply(), trainer.cloud_params(), ds.x_test, ds.y_test)
+    names = engine.metrics.names()
+    cats = sorted({sp.cat for sp in tracer.spans if sp.cat})
+    rep = rounds_from_eventlog(engine.log.entries)[0]
+    gate = {"node": rep.gate_node, "factor": rep.gate_factor}
+    print(f"BENCH_obs: {len(names)} sim metric names, categories {cats}, round 0 gate {gate}")
+    if names != bench["sim_metric_names"]:
+        fail(f"sim metric names {names} != BENCH_obs.json's")
+    if cats != sorted(bench["span_categories"] + ["kernel"]):
+        fail(f"span categories {cats} != BENCH_obs.json's plus kernel")
+    if gate != bench["round0_gate"]:
+        fail(f"round 0 gate {gate} != BENCH_obs.json's {bench['round0_gate']}")
+    missing = set(bench["global_metric_names"]) - set(global_registry().names())
+    if missing:
+        fail(f"global metric names missing after one eval: {sorted(missing)}")
+
+
+def run_tracing_phase(dev, untraced):
+    check_sim_signatures(dev, traced=True)
+    drive_traced_sim_path(dev, untraced)
+    drive_traced_plain_round(dev)
+    check_bench_obs(dev)
 
 
 # the baselines' main path at FLConfig(): (algorithm, rounds)
@@ -2546,6 +2773,9 @@ def run_baselines_phases(dev) -> dict:
     return counts
 
 
+TRACING_PHASE = "tracing: the simulator, the plain round and the kernel ops under a Tracer"
+
+
 def main() -> None:
     try:
         import torch
@@ -2567,6 +2797,13 @@ def main() -> None:
         phase("LM checkpoint: train_lm(checkpoint=) on llama3.2-3b reduced to two layers, "
               "bf16, read back")
         check_lm_checkpoint(dev)
+        return
+    if sys.argv[1:] == ["--tracing"]:
+        phase("FedEEC on the simulator: run_experiment('fedeec', FLConfig(), rounds=3, "
+              "scenario='mobile_clients')")
+        _, res = drive_sim_path(dev)
+        phase(TRACING_PHASE)
+        run_tracing_phase(dev, res)
         return
     if sys.argv[1:] == ["--distill"]:
         phase("distill_loss: every entry and variant vs the plain versions, and times")
@@ -2598,13 +2835,19 @@ def main() -> None:
     phase("FedEEC on the simulator: the 11 gate scenarios, then "
           "run_experiment('fedeec', FLConfig(), rounds=3, scenario='mobile_clients')")
     check_sim_signatures(dev)
-    for k, n in drive_sim_path(dev).items():
+    sim_counts, sim_res = drive_sim_path(dev)
+    for k, n in sim_counts.items():
         counts[k] += n
     phase("serial against coalesced dispatch at FLConfig(): "
           + ", ".join(f"{s} ({r} rounds)" for s, r in DISPATCH_COMPARE))
     held = compare_dispatch(dev)
     for k, n in run_baselines_phases(dev).items():
         counts[k] += n
+    # the traced runs' launches stay out of ``counts`` and MAIN_DISTILL /
+    # MAIN_SKR, so the kernels line's launch column is the untraced paths'
+    phase(TRACING_PHASE)
+    run_tracing_phase(dev, sim_res)
+    del sim_res
 
     # each JSON row counts its own CUDA kernel's launches: flash_attention's
     # the tensor-core kernel's at head_dim 64 / 128, flash_attention_sm90_h256's

@@ -27,7 +27,8 @@ cohorts, dispatch groups (``batch_signature`` / ``execute_batch``:
 FedEEC coalesces its same-shape pairs; the base class runs every item
 alone) and checkpoint state (``state_arrays`` / ``state_meta`` /
 ``load_state``, in the reference's layout, so that either package resumes
-the other's checkpoints). Tracer spans come with ROADMAP.md A5.
+the other's checkpoints). Under an active tracer (``repro_torch.obs``),
+``train_round`` opens one ``execute {kind} {node}`` span per work item.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import Callable, Iterable, NamedTuple, Optional
 from repro_torch.core.protocols import Protocol
 from repro_torch.core.topology import Tree, link_kind
 from repro_torch.fl.comm import CommMeter
+from repro_torch.obs.trace import active_tracer
 
 
 class WorkItem(NamedTuple):
@@ -177,14 +179,22 @@ class FLAlgorithm(ABC):
 
     def train_round(self) -> None:
         """One round over the participating nodes (every node, unless a
-        mask was set)."""
+        mask was set). Under an active tracer each executed item is an
+        ``execute {kind} {node}`` span (cat ``execute``)."""
         r = self._round
+        tr = active_tracer()
         self.begin_round(r)
         for item in self.work_items(r, self.participates):
             if self.participates(item.node) and (
                 not item.peer or self.participates(item.peer)
             ):
-                self.execute(item)
+                if tr is None:
+                    self.execute(item)
+                else:
+                    with tr.span(f"execute {item.kind} {item.node}",
+                                 cat="execute", round=r, node=item.node,
+                                 peer=item.peer):
+                        self.execute(item)
         self.end_round(r)
         self._round += 1
 

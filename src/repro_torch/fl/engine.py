@@ -8,8 +8,8 @@ discrete-event EEC-NET simulator (``repro_torch.sim``): churn fires at
 round boundaries, pair work is priced by link bandwidth/latency, faults are
 injected, and the accuracy curve is reported against simulated seconds;
 there the run can snapshot itself every N rounds and resume from a
-snapshot (the port's or the reference's), bit-identically. ``tracer``
-raises ``NotImplementedError`` until ROADMAP.md A5.
+snapshot (the port's or the reference's), bit-identically. A ``tracer``
+records the run's spans on either path (``repro_torch.obs``).
 
 Everything runs on ``device``, which defaults to ``"cuda"`` and raises
 without a card unless the caller passes ``device="cpu"``.
@@ -31,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fl.api import create_algorithm, list_algorithms  # noqa: F401  (re-export)
 from repro_torch.fl.metrics import accuracy
 from repro_torch.models.autoencoder import pretrain_autoencoder
+from repro_torch.obs.trace import tracing
 
 
 @dataclass
@@ -141,12 +142,6 @@ def make_trainer(algorithm: str, cfg: FLConfig, tree, client_data, auto, *,
     return create_algorithm(algorithm, cfg, tree, client_data, auto, device=device)
 
 
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(
-        f"repro_torch.fl.engine: {option} is not ported yet "
-        f"(ROADMAP.md queue A, {item})")
-
-
 def run_experiment(
     algorithm: str,
     cfg: FLConfig,
@@ -178,11 +173,11 @@ def run_experiment(
     run; ``stop_after`` ends the run early (simulating a kill, no final
     eval). These four act on the scenario path only; the plain path
     ignores them, as the reference's does. ``profile_sim`` records the
-    simulator's host phase times as gauges in ``metrics``. ``tracer``
-    (ROADMAP.md A5) raises ``NotImplementedError``.
+    simulator's host phase times as gauges in ``metrics``. ``tracer`` (a
+    ``repro_torch.obs.trace.Tracer``) records hierarchical spans of the
+    run: it is installed as the active tracer, so the plain round's
+    ``execute`` spans and the kernel ops' ``kernel.*`` spans nest too.
     """
-    if tracer is not None:
-        _not_ported("tracing (tracer=)", "A5")
     dev = resolve_device(device)
 
     scenario = scenario if scenario is not None else (cfg.scenario or None)
@@ -209,15 +204,17 @@ def run_experiment(
     rounds = rounds if rounds is not None else cfg.rounds
     res = RunResult(algorithm, cfg)
     t0 = time.perf_counter()
-    if sc is not None:
-        _run_simulated(trainer, sc, cfg, ds, res, rounds, eval_every,
-                       verbose, dev, faults=faults,
-                       checkpoint_every=checkpoint_every,
-                       checkpoint_dir=checkpoint_dir, resume_from=resume_from,
-                       stop_after=stop_after, profile_sim=profile_sim)
-    else:
-        _run_plain(trainer, ds, res, rounds, eval_every, verbose,
-                   migration_round, dev)
+    with tracing(tracer):
+        if sc is not None:
+            _run_simulated(trainer, sc, cfg, ds, res, rounds, eval_every,
+                           verbose, dev, tracer, faults=faults,
+                           checkpoint_every=checkpoint_every,
+                           checkpoint_dir=checkpoint_dir,
+                           resume_from=resume_from, stop_after=stop_after,
+                           profile_sim=profile_sim)
+        else:
+            _run_plain(trainer, ds, res, rounds, eval_every, verbose,
+                       migration_round, dev)
     res.comm_bytes = trainer.comm.summary()
     res.wall_s = time.perf_counter() - t0
     return res
@@ -263,12 +260,13 @@ def _run_plain(trainer, ds, res, rounds, eval_every, verbose,
 
 
 def _run_simulated(trainer, sc, cfg, ds, res, rounds, eval_every, verbose,
-                   dev, *, faults=None, checkpoint_every=0, checkpoint_dir="",
-                   resume_from="", stop_after=None, profile_sim=False):
+                   dev, tracer=None, *, faults=None, checkpoint_every=0,
+                   checkpoint_dir="", resume_from="", stop_after=None,
+                   profile_sim=False):
     from repro_torch.sim.engine import SimEngine
 
-    engine = SimEngine(trainer, sc, seed=cfg.seed, faults=faults,
-                       profile=profile_sim)
+    engine = SimEngine(trainer, sc, seed=cfg.seed, tracer=tracer,
+                       faults=faults, profile=profile_sim)
     if resume_from:
         engine.restore_checkpoint(resume_from)
 

@@ -33,17 +33,23 @@ compares equal and that share no participant run as one
 runs alone. ``save_checkpoint`` / ``restore_checkpoint`` snapshot every
 stream a round consumes, in the reference's files (``trainer.msgpack``,
 ``engine.json``), so a resumed run is bit-identical to an uninterrupted
-one and either package resumes the other's snapshot. Tracing
-(``tracer=``) waits for ROADMAP.md A5 and raises ``NotImplementedError``.
+one and either package resumes the other's snapshot. A ``tracer``
+(``repro_torch.obs.trace.Tracer``) records the reference's spans — round,
+churn, dispatch group, execute, one ``item`` span per priced item, eval —
+outside the event log: a traced run takes the general pricing loop, which
+prices a fault-free item exactly as the fast path does, so its log, ``ord``s
+included, is the untraced run's.
 """
 from __future__ import annotations
 
 import bisect
+from contextlib import nullcontext
 from typing import Callable, Optional
 
 from repro_torch.core.topology import link_kind
 from repro_torch.fl.api import FLAlgorithm, MigrationRefused, WorkItem
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import Tracer
 from repro_torch.sim.churn import ChurnProcess
 from repro_torch.sim.events import EventLog, EventQueue
 from repro_torch.sim.faults import AttemptSchedule, FaultPlan, FaultProcess
@@ -113,13 +119,11 @@ class SimEngine:
         scenario: ScenarioConfig,
         *,
         seed: int = 0,
-        tracer=None,
+        tracer: Optional[Tracer] = None,
         metrics: Optional[MetricsRegistry] = None,
         faults: Optional[FaultPlan] = None,
         profile: bool = False,
     ):
-        if tracer is not None:
-            _not_ported("tracing (tracer=)", "A5")
         self.trainer = trainer
         self.tree = trainer.tree
         self.sc = scenario
@@ -172,8 +176,10 @@ class SimEngine:
         # self-organizing re-clustering), not just by the churn process
         self.tree.on_migrate(self._external_migration)
         trainer.on_migrate_refused(self._external_refusal)
-        # telemetry plane: the registry lives OUTSIDE the event log, whose
-        # signature must stay bit-identical whether or not it is read
+        # telemetry plane: the tracer and registry live OUTSIDE the event
+        # log, whose signature must stay bit-identical whether or not they
+        # are attached
+        self.tracer = tracer
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         # host-side phase profiling (--profile-sim): per-phase wall-clock
         # accumulators surfaced as gauges after run(). Host-only — the
@@ -267,6 +273,12 @@ class SimEngine:
                                   target=act.target, reason="protocol")
                     continue
                 busy[act.node] = max(busy.get(act.node, 0.0), self.now + dur)
+                if self.tracer is not None:
+                    self.tracer.add_span(
+                        "migrate", cat="churn", node=act.node,
+                        sim_t0=self.now, sim_t1=self.now + dur,
+                        round=r, target=act.target, bytes=nbytes,
+                    )
                 m("sim_migrations_total").inc()
                 self.log.note(self.now, "migrate", node=act.node,
                               target=act.target, bytes=nbytes,
@@ -275,9 +287,17 @@ class SimEngine:
                 m("sim_dropouts_total").inc()
                 self.log.note(self.now, "dropout", node=act.node,
                               until=round(act.until, 6))
+                if self.tracer is not None:
+                    self.tracer.add_span(
+                        "offline", cat="churn", node=act.node,
+                        sim_t0=self.now, sim_t1=act.until, round=r,
+                    )
             elif act.kind == "rejoin":
                 m("sim_rejoins_total").inc()
                 self.log.note(self.now, "rejoin", node=act.node)
+                if self.tracer is not None:
+                    self.tracer.instant("rejoin", sim_t=self.now,
+                                        node=act.node)
         if self.faults is not None:
             self._round_faults(r)
         return busy
@@ -299,10 +319,18 @@ class SimEngine:
                     m("sim_dropouts_total").inc()
                     self.log.note(self.now, "dropout", node=v,
                                   until=round(until, 6))
+                    if self.tracer is not None:
+                        self.tracer.add_span(
+                            "offline", cat="churn", node=v,
+                            sim_t0=self.now, sim_t1=until, round=r,
+                        )
             elif fa.kind == "flap":
                 m("sim_link_flaps_total").inc()
                 self.log.note(self.now, "link_flap", node=fa.node,
                               until=round(fa.until, 6))
+                if self.tracer is not None:
+                    self.tracer.instant("link_flap", sim_t=self.now,
+                                        node=fa.node)
 
     # -- work-item round ---------------------------------------------------
 
@@ -323,6 +351,17 @@ class SimEngine:
             return item.steps * sc.base_step_s * self.churn.compute_factor(item.node)
         # "aggregate" runs on an interior tier: fast, step-count cheap
         return item.steps * sc.base_step_s / sc.tier_speedup
+
+    def _item_straggle(self, item: WorkItem) -> tuple[float, str]:
+        """(compute factor, straggling participant) of the slowest
+        participant — trace attribution only, never priced here."""
+        f_node = self.churn.compute_factor(item.node)
+        f_peer = self.churn.compute_factor(item.peer) if item.peer else 1.0
+        if f_peer > f_node:
+            return f_peer, item.peer
+        if f_node > 1.0:
+            return f_node, item.node
+        return 1.0, ""
 
     def _run_round_items(self, r: int, busy: dict[str, float]) -> None:
         """Schedule the trainer's work items through their dependency
@@ -403,6 +442,7 @@ class SimEngine:
             counter = self.metrics.counter
             counter("sim_dispatch_items_total").inc(len(enabled))
             counter("sim_dispatches_total").inc(len(groups))
+            tr = self.tracer
             timed: dict[int, tuple[float, list]] = {}  # id(item) -> result
             # fast-path results keep a flat (start, end, done-payload)
             # record instead of the general event list — no nested tuples
@@ -434,84 +474,113 @@ class SimEngine:
                             sched.retries)
                     live = [it for it, sched in zip(group, scheds)
                             if sched.outcome == "ok"]
-                with self.trainer.comm.span() as sp:
-                    if len(live) == 1:
-                        self.trainer.execute(live[0])
-                    elif live:
-                        self.trainer.execute_batch(live)
-                        counter("sim_batched_dispatches_total").inc()
-                        counter("sim_batched_items_total").inc(len(live))
-                total = sum(sp.by_link.values())
-                # same-signature items record identical traffic, so the
-                # even split is exact; floor division keeps the serial
-                # sum's type (int stays int, float stays float — a type
-                # flip would change the JSON byte payloads and break
-                # signature identity)
-                nbytes = total // len(live) if live else 0
-                if scheds is None:
-                    # fault-free fast path: identical math and event
-                    # payloads to the general loop below, with the per-item
-                    # branch ladder stripped and the transfer-pricing /
-                    # link-kind / byte-counter calls inlined or deferred
-                    # (their function-call overhead alone is measurable at
-                    # 10^5 events/s) — this loop prices every item of every
-                    # round at scale
-                    shared_xfer = self.net.transfer_shared_s
-                    eff_get = self.net._eff.get  # see network.py cache
-                    eff_miss = self.net._effective
-                    lkc_get = self._lk_cache.get
-                    lk_of = self._link_kind_of
-                    lp_get = link_pend.get
-                    fair = self._fair_share
-                    for it, start, comp in zip(group, starts, comps):
-                        node = it.node
-                        t_ok = start + comp
-                        if fair:
-                            end = t_ok + shared_xfer(node, nbytes, t_ok)
-                        elif nbytes > 0:
-                            eff = eff_get(node) or eff_miss(node)
-                            end = t_ok + eff[0] + nbytes / eff[1]
+                with (tr.span("dispatch_group", cat="dispatch",
+                              n_items=len(group), round=r)
+                      if tr is not None else nullcontext()):
+                    with (tr.span("execute_batch" if len(live) > 1
+                                  else "execute", cat="execute",
+                                  n_items=len(live))
+                          if tr is not None else nullcontext()) as es, \
+                            self.trainer.comm.span() as sp:
+                        if len(live) == 1:
+                            self.trainer.execute(live[0])
+                        elif live:
+                            self.trainer.execute_batch(live)
+                            counter("sim_batched_dispatches_total").inc()
+                            counter("sim_batched_items_total").inc(len(live))
+                    total = sum(sp.by_link.values())
+                    # same-signature items record identical traffic, so the
+                    # even split is exact; floor division keeps the serial
+                    # sum's type (int stays int, float stays float — a type
+                    # flip would change the JSON byte payloads and break
+                    # signature identity)
+                    nbytes = total // len(live) if live else 0
+                    host_each = (es.host_dur / len(live)
+                                 if tr is not None and live else 0.0)
+                    if scheds is None and tr is None:
+                        # fault-free, untraced fast path: identical math
+                        # and event payloads to the general loop below,
+                        # with the per-item branch ladder stripped and the
+                        # transfer-pricing / link-kind / byte-counter calls
+                        # inlined or deferred (their function-call overhead
+                        # alone is measurable at 10^5 events/s) — this loop
+                        # prices every item of every round at scale
+                        shared_xfer = self.net.transfer_shared_s
+                        eff_get = self.net._eff.get  # see network.py cache
+                        eff_miss = self.net._effective
+                        lkc_get = self._lk_cache.get
+                        lk_of = self._link_kind_of
+                        lp_get = link_pend.get
+                        fair = self._fair_share
+                        for it, start, comp in zip(group, starts, comps):
+                            node = it.node
+                            t_ok = start + comp
+                            if fair:
+                                end = t_ok + shared_xfer(node, nbytes, t_ok)
+                            elif nbytes > 0:
+                                eff = eff_get(node) or eff_miss(node)
+                                end = t_ok + eff[0] + nbytes / eff[1]
+                            else:
+                                end = t_ok
+                            lk = lkc_get(node)
+                            if lk is None:
+                                lk = lk_of(node)
+                            link_pend[lk] = lp_get(lk, 0) + nbytes
+                            ready[node] = ready[it.peer] = end
+                            fast[id(it)] = (start, end, {
+                                "bytes": nbytes,
+                                "dur": round(end - start, 6)})
+                        continue
+                    # the general loop: faults (every item carries its
+                    # attempt schedule) or a tracer (one span per item)
+                    for gi, (it, start, comp) in enumerate(
+                            zip(group, starts, comps)):
+                        sched = scheds[gi] if scheds is not None else None
+                        evs = list(sched.events) if sched is not None else []
+                        if sched is None or sched.outcome == "ok":
+                            # with retries, transfer begins at the first
+                            # successful attempt (sched.t_final), not at
+                            # start + comp — backoff waits are the retry tax
+                            t_ok = (start + comp if sched is None
+                                    else sched.t_final)
+                            xfer = (self.net.transfer_shared_s(
+                                        it.node, nbytes, t_ok)
+                                    if self._fair_share
+                                    else self.net.transfer_s(
+                                        it.node, nbytes))
+                            end = t_ok + xfer
+                            dur = end - start
+                            lk = link_kind(self.tree, it.node)
+                            ctr = link_ctrs.get(lk)
+                            if ctr is None:
+                                ctr = link_ctrs[lk] = counter(
+                                    "sim_link_bytes_total", link=lk)
+                            ctr.inc(nbytes)
+                            if tr is not None:
+                                factor, slow = self._item_straggle(it)
+                                tr.add_span(
+                                    f"{it.kind} {it.node}->{it.peer}",
+                                    cat="item", node=it.node,
+                                    sim_t0=start, sim_t1=end,
+                                    host_dur=host_each, kind=it.kind,
+                                    peer=it.peer, round=r, bytes=nbytes,
+                                    compute_s=round(comp, 6),
+                                    transfer_s=round(xfer, 6),
+                                    straggle=factor, straggle_node=slow,
+                                    retries=(sched.retries if sched else 0),
+                                    retry_wait_s=round(
+                                        sched.retry_wait_s if sched else 0.0,
+                                        6),
+                                )
+                            done = {"bytes": nbytes, "dur": round(dur, 6)}
+                            if sched is not None and sched.retries:
+                                done["retries"] = sched.retries
+                            evs.append((end, "pair_done", done))
                         else:
-                            end = t_ok
-                        lk = lkc_get(node)
-                        if lk is None:
-                            lk = lk_of(node)
-                        link_pend[lk] = lp_get(lk, 0) + nbytes
-                        ready[node] = ready[it.peer] = end
-                        fast[id(it)] = (start, end, {
-                            "bytes": nbytes,
-                            "dur": round(end - start, 6)})
-                    continue
-                # with faults: every item carries its attempt schedule
-                for it, start, sched in zip(group, starts, scheds):
-                    evs = list(sched.events)
-                    if sched.outcome == "ok":
-                        # with retries, transfer begins at the first
-                        # successful attempt (sched.t_final), not at
-                        # start + comp — backoff waits are the retry tax
-                        t_ok = sched.t_final
-                        xfer = (self.net.transfer_shared_s(
-                                    it.node, nbytes, t_ok)
-                                if self._fair_share
-                                else self.net.transfer_s(
-                                    it.node, nbytes))
-                        end = t_ok + xfer
-                        dur = end - start
-                        lk = link_kind(self.tree, it.node)
-                        ctr = link_ctrs.get(lk)
-                        if ctr is None:
-                            ctr = link_ctrs[lk] = counter(
-                                "sim_link_bytes_total", link=lk)
-                        ctr.inc(nbytes)
-                        done = {"bytes": nbytes, "dur": round(dur, 6)}
-                        if sched.retries:
-                            done["retries"] = sched.retries
-                        evs.append((end, "pair_done", done))
-                    else:
-                        end = sched.t_final
-                        self._item_failed(it, sched)
-                    ready[it.node] = ready[it.peer] = end
-                    timed[id(it)] = (start, evs)
+                            end = sched.t_final
+                            self._item_failed(it, sched, r, start)
+                        ready[it.node] = ready[it.peer] = end
+                        timed[id(it)] = (start, evs)
             # one counter bump per link tier per dispatch, not per item —
             # the sums are what the counters hold, so totals are identical
             for lk, nb in link_pend.items():
@@ -582,7 +651,8 @@ class SimEngine:
 
         self.trainer.end_round(r)
 
-    def _item_failed(self, it: WorkItem, sched: AttemptSchedule) -> None:
+    def _item_failed(self, it: WorkItem, sched: AttemptSchedule, r: int,
+                     start: float) -> None:
         """Account for an item whose every transfer attempt failed: bump
         the fault counters, take a departed node offline (the churn
         process's rejoin sweep recovers it), and notify the trainer so the
@@ -595,6 +665,15 @@ class SimEngine:
         if sched.outcome == "departed":
             m("sim_departures_total").inc()
             self.churn.force_offline(it.node, sched.offline_until)
+        if self.tracer is not None:
+            self.tracer.add_span(
+                f"{it.kind} {it.node}->{it.peer} [{sched.outcome}]",
+                cat="item", node=it.node,
+                sim_t0=start, sim_t1=sched.t_final,
+                kind=it.kind, peer=it.peer, round=r, bytes=0,
+                outcome=sched.outcome, retries=sched.retries,
+                retry_wait_s=round(sched.retry_wait_s, 6),
+            )
         self.trainer.on_item_failed(it, sched.outcome)
 
     # -- run loop ----------------------------------------------------------
@@ -620,40 +699,55 @@ class SimEngine:
         start to the end of its work (churn and items, before its eval), go
         to ``self.round_s``, outside the event log; ``sync``, when given, is
         called at the end of each round's work, inside that time (e.g. a
-        device synchronize)."""
+        device synchronize). Under a tracer the ``round r`` span encloses
+        that same interval (churn, items and ``sync``), and the eval is an
+        ``eval`` span of its own."""
         from time import perf_counter
 
+        tr = self.tracer
         prof = self._prof
         if prof is not None:
             _r0 = perf_counter()  # analysis: allow[DET001] host-only profiling
             _ev0 = len(self.log.entries)
         for r in range(self._round_next, rounds):
             t_start = self.now
-            _h0 = perf_counter()  # analysis: allow[DET001] host-only timing
             self.log.note(self.now, "round_start", round=r)
-            if prof is not None:
-                _c0 = perf_counter()  # analysis: allow[DET001]
-            busy = self._round_churn(r)
-            if prof is not None:
-                prof["churn"] = (prof.get("churn", 0.0)
-                                 + perf_counter() - _c0)  # analysis: allow[DET001]
-            self.trainer.set_participation(
-                self.churn.online_devices(self.now))
-            self._run_round_items(r, busy)
-            if sync is not None:
-                sync()
-            self.round_s.append(perf_counter() - _h0)  # analysis: allow[DET001]
+            with (tr.span(f"round {r}", cat="round", sim_t0=self.now,
+                          round=r)
+                  if tr is not None else nullcontext()) as rsp:
+                _h0 = perf_counter()  # analysis: allow[DET001] host-only timing
+                with (tr.span("churn", cat="churn", sim_t0=self.now,
+                              round=r)
+                      if tr is not None else nullcontext()) as csp:
+                    if prof is not None:
+                        _c0 = perf_counter()  # analysis: allow[DET001]
+                    busy = self._round_churn(r)
+                    if prof is not None:
+                        prof["churn"] = (prof.get("churn", 0.0)
+                                         + perf_counter() - _c0)  # analysis: allow[DET001]
+                    if tr is not None:
+                        csp.sim_t1 = self.now
+                self.trainer.set_participation(
+                    self.churn.online_devices(self.now))
+                self._run_round_items(r, busy)
+                if sync is not None:
+                    sync()
+                self.round_s.append(perf_counter() - _h0)  # analysis: allow[DET001]
+                if tr is not None:
+                    rsp.sim_t1 = self.now
             self.metrics.histogram("sim_round_duration_seconds").observe(
                 self.now - t_start)
             self.log.note(self.now, "round_end", round=r)
             self._round_next = r + 1
             if eval_fn and ((r + 1) % eval_every == 0 or r == rounds - 1):
-                if prof is not None:
-                    _e0 = perf_counter()  # analysis: allow[DET001]
-                acc = eval_fn()
-                if prof is not None:
-                    prof["eval"] = (prof.get("eval", 0.0)
-                                    + perf_counter() - _e0)  # analysis: allow[DET001]
+                with (tr.span("eval", cat="eval", round=r)
+                      if tr is not None else nullcontext()):
+                    if prof is not None:
+                        _e0 = perf_counter()  # analysis: allow[DET001]
+                    acc = eval_fn()
+                    if prof is not None:
+                        prof["eval"] = (prof.get("eval", 0.0)
+                                        + perf_counter() - _e0)  # analysis: allow[DET001]
                 self.acc_points.append((round(self.now, 6), acc))
                 self.log.note(self.now, "eval", round=r, acc=round(acc, 6))
             if checkpoint_every > 0 and checkpoint_path and \
@@ -786,9 +880,3 @@ class SimEngine:
                             for k, v in meta["comm"]["events"].items()})
 
         self.trainer.load_state(meta["trainer"], arrays)
-
-
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(
-        f"repro_torch.sim.engine: {option} is not ported yet "
-        f"(ROADMAP.md queue A, {item})")

@@ -19,17 +19,19 @@ resumes it to the end and checks it against the uninterrupted run:
 
     python -m repro_torch.sim.runner --algorithm hierfavg --scenario regional_outage --verify-resume
 
-Runs on the card by default; ``--device cpu`` runs on the CPU. Tracing
-(``--trace``, ``--explain-rounds``) waits for ROADMAP.md A5: those flags
-exit with a message.
+``--trace OUT.json`` writes the run's Chrome trace (open it in
+https://ui.perfetto.dev, or read it with ``python -m
+repro_torch.obs.report``) and ``--explain-rounds`` prints each round's
+critical path from the event log:
+
+    python -m repro_torch.sim.runner --scenario straggler_heavy --rounds 1 --clients 4 --edges 2 --trace t.json --explain-rounds --device cpu
+
+Runs on the card by default; ``--device cpu`` runs on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import sys
-
-# flag -> the ROADMAP.md item it waits for
-_NOT_PORTED = {"trace": "A5", "explain_rounds": "A5"}
 
 
 def build_cfg(args):
@@ -98,11 +100,11 @@ def main(argv=None) -> int:
                     help="max event-log lines to print")
     ap.add_argument("--out", default="", help="write event log JSON here")
     ap.add_argument("--trace", default="",
-                    help="Chrome trace output (not ported: ROADMAP.md A5)")
+                    help="write a Chrome trace (Perfetto) of the run here")
     ap.add_argument("--metrics", default="",
                     help="write the metrics-registry snapshot JSON here")
     ap.add_argument("--explain-rounds", action="store_true",
-                    help="critical-path attribution (not ported: ROADMAP.md A5)")
+                    help="print per-round critical-path attribution")
     ap.add_argument("--profile-sim", action="store_true",
                     help="record host-side scheduler throughput "
                          "(sim_events_per_second gauge) and a per-phase "
@@ -132,12 +134,6 @@ def main(argv=None) -> int:
                     help="torch device to train on (default cuda; 'cpu' for "
                          "a run without a card)")
     args = ap.parse_args(argv)
-
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            print(f"error: --{flag.replace('_', '-')} is not ported yet "
-                  f"(ROADMAP.md queue A, {item})", file=sys.stderr)
-            return 2
 
     if args.list:
         for name in list_scenarios():
@@ -179,8 +175,14 @@ def main(argv=None) -> int:
               f"rounds={args.rounds} clients={cfg.num_clients} "
               f"edges={cfg.num_edges} seed={cfg.seed} device={args.device}"
               + (f" faults={args.faults}" if args.faults else ""))
+        tracer = None
+        if args.trace:
+            from repro_torch.obs.trace import Tracer
+
+            tracer = Tracer()
         res = run_experiment(args.algorithm, cfg, rounds=args.rounds,
                              eval_every=args.eval_every, verbose=True,
+                             tracer=tracer,
                              faults=args.faults or None,
                              checkpoint_every=args.checkpoint_every,
                              checkpoint_dir=ckpt_dir,
@@ -210,6 +212,11 @@ def main(argv=None) -> int:
                 json.dump(res.event_log, f, indent=1)
             print(f"\nevent log written to {_path(args.out)}")
 
+        if tracer is not None:
+            tracer.to_json(_path(args.trace))
+            print(f"\nChrome trace written to {_path(args.trace)} "
+                  "(open in https://ui.perfetto.dev)")
+
         if args.metrics:
             import json
 
@@ -220,6 +227,15 @@ def main(argv=None) -> int:
             with open(_path(args.metrics), "w") as f:
                 json.dump(snap, f, indent=1, sort_keys=True)
             print(f"metrics snapshot written to {_path(args.metrics)}")
+
+        if args.explain_rounds:
+            from repro_torch.obs.critical_path import (
+                explain,
+                rounds_from_eventlog,
+            )
+
+            print("\n== critical-path attribution ==")
+            print(explain(rounds_from_eventlog(res.event_log)))
 
         if args.verify:
             res2 = run_experiment(args.algorithm, cfg, rounds=args.rounds,

@@ -428,6 +428,44 @@ def test_coalesced_group_launches_once_per_group_step(cuda):
             assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(trainer.params[v]))
 
 
+def test_traced_pair_spans_equal_the_dispatch_counts(cuda):
+    """One leaf pair on the card under a tracer: a ``kernel.<op>`` span per
+    op call, as many as ``kernel_dispatch_seconds{kernel=<op>}`` observed;
+    the forward ops' spans equal distill_loss's forward launches and the
+    ``skr_process*`` spans the fused entry's launches (the backward
+    launches inside ``loss.backward()``, outside any span)."""
+    from collections import Counter
+
+    from repro_torch.configs.fedeec_paper import paper_setting
+    from repro_torch.fl.api import create_algorithm
+    from repro_torch.fl.engine import build_problem
+    from repro_torch.obs.metrics import global_registry
+    from repro_torch.obs.trace import Tracer, tracing
+
+    cfg = paper_setting("synth_cifar10", 4, 2, samples_per_client=16, test_samples=64,
+                        image_size=8, embed_dim=16, edge_model="cnn2", cloud_model="cnn2")
+    _, tree, client_data, auto = build_problem(cfg, device=cuda)
+    trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device=cuda)
+    item = next(it for it in trainer.work_items(0, lambda v: True) if it.node in client_data)
+    labels = ("softmax_xent", "softmax_xent_batched", "distill_loss", "distill_loss_batched",
+              "skr_process", "skr_process_batched")
+    hist = {k: global_registry().histogram("kernel_dispatch_seconds", kernel=k)
+            for k in labels}
+    before = {k: h.count for k, h in hist.items()}
+    ops.reset_launches()
+    tr = Tracer()
+    with tracing(tr):
+        trainer.execute(item)
+    torch.cuda.synchronize()
+    spans = Counter(sp.name[len("kernel."):] for sp in tr.spans if sp.cat == "kernel")
+    assert set(spans) <= set(labels) and sum(spans.values()) > 0
+    for k in labels:
+        assert spans[k] == hist[k].count - before[k], k
+    assert sum(spans[k] for k in labels[:4]) == ops.launches["distill_loss_fwd"] > 0
+    assert spans["skr_process"] + spans["skr_process_batched"] \
+        == skr_variants["fused"] == ops.launches["skr_rectify"] > 0
+
+
 @pytest.mark.parametrize("leaf", [False, True])
 @pytest.mark.parametrize("name", ["cnn1", "resnet10", "resnet18"])
 def test_coalesced_step_gradients_match_the_cpu(cuda, name, leaf):

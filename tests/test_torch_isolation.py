@@ -3,6 +3,7 @@ nor ml_dtypes (the card's machine has neither) in its package or in
 ``chip_smoke.py``; its entry points run on the card unless the caller asks
 for the CPU."""
 import ast
+import json
 import os
 from pathlib import Path
 from unittest import mock
@@ -243,19 +244,25 @@ def test_unported_model_features_raise(change):
 
 
 def test_unported_options_raise(tmp_path):
-    """Tracing waits for ROADMAP A5, on the plain path and the scenario
-    path alike, and the runner's tracing flags exit with 2. The checkpoint
-    options run (A4): on the scenario path a snapshot is written and
-    resumed; the plain path ignores them, as the reference's does."""
+    """Tracing runs on the plain path and the scenario path alike, and the
+    runner's ``--trace`` / ``--explain-rounds`` exit 0 and write the trace
+    and the attribution. The checkpoint options run (A4): on the scenario
+    path a snapshot is written and resumed; the plain path ignores them, as
+    the reference's does."""
     from repro_torch.fl.engine import run_experiment
+    from repro_torch.obs.trace import Tracer
     from repro_torch.sim import runner
 
     cfg = FLConfig(num_clients=2, num_edges=1, samples_per_client=4, test_samples=8,
                    image_size=8, embed_dim=16, end_model="cnn2", edge_model="cnn2",
                    cloud_model="cnn2", distill_steps=1)
     for scenario in (None, "stable"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
-            run_experiment("fedeec", cfg, device="cpu", scenario=scenario, tracer=object())
+        tr = Tracer()
+        run_experiment("fedeec", cfg, device="cpu", scenario=scenario, tracer=tr,
+                       rounds=1)
+        cats = {sp.cat for sp in tr.spans}
+        assert {"execute", "kernel"} <= cats
+        assert ("round" in cats) == (scenario is not None)
     ckpt = str(tmp_path / "ck")
     for scenario in (None, "stable"):
         res = run_experiment("hierfavg", cfg, rounds=2, device="cpu", scenario=scenario,
@@ -265,8 +272,19 @@ def test_unported_options_raise(tmp_path):
     resumed = run_experiment("hierfavg", cfg, rounds=2, device="cpu", scenario="stable",
                              resume_from=ckpt)
     assert resumed.event_signature == res.event_signature
-    for argv in (["--trace", "t.json"], ["--explain-rounds"]):
-        assert runner.main(argv + ["--device", "cpu"]) == 2
+    trace = tmp_path / "t.json"
+    argv = ["--scenario", "stable", "--algorithm", "hierfavg", "--rounds", "1",
+            "--clients", "2", "--edges", "1", "--samples", "4", "--test-samples", "8",
+            "--image-size", "8", "--embed-dim", "16", "--device", "cpu"]
+    assert runner.main(argv + ["--trace", str(trace), "--explain-rounds"]) == 0
+    doc = json.loads(trace.read_text())
+    assert {e.get("cat") for e in doc["traceEvents"]} >= {"round", "item"}
+    out = tmp_path / "log.json"
+    assert runner.main(argv + ["--explain-rounds", "--out", str(out)]) == 0
+    from repro_torch.obs.critical_path import explain, rounds_from_eventlog
+
+    text = explain(rounds_from_eventlog(json.loads(out.read_text())))
+    assert text.startswith("== round 0 ==") and "gated by: node" in text
 
 
 def test_registry_has_the_slice_algorithms():

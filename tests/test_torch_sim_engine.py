@@ -131,17 +131,22 @@ def test_lossy_links_serial_signature_is_the_references(monkeypatch):
 
 
 def test_tracer_and_checkpoints_raise(tmp_path):
-    """Tracing still waits for ROADMAP A5; the checkpoint calls run (A4):
-    a snapshot every round, and a second engine restored from it stands
-    where the first one stopped."""
+    """A traced engine runs (its round, churn, dispatch, execute and item
+    spans recorded outside the log), and the checkpoint calls still round
+    trip under it: a snapshot every round, and a second, untraced engine
+    restored from it stands where the first one stopped."""
+    from repro_torch.obs.trace import Tracer
+
     cfg = paper_setting("synth_cifar10", 4, 2, **GATE)
     _, tree, client_data, auto = build_problem(cfg, device="cpu")
     trainer = create_algorithm("fedeec", cfg, tree, client_data, auto, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        SimEngine(trainer, get_scenario("stable"), tracer=object())
-    engine = SimEngine(trainer, get_scenario("stable"))
+    tracer = Tracer()
+    engine = SimEngine(trainer, get_scenario("stable"), tracer=tracer)
+    assert engine.tracer is tracer
     ckpt = str(tmp_path / "ckpt")
     engine.run(1, checkpoint_every=1, checkpoint_path=ckpt)
+    assert {sp.cat for sp in tracer.spans} >= {"round", "churn", "dispatch", "execute", "item"}
+    assert sum(sp.cat == "item" for sp in tracer.spans) == engine.log.count("pair_done") > 0
     assert engine.metrics.counter("sim_checkpoints_total").value == 1
     engine.save_checkpoint(str(tmp_path / "again"))
     _, tree2, cd2, auto2 = build_problem(cfg, device="cpu")
