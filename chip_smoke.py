@@ -5,8 +5,13 @@ baselines, checkpoint and resume, the telemetry plane, the LM serving path
 and the LM training path.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --rwkv-chunks  # only phases 1-2 and the chunked
-                                         # rwkv6_scan at each chunk length
+    python3 chip_smoke.py --rwkv-chunks  # only phases 1-2, the chunked
+                                         # rwkv6_scan and its backward at
+                                         # each chunk length, and 13's
+                                         # backward time
+    python3 chip_smoke.py --rwkv-train   # only phases 1-2, 3's backward
+                                         # checks, 11-12 for rwkv6-1.6b and
+                                         # 13's backward time
     python3 chip_smoke.py --distill      # only phases 1-2 and distill_loss's
                                          # checks and times
     python3 chip_smoke.py --baselines    # only phases 1-2, 7 and 12's LM
@@ -48,7 +53,11 @@ the result line:
    empty-row kernel; rwkv6_scan
    has two: the sequential kernel for T <= 16 and the chunked scan for
    longer T, and each case names the one that served it, extreme decays
-   included; skr_rectify has two entries: the map alone, exact, and the
+   included; its backward kernel (``Rwkv6Scan``'s, launched by autograd)
+   against the plain backward on the same cases, T = 1, T = 17 and the
+   training shape (2, 1024, 32, 64), every gradient within 1e-4 of its max
+   |g|, each line naming the forward kernel that served it; skr_rectify
+   has two entries: the map alone, exact, and the
    fused entry, SKR's queue pass and map in one launch, with count, head
    and q exact and Q within 1e-6, at a teacher step of the main path, four
    pairs, (4, 256, 1024), repeated labels and more rows than a chunk), then the
@@ -133,17 +142,21 @@ the result line:
 10. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
    128-token prefill;
-11. LM training: ``train_lm("llama3.2-3b", use_reduced=False, steps=4,
-   batch=2, seq=1024, use_kernels=True)``, full width and depth in bf16,
-   with the launch counters zeroed before and held after to steps x
-   seq / loss_chunk distill_loss launches each way (and none of the
-   forward-only attention kernels): wall s, tokens/s, loss and grad norm
-   per step, and the peak memory; then one step's breakdown under
-   ``torch.profiler`` (device busy ms, idle share, top kernels);
-12. training parity: llama3.2-3b at full width, two layers, fp32, one
-   ``make_train_step`` on the card and on the CPU from the same params and
-   ``token_batches`` batch (loss, grad norm, every gradient leaf), and on
-   the card the loss with ``use_kernels`` on against off; then
+11. LM training: ``train_lm(arch, use_reduced=False, steps=4, batch=2,
+   seq=1024, use_kernels=True)`` for llama3.2-3b then rwkv6-1.6b, full width
+   and depth in bf16, with the launch counters zeroed before and held after
+   to the layer list's prediction: steps x seq / loss_chunk distill_loss CE
+   launches each way, none of the forward-only attention kernels, and per
+   rwkv6 layer and step one chunked rwkv6_scan forward and one backward
+   launch: wall s, tokens/s, loss and grad norm per step, and the peak
+   memory; then one step's breakdown under ``torch.profiler`` (device busy
+   ms, idle share, top kernels);
+12. training parity: llama3.2-3b, and rwkv6-1.6b at (rwkv_chunk,
+   ssm_seq_chunk) (0, 0), (0, 32) and (16, 32), at full width, two layers,
+   fp32, one ``make_train_step`` on the card and on the CPU from the same
+   params and ``token_batches`` batch (loss, grad norm, every gradient
+   leaf), and on the card the loss with ``use_kernels`` on against off;
+   then
    ``train_lm(checkpoint=)`` on llama3.2-3b reduced to two layers in bf16,
    the file read back with the port's ``load_pytree`` and held bit for bit
    to the card's params and AdamW state;
@@ -158,7 +171,9 @@ the result line:
    3xTF32 bound and the fp32-core bound; the
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
    beside the chunked one, and the chunked one's three kernels' device ms
-   under the profiler; and
+   under the profiler; the rwkv6_scan backward kernel at the training
+   shape beside the plain backward, and its three kernels under the
+   profiler; and
    distill_loss at the training shape in bf16, both entries forward and
    backward, beside ``F.cross_entropy`` on the same logits, printed on a
    line of its own. They come last, so that nothing the timing leaves
@@ -201,6 +216,8 @@ TPU_KERNELS = {
     "flash_attention_sm90_h256": "src/repro/kernels/flash_attention.py:32",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:25",
     "rwkv6_scan_chunked": "src/repro/kernels/rwkv6_scan.py:25",
+    # no Pallas kernel: the gradient XLA derives from the reference's lax.scan
+    "rwkv6_scan_bwd": "src/repro/models/ssm.py:96 (XLA autodiff of the lax.scan)",
 }
 SOURCES = {
     "distill_loss_fwd": "src/repro_torch/csrc/distill_loss.cu",
@@ -215,6 +232,7 @@ SOURCES = {
     "flash_attention_sm90_h256": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
     "rwkv6_scan_chunked": "src/repro_torch/csrc/rwkv6_scan_chunked.cu",
+    "rwkv6_scan_bwd": "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
 }
 # the kernels' JSON rows: flash_attention's three CUDA kernels each have
 # one, the tensor-core kernel's head_dim 256 instance (TMA producer) one of
@@ -707,6 +725,11 @@ RWKV_CASES = [(2, 32, 4, 16, False), (1, 40, 2, 32, False), (3, 16, 1, 64, False
               (1, 300, 4, 64, True), (2, 13, 2, 32, True)]
 RWKV_PREFILL = (1, 1024, 32, 64)  # rwkv6-1.6b, one 1024-token prompt
 RWKV_DECODE = (8, 1, 32, 64)  # 8 requests, one step
+RWKV_TRAIN = (2, 1024, 32, 64)  # rwkv6-1.6b, a training batch of 2 x 1024 tokens
+# the backward's cases beyond RWKV_CASES: T = 1, T = 17 (one chunk and a
+# ragged second) and the training shape
+RWKV_GRAD_CASES = RWKV_CASES + [(3, 1, 4, 16, False), (2, 17, 4, 32, True),
+                                (*RWKV_TRAIN, False)]
 
 
 BF16_ULP = 2.0**-7  # one bf16 ulp of x is at most 2^-7 |x|
@@ -853,6 +876,64 @@ def check_rwkv6_scan(dev):
             fail(f"rwkv6_scan at {(B, T, H, hd)}: served by {served}, the rule picks {variant}")
         if not ok:
             fail(f"rwkv6_scan disagrees with its plain version at {(B, T, H, hd)}")
+    return worst
+
+
+def _rwkv_cotangents(B, T, H, hd, dev, zero_dsT=False):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    dy = torch.randn((B, T, H, hd), generator=g, device=dev)
+    dsT = torch.randn((B, H, hd, hd), generator=g, device=dev)
+    return dy, dsT * (not zero_dsT)
+
+
+GRAD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def check_rwkv6_scan_grad(dev):
+    """The backward kernel through autograd (``Rwkv6Scan``) against the plain
+    backward ``ref.rwkv6_scan_grad_ref`` on the same inputs and random
+    cotangents dy and dsT (dsT = 0 at the first case): every gradient
+    within 1e-4 of that input's max |g| (the training parity's rule: fp32
+    sums in other orders) and finite, extreme decays (1e-30 and 1) included.
+    Each line names the forward kernel that served the case and the
+    backward launches (one a call). Returns the worst max |err|."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rwkv6_scan import _variant, rwkv6_scan, variant_launches
+
+    worst = 0.0
+    for n, (B, T, H, hd, extreme) in enumerate(RWKV_GRAD_CASES):
+        ins = list(_rwkv_inputs(B, T, H, hd, dev))
+        if extreme:
+            ins[3] = _extreme_w(ins[3])
+        dy, dsT = _rwkv_cotangents(B, T, H, hd, dev, zero_dsT=n == 0)
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        before, bwd0 = dict(variant_launches), _lib.launches["rwkv6_scan_bwd"]
+        y, sT = rwkv6_scan(*leaves)
+        got = torch.autograd.grad((y, sT), leaves, (dy, dsT))
+        served = [k for k in variant_launches if variant_launches[k] > before[k]]
+        bwd = _lib.launches["rwkv6_scan_bwd"] - bwd0
+        want = R.rwkv6_scan_grad_ref(*ins, dy, dsT)
+        torch.cuda.synchronize()
+        errs = [(a - b).abs().max().item() for a, b in zip(want, got)]
+        shares = [e / max(a.abs().max().item(), 1e-30) for e, a in zip(errs, want)]
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        ok = max(shares) <= 1e-4 and finite
+        worst = max(worst, *errs)
+        print(f"rwkv6_scan backward {(B, T, H, hd)}{' extreme w' if extreme else ''}"
+              f"{' dsT = 0' if n == 0 else ''} [forward {'+'.join(served)}, backward x{bwd}]: "
+              + ", ".join(f"{k} {sh:.2e}" for k, sh in zip(GRAD_NAMES, shares))
+              + f" of max|g|; max|err| {max(errs):.3e}  {'ok' if ok else 'MISMATCH'}")
+        if served != [_variant(T)] or bwd != 1:
+            fail(f"rwkv6_scan at {(B, T, H, hd)}: forward {served}, {bwd} backward launches")
+        if not ok:
+            fail(f"the rwkv6_scan backward kernel disagrees with the plain backward at "
+                 f"{(B, T, H, hd)}")
+        del ins, leaves, y, sT, got, want
     return worst
 
 
@@ -2309,11 +2390,46 @@ def time_rwkv_kernels(dev):
                   f"{'ok' if err <= 3e-5 else 'MISMATCH'}")
             if err > 3e-5:
                 fail("the sequential rwkv6_scan kernel disagrees at the prefill shape")
-            profile_rwkv_phases(dev, ins)
+            profile_rwkv_phases(dev, "rwkv6_scan_chunked", lambda: ops.rwkv6_scan(*ins),
+                                ("local_pass", "chunk_scan", "correct"))
+    rows[("rwkv6_scan_bwd", "train", None)] = time_rwkv_bwd(dev)
     return rows
 
 
+def _rwkv_bwd_bounds(B, T, H, hd):
+    """Bytes and fp32 operations the backward must move and do: r, k, v, w
+    and dy read and dr, dk, dv and dw written once (36 hd bytes a token and
+    head), u read and du written, s0 and dsT read and ds0 written; per token
+    and head 14 hd^2 flops (an FMA as two: per state element 3 to recompute
+    S_{t-1} = w S + k v, 3 to step G back, 2 each for dr, dk, dv and dw)
+    and 12 hd (b_t and a_t, the bonus terms of dr, dk and dv, du)."""
+    nbytes = 4 * (9 * B * T * H * hd + 2 * H * hd + 3 * B * H * hd * hd)
+    flops = (14 * hd * hd + 12 * hd) * B * T * H
+    return nbytes, flops
+
+
+def time_rwkv_bwd(dev, launches=5):
+    """The backward kernel at the training shape (one call: its three
+    kernels) beside the plain backward; no single PyTorch call computes
+    this function, so the library column is empty."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rwkv6_scan import _backward
+
+    B, T, H, hd = RWKV_TRAIN
+    ins = _rwkv_inputs(B, T, H, hd, dev)
+    dy, dsT = _rwkv_cotangents(B, T, H, hd, dev)
+    nbytes, flops = _rwkv_bwd_bounds(B, T, H, hd)
+    row = _timed("rwkv6_scan_bwd", "train", f"{RWKV_TRAIN} fp32",
+                 lambda: _backward(*ins, dy, dsT),
+                 lambda: R.rwkv6_scan_grad_ref(*ins, dy, dsT), None, nbytes, flops,
+                 launches=launches)
+    profile_rwkv_phases(dev, "rwkv6_scan_bwd", lambda: _backward(*ins, dy, dsT),
+                        ("local", "chunk_scan", "grads"))
+    return row
+
+
 RWKV_CHUNKS = (16, 32, 64, 128)
+RWKV_BWD_CHUNKS = (8, 16, 32)
 
 
 def time_rwkv_chunks(dev):
@@ -2345,46 +2461,80 @@ def time_rwkv_chunks(dev):
         if err > 3e-5:
             fail(f"the chunked rwkv6_scan kernel disagrees at chunk {L}")
         del st, pend
+    time_rwkv_bwd_chunks(dev)
+
+
+def time_rwkv_bwd_chunks(dev):
+    """The backward kernel at the training shape, its C entry launched
+    directly at each chunk length of ``RWKV_BWD_CHUNKS`` (the wrapper always
+    passes ``BWD_CHUNK``), each gradient held to the plain backward at 1e-4
+    of its max |g|: what ``BWD_CHUNK`` was chosen from."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ref as R
+
+    B, T, H, hd = RWKV_TRAIN
+    ins = _rwkv_inputs(B, T, H, hd, dev)
+    dy, dsT = _rwkv_cotangents(B, T, H, hd, dev)
+    want = R.rwkv6_scan_grad_ref(*ins, dy, dsT)
+    outs = [torch.empty_like(ins[0]) for _ in range(4)]
+    ds0 = torch.empty_like(ins[-1])
+    for L in RWKV_BWD_CHUNKS:
+        nc = -(-T // L)
+        dup = torch.empty((B, H, nc, hd), device=dev)
+        sx, gx = (torch.empty((B, H, nc, hd, hd), device=dev) for _ in range(2))
+        pend = torch.empty_like(dup)
+        fn = lambda: _lib.launch(  # noqa: E731
+            "rwkv6_scan_bwd", dev, *(t.data_ptr() for t in (*ins, dy, dsT, *outs, dup, ds0,
+                                                            sx, gx, pend)),
+            B, T, H, hd, L)
+        fn()
+        torch.cuda.synchronize()
+        got = (*outs, dup.sum((0, 2)), ds0)
+        share = max(((a - b).abs().max() / a.abs().max()).item() for a, b in zip(want, got))
+        print(f"rwkv6_scan_bwd {RWKV_TRAIN} chunk {L}: {device_ms(fn, 5):.5f} ms device, "
+              f"worst gradient {share:.3e} of its max|g| {'ok' if share <= 1e-4 else 'MISMATCH'}")
+        if share > 1e-4:
+            fail(f"the rwkv6_scan backward kernel disagrees at chunk {L}")
+        del dup, sx, gx, pend
 
 
 PROFILE_LEAD_IN = 32
 
 
-def profile_rwkv_phases(dev, ins, calls=10):
-    """Each of the chunked scan's three kernels' device ms per launch under
-    ``torch.profiler``, over ``calls`` calls of the wrapper. The window
-    opens with ``PROFILE_LEAD_IN`` small kernels and a sync: in a process
-    that has run the profiler before, a window can lose its first few
-    kernel records (a host pause before the first launch does not help), so
-    the lead-in takes that loss and the line says how much of it was seen.
-    Fails unless the profiler saw exactly one launch of each kernel per
-    call."""
+def profile_rwkv_phases(dev, label, call, phases, calls=10):
+    """Device ms per launch of each of ``call``'s kernels (``phases``, by a
+    part of each kernel's name) under ``torch.profiler``, over ``calls``
+    calls. The window opens with ``PROFILE_LEAD_IN`` small kernels and a
+    sync: in a process that has run the profiler before, a window can lose
+    its first few kernel records (a host pause before the first launch does
+    not help), so the lead-in takes that loss and the line says how much of
+    it was seen. Fails unless the profiler saw exactly one launch of each
+    kernel per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ops
-
-    phases = ("local_pass", "chunk_scan", "correct")
     x = torch.zeros(1, device=dev)
-    ops.rwkv6_scan(*ins)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_LEAD_IN):
             x.add_(1)
         torch.cuda.synchronize()
         for _ in range(calls):
-            ops.rwkv6_scan(*ins)
+            call()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     us = {p: [e.time_range.elapsed_us() for e in kernels if p in e.name] for p in phases}
-    lead_in = len(kernels) - sum(len(t) for t in us.values())
-    print(f"rwkv6_scan_chunked kernels, device ms per launch (profiler, {calls} calls; "
-          f"{lead_in} of {PROFILE_LEAD_IN} lead-in kernels seen): "
-          + ", ".join(f"{p} {sum(t) / len(t) / 1e3:.5f}" for p, t in us.items() if t))
     seen = {p: len(t) for p, t in us.items()}
+    print(f"{label} kernels, device ms per launch (profiler, {calls} calls; "
+          f"{len(kernels) - sum(seen.values())} other kernels seen: the {PROFILE_LEAD_IN} "
+          "of the lead-in, less any lost, and the calls' own): "
+          + ", ".join(f"{p} {sum(t) / len(t) / 1e3:.5f}" for p, t in us.items() if t))
     if any(n != calls for n in seen.values()):
-        fail(f"the profiler saw {seen} chunked-scan kernels in {calls} calls")
+        fail(f"the profiler saw {seen} {label} kernels in {calls} calls")
 
 
 LM_ARCHS = (("llama3.2-3b", 4096), ("rwkv6-1.6b", 1024))  # (arch, prefill step length)
@@ -2396,7 +2546,8 @@ def expected_lm_launches(cfg):
     layer list: each decode step and the prefill step run every layer once."""
     steps = LM_SERVE["prompt_len"] + LM_SERVE["gen_len"] + 1
     return {"flash_attention": steps * sum(b.kind == "attn" for b in cfg.blocks),
-            "rwkv6_scan": steps * sum(b.kind == "rwkv6" for b in cfg.blocks)}
+            "rwkv6_scan": steps * sum(b.kind == "rwkv6" for b in cfg.blocks),
+            "rwkv6_scan_bwd": 0}
 
 
 def drive_lm_path(dev, arch, prefill_len):
@@ -2436,8 +2587,8 @@ def drive_lm_path(dev, arch, prefill_len):
     logits = make_prefill_step(cfg, opts)(params, {"tokens": toks})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    counts = {k: ops.launches[k] for k in ("flash_attention", "rwkv6_scan")}
     want = expected_lm_launches(cfg)
+    counts = {k: ops.launches[k] for k in want}
     variants = dict(variant_launches)
     n_attn = sum(b.kind == "attn" for b in cfg.blocks)
     # the prefill step's attention layers on the tensor-core kernel, the
@@ -2617,13 +2768,29 @@ def check_lm_parity(dev, arch):
 LM_TRAIN = dict(steps=4, batch=2, seq=1024)
 
 
-def drive_train_path(dev):
-    """The LM training path at llama3.2-3b's full width and depth, bf16, as
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of ``LM_TRAIN``'s steps, from the layer list: a
+    forward and a backward distill_loss launch (the CE entry) a loss chunk,
+    and a step of an rwkv6 layer one ``rwkv6_scan`` forward (T = seq: the
+    chunked kernel) and one backward launch; no attention kernel (training
+    attention is ``mha`` under autograd)."""
+    from repro_torch.launch.steps import default_opts
+
+    steps = LM_TRAIN["steps"]
+    loss = steps * (LM_TRAIN["seq"] // min(default_opts(cfg).loss_chunk, LM_TRAIN["seq"]))
+    scans = steps * sum(b.kind == "rwkv6" for b in cfg.blocks)
+    return {"distill_loss_fwd": loss, "distill_loss_bwd": loss, "flash_attention": 0,
+            "flash_attention_empty_rows": 0, "skr_rectify": 0, "rwkv6_scan": scans,
+            "rwkv6_scan_bwd": scans}
+
+
+def drive_train_path(dev, arch="llama3.2-3b"):
+    """The LM training path at ``arch``'s full width and depth, bf16, as
     ``python -m repro_torch.launch.train --full --use-kernels`` runs it
     (``remat`` and ``attn_chunk`` as ``train_lm`` sets them), with the
-    launch counters zeroed just before and read just after: the loss runs
-    one forward and one backward distill_loss launch per loss chunk, and
-    attention (``mha``, autograd) no kernel. The last step runs under
+    launch counters zeroed just before and read just after and held to
+    ``expected_train_launches`` (the loss's through the CE entry, every scan
+    forward on the chunked kernel). The last step runs under
     ``torch.profiler`` (``train_lm``'s ``profile_last``): device busy ms,
     idle share and the kernels that take the most device time."""
     import gc
@@ -2633,25 +2800,26 @@ def drive_train_path(dev):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.launch.steps import default_opts
+    from repro_torch.kernels.distill_loss import variant_launches as distill_launches
+    from repro_torch.kernels.rwkv6_scan import variant_launches as rwkv_launches
     from repro_torch.launch.train import train_lm
 
-    cfg = get_arch("llama3.2-3b")
-    chunk = min(default_opts(cfg).loss_chunk, LM_TRAIN["seq"])
-    per_step = LM_TRAIN["seq"] // chunk
-    print(f"llama3.2-3b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    cfg = get_arch(arch)
+    print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.3f} B parameters, {cfg.param_dtype}; {LM_TRAIN}")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    res = train_lm("llama3.2-3b", use_reduced=False, use_kernels=True, device=dev,
+    res = train_lm(arch, use_reduced=False, use_kernels=True, device=dev,
                    log_every=1, profile_last=1, **LM_TRAIN)
-    counts = dict(ops.launches)
+    want = expected_train_launches(cfg)
+    counts = {k: ops.launches[k] for k in want}
+    variants = dict(rwkv_launches)
+    ce = {k: n for k, n in distill_launches.items() if n}
     add_variant_launches()
     peak = torch.cuda.max_memory_allocated()
-    want = LM_TRAIN["steps"] * per_step
     for i, (s_, loss, gn) in enumerate(zip(res.step_s, res.losses, res.grad_norms)):
         print(f"train step {i + 1}: {s_:.4f} s wall (ending in a sync"
               f"{', under the profiler' if i == LM_TRAIN['steps'] - 1 else ''}), "
@@ -2662,32 +2830,42 @@ def drive_train_path(dev):
           f"{res.profile['kernels_per_step']:.1f} kernels")
     print(f"training peak max_memory_allocated: {peak / 2**20:.1f} MiB "
           f"({peak / 1e9:.2f} GB)")
-    print(f"launches: {counts}  predicted: distill_loss_fwd = distill_loss_bwd = "
-          f"steps x seq / loss_chunk = {want}, no attention or scan kernel")
+    print(f"launches: {counts}  predicted from the layer list: {want}")
+    print(f"rwkv6_scan forward launches per kernel: {variants}; distill_loss launches per "
+          f"entry and kernel: {ce}")
     if not res.profile["busy_s"] > 0:
         fail("the profiler recorded no device time in the training step")
     if not all(math.isfinite(v) for v in res.losses + res.grad_norms):
         fail(f"non-finite training loss or grad norm: {res.losses} {res.grad_norms}")
-    if counts["distill_loss_fwd"] != want or counts["distill_loss_bwd"] != want:
-        fail(f"training: distill_loss launches {counts}, predicted {want} each")
-    if counts["flash_attention"] or counts["rwkv6_scan"]:
-        fail(f"training launched a forward-only kernel: {counts}")
+    if counts != want:
+        fail(f"{arch} training: launches {counts}, predicted {want}")
+    if variants != {"seq": 0, "chunked": want["rwkv6_scan"]}:
+        fail(f"{arch} training: rwkv6_scan kernels {variants}")
+    if sum(n for k, n in ce.items() if k.startswith("fwd_ce:")) != want["distill_loss_fwd"]:
+        fail(f"{arch} training: the loss did not run on the CE entry alone: {ce}")
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in ("distill_loss_fwd", "distill_loss_bwd")}, res, peak
+    return counts, variants, res, peak
 
 
-def check_train_parity(dev):
-    """llama3.2-3b at full width, two layers, fp32 (params drawn on the CPU
+RWKV_PARITY_SETTINGS = ((0, 0), (0, 32), (16, 32))  # (rwkv_chunk, ssm_seq_chunk)
+
+
+def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
+    """``arch`` at full width, two layers, fp32 (params drawn on the CPU
     and copied to the card), one ``make_train_step`` with the loss through
     ``use_kernels`` on the card and on the CPU from one ``token_batches``
-    batch: loss within 1e-5 relative, grad norm within 1e-4 relative, every
+    batch of 2 x 64, at each (rwkv_chunk, ssm_seq_chunk) of ``settings``:
+    loss within 1e-5 relative, grad norm within 1e-4 relative, every
     gradient leaf within 1e-4 of that leaf's max |g| (TF32 off: fp32 sums in
-    other orders over d_model 3072, d_ff 8192 and 128256 logits). Params are
-    not compared after the step: AdamW's first step moves each element by
-    about lr * sign(g), and signs of gradients below the fp32 noise flip
-    between devices (ROADMAP C4). On the card, also the loss with
-    ``use_kernels`` on against off, within 1e-5 relative."""
+    other orders over d_model, d_ff and the vocabulary). Params are not
+    compared after the step: AdamW's first step moves each element by about
+    lr * sign(g), and signs of gradients below the fp32 noise flip between
+    devices (ROADMAP C4). On the card, also the loss with ``use_kernels`` on
+    against off, within 1e-5 relative. For rwkv6 the line gives the card's
+    scan launches: forward and backward kernels where the time mix runs the
+    scan (the sequence chunks' recompute adds forward launches), none where
+    ``rwkv_chunk`` sends it through the chunked torch form."""
     import gc
     from dataclasses import replace
 
@@ -2696,43 +2874,55 @@ def check_train_parity(dev):
 
     from repro_torch.configs import get_arch
     from repro_torch.data.loader import token_batches
+    from repro_torch.kernels import ops
     from repro_torch.launch.steps import default_opts, make_train_step
     from repro_torch.models.transformer import forward_train, init_params
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_leaves, tree_map, value_and_grad
 
-    cfg = replace(get_arch("llama3.2-3b"), n_repeats=2, num_layers=2, param_dtype="float32",
+    cfg = replace(get_arch(arch), n_repeats=2, num_layers=2, param_dtype="float32",
                   compute_dtype="float32")
-    opts = default_opts(cfg, attn_chunk=0, remat=False, use_kernels=True)
     cpu = torch.device("cpu")
-    params = init_params(cfg, opts, seed=5, device=cpu)
+    params = init_params(cfg, default_opts(cfg), seed=5, device=cpu)
     b = next(token_batches(np.random.default_rng(6), cfg.vocab_size, 2, 64))
-    out = []
-    for d in (dev, cpu):
-        p = tree_map(lambda t: t.to(d, copy=True), params)
-        batch = {k: torch.from_numpy(v).to(d, torch.int64) for k, v in b.items()}
-        _, g = value_and_grad(lambda pp: forward_train(cfg, opts, pp, batch)[0], p)
-        g = [t.cpu() for t in tree_leaves(g)]
-        if d == dev:
-            with torch.no_grad():
-                plain = forward_train(cfg, replace(opts, use_kernels=False), p, batch)[0]
-        _, _, m = make_train_step(cfg, opts, lr=1e-4)(p, adamw_init(p), batch)
-        out.append((float(m["loss"]), float(m["grad_norm"]), g))
-        if d == dev:
-            loss_plain = float(plain)
-        del p, batch
+    for rwkv_chunk, ssm_seq_chunk in settings:
+        opts = default_opts(cfg, attn_chunk=0, remat=False, use_kernels=True,
+                            rwkv_chunk=rwkv_chunk, ssm_seq_chunk=ssm_seq_chunk)
+        out = []
+        for d in (dev, cpu):
+            p = tree_map(lambda t: t.to(d, copy=True), params)
+            batch = {k: torch.from_numpy(v).to(d, torch.int64) for k, v in b.items()}
+            ops.reset_launches()
+            _, g = value_and_grad(lambda pp: forward_train(cfg, opts, pp, batch)[0], p)
+            g = [t.cpu() for t in tree_leaves(g)]
+            if d == dev:
+                scans = {k: ops.launches[k] for k in ("rwkv6_scan", "rwkv6_scan_bwd")}
+                with torch.no_grad():
+                    plain = forward_train(cfg, replace(opts, use_kernels=False), p, batch)[0]
+                loss_plain = float(plain)
+            _, _, m = make_train_step(cfg, opts, lr=1e-4)(p, adamw_init(p), batch)
+            out.append((float(m["loss"]), float(m["grad_norm"]), g))
+            del p, batch
+            gc.collect()
+        (lg, ng, gg), (lc, nc, gc_) = out
+        share = max(((a - b_).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+                    for a, b_ in zip(gc_, gg))
+        tag = (f" rwkv_chunk {rwkv_chunk} ssm_seq_chunk {ssm_seq_chunk}"
+               if cfg.family == "ssm" else "")
+        print(f"{arch} 2 layers fp32 train step{tag}: loss {lg:.7f} (card) {lc:.7f} (CPU); "
+              f"grad norm {ng:.7f} (card) {nc:.7f} (CPU); worst gradient leaf max|card - CPU| "
+              f"{share:.3e} of its max|g|; card loss with use_kernels off {loss_plain:.7f}"
+              + (f"; card scan launches in the gradient {scans}" if cfg.family == "ssm" else ""))
+        if abs(lg - lc) > 1e-5 * abs(lc) or abs(ng - nc) > 1e-4 * abs(nc) or share > 1e-4:
+            fail(f"{arch}{tag}: the card's training step disagrees with the CPU's")
+        if abs(lg - loss_plain) > 1e-5 * abs(loss_plain):
+            fail(f"{arch}{tag}: the card's training loss differs between use_kernels on "
+                 "and off")
+        if cfg.family == "ssm" and (scans["rwkv6_scan_bwd"] > 0) != (rwkv_chunk == 0):
+            fail(f"{arch}{tag}: scan launches {scans} in the gradient")
+        del out
         gc.collect()
-    (lg, ng, gg), (lc, nc, gc_) = out
-    share = max(((a - b_).abs().max() / a.abs().max().clamp_min(1e-30)).item()
-                for a, b_ in zip(gc_, gg))
-    print(f"llama3.2-3b 2 layers fp32 train step: loss {lg:.7f} (card) {lc:.7f} (CPU); "
-          f"grad norm {ng:.7f} (card) {nc:.7f} (CPU); worst gradient leaf max|card - CPU| "
-          f"{share:.3e} of its max|g|; card loss with use_kernels off {loss_plain:.7f}")
-    if abs(lg - lc) > 1e-5 * abs(lc) or abs(ng - nc) > 1e-4 * abs(nc) or share > 1e-4:
-        fail("the card's training step disagrees with the CPU's")
-    if abs(lg - loss_plain) > 1e-5 * abs(loss_plain):
-        fail("the card's training loss differs between use_kernels on and off")
-    del params, out
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2789,8 +2979,9 @@ def main() -> None:
     dev, name, count, smi = check_device()
     build_kernels()
     if sys.argv[1:] == ["--rwkv-chunks"]:
-        phase("rwkv6_scan_chunked at each chunk length")
+        phase("rwkv6_scan_chunked and the backward kernel at each chunk length")
         time_rwkv_chunks(dev)
+        time_rwkv_bwd(dev)
         return
     if sys.argv[1:] == ["--baselines"]:
         run_baselines_phases(dev)
@@ -2804,6 +2995,16 @@ def main() -> None:
         _, res = drive_sim_path(dev)
         phase(TRACING_PHASE)
         run_tracing_phase(dev, res)
+        return
+    if sys.argv[1:] == ["--rwkv-train"]:
+        phase("rwkv6_scan's backward kernel vs the plain backward")
+        check_rwkv6_scan_grad(dev)
+        phase("LM training path: rwkv6-1.6b, full width and depth, bf16")
+        drive_train_path(dev, "rwkv6-1.6b")
+        phase("training parity: rwkv6-1.6b, full width, two layers, fp32, the card vs the CPU")
+        check_train_parity(dev, "rwkv6-1.6b", RWKV_PARITY_SETTINGS)
+        phase("rwkv6_scan's backward kernel at the training shape")
+        time_rwkv_bwd(dev)
         return
     if sys.argv[1:] == ["--distill"]:
         phase("distill_loss: every entry and variant vs the plain versions, and times")
@@ -2820,6 +3021,7 @@ def main() -> None:
     err.update(check_flash_attention(dev))
     rwkv_err = check_rwkv6_scan(dev)
     err.update({k: rwkv_err[v] for k, v in RWKV_VARIANTS.items()})
+    err["rwkv6_scan_bwd"] = check_rwkv6_scan_grad(dev)
     phase("kernel times")
     times = time_kernels(dev)
     time_skr_queue_pass(dev)
@@ -2865,12 +3067,21 @@ def main() -> None:
     for arch, _ in LM_ARCHS:
         phase(f"LM parity: {arch}, full width, two layers, fp32, the card vs the CPU")
         check_lm_parity(dev, arch)
-    phase("LM training path: llama3.2-3b, full width and depth, bf16")
-    train_counts, _, _ = drive_train_path(dev)
-    for k, n in train_counts.items():
-        counts[k] += n
+    # the training paths' launches: the loss's distill_loss CE entry, and
+    # rwkv6's scans (each forward on the chunked kernel) and their backward
+    counts["rwkv6_scan_bwd"] = 0
+    for arch, _ in LM_ARCHS:
+        phase(f"LM training path: {arch}, full width and depth, bf16")
+        train_counts, train_variants, _, _ = drive_train_path(dev, arch)
+        for k in ("distill_loss_fwd", "distill_loss_bwd", "rwkv6_scan_bwd"):
+            counts[k] += train_counts[k]
+        for k, variant in RWKV_VARIANTS.items():
+            counts[k] += train_variants[variant]
     phase("training parity: llama3.2-3b, full width, two layers, fp32, the card vs the CPU")
     check_train_parity(dev)
+    phase("training parity: rwkv6-1.6b, full width, two layers, fp32, the card vs the CPU, "
+          "at (rwkv_chunk, ssm_seq_chunk) " + ", ".join(map(str, RWKV_PARITY_SETTINGS)))
+    check_train_parity(dev, "rwkv6-1.6b", RWKV_PARITY_SETTINGS)
     phase("LM checkpoint: train_lm(checkpoint=) on llama3.2-3b reduced to two layers, bf16, "
           "read back")
     check_lm_checkpoint(dev)
@@ -2915,7 +3126,8 @@ def main() -> None:
             "flash_attention": ("prefill", 0), "flash_attention_tf32x3": ("prefill_fp32", 0),
             "flash_attention_decode": ("decode", 4095),
             "flash_attention_sm90_h256": ("gemma3_global", 0),
-            "rwkv6_scan": ("decode", None), "rwkv6_scan_chunked": ("prefill", None)}
+            "rwkv6_scan": ("decode", None), "rwkv6_scan_chunked": ("prefill", None),
+            "rwkv6_scan_bwd": ("train", None)}
     skr_variant = {row: v for v, row in SKR_ROWS.items()}
     kernels = []
     for k, (tag, beta) in pick.items():

@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 launches: dict[str, int] = {
     "distill_loss_fwd": 0, "distill_loss_bwd": 0, "skr_rectify": 0,
     "flash_attention": 0, "flash_attention_empty_rows": 0, "rwkv6_scan": 0,
+    "rwkv6_scan_bwd": 0,
 }
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -87,6 +88,9 @@ _SIGNATURES = {
     # r, k, v, w, u, s0, y, sT, st, rp, pend, B, T, H, hd, chunk, stream
     "rwkv6_scan_chunked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P],
+    # r, k, v, w, u, s0, dy, dsT, dr, dk, dv, dw, dup, ds0, sx, gx, pend, B, T,
+    # H, hd, chunk, stream
+    "rwkv6_scan_bwd": [_P] * 17 + [_I, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

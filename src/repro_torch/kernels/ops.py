@@ -5,7 +5,8 @@ On a CUDA tensor each op launches its hand-written kernel (built at first
 use) or raises; on a CPU tensor it runs the plain version in ``ref.py``.
 ``launches`` counts kernel launches by name (``distill_loss_fwd``,
 ``distill_loss_bwd``, ``skr_rectify``, ``flash_attention``,
-``flash_attention_empty_rows``, ``rwkv6_scan``); ``reset_launches`` zeroes
+``flash_attention_empty_rows``, ``rwkv6_scan``, ``rwkv6_scan_bwd``, the
+last launched in ``rwkv6_scan``'s backward); ``reset_launches`` zeroes
 it, and also ``kernels.skr_rectify.variant_launches``, skr_rectify's
 launches per entry (``map``, ``fused``),
 ``kernels.distill_loss.variant_launches``, distill_loss's
@@ -127,7 +128,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
 
 
 def rwkv6_scan(r, k, v, w, u, s0):
-    """RWKV6 recurrence: (y fp32 (B, T, H, hd), final state (B, H, hd, hd))."""
+    """RWKV6 recurrence: (y fp32 (B, T, H, hd), final state (B, H, hd, hd));
+    differentiable (``kernels.rwkv6_scan.Rwkv6Scan``)."""
     return _traced("rwkv6_scan", _rwkv6, r, k, v, w, u, s0)
 
 

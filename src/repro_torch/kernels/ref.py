@@ -253,3 +253,105 @@ def rwkv6_scan_chunked_ref(r, k, v, w, u, s0, chunk):
     for (c0, c1), se in zip(bounds, entries):
         y[:, c0:c1] += torch.einsum("bthi,bhij->bthj", rp[:, c0:c1], se)
     return y, s
+
+
+def _rwkv6_step_grads(sp, g, r, k, v, dy, u):
+    """One step's (dr, dk, dv, dw, du) from S_{t-1} ``sp`` and G_t ``g``
+    (B, H, hd, hd), the step's r, k, v, dy (B, H, hd) and u (H, hd)."""
+    b = (v * dy).sum(-1, keepdim=True)
+    a = (r * u * k).sum(-1, keepdim=True)
+    dr = torch.einsum("bhij,bhj->bhi", sp, dy) + u * k * b
+    dk = torch.einsum("bhij,bhj->bhi", g, v) + u * r * b
+    dv = torch.einsum("bhij,bhi->bhj", g, k) + a * dy
+    dw = (g * sp).sum(-1)
+    return dr, dk, dv, dw, (r * k * b).sum(0)
+
+
+def rwkv6_scan_grad_ref(r, k, v, w, u, s0, dy, dsT):
+    """The gradient of ``rwkv6_scan_ref``: (dr, dk, dv, dw, du, ds0) for the
+    cotangents dy (B, T, H, hd) of y and dsT (B, H, hd, hd) of the final
+    state, all fp32, by the reverse-time equations. S_{t-1} is the state
+    before step t (S_{-1} = s0) and G_t the cotangent of S_t:
+
+        G_{T-1} = dsT,  G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ,  ds0 = G_{-1};
+        b_t = v_t · dy_t,  a_t = Σ_i r_t[i] u[i] k_t[i];
+        dr_t = S_{t-1} dy_t + u ⊙ k_t b_t,   dk_t = G_t v_t + u ⊙ r_t b_t,
+        dv_t = G_tᵀ k_t + a_t dy_t,          dw_t[i] = Σ_j G_t[i,j] S_{t-1}[i,j],
+        du = Σ_{b,t} r_t ⊙ k_t b_t.
+
+    dw comes from G_t and S_{t-1} directly, never by dividing by w, so a
+    decay of 0 or 1e-30 gives a finite, exact gradient. The states S_{t-1}
+    are kept from a forward pass (T of them)."""
+    r, k, v, w, dy = (t.to(torch.float32) for t in (r, k, v, w, dy))
+    uf = u.to(torch.float32)
+    s = s0.to(torch.float32)
+    states = []
+    for t in range(r.shape[1]):
+        states.append(s)
+        s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
+    g = dsT.to(torch.float32)
+    dr, dk, dv, dw = (torch.zeros_like(r) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(r.shape[1])):
+        dr[:, t], dk[:, t], dv[:, t], dw[:, t], du_t = _rwkv6_step_grads(
+            states[t], g, r[:, t], k[:, t], v[:, t], dy[:, t], uf)
+        du = du + du_t
+        g = w[:, t, :, :, None] * g + r[:, t, :, :, None] * dy[:, t, :, None, :]
+    return dr, dk, dv, dw, du, g
+
+
+def rwkv6_scan_grad_chunked_ref(r, k, v, w, u, s0, dy, dsT, chunk):
+    """``rwkv6_scan_grad_ref`` by the chunked form that
+    ``csrc/rwkv6_scan_bwd.cu`` computes, phase by phase (for the tests; the
+    op never runs it):
+
+    1. per chunk of ``chunk`` steps, from zero: its state contribution dS_c
+       (the forward's recurrence), its cotangent contribution dG_c = Σ_t
+       (r_t ⊙ P_t) dy_tᵀ and the product P_end of its decays, with P_t the
+       product of w since the chunk began (plain fp32 products);
+    2. the entry state of each chunk, S ← diag(P_end) S + dS_c from s0, and
+       the cotangent at each chunk's last step, G ← diag(P_end) G + dG_c
+       from dsT over the chunks in reverse (the last G is ds0);
+    3. per chunk, the steps in reverse from its exit cotangent: S_{t-1}
+       recomputed from the chunk's entry state at every step (no step's
+       state is stored, and none is recovered by dividing by w), then the
+       step's gradients, then G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ; du as
+       per-chunk partial sums, summed last.
+    """
+    r, k, v, w, dy = (t.to(torch.float32) for t in (r, k, v, w, dy))
+    uf = u.to(torch.float32)
+    T = r.shape[1]
+    bounds = [(c0, min(T, c0 + chunk)) for c0 in range(0, T, chunk)]
+    local = []
+    for c0, c1 in bounds:
+        ds = torch.zeros_like(s0, dtype=torch.float32)
+        dg = torch.zeros_like(ds)
+        p = torch.ones_like(w[:, 0])
+        for t in range(c0, c1):
+            dg = dg + (r[:, t] * p)[..., None] * dy[:, t, :, None, :]
+            ds = w[:, t, :, :, None] * ds + k[:, t, :, :, None] * v[:, t, :, None, :]
+            p = p * w[:, t]
+        local.append((ds, dg, p))
+    s, entries = s0.to(torch.float32), []
+    for ds, _, p_end in local:
+        entries.append(s)
+        s = p_end[..., None] * s + ds
+    g, exits = dsT.to(torch.float32), [None] * len(bounds)
+    for c in reversed(range(len(bounds))):
+        exits[c] = g
+        g = local[c][2][..., None] * g + local[c][1]
+    dr, dk, dv, dw = (torch.zeros_like(r) for _ in range(4))
+    du_parts = []
+    for (c0, c1), se, gx in zip(bounds, entries, exits):
+        gt, du_c = gx, torch.zeros_like(uf)
+        for t in reversed(range(c0, c1)):
+            sp = se
+            for q in range(c0, t):
+                sp = w[:, q, :, :, None] * sp + k[:, q, :, :, None] * v[:, q, :, None, :]
+            dr[:, t], dk[:, t], dv[:, t], dw[:, t], du_t = _rwkv6_step_grads(
+                sp, gt, r[:, t], k[:, t], v[:, t], dy[:, t], uf)
+            du_c = du_c + du_t
+            gt = w[:, t, :, :, None] * gt + r[:, t, :, :, None] * dy[:, t, :, None, :]
+        du_parts.append(du_c)
+    du = torch.stack(du_parts).sum(0) if du_parts else torch.zeros_like(uf)
+    return dr, dk, dv, dw, du, g

@@ -1,5 +1,5 @@
-"""RWKV6 ("Finch") time-mix recurrence, forward only: the wrapper around two
-CUDA kernels for the one TPU kernel.
+"""RWKV6 ("Finch") time-mix recurrence: the wrapper around two CUDA
+forward kernels for the one TPU kernel, and a CUDA backward kernel.
 
 Counterpart of ``repro.kernels.rwkv6_scan``. Per batch row and head, with
 the fp32 hd x hd state S starting at s0:
@@ -20,12 +20,20 @@ in ``ref.py``:
   parallel from a zero state and joined by a scan over the chunks' end
   states (``ref.rwkv6_scan_chunked_ref`` is the same algorithm in torch).
 
-The kernels have no backward (nor has the TPU kernel), so on a CUDA tensor
-the wrapper raises if grad mode is on and an input requires grad, rather
-than return outputs with no ``grad_fn``.
+When grad mode is on and an input requires grad, the call goes through
+``Rwkv6Scan``, a ``torch.autograd.Function``: its forward is the call
+above, and its backward launches ``repro_torch/csrc/rwkv6_scan_bwd.cu`` on
+the card (chunks of ``BWD_CHUNK`` steps; ``ref.rwkv6_scan_grad_chunked_ref``
+is the same algorithm in torch) or runs ``ref.rwkv6_scan_grad_ref`` on the
+CPU. The TPU kernel has no backward: the reference trains through XLA's
+gradient of its ``lax.scan``, which both compute. The backward keeps only
+the inputs from the forward and recomputes the states it needs, so a call
+under ``torch.no_grad()`` (serving) allocates and launches what it did
+before the backward existed.
 
-``_lib.launches["rwkv6_scan"]`` counts the calls that launch a kernel,
-``variant_launches`` counts them per variant.
+``_lib.launches["rwkv6_scan"]`` counts the calls that launch a forward
+kernel, ``variant_launches`` counts them per variant, and
+``_lib.launches["rwkv6_scan_bwd"]`` the backward's launches.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from repro_torch.kernels import ref as R
 HEAD_DIMS = (16, 32, 64, 128)
 CHUNK = 64  # steps per chunk of the chunked kernel
 SEQ_MAX_T = 16  # the longest T the sequential kernel takes (at most CHUNK)
+BWD_CHUNK = 16  # steps per chunk of the backward kernel (at most 32; 16 at head_dim 128)
 
 variant_launches = _lib.counter(("seq", "chunked"))
 
@@ -45,6 +54,78 @@ def _variant(T: int) -> str:
     """Which kernel a CUDA call runs: the sequential one for short T (a
     decode step), the chunked scan for the rest."""
     return "seq" if T <= SEQ_MAX_T else "chunked"
+
+
+def _aligned(*tensors):
+    """The kernels stage their arrays with 16-byte accesses: a view that
+    starts off that grid is copied to a fresh allocation."""
+    return (t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
+
+
+def _forward(r, k, v, w, u, s0):
+    """y, sT by the plain version (a CPU tensor) or the kernel ``_variant``
+    picks (fp32 contiguous CUDA tensors)."""
+    if not r.is_cuda:
+        return R.rwkv6_scan_ref(r, k, v, w, u, s0)
+    B, T, H, hd = r.shape
+    y = torch.empty_like(r)
+    sT = torch.empty_like(s0)
+    variant = _variant(T)
+    if variant == "seq":
+        _lib.launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
+                    B, T, H, hd)
+    else:
+        r, k, v, w = _aligned(r, k, v, w)
+        nc = -(-T // CHUNK)
+        st = torch.empty((B, H, nc, hd, hd), dtype=torch.float32, device=r.device)
+        rp = torch.empty_like(r)
+        pend = torch.empty((B, H, nc, hd), dtype=torch.float32, device=r.device)
+        _lib.launch("rwkv6_scan_chunked", r.device, r.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(),
+                    sT.data_ptr(), st.data_ptr(), rp.data_ptr(), pend.data_ptr(), B, T, H,
+                    hd, CHUNK, count_as="rwkv6_scan")
+    variant_launches[variant] += 1
+    return y, sT
+
+
+def _backward(r, k, v, w, u, s0, dy, dsT):
+    """(dr, dk, dv, dw, du, ds0): the plain backward on a CPU tensor, the
+    backward kernel on fp32 contiguous CUDA tensors (du summed from its
+    per-chunk partials)."""
+    if not r.is_cuda:
+        return R.rwkv6_scan_grad_ref(r, k, v, w, u, s0, dy, dsT)
+    B, T, H, hd = r.shape
+    dy, dsT = dy.contiguous(), dsT.contiguous()  # fp32, as y and sT are
+    _lib.check_cuda("rwkv6_scan_bwd", r, dy, dsT)
+    r, k, v, w, dy = _aligned(r, k, v, w, dy)
+    nc = -(-T // BWD_CHUNK)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    ds0 = torch.empty_like(s0)
+    dup = torch.empty((B, H, nc, hd), dtype=torch.float32, device=r.device)
+    sx = torch.empty((B, H, nc, hd, hd), dtype=torch.float32, device=r.device)
+    gx = torch.empty_like(sx)
+    pend = torch.empty_like(dup)
+    _lib.launch("rwkv6_scan_bwd", r.device,
+                *(t.data_ptr() for t in (r, k, v, w, u, s0, dy, dsT, dr, dk, dv, dw, dup,
+                                          ds0, sx, gx, pend)),
+                B, T, H, hd, BWD_CHUNK)
+    return dr, dk, dv, dw, dup.sum((0, 2)), ds0
+
+
+class Rwkv6Scan(torch.autograd.Function):
+    """``rwkv6_scan`` with a gradient: the forward of ``_forward``, the
+    backward of ``_backward``, on the inputs saved from the forward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return _forward(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        grads = _backward(*ctx.saved_tensors, dy, dsT)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def rwkv6_scan(r, k, v, w, u, s0):
@@ -61,31 +142,12 @@ def rwkv6_scan(r, k, v, w, u, s0):
         raise TypeError("rwkv6_scan: inputs must be floating point")
     if len({t.device for t in (r, k, v, w, u, s0)}) != 1:
         raise ValueError("rwkv6_scan: inputs must share a device")
-    if not r.is_cuda:
-        return R.rwkv6_scan_ref(r, k, v, w, u, s0)
-    _lib.refuse_grad("rwkv6_scan", r, k, v, w, u, s0)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"rwkv6_scan: the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
-    r, k, v, w, u, s0 = (t.to(torch.float32) for t in (r, k, v, w, u, s0))
-    _lib.check_cuda("rwkv6_scan", r, k, v, w, u, s0)
-    y = torch.empty_like(r)
-    sT = torch.empty_like(s0)
-    variant = _variant(T)
-    if variant == "seq":
-        _lib.launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
-                    B, T, H, hd)
-    else:
-        # the kernel stages r, k, v, w with 16-byte copies: a view that
-        # starts off that grid is copied to a fresh allocation
-        r, k, v, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, w))
-        nc = -(-T // CHUNK)
-        st = torch.empty((B, H, nc, hd, hd), dtype=torch.float32, device=r.device)
-        rp = torch.empty_like(r)
-        pend = torch.empty((B, H, nc, hd), dtype=torch.float32, device=r.device)
-        _lib.launch("rwkv6_scan_chunked", r.device, r.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(),
-                    sT.data_ptr(), st.data_ptr(), rp.data_ptr(), pend.data_ptr(), B, T, H,
-                    hd, CHUNK, count_as="rwkv6_scan")
-    variant_launches[variant] += 1
-    return y, sT
+    ins = (r, k, v, w, u, s0)
+    if r.is_cuda:
+        if hd not in HEAD_DIMS:
+            raise ValueError(f"rwkv6_scan: the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+        ins = tuple(t.to(torch.float32) for t in ins)
+        _lib.check_cuda("rwkv6_scan", *ins)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return Rwkv6Scan.apply(*ins)
+    return _forward(*ins)

@@ -8,10 +8,14 @@ Counterpart of ``repro.launch.train``. Two planes:
     python -m repro_torch.launch.train --arch llama3.2-3b --reduced --steps 50 --device cpu
     python -m repro_torch.launch.train --arch llama3.2-3b --full --steps 4 --batch 2 \\
         --seq 1024 --use-kernels --profile-last 1  # on the card: full width and depth, bf16
+    python -m repro_torch.launch.train --arch rwkv6-1.6b --full --steps 4 --batch 2 \\
+        --seq 1024 --use-kernels  # rwkv6 on the card: the scan's kernels forward and backward
 
 Both run on the card by default; ``--device cpu`` (or ``device="cpu"``)
 runs the plain path on the CPU. ``train_lm`` runs ``make_train_step`` with
-the reference's options (``attn_chunk=0, remat=False``); ``use_kernels``
+the reference's options (``attn_chunk=0, remat=False``; ``rwkv_chunk`` and
+``ssm_seq_chunk`` at their defaults, so an rwkv6 model's time mix runs
+``ops.rwkv6_scan``, its forward and backward kernels on the card); ``use_kernels``
 sends the LM loss through ``distill_loss``'s cross-entropy kernels (bf16
 logits at full size, no teacher tensor). ``profile_last`` runs the last steps under ``torch.profiler`` and
 reports where their device time goes. ``checkpoint`` (``--checkpoint

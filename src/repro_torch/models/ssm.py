@@ -1,9 +1,11 @@
 """Attention-free sequence mixer: RWKV6 ("Finch").
 
 Counterpart of the RWKV6 part of ``repro.models.ssm``. The recurrence of
-``rwkv6_time_mix`` is one ``ops.rwkv6_scan`` call: the hand-written kernel
-on the card, its plain version on the CPU. ``rwkv6_time_mix_chunked`` (a
-training lever) and Mamba2 wait (ROADMAP A6.2, A6.3).
+``rwkv6_time_mix`` is one ``ops.rwkv6_scan`` call: the hand-written kernels
+on the card (forward, and backward under autograd), their plain versions on
+the CPU. ``rwkv6_time_mix_chunked`` is the reference's chunk-parallel form
+(``ModelOpts.rwkv_chunk``) in torch ops under autograd; it calls no kernel.
+Mamba2 waits (ROADMAP A6.3).
 
 Layouts: x (B, S, d). Recurrent state:
   {"tm_x": (B, d), "cm_x": (B, d), "s": (B, H, hd, hd) fp32}
@@ -114,6 +116,46 @@ def rwkv6_time_mix(cfg, p, x, state):
     y = _group_norm(y, p["ln_scale"], p["ln_bias"], H)
     y = mm(y * g.to(y.dtype), p["wo"].to(y.dtype)).to(x.dtype)
     return y, {"tm_x": x[:, -1].to(state["tm_x"].dtype), "s": s_new}
+
+
+def rwkv6_time_mix_chunked(cfg, p, x, state, chunk: int = 64):
+    """The same recurrence by the reference's chunk-parallel form: within a
+    chunk of ``chunk`` steps, cumulative log decays turn the state's
+    contribution and the intra-chunk pairs into products; a loop over the
+    chunks (the reference's ``lax.scan``) carries the state. The reference's
+    arithmetic, term for term: ``exp(-cum)`` overflows to inf where a
+    chunk's decays multiply below fp32's range (ROADMAP C12)."""
+    B, S, d = x.shape
+    H, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    if S % chunk:
+        raise ValueError(f"rwkv6_time_mix_chunked: chunk {chunk} must divide S = {S}")
+    x_prev = _shift(state["tm_x"], x)
+    r, k, v, g, w = _rwkv6_inputs(p, x, x_prev)
+    nc = S // chunk
+    r, k, v, w = (_heads(t, H, hd).to(torch.float32).reshape(B, nc, chunk, H, hd)
+                  for t in (r, k, v, w))
+    u = p["u"][None]
+    logw = torch.log(torch.clamp_min(w, 1e-38))
+    cum = torch.cumsum(logw, dim=2)  # within-chunk cumulative log decay
+    tj = torch.tril(torch.ones((chunk, chunk), device=x.device), -1)
+    s = state["s"].to(torch.float32)
+    ys = []
+    for c in range(nc):
+        r_c, k_c, v_c, cum_c, logw_c = r[:, c], k[:, c], v[:, c], cum[:, c], logw[:, c]
+        total = cum_c[:, -1]  # (B, H, hd) total log decay of the chunk
+        q_ = r_c * torch.exp(cum_c - logw_c)  # r_t times the decay from the chunk's start to t - 1
+        y_state = torch.einsum("bthk,bhkv->bthv", q_, s)
+        k_ = k_c * torch.exp(-cum_c)
+        att = torch.einsum("bthk,bjhk->bhtj", q_, k_) * tj[None, None]
+        diag = torch.einsum("bthk,bthk->bth", r_c, u[:, None] * k_c)  # bonus u * k_t
+        y_intra = torch.einsum("bhtj,bjhv->bthv", att, v_c) + diag[..., None] * v_c
+        k_dec = k_c * torch.exp(total[:, None] - cum_c)
+        s = torch.exp(total)[..., None] * s + torch.einsum("bjhk,bjhv->bhkv", k_dec, v_c)
+        ys.append(y_state + y_intra)
+    y = torch.stack(ys, 1).reshape(B, S, d).to(x.dtype)
+    y = _group_norm(y, p["ln_scale"], p["ln_bias"], H)
+    y = mm(y * g.to(y.dtype), p["wo"].to(y.dtype)).to(x.dtype)
+    return y, {"tm_x": x[:, -1].to(state["tm_x"].dtype), "s": s}
 
 
 def rwkv6_channel_mix(cfg, p, x, state):

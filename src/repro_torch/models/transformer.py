@@ -13,9 +13,13 @@ unit in ``jax.checkpoint``.
 Every other block kind (``local_attn``, ``mla``, ``moe``, ``mla_moe``,
 ``mamba2``, ``shared_attn``), encoder-decoder models, media frontends and
 learned position embeddings raise ``NotImplementedError`` (ROADMAP A6.3).
-``forward_train`` runs ``attn`` models only: training an ``rwkv6`` model
-waits for the chunked time mix (ROADMAP A6.2), since ``rwkv6_scan`` has no
-backward.
+``forward_train`` runs both ported kinds. An ``rwkv6`` block's time mix
+trains through ``ops.rwkv6_scan`` (the forward and backward kernels on the
+card), or through the reference's chunk-parallel torch form with
+``opts.rwkv_chunk``; ``opts.ssm_seq_chunk`` cuts a full-sequence block into
+sequence chunks, each recomputed in the backward pass
+(``torch.utils.checkpoint``), with the recurrent state carried from chunk
+to chunk, as the reference's chunked-remat time scan.
 
 Entry points:
   init_params(cfg, opts, seed=, device=)      -> param tree
@@ -68,14 +72,16 @@ class ModelOpts:
 
     kv_mult: int = 1  # KV-head replication for tensor parallelism
     attn_chunk: int = 0  # online-softmax KV chunk of the training attention (0 = one block)
+    rwkv_chunk: int = 0  # chunk-parallel RWKV6 (0 = exact scan)
     remat: bool = True  # activation checkpointing around each repeat (training)
     loss_chunk: int = 512  # sequence chunk for the LM loss (avoids (B,S,V))
     use_kernels: bool = False  # LM loss through ops.fused_softmax_xent
+    ssm_seq_chunk: int = 0  # chunked-remat SSM time scan (0 = one full scan)
 
 
-def _unported(what: str, item: str = "A6.3") -> NotImplementedError:
+def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item}); the port runs "
+        f"{what} is not ported to repro_torch yet (ROADMAP A6.3); the port runs "
         f"block kinds {PORTED_KINDS}")
 
 
@@ -146,14 +152,33 @@ def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
         x = x + apply_mlp(cfg, p["mlp"], h)
         return x, new_state if decode else None
     if kind == "rwkv6":
-        st = state if state is not None else S.init_rwkv6_state(cfg, x.shape[0],
-                                                                device=x.device)
-        h = apply_norm(cfg, p["ln1"], x)
-        y, st_tm = S.rwkv6_time_mix(cfg, p["rwkv"], h, st)
-        x = x + y
-        h = apply_norm(cfg, p["ln2"], x)
-        y, st_cm = S.rwkv6_channel_mix(cfg, p["rwkv"], h, st)
-        return x + y, ({**st, **st_tm, **st_cm} if state is not None else None)
+        st0 = state if state is not None else S.init_rwkv6_state(cfg, x.shape[0],
+                                                                 device=x.device)
+
+        def block1(xc, st):
+            h = apply_norm(cfg, p["ln1"], xc)
+            n = xc.shape[1]
+            if opts.rwkv_chunk and n % opts.rwkv_chunk == 0 and n > 1:
+                y, st_tm = S.rwkv6_time_mix_chunked(cfg, p["rwkv"], h, st, opts.rwkv_chunk)
+            else:
+                y, st_tm = S.rwkv6_time_mix(cfg, p["rwkv"], h, st)
+            xc = xc + y
+            h = apply_norm(cfg, p["ln2"], xc)
+            y, st_cm = S.rwkv6_channel_mix(cfg, p["rwkv"], h, st)
+            return xc + y, {**st, **st_tm, **st_cm}
+
+        C = opts.ssm_seq_chunk
+        n = x.shape[1]
+        if C and n > C and n % C == 0 and state is None:
+            # chunked-remat time scan: each sequence chunk is recomputed in
+            # the backward pass, so only the states between chunks are kept
+            st, outs = st0, []
+            for xc in x.split(C, dim=1):
+                xo, st = checkpoint(block1, xc, st, use_reentrant=False)
+                outs.append(xo)
+            return torch.cat(outs, dim=1), None
+        x, ns = block1(x, st0)
+        return x, (ns if state is not None else None)
     raise _unported(f"block kind {kind!r}")
 
 
@@ -316,11 +341,10 @@ def forward_train(cfg, opts, params, batch):
     """batch: tokens (B, S) int, labels (B, S) int. Returns the scalar
     training loss and {"ce", "lb_loss", "router_z"} (the router terms are 0:
     no ported block has a router). Attention runs ``attention.mha`` under
-    autograd, checkpointed per repeat with ``opts.remat``."""
+    autograd, the RWKV6 scan ``ops.rwkv6_scan`` (its kernels forward and
+    backward on the card); each repeat is checkpointed with
+    ``opts.remat``."""
     _check_ported(cfg)
-    kinds = sorted({b.kind for b in cfg.blocks} - {"attn"})
-    if kinds:
-        raise _unported(f"training block kinds {kinds}", "A6.2, A6.3")
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)

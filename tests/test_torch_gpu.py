@@ -339,7 +339,7 @@ def test_launches_are_counted(cuda):
                      torch.full((8,), 0.5, device=cuda))
     assert ops.launches == {"distill_loss_fwd": 1, "distill_loss_bwd": 1, "skr_rectify": 1,
                             "flash_attention": 0, "flash_attention_empty_rows": 0,
-                            "rwkv6_scan": 0}
+                            "rwkv6_scan": 0, "rwkv6_scan_bwd": 0}
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
@@ -729,10 +729,6 @@ def test_forward_only_kernels_refuse_inputs_that_require_grad(cuda):
         ops.flash_attention(q.requires_grad_(True), k, v)
     with torch.no_grad():
         ops.flash_attention(q, k, v)
-    ins = list(_rwkv_inputs(1, 5, 2, 16, cuda))
-    ins[3].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.rwkv6_scan(*ins)
 
 
 def test_flash_attention_decode_failed_launch_raises(cuda):
@@ -784,6 +780,31 @@ def _rwkv_inputs(B, T, H, hd, dev, seed=0):
     u = torch.randn((H, hd), generator=g, device=dev) * 0.3
     s0 = torch.randn((B, H, hd, hd), generator=g, device=dev) * 0.1
     return r, k, v, w, u, s0
+
+
+# every gradient within 1e-4 of that input's max |g| (fp32 sums in other
+# orders, the training parity's rule); extreme decays (1e-30, 1) included
+@pytest.mark.parametrize("B,T,H,hd,extreme", [(2, 32, 4, 16, False), (1, 40, 2, 32, True),
+                                              (3, 16, 1, 64, False), (2, 13, 2, 128, True),
+                                              (8, 1, 32, 64, False), (1, 300, 4, 64, True)])
+def test_rwkv6_scan_backward_matches_plain(cuda, B, T, H, hd, extreme):
+    ins = [t.requires_grad_(True) for t in _rwkv_inputs(B, T, H, hd, cuda)]
+    if extreme:
+        with torch.no_grad():
+            ins[3][:, ::7] = 1e-30
+            ins[3][:, 3::5, :, ::2] = 1.0
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn((B, T, H, hd), generator=g, device=cuda)
+    dsT = torch.randn((B, H, hd, hd), generator=g, device=cuda) * (T % 2)
+    ops.reset_launches()
+    y, sT = ops.rwkv6_scan(*ins)
+    got = torch.autograd.grad((y, sT), ins, (dy, dsT))
+    want = R.rwkv6_scan_grad_ref(*(t.detach() for t in ins), dy, dsT)
+    torch.cuda.synchronize()
+    assert ops.launches["rwkv6_scan"] == ops.launches["rwkv6_scan_bwd"] == 1
+    for a, b in zip(want, got):
+        assert torch.isfinite(b).all()
+        assert (a - b).abs().max() <= 1e-4 * a.abs().max()
 
 
 @pytest.mark.parametrize("B,T,H,hd", [(2, 32, 4, 16), (1, 40, 2, 32), (3, 16, 1, 64),

@@ -141,19 +141,17 @@ def _scan(requires_grad):
     return ins
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "rwkv6_scan"])
+@pytest.mark.parametrize("kernel", ["flash_attention"])
 def test_forward_only_kernels_refuse_inputs_that_require_grad(kernel):
-    """The flash_attention and rwkv6_scan kernels have no backward: on a
-    card their wrappers raise when grad mode is on and an input requires
-    grad, instead of returning an output with no grad_fn (a gradient
-    dropped without a word). Under no_grad, or with no such input, the
-    guard lets the call through (here it then stops at the kernel build)."""
+    """The flash_attention kernels have no backward: on a card the wrapper
+    raises when grad mode is on and an input requires grad, instead of
+    returning an output with no grad_fn (a gradient dropped without a
+    word). Under no_grad, or with no such input, the guard lets the call
+    through (here it then stops at the kernel build)."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
-    fn, make = ((lambda a: flash_attention(*a), _attn) if kernel == "flash_attention"
-                else (lambda a: rwkv6_scan(*a), _scan))
+    fn, make = (lambda a: flash_attention(*a)), _attn
     with _on_the_card():
         with pytest.raises(RuntimeError, match="no backward"):
             fn(make(True))
@@ -162,8 +160,35 @@ def test_forward_only_kernels_refuse_inputs_that_require_grad(kernel):
                 with pytest.raises(RuntimeError, match="launched"):
                     fn(ins)
     # on the CPU the plain version runs under autograd
-    out = fn(make(True))
-    assert (out[0] if kernel == "rwkv6_scan" else out).grad_fn is not None
+    assert fn(make(True)).grad_fn is not None
+
+
+def test_rwkv6_scan_on_the_card_records_a_grad_fn_and_launches_its_backward():
+    """On a card, a call with an input that requires grad goes through
+    ``Rwkv6Scan``: the forward launches the kernel ``_variant`` picks and
+    the output records a grad_fn, whose backward launches
+    ``rwkv6_scan_bwd`` once, on every input's gradient buffers, with no
+    plain version run on either side. Under no_grad the call launches the
+    forward alone and records nothing (the serving path)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    names = []
+    fake = lambda name, *a, **kw: names.append(name)  # noqa: E731
+    with _on_the_card(), mock.patch.object(_lib, "launch", side_effect=fake), \
+            mock.patch.object(R, "rwkv6_scan_ref", side_effect=AssertionError("plain")), \
+            mock.patch.object(R, "rwkv6_scan_grad_ref", side_effect=AssertionError("plain")):
+        with torch.no_grad():
+            y, sT = rwkv6_scan(*_scan(True))
+        assert y.grad_fn is None and names == ["rwkv6_scan"]
+        names.clear()
+        ins = _scan(True)
+        y, sT = rwkv6_scan(*ins)
+        assert type(y.grad_fn).__name__ == "Rwkv6ScanBackward"
+        assert names == ["rwkv6_scan"]
+        (g,) = torch.autograd.grad(y.sum() + sT.sum(), [ins[0]])
+        assert names == ["rwkv6_scan", "rwkv6_scan_bwd"] and g.shape == ins[0].shape
 
 
 def test_examples_default_to_cuda_and_raise_without_a_card():

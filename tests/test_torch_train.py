@@ -237,16 +237,25 @@ def test_default_opts_are_the_reference_defaults():
     assert default_opts(None, remat=False, use_kernels=True).use_kernels
     j = JaxOpts()
     t = ModelOpts()
-    assert (t.attn_chunk, t.remat, t.loss_chunk, t.use_kernels) == (
-        j.attn_chunk, j.remat, j.loss_chunk, j.use_kernels)
+    assert (t.attn_chunk, t.remat, t.loss_chunk, t.use_kernels, t.rwkv_chunk,
+            t.ssm_seq_chunk) == (j.attn_chunk, j.remat, j.loss_chunk, j.use_kernels,
+                                 j.rwkv_chunk, j.ssm_seq_chunk) == (0, True, 512, False, 0, 0)
+    assert (opts.rwkv_chunk, opts.ssm_seq_chunk) == (0, 0)
 
 
-def test_rwkv6_training_is_not_ported():
-    cfg = reduced(get_arch("rwkv6-1.6b"))
+def test_training_a_block_kind_the_port_lacks_raises():
+    """rwkv6 trains (tests/test_torch_rwkv6_train.py); a block kind that is
+    not ported still raises, naming ROADMAP A6.3."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import BlockKind
+
+    cfg = reduced(get_arch(ARCH))
     params = init_params(cfg, ModelOpts(), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        forward_train(cfg, ModelOpts(), params, {"tokens": tok, "labels": tok})
+    lacking = replace(cfg, pattern=(BlockKind("local_attn"),))
+    with pytest.raises(NotImplementedError, match="A6.3"):
+        forward_train(lacking, ModelOpts(), params, {"tokens": tok, "labels": tok})
 
 
 def test_checkpoint_option_is_not_ported(tmp_path):
