@@ -54,8 +54,10 @@ the result line:
    has two: the sequential kernel for T <= 16 and the chunked scan for
    longer T, and each case names the one that served it, extreme decays
    included; its backward kernel (``Rwkv6Scan``'s, launched by autograd)
-   against the plain backward on the same cases, T = 1, T = 17 and the
-   training shape (2, 1024, 32, 64), every gradient within 1e-4 of its max
+   against the plain backward on the same cases, T = 1, T = 17, w = 0
+   exactly at the edges of its sub-chunks and chunks (hd 64 and 128), hd
+   128 across many chunks and the training shape (2, 1024, 32, 64), every
+   gradient within 1e-4 of its max
    |g|, each line naming the forward kernel that served it; skr_rectify
    has two entries: the map alone, exact, and the
    fused entry, SKR's queue pass and map in one launch, with count, head
@@ -172,8 +174,10 @@ the result line:
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
    beside the chunked one, and the chunked one's three kernels' device ms
    under the profiler; the rwkv6_scan backward kernel at the training
-   shape beside the plain backward, and its three kernels under the
-   profiler; and
+   shape beside the plain backward, with its bound (its operations as
+   3xTF32 at TF32's peak), the same operations on the fp32 cores and its
+   design's floor (3xTF32 GEMMs and chunk scratch), and its three kernels
+   (local, chunk_scan, grads) under the profiler; and
    distill_loss at the training shape in bf16, both entries forward and
    backward, beside ``F.cross_entropy`` on the same logits, printed on a
    line of its own. They come last, so that nothing the timing leaves
@@ -726,10 +730,13 @@ RWKV_CASES = [(2, 32, 4, 16, False), (1, 40, 2, 32, False), (3, 16, 1, 64, False
 RWKV_PREFILL = (1, 1024, 32, 64)  # rwkv6-1.6b, one 1024-token prompt
 RWKV_DECODE = (8, 1, 32, 64)  # 8 requests, one step
 RWKV_TRAIN = (2, 1024, 32, 64)  # rwkv6-1.6b, a training batch of 2 x 1024 tokens
-# the backward's cases beyond RWKV_CASES: T = 1, T = 17 (one chunk and a
-# ragged second) and the training shape
+# the backward's cases beyond RWKV_CASES: T = 1, T = 17 (one sub-chunk and a
+# ragged second), w = 0 exactly ("zero": at the first and last step of
+# every sub-chunk and chunk) across chunks at hd 64 and 128, hd 128 across
+# many chunks, and the training shape
 RWKV_GRAD_CASES = RWKV_CASES + [(3, 1, 4, 16, False), (2, 17, 4, 32, True),
-                                (*RWKV_TRAIN, False)]
+                                (2, 130, 4, 64, "zero"), (1, 200, 2, 128, False),
+                                (1, 75, 2, 128, "zero"), (*RWKV_TRAIN, False)]
 
 
 BF16_ULP = 2.0**-7  # one bf16 ulp of x is at most 2^-7 |x|
@@ -879,6 +886,16 @@ def check_rwkv6_scan(dev):
     return worst
 
 
+def _zero_w(w):
+    """w = 0 exactly at the first and last step of every sub-chunk (so of
+    every chunk too): the state is wiped at each edge of the backward's
+    blocks."""
+    w = w.clone()
+    w[:, ::16] = 0.0
+    w[:, 15::16] = 0.0
+    return w
+
+
 def _rwkv_cotangents(B, T, H, hd, dev, zero_dsT=False):
     import torch
 
@@ -908,7 +925,9 @@ def check_rwkv6_scan_grad(dev):
     worst = 0.0
     for n, (B, T, H, hd, extreme) in enumerate(RWKV_GRAD_CASES):
         ins = list(_rwkv_inputs(B, T, H, hd, dev))
-        if extreme:
+        if extreme == "zero":
+            ins[3] = _zero_w(ins[3])
+        elif extreme:
             ins[3] = _extreme_w(ins[3])
         dy, dsT = _rwkv_cotangents(B, T, H, hd, dev, zero_dsT=n == 0)
         leaves = [t.clone().requires_grad_(True) for t in ins]
@@ -924,7 +943,8 @@ def check_rwkv6_scan_grad(dev):
         finite = all(bool(torch.isfinite(t).all()) for t in got)
         ok = max(shares) <= 1e-4 and finite
         worst = max(worst, *errs)
-        print(f"rwkv6_scan backward {(B, T, H, hd)}{' extreme w' if extreme else ''}"
+        label = {"zero": " w = 0 at sub-chunk edges", True: " extreme w", False: ""}[extreme]
+        print(f"rwkv6_scan backward {(B, T, H, hd)}{label}"
               f"{' dsT = 0' if n == 0 else ''} [forward {'+'.join(served)}, backward x{bwd}]: "
               + ", ".join(f"{k} {sh:.2e}" for k, sh in zip(GRAD_NAMES, shares))
               + f" of max|g|; max|err| {max(errs):.3e}  {'ok' if ok else 'MISMATCH'}")
@@ -2402,18 +2422,48 @@ def _rwkv_bwd_bounds(B, T, H, hd):
     head), u read and du written, s0 and dsT read and ds0 written; per token
     and head 14 hd^2 flops (an FMA as two: per state element 3 to recompute
     S_{t-1} = w S + k v, 3 to step G back, 2 each for dr, dk, dv and dw)
-    and 12 hd (b_t and a_t, the bonus terms of dr, dk and dv, du)."""
+    and 12 hd (b_t and a_t, the bonus terms of dr, dk and dv, du). The
+    kernel does the hd^2 part on the tensor cores as 3xTF32, so its JSON
+    row prices these operations as row 4b does, three times over at TF32's
+    peak; at fp32's (the earlier kernel's bound) they are printed beside
+    it."""
     nbytes = 4 * (9 * B * T * H * hd + 2 * H * hd + 3 * B * H * hd * hd)
     flops = (14 * hd * hd + 12 * hd) * B * T * H
     return nbytes, flops
 
 
+def _rwkv_bwd_design_bound(B, T, H, hd, C, L):
+    """A diagnostic, not the row's bound: the least time of what
+    ``csrc/rwkv6_scan_bwd.cu``'s design moves and does at chunks of C and
+    sub-chunks of L (NQ = C / L): bytes, the function's plus its chunk
+    scratch (two hd x hd matrices a chunk, written by ``local``, read and
+    rewritten by ``chunk_scan``, read by ``grads``: 8 hd^2 floats a chunk,
+    and P_end); operations, its GEMM flops ((10 + (NQ - 1) + 2 (NQ - 1) /
+    NQ) hd^2 + 4 L hd a token and head) three times over as 3xTF32 at
+    TF32's peak, plus its decayed parts ((3.5 L + 12) hd fp32 flops) at
+    fp32's, the two units' times added. Returns (ms, "bytes" or
+    "operations", bytes ms, tensor-core ms, fp32 ms)."""
+    nq = C // L
+    nc = B * H * -(-T // C)
+    nbytes = _rwkv_bwd_bounds(B, T, H, hd)[0] + 4 * nc * (8 * hd * hd + 3 * hd)
+    gemm = ((10 + (nq - 1) + 2 * (nq - 1) / nq) * hd * hd + 4 * L * hd) * B * T * H
+    fp32 = (3.5 * L + 12) * hd * B * T * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc, t_fp = 3 * gemm / TF32_OPS_PER_S * 1e3, fp32 / FP32_OPS_PER_S * 1e3
+    ops = t_tc + t_fp
+    return max(t_bytes, ops), "bytes" if t_bytes >= ops else "operations", t_bytes, t_tc, t_fp
+
+
 def time_rwkv_bwd(dev, launches=5):
     """The backward kernel at the training shape (one call: its three
     kernels) beside the plain backward; no single PyTorch call computes
-    this function, so the library column is empty."""
+    this function, so the library column is empty. The JSON row's bound
+    prices the function's operations on the tensor cores as 3xTF32 (bytes
+    bind it); printed beside it, the same operations on the fp32 cores
+    and the floor of this design's traffic and work at its
+    lengths (``_rwkv_bwd_design_bound``, a diagnostic)."""
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.rwkv6_scan import _backward
+    from repro_torch.kernels.rwkv6_scan import BWD_SUB, _backward, _bwd_chunk
 
     B, T, H, hd = RWKV_TRAIN
     ins = _rwkv_inputs(B, T, H, hd, dev)
@@ -2421,15 +2471,23 @@ def time_rwkv_bwd(dev, launches=5):
     nbytes, flops = _rwkv_bwd_bounds(B, T, H, hd)
     row = _timed("rwkv6_scan_bwd", "train", f"{RWKV_TRAIN} fp32",
                  lambda: _backward(*ins, dy, dsT),
-                 lambda: R.rwkv6_scan_grad_ref(*ins, dy, dsT), None, nbytes, flops,
-                 launches=launches)
+                 lambda: R.rwkv6_scan_grad_ref(*ins, dy, dsT), None, nbytes, 3 * flops,
+                 TF32_OPS_PER_S, launches=launches)
+    fp32_bound, fp32_by = bound_ms(nbytes, flops, FP32_OPS_PER_S)
+    C, L = _bwd_chunk(hd), BWD_SUB
+    b, by, tb, ttc, tfp = _rwkv_bwd_design_bound(B, T, H, hd, C, L)
+    print(f"rwkv6_scan_bwd at {RWKV_TRAIN}: bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}; its operations as 3xTF32 at TF32's peak); the same "
+          f"operations on the fp32 cores {fp32_bound:.6f} ms ({fp32_by}); this design's "
+          f"traffic and work at chunk {C}, sub-chunk {L} (a diagnostic): {b:.6f} ms ({by}: "
+          f"bytes {tb:.6f}, tensor cores {ttc:.6f} + fp32 {tfp:.6f} ms)")
     profile_rwkv_phases(dev, "rwkv6_scan_bwd", lambda: _backward(*ins, dy, dsT),
                         ("local", "chunk_scan", "grads"))
     return row
 
 
 RWKV_CHUNKS = (16, 32, 64, 128)
-RWKV_BWD_CHUNKS = (8, 16, 32)
+RWKV_BWD_CHUNKS = (16, 32, 64, 128)  # chunk lengths of the backward kernel's sweep
 
 
 def time_rwkv_chunks(dev):
@@ -2466,13 +2524,17 @@ def time_rwkv_chunks(dev):
 
 def time_rwkv_bwd_chunks(dev):
     """The backward kernel at the training shape, its C entry launched
-    directly at each chunk length of ``RWKV_BWD_CHUNKS`` (the wrapper always
-    passes ``BWD_CHUNK``), each gradient held to the plain backward at 1e-4
-    of its max |g|: what ``BWD_CHUNK`` was chosen from."""
+    directly at each chunk length of ``RWKV_BWD_CHUNKS`` (sub-chunks of
+    ``BWD_SUB``, fixed in the kernel; the wrapper passes ``BWD_CHUNK``),
+    each gradient held to the plain backward at 1e-4 of its max |g|, with
+    the design's floor at that length: what ``BWD_CHUNK`` was chosen from.
+    A length whose shared memory (``bwd_smem``) passes the card's opt-in
+    limit is said so and not launched; any other failure fails the run."""
     import torch
 
     from repro_torch.kernels import _lib
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rwkv6_scan import BWD_SUB, bwd_smem
 
     B, T, H, hd = RWKV_TRAIN
     ins = _rwkv_inputs(B, T, H, hd, dev)
@@ -2480,23 +2542,34 @@ def time_rwkv_bwd_chunks(dev):
     want = R.rwkv6_scan_grad_ref(*ins, dy, dsT)
     outs = [torch.empty_like(ins[0]) for _ in range(4)]
     ds0 = torch.empty_like(ins[-1])
-    for L in RWKV_BWD_CHUNKS:
-        nc = -(-T // L)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for C in RWKV_BWD_CHUNKS:
+        need = bwd_smem(hd, C)
+        if need > limit:
+            print(f"rwkv6_scan_bwd {RWKV_TRAIN} chunk {C}: needs {need} bytes of shared "
+                  f"memory a block, over the card's {limit}: not launched")
+            continue
+        nc = -(-T // C)
         dup = torch.empty((B, H, nc, hd), device=dev)
         sx, gx = (torch.empty((B, H, nc, hd, hd), device=dev) for _ in range(2))
         pend = torch.empty_like(dup)
         fn = lambda: _lib.launch(  # noqa: E731
             "rwkv6_scan_bwd", dev, *(t.data_ptr() for t in (*ins, dy, dsT, *outs, dup, ds0,
                                                             sx, gx, pend)),
-            B, T, H, hd, L)
-        fn()
+            B, T, H, hd, C)
+        try:
+            fn()
+        except RuntimeError as e:
+            fail(f"the rwkv6_scan backward kernel did not launch at chunk {C}: {e}")
         torch.cuda.synchronize()
         got = (*outs, dup.sum((0, 2)), ds0)
         share = max(((a - b).abs().max() / a.abs().max()).item() for a, b in zip(want, got))
-        print(f"rwkv6_scan_bwd {RWKV_TRAIN} chunk {L}: {device_ms(fn, 5):.5f} ms device, "
-              f"worst gradient {share:.3e} of its max|g| {'ok' if share <= 1e-4 else 'MISMATCH'}")
+        floor = _rwkv_bwd_design_bound(B, T, H, hd, C, BWD_SUB)[0]
+        print(f"rwkv6_scan_bwd {RWKV_TRAIN} chunk {C} sub-chunk {BWD_SUB}: "
+              f"{device_ms(fn, 5):.5f} ms device (design floor {floor:.6f} ms), worst "
+              f"gradient {share:.3e} of its max|g| {'ok' if share <= 1e-4 else 'MISMATCH'}")
         if share > 1e-4:
-            fail(f"the rwkv6_scan backward kernel disagrees at chunk {L}")
+            fail(f"the rwkv6_scan backward kernel disagrees at chunk {C}")
         del dup, sx, gx, pend
 
 

@@ -91,6 +91,8 @@ _SIGNATURES = {
     # r, k, v, w, u, s0, dy, dsT, dr, dk, dv, dw, dup, ds0, sx, gx, pend, B, T,
     # H, hd, chunk, stream
     "rwkv6_scan_bwd": [_P] * 17 + [_I, _I, _I, _I, _I, _P],
+    # hd, chunk, shared memory bytes out (no stream)
+    "rwkv6_scan_bwd_smem": [_I, _I, ctypes.POINTER(ctypes.c_longlong)],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -300,38 +300,61 @@ def rwkv6_scan_grad_ref(r, k, v, w, u, s0, dy, dsT):
     return dr, dk, dv, dw, du, g
 
 
-def rwkv6_scan_grad_chunked_ref(r, k, v, w, u, s0, dy, dsT, chunk):
-    """``rwkv6_scan_grad_ref`` by the chunked form that
-    ``csrc/rwkv6_scan_bwd.cu`` computes, phase by phase (for the tests; the
-    op never runs it):
+def _decay_factors(w):
+    """Per step t of w (B, n, H, hd): Pin_t = ∏_{τ<t} w_τ and Qout_t =
+    ∏_{τ>t} w_τ, running products (no ratio, log or exp), and their full
+    product P_end."""
+    n = w.shape[1]
+    pin, qout = torch.ones_like(w), torch.ones_like(w)
+    for t in range(1, n):
+        pin[:, t] = pin[:, t - 1] * w[:, t - 1]
+    for t in reversed(range(n - 1)):
+        qout[:, t] = qout[:, t + 1] * w[:, t + 1]
+    return pin, qout, pin[:, -1] * w[:, -1]
 
-    1. per chunk of ``chunk`` steps, from zero: its state contribution dS_c
-       (the forward's recurrence), its cotangent contribution dG_c = Σ_t
-       (r_t ⊙ P_t) dy_tᵀ and the product P_end of its decays, with P_t the
-       product of w since the chunk began (plain fp32 products);
+
+def rwkv6_scan_grad_chunked_ref(r, k, v, w, u, s0, dy, dsT, chunk, sub):
+    """``rwkv6_scan_grad_ref`` by the chunked matrix form that
+    ``csrc/rwkv6_scan_bwd.cu`` computes, phase by phase (for the tests; the
+    op never runs it): chunks of ``chunk`` steps hold the states, sub-chunks
+    of ``sub`` steps (``sub`` divides ``chunk``) the decayed parts. Per
+    (b, h) and per (sub-)chunk, Pin_t = ∏_{τ<t} w_τ, Qout_t = ∏_{τ>t} w_τ
+    and D_{s,t} = ∏_{s<τ<t} w_τ within it, each a running product: nothing
+    divides by w, so a decay of 0, 1e-30 or 1 gives exact gradients.
+
+    1. per chunk, the products dS_c = (K ⊙ Qout)ᵀ V and dG_c = (R ⊙ Pin)ᵀ DY
+       and P_end;
     2. the entry state of each chunk, S ← diag(P_end) S + dS_c from s0, and
-       the cotangent at each chunk's last step, G ← diag(P_end) G + dG_c
-       from dsT over the chunks in reverse (the last G is ds0);
-    3. per chunk, the steps in reverse from its exit cotangent: S_{t-1}
-       recomputed from the chunk's entry state at every step (no step's
-       state is stored, and none is recovered by dividing by w), then the
-       step's gradients, then G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ; du as
-       per-chunk partial sums, summed last.
-    """
+       its exit cotangent (the cotangent of its last state), G ←
+       diag(P_end) G + dG_c from dsT in reverse; the last G is ds0;
+    3. per chunk, its sub-chunks in reverse with G carried from the chunk's
+       exit cotangent (G ← diag(P_end) G + (R ⊙ Pin)ᵀ DY after each), and
+       each sub-chunk's entry state S⁰ = diag(Pin_b) S_entry + (K ⊙ D_{·,b})ᵀ
+       V over the chunk's steps before it (b its first step); then the
+       products X = DY S⁰ᵀ, Y = V Gᵀ, Zv = (K ⊙ Qout) G and M1 = DY Vᵀ and
+       c0 = rowsum(S⁰ ⊙ G);
+    4. per sub-chunk, the decayed parts, steps t in reverse: with Gv (rows
+       G v_s, from Y) and Xg (rowsum(S⁰ ⊙ G), from c0) at G_t,
+       dr_t = Pin_t ⊙ X_t + Σ_{s<t} D_{s,t} ⊙ k_s M1[t,s] + u ⊙ k_t b_t,
+       dk_t = Gv[t] + u ⊙ r_t b_t,  dw_t = Pin_t ⊙ Xg + Σ_{s<t} D_{s,t} ⊙ k_s
+       ⊙ Gv[s],  A[t,s] = Σ_i r_t D_{s,t} k_s (A[t,t] = a_t), then Gv[s] ←
+       w_t ⊙ Gv[s] + r_t M1[t,s] and Xg ← w_t ⊙ Xg + r_t ⊙ X_t; and dv = Zv
+       + Aᵀ DY. du as per-chunk partial sums, summed last.
+
+    The products of steps 1 and 3 (and Aᵀ DY) are the kernel's tensor-core
+    GEMMs; step 4's loops its fp32 part."""
+    if chunk % sub:
+        raise ValueError(f"sub ({sub}) must divide chunk ({chunk})")
     r, k, v, w, dy = (t.to(torch.float32) for t in (r, k, v, w, dy))
     uf = u.to(torch.float32)
     T = r.shape[1]
     bounds = [(c0, min(T, c0 + chunk)) for c0 in range(0, T, chunk)]
     local = []
     for c0, c1 in bounds:
-        ds = torch.zeros_like(s0, dtype=torch.float32)
-        dg = torch.zeros_like(ds)
-        p = torch.ones_like(w[:, 0])
-        for t in range(c0, c1):
-            dg = dg + (r[:, t] * p)[..., None] * dy[:, t, :, None, :]
-            ds = w[:, t, :, :, None] * ds + k[:, t, :, :, None] * v[:, t, :, None, :]
-            p = p * w[:, t]
-        local.append((ds, dg, p))
+        pin, qout, p_end = _decay_factors(w[:, c0:c1])
+        ds = torch.einsum("bthi,bthj->bhij", k[:, c0:c1] * qout, v[:, c0:c1])
+        dg = torch.einsum("bthi,bthj->bhij", r[:, c0:c1] * pin, dy[:, c0:c1])
+        local.append((ds, dg, p_end))
     s, entries = s0.to(torch.float32), []
     for ds, _, p_end in local:
         entries.append(s)
@@ -342,16 +365,44 @@ def rwkv6_scan_grad_chunked_ref(r, k, v, w, u, s0, dy, dsT, chunk):
         g = local[c][2][..., None] * g + local[c][1]
     dr, dk, dv, dw = (torch.zeros_like(r) for _ in range(4))
     du_parts = []
-    for (c0, c1), se, gx in zip(bounds, entries, exits):
-        gt, du_c = gx, torch.zeros_like(uf)
-        for t in reversed(range(c0, c1)):
-            sp = se
-            for q in range(c0, t):
-                sp = w[:, q, :, :, None] * sp + k[:, q, :, :, None] * v[:, q, :, None, :]
-            dr[:, t], dk[:, t], dv[:, t], dw[:, t], du_t = _rwkv6_step_grads(
-                sp, gt, r[:, t], k[:, t], v[:, t], dy[:, t], uf)
-            du_c = du_c + du_t
-            gt = w[:, t, :, :, None] * gt + r[:, t, :, :, None] * dy[:, t, :, None, :]
+    for (c0, c1), se, gc in zip(bounds, entries, exits):
+        gq, du_c = gc, torch.zeros_like(uf)
+        for b0 in reversed(range(c0, c1, sub)):
+            b1 = min(c1, b0 + sub)
+            # the sub-chunk's entry state, directly from the chunk's
+            pin_b, kd = torch.ones_like(w[:, 0]), torch.zeros_like(k[:, c0:b0])
+            for s_ in reversed(range(c0, b0)):
+                kd[:, s_ - c0] = k[:, s_] * pin_b
+                pin_b = pin_b * w[:, s_]
+            sq = pin_b[..., None] * se + torch.einsum("bthi,bthj->bhij", kd, v[:, c0:b0])
+            rq, kq, vq, wq, yq = (a[:, b0:b1] for a in (r, k, v, w, dy))
+            pin, qout, p_end = _decay_factors(wq)
+            x = torch.einsum("bthj,bhij->bthi", yq, sq)
+            gv = torch.einsum("bthj,bhij->bthi", vq, gq)
+            zv = torch.einsum("bthi,bhij->bthj", kq * qout, gq)
+            m1 = torch.einsum("bthj,bshj->bhts", yq, vq)
+            xg = (sq * gq).sum(-1)
+            n = b1 - b0
+            a = torch.zeros(m1.shape, dtype=torch.float32)
+            for t in reversed(range(n)):
+                rt, kt, wt, mt = rq[:, t], kq[:, t], wq[:, t], m1[:, :, t]
+                bt = mt[:, :, t, None]
+                d, acc_r, acc_w = torch.ones_like(wt), torch.zeros_like(wt), torch.zeros_like(wt)
+                for s_ in reversed(range(t)):
+                    kdd = kq[:, s_] * d
+                    acc_r = acc_r + kdd * mt[:, :, s_, None]
+                    acc_w = acc_w + kdd * gv[:, s_]
+                    a[:, :, t, s_] = (rt * kdd).sum(-1)
+                    gv[:, s_] = wt * gv[:, s_] + rt * mt[:, :, s_, None]
+                    d = d * wq[:, s_]
+                a[:, :, t, t] = (rt * uf * kt).sum(-1)
+                dr[:, b0 + t] = d * x[:, t] + acc_r + uf * kt * bt
+                dk[:, b0 + t] = gv[:, t] + uf * rt * bt
+                dw[:, b0 + t] = d * xg + acc_w
+                du_c = du_c + (rt * kt * bt).sum(0)
+                xg = wt * xg + rt * x[:, t]
+            dv[:, b0:b1] = zv + torch.einsum("bhts,bthj->bshj", a, yq)
+            gq = p_end[..., None] * gq + torch.einsum("bthi,bthj->bhij", rq * pin, yq)
         du_parts.append(du_c)
     du = torch.stack(du_parts).sum(0) if du_parts else torch.zeros_like(uf)
     return dr, dk, dv, dw, du, g

@@ -23,9 +23,11 @@ in ``ref.py``:
 When grad mode is on and an input requires grad, the call goes through
 ``Rwkv6Scan``, a ``torch.autograd.Function``: its forward is the call
 above, and its backward launches ``repro_torch/csrc/rwkv6_scan_bwd.cu`` on
-the card (chunks of ``BWD_CHUNK`` steps; ``ref.rwkv6_scan_grad_chunked_ref``
-is the same algorithm in torch) or runs ``ref.rwkv6_scan_grad_ref`` on the
-CPU. The TPU kernel has no backward: the reference trains through XLA's
+the card (the chunked matrix form, its products on the tensor cores as
+3xTF32: states at chunks of ``_bwd_chunk(hd)`` steps, decayed parts at
+sub-chunks of ``BWD_SUB``; ``ref.rwkv6_scan_grad_chunked_ref`` is the same
+algorithm in torch) or runs ``ref.rwkv6_scan_grad_ref`` on the CPU. The
+TPU kernel has no backward: the reference trains through XLA's
 gradient of its ``lax.scan``, which both compute. The backward keeps only
 the inputs from the forward and recomputes the states it needs, so a call
 under ``torch.no_grad()`` (serving) allocates and launches what it did
@@ -37,6 +39,8 @@ kernel, ``variant_launches`` counts them per variant, and
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _lib
@@ -45,7 +49,8 @@ from repro_torch.kernels import ref as R
 HEAD_DIMS = (16, 32, 64, 128)
 CHUNK = 64  # steps per chunk of the chunked kernel
 SEQ_MAX_T = 16  # the longest T the sequential kernel takes (at most CHUNK)
-BWD_CHUNK = 16  # steps per chunk of the backward kernel (at most 32; 16 at head_dim 128)
+BWD_CHUNK = 64  # steps per chunk of the backward kernel's states (a multiple of BWD_SUB)
+BWD_SUB = 16  # steps per sub-chunk of its decayed parts: fixed in the kernel (kSubChunk)
 
 variant_launches = _lib.counter(("seq", "chunked"))
 
@@ -54,6 +59,24 @@ def _variant(T: int) -> str:
     """Which kernel a CUDA call runs: the sequential one for short T (a
     decode step), the chunked scan for the rest."""
     return "seq" if T <= SEQ_MAX_T else "chunked"
+
+
+def _bwd_chunk(hd: int) -> int:
+    """Steps per chunk of the backward kernel at head_dim ``hd``: at 128
+    only one sub-chunk a chunk fits shared memory, and the kernel takes no
+    other length there."""
+    return BWD_SUB if hd == 128 else BWD_CHUNK
+
+
+def bwd_smem(hd: int, chunk: int) -> int:
+    """Bytes of shared memory a block of the backward kernel needs at
+    head_dim ``hd`` and chunks of ``chunk`` steps (the card's opt-in limit
+    bounds the chunk)."""
+    need = ctypes.c_longlong(0)
+    err = _lib.lib().rwkv6_scan_bwd_smem(hd, chunk, ctypes.byref(need))
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_bwd_smem({hd}, {chunk}) failed: cudaError {err}")
+    return need.value
 
 
 def _aligned(*tensors):
@@ -99,7 +122,8 @@ def _backward(r, k, v, w, u, s0, dy, dsT):
     dy, dsT = dy.contiguous(), dsT.contiguous()  # fp32, as y and sT are
     _lib.check_cuda("rwkv6_scan_bwd", r, dy, dsT)
     r, k, v, w, dy = _aligned(r, k, v, w, dy)
-    nc = -(-T // BWD_CHUNK)
+    chunk = _bwd_chunk(hd)
+    nc = -(-T // chunk)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     ds0 = torch.empty_like(s0)
     dup = torch.empty((B, H, nc, hd), dtype=torch.float32, device=r.device)
@@ -109,7 +133,7 @@ def _backward(r, k, v, w, u, s0, dy, dsT):
     _lib.launch("rwkv6_scan_bwd", r.device,
                 *(t.data_ptr() for t in (r, k, v, w, u, s0, dy, dsT, dr, dk, dv, dw, dup,
                                           ds0, sx, gx, pend)),
-                B, T, H, hd, BWD_CHUNK)
+                B, T, H, hd, chunk)
     return dr, dk, dv, dw, dup.sum((0, 2)), ds0
 
 

@@ -783,13 +783,24 @@ def _rwkv_inputs(B, T, H, hd, dev, seed=0):
 
 
 # every gradient within 1e-4 of that input's max |g| (fp32 sums in other
-# orders, the training parity's rule); extreme decays (1e-30, 1) included
+# orders, the training parity's rule); extreme decays (1e-30, 1) included,
+# and w = 0 exactly ("zero") at the first and last step of every sub-chunk
+# and chunk of the backward kernel; T = 63, 64, 65 and 1024 at hd 64 (one
+# chunk short, exact, one over, many), hd 128 beyond one chunk
 @pytest.mark.parametrize("B,T,H,hd,extreme", [(2, 32, 4, 16, False), (1, 40, 2, 32, True),
                                               (3, 16, 1, 64, False), (2, 13, 2, 128, True),
-                                              (8, 1, 32, 64, False), (1, 300, 4, 64, True)])
+                                              (8, 1, 32, 64, False), (1, 300, 4, 64, True),
+                                              (2, 63, 2, 64, False), (2, 64, 2, 64, "zero"),
+                                              (2, 65, 2, 64, True), (1, 1024, 4, 64, False),
+                                              (1, 100, 2, 128, False), (1, 70, 2, 128, "zero"),
+                                              (2, 90, 2, 32, "zero")])
 def test_rwkv6_scan_backward_matches_plain(cuda, B, T, H, hd, extreme):
     ins = [t.requires_grad_(True) for t in _rwkv_inputs(B, T, H, hd, cuda)]
-    if extreme:
+    if extreme == "zero":
+        with torch.no_grad():
+            ins[3][:, ::16] = 0.0
+            ins[3][:, 15::16] = 0.0
+    elif extreme:
         with torch.no_grad():
             ins[3][:, ::7] = 1e-30
             ins[3][:, 3::5, :, ::2] = 1.0

@@ -4,15 +4,18 @@ the JAX package, on the CPU.
 ``ref.rwkv6_scan_grad_ref`` (the equations the backward kernel
 ``csrc/rwkv6_scan_bwd.cu`` computes) against ``jax.vjp`` of the reference's
 ``rwkv6_scan_ref`` and against torch autograd of the port's plain scan, and
-``ref.rwkv6_scan_grad_chunked_ref`` (the kernel's algorithm, phase by
-phase) against both, extreme decays and zero or non-zero final-state
-cotangents included; ``ops.rwkv6_scan`` under autograd goes through
-``Rwkv6Scan``. ``rwkv6_time_mix_chunked`` against the reference's (y, state
+``ref.rwkv6_scan_grad_chunked_ref`` (the kernel's chunked matrix form,
+phase by phase, at the kernel's chunk and sub-chunk lengths) against both,
+extreme decays, w = 0 at the edges of chunks and sub-chunks, and zero or
+non-zero final-state cotangents included; ``ops.rwkv6_scan`` under
+autograd goes through ``Rwkv6Scan``. ``rwkv6_time_mix_chunked`` against the reference's (y, state
 and gradients), and its overflow on extreme decays, shared with the
 reference (ROADMAP C12). Inputs come from numpy with a seed; each tolerance
 is stated where it is used. The model-level tests are in
 ``tests/test_torch_rwkv6_train.py``."""
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,8 +30,9 @@ from repro.models import ModelOpts as JaxOpts
 from repro.models import init_params as jax_init_params
 from repro.models.ssm import rwkv6_time_mix_chunked as jax_time_mix_chunked
 from repro_torch.configs import get_arch, reduced
-from repro_torch.kernels import ops
+from repro_torch.kernels import _lib, ops
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import rwkv6_scan as RS
 from repro_torch.kernels.rwkv6_scan import Rwkv6Scan
 from repro_torch.models import ssm as S
 
@@ -51,8 +55,9 @@ def _few_threads():
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_case(T, hd, extreme, zero_dsT, Bs=2, H=2):
-    """r, k, v, w, u, s0 and the cotangents dy, dsT, as numpy fp32."""
+def _scan_case(T, hd, extreme, zero_dsT, Bs=2, H=2, zero_at=()):
+    """r, k, v, w, u, s0 and the cotangents dy, dsT, as numpy fp32; w = 0
+    exactly at the steps ``zero_at``."""
     rng = np.random.default_rng(T * 131 + hd)
     shp = (Bs, T, H, hd)
     r, k, v = ((rng.standard_normal(shp) * 0.3).astype(np.float32) for _ in range(3))
@@ -60,6 +65,7 @@ def _scan_case(T, hd, extreme, zero_dsT, Bs=2, H=2):
     if extreme:
         w[:, ::7] = 1e-30  # every 7th step forgets the state
         w[:, 3::5, :, ::2] = 1.0  # half the rows of every 5th step keep it whole
+    w[:, [t for t in zero_at if t < T]] = 0.0
     u = (rng.standard_normal((H, hd)) * 0.3).astype(np.float32)
     s0 = (rng.standard_normal((Bs, H, hd, hd)) * 0.1).astype(np.float32)
     dy = rng.standard_normal(shp).astype(np.float32)
@@ -85,6 +91,11 @@ def _close_to(got, want, share):
 # a zero dsT each at half the cases
 GRAD_CASES = [(T, hd, (T + hd // 16) % 2 == 1, T % 3 == 1)
               for T in (1, 5, 16, 17, 64, 100) for hd in (16, 32)]
+# (chunk, sub-chunk) lengths of the chunked form: the kernel's at head_dim
+# up to 64 and at 128 (kernels/rwkv6_scan.py:_bwd_chunk, with its fixed
+# sub-chunk BWD_SUB), and short ragged ones (several sub-chunks a chunk,
+# many chunks)
+GRAD_LENGTHS = [(RS._bwd_chunk(64), RS.BWD_SUB), (RS._bwd_chunk(128), RS.BWD_SUB), (10, 5)]
 
 
 @pytest.mark.parametrize("T,hd,extreme,zero_dsT", GRAD_CASES)
@@ -92,9 +103,10 @@ def test_grad_ref_matches_jax_vjp_and_autograd(T, hd, extreme, zero_dsT):
     """The plain backward against ``jax.vjp`` of the reference's scan and
     torch autograd of the port's plain scan, every gradient within 1e-5 of
     that input's max |g| (fp32 sums over hd and T in other orders); the
-    kernel's chunked algorithm at chunks of 16 and 5 (ragged last chunks,
-    one chunk, many) within the same bound. A decay of 1e-30 or 1 gives
-    finite, exact gradients: nothing divides by w."""
+    kernel's chunked matrix form at each (chunk, sub-chunk) of
+    ``GRAD_LENGTHS`` (ragged last chunks and sub-chunks, one chunk, many)
+    within the same bound. A decay of 1e-30 or 1 gives finite, exact
+    gradients: nothing divides by w."""
     case = _scan_case(T, hd, extreme, zero_dsT)
     t = [torch.from_numpy(a) for a in case]
     got = R.rwkv6_scan_grad_ref(*t)
@@ -104,9 +116,62 @@ def test_grad_ref_matches_jax_vjp_and_autograd(T, hd, extreme, zero_dsT):
     y, sT = R.rwkv6_scan_ref(*ins)
     auto = torch.autograd.grad((y, sT), ins, (t[6], t[7]))
     _close_to([g.numpy() for g in got], [g.numpy() for g in auto], 1e-5)
-    for chunk in (16, 5):
-        chunked = R.rwkv6_scan_grad_chunked_ref(*t, chunk)
+    for chunk, sub in GRAD_LENGTHS:
+        chunked = R.rwkv6_scan_grad_chunked_ref(*t, chunk, sub)
         _close_to([g.numpy() for g in chunked], want, 1e-5)
+
+
+# T around the kernel's sub-chunk (16) and chunk (64): below a sub-chunk,
+# one short, exact, one over, and the same at the chunk; each at both head
+# dims, a zero dsT at half of them
+EDGE_TS = (7, 15, 16, 17, 63, 64, 65)
+EDGE_ZEROS = (0, 15, 16, 31, 32, 47, 48, 63, 64)  # every sub-chunk's and chunk's edges
+
+
+@pytest.mark.parametrize("T,hd", [(T, hd) for T in EDGE_TS for hd in (16, 32)])
+def test_grad_chunked_at_block_edges_matches_jax_vjp(T, hd):
+    """The chunked matrix form at the kernel's lengths (chunks of 64,
+    sub-chunks of 16) and at chunks of 32, against ``jax.vjp``, each
+    gradient within 1e-5 of its max |g|, with w = 0 exactly at the first
+    and last step of every sub-chunk and chunk (a wiped state at each edge
+    of the blocks: a form that divided by a decay product would give nan
+    there), T just below, at and above a sub-chunk and a chunk, and dsT
+    zero or not."""
+    zero_dsT = (T + hd // 16) % 2 == 0
+    case = _scan_case(T, hd, False, zero_dsT, zero_at=EDGE_ZEROS)
+    t = [torch.from_numpy(a) for a in case]
+    want = _jax_vjp(case)
+    assert (t[3] == 0).any() and (np.abs(want[3]) > 0).any()
+    for chunk, sub in ((RS.BWD_CHUNK, RS.BWD_SUB), (32, RS.BWD_SUB)):
+        got = R.rwkv6_scan_grad_chunked_ref(*t, chunk, sub)
+        _close_to([g.numpy() for g in got], want, 1e-5)
+
+
+def test_grad_chunked_needs_sub_chunks_that_divide_the_chunk():
+    t = [torch.from_numpy(a) for a in _scan_case(5, 16, False, False)]
+    with pytest.raises(ValueError, match="divide"):
+        R.rwkv6_scan_grad_chunked_ref(*t, 16, 6)
+
+
+def test_bwd_entries_match_their_source():
+    """The backward's C entries take as many arguments as ``_lib`` passes
+    them (the launch entry the stream last, the shared-memory query none),
+    the sub-chunk length the tests and bounds use is the kernel's
+    compile-time one, and the chunk ``_bwd_chunk`` picks at each head dim
+    is one the entry takes (a multiple of the sub-chunk up to 128, the
+    sub-chunk itself at head_dim 128)."""
+    src = (Path(RS.__file__).parents[1] / "csrc" / "rwkv6_scan_bwd.cu").read_text()
+    for name, stream in (("rwkv6_scan_bwd", True), ("rwkv6_scan_bwd_smem", False)):
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        params = [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
+        assert len(params) == len(_lib._SIGNATURES[name]), name
+        assert (params[-1] == "stream") == stream, name
+    assert re.search(r"constexpr int kSubChunk = (\d+);", src).group(1) == str(RS.BWD_SUB)
+    max_chunk = int(re.search(r"constexpr int kMaxChunk = (\d+);", src).group(1))
+    for hd in RS.HEAD_DIMS:
+        chunk = RS._bwd_chunk(hd)
+        assert chunk % RS.BWD_SUB == 0 and chunk <= max_chunk
+        assert hd != 128 or chunk == RS.BWD_SUB
 
 
 def test_extreme_decays_give_the_exact_dw():
