@@ -18,6 +18,9 @@ and the LM training path.
                                          # checkpoint
     python3 chip_smoke.py --tracing      # only phases 1-2, 6's mobile_clients
                                          # run and 8
+    python3 chip_smoke.py --lm-families  # only phases 1-2 and 9, 10 and 12
+                                         # for gemma3-12b, nemotron-4-15b,
+                                         # qwen2-moe-a2.7b and llama3-8b
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
@@ -128,22 +131,32 @@ the result line:
    with one ``execute`` span per work item; and ``BENCH_obs.json``'s
    contract at its configuration (metric names, the categories plus
    ``kernel``, round 0's gate). Its launches stay out of the kernels line;
-9. LM serving, for llama3.2-3b then rwkv6-1.6b at full width and depth in
+9. LM serving, for llama3.2-3b, rwkv6-1.6b, gemma3-12b (40 sliding-window
+   layers of 1024 keys and 8 global ones, head_dim 256, QK-norm),
+   nemotron-4-15b, qwen2-moe-a2.7b (24 MoE blocks: 60 experts, top 4, 4
+   shared) and llama3-8b, one after the other (each freed before the next),
+   at full width and depth in
    bf16: ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
    64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
-   call at batch 1, with the launch counters zeroed before and held after
+   call at batch 1 (4096 tokens; rwkv6's 1024), with every launch counter
+   zeroed before and held after
    to the counts the layer list predicts (the prefill step's attention on
-   the tensor-core kernel, every decode step's on the split-KV decode
+   the tensor-core kernel, gemma3-12b's 48 layers on its head_dim 256
+   instance, every decode step's on the split-KV decode
    kernel, none on the 3xTF32 kernel; the prefill step's scans on the chunked
-   kernel, every decode step's on the sequential one); then, for
-   llama3.2-3b, decode steps
-   at position 4095 of a full cache of random values: wall ms per step
+   kernel, every decode step's on the sequential one; no other kernel,
+   the MoE blocks' routing and expert products included): tokens/s, ms per
+   decode step, prefill-step s and peak memory; then, for each attention
+   model, decode steps
+   at position 4095 of a full cache of random values (gemma3-12b's local
+   layers then attend to their last 1024 keys): wall ms per step
    (host clock, ending in a sync) and device ms per step (the union of
    kernel intervals under ``torch.profiler``), with the attention kernel's
    share;
 10. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
-   128-token prefill;
+   128-token prefill; gemma3-12b with one local and one global layer and a
+   16-token window, 24 decode steps (past the window);
 11. LM training: ``train_lm(arch, use_reduced=False, steps=4, batch=2,
    seq=1024, use_kernels=True)`` for llama3.2-3b then rwkv6-1.6b, full width
    and depth in bf16, with the launch counters zeroed before and held after
@@ -153,8 +166,10 @@ the result line:
    launch: wall s, tokens/s, loss and grad norm per step, and the peak
    memory; then one step's breakdown under ``torch.profiler`` (device busy
    ms, idle share, top kernels);
-12. training parity: llama3.2-3b, and rwkv6-1.6b at (rwkv_chunk,
-   ssm_seq_chunk) (0, 0), (0, 32) and (16, 32), at full width, two layers,
+12. training parity: llama3.2-3b, rwkv6-1.6b at (rwkv_chunk,
+   ssm_seq_chunk) (0, 0), (0, 32) and (16, 32), qwen2-moe-a2.7b (its router
+   losses and the routers' gradients too) and gemma3-12b (one local and
+   one global layer, a 16-token window), at full width, two layers,
    fp32, one ``make_train_step`` on the card and on the CPU from the same
    params and ``token_batches`` batch (loss, grad norm, every gradient
    leaf), and on the card the loss with ``use_kernels`` on against off;
@@ -166,7 +181,8 @@ the result line:
    attention kernel, launched directly, at the prefill shape beside the
    bf16 tensor-core one and at the decode shapes beside the decode one;
    gemma3-12b's global and local attention layers (bf16, head_dim 256, a
-   4096-token prompt) through the tensor-core kernel's TMA instance beside
+   4096-token prompt) through the tensor-core kernel's TMA instance, and
+   at a decode step through the split-KV kernel, beside
    the 3xTF32 kernel launched directly and SDPA (each SDPA call's backend
    named from the profiler); the 3xTF32 kernel in fp32 at the llama3.2-3b
    prefill shape, the calls it serves, beside fp32 SDPA (TF32 off), its
@@ -717,8 +733,10 @@ FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128)  # llama3.2-3b, one 4096-token promp
 # gemma3-12b's attention layers at one 4096-token prompt
 # (src/repro/configs/gemma3_12b.py: 16 q heads over 8 kv heads, head_dim
 # 256), global (causal) and local (a 1024-key sliding window, 40 of its 48
-# layers); not on a main path yet (ROADMAP A6.3)
+# layers), and at a decode step of the serving batch against its 4096-long
+# cache
 GEMMA3_PREFILL = (1, 4096, 4096, 16, 8, 256)
+GEMMA3_DECODE = (8, 1, 4096, 16, 8, 256)
 GEMMA3_WINDOW = 1024
 FLASH_DECODE = (8, 1, 4096, 24, 8, 128)  # 8 requests against a 4096-long cache
 # (B, T, H, hd, extreme): T <= 16 runs the sequential kernel, longer T the
@@ -774,6 +792,8 @@ def check_flash_attention(dev):
     cases += [((*FLASH_PREFILL, True, 0), dt, 0) for dt in both]
     cases += [((*GEMMA3_PREFILL, True, w), torch.bfloat16, 0) for w in (0, GEMMA3_WINDOW)]
     cases += [((*FLASH_DECODE, True, 0), dt, off) for dt in both for off in (0, 63, 4095)]
+    cases += [((*GEMMA3_DECODE, True, w), dt, off) for dt in both
+              for w in (0, GEMMA3_WINDOW) for off in (63, 4095)]
     cases += [((B, 1, Sk, N, K, H, causal, window), dt, off)
               for B, Sk, N, K, H, causal, window, off in DECODE_CASES for dt in both]
     cases += [(c[:8], dt, c[8]) for c in C8_CASES for dt in both]
@@ -2240,24 +2260,16 @@ def attn_pairs(Sq, Sk, qo, causal, window) -> int:
 
 def sdpa_backend(fn) -> str:
     """Which backend of F.scaled_dot_product_attention ran ``fn``, from the
-    names of the kernels one call launches under ``torch.profiler`` (after
-    a lead-in, as ``profile_rwkv_phases``): flash, efficient
-    (memory-efficient, ``fmha``), cudnn, or math (products and a softmax)."""
+    names of the kernels one call launches under ``torch.profiler`` (in a
+    window of ``profile_kernels``): flash, efficient (memory-efficient,
+    ``fmha``), cudnn, or math (products and a softmax)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    x = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD_IN):
-            x.add_(1)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    names = sorted(e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and "elementwise" not in e.name and "Memset" not in e.name)
+    kernels, _, _ = profile_kernels(torch.cuda.current_device(), fn)
+    names = sorted(e.name for e in kernels
+                   if "elementwise" not in e.name and "Memset" not in e.name)
     low = " ".join(names).lower()
     # cuDNN's own kernels carry "flash" in their names too, so test it first
     kind = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
@@ -2270,7 +2282,10 @@ def time_lm_kernels(dev):
     4096-token prefill and at a decode step of 8 requests with the queries
     at position 63 (the middle of the serve run's 128 positions) and 4095
     (a full cache); gemma3-12b's global and local layers (head_dim 256, the
-    tensor-core kernel's TMA instance) at a 4096-token prompt; the 3xTF32
+    tensor-core kernel's TMA instance) at a 4096-token prompt, and at a
+    decode step of 8 requests (the split-KV kernel: the global layer at
+    positions 63 and 4095, the local layer's 1024-key window at 4095); the
+    3xTF32
     kernel in fp32 at the llama3.2-3b prefill shape, the calls it serves,
     and at the reduced configs' (``configs.reduced``: their q and kv heads
     at head_dim 32, fp32) for 8 and 128 sequences of their max_seq_len;
@@ -2291,7 +2306,8 @@ def time_lm_kernels(dev):
     the fp32 peak (67 TFLOP/s: its inputs and state are fp32). The library
     call for attention is F.scaled_dot_product_attention on the same
     tensors (is_causal at prefill, an explicit boolean mask for a window;
-    unmasked over the cache's first pos + 1 rows at decode), its backend
+    unmasked over the cache rows the query sees at decode: up to pos, and
+    from pos - window + 1 with a window), its backend
     named from the profiler; the scan has none. The wrapper runs the
     tensor-core kernel at bf16 prefill and the split-KV kernel at decode; at
     each of those shapes the 3xTF32 attention kernel, which it does not pick
@@ -2313,6 +2329,10 @@ def time_lm_kernels(dev):
             ("flash_attention", "prefill", FLASH_PREFILL, 0, 0, bf16),
             ("flash_attention_decode", "decode", FLASH_DECODE, 63, 0, bf16),
             ("flash_attention_decode", "decode", FLASH_DECODE, 4095, 0, bf16),
+            ("flash_attention_decode", "gemma3_decode_global", GEMMA3_DECODE, 63, 0, bf16),
+            ("flash_attention_decode", "gemma3_decode_global", GEMMA3_DECODE, 4095, 0, bf16),
+            ("flash_attention_decode", "gemma3_decode_local", GEMMA3_DECODE, 4095,
+             GEMMA3_WINDOW, bf16),
             ("flash_attention_sm90_h256", "gemma3_global", GEMMA3_PREFILL, 0, 0, bf16),
             ("flash_attention_sm90_h256", "gemma3_local", GEMMA3_PREFILL, 0, GEMMA3_WINDOW,
              bf16),
@@ -2321,7 +2341,9 @@ def time_lm_kernels(dev):
             ("flash_attention_tf32x3", "reduced_fp32_b128", (128, *red), 0, 0,
              torch.float32)]:
         q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev)
-        n_keys = min(Sk, qo + Sq)
+        # the keys some query sees: from the first query's window start
+        lo = max(0, qo - window + 1) if window else 0
+        n_keys = min(Sk, qo + Sq) - lo
         pairs = attn_pairs(Sq, Sk, qo, True, window)
         size = q.element_size()
         nbytes = size * (2 * B * Sq * N * H + 2 * B * n_keys * K * H)
@@ -2330,7 +2352,7 @@ def time_lm_kernels(dev):
         ops_, peak = (flops, BF16_OPS_PER_S) if dtype == bf16 else (3 * flops, TF32_OPS_PER_S)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if Sq == 1:
-            kc, vc = kt[:, :, :qo + 1], vt[:, :, :qo + 1]
+            kc, vc = kt[:, :, lo:qo + 1], vt[:, :, lo:qo + 1]
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kc, vc, enable_gqa=True)
         elif window:
@@ -2573,54 +2595,93 @@ def time_rwkv_bwd_chunks(dev):
         del dup, sx, gx, pend
 
 
-PROFILE_LEAD_IN = 32
+# A profiler window in a process that has run the profiler before loses its
+# first kernel records, and more of them the more windows came before (7 by
+# the kernel times once, 39 once the serving phase profiled decode steps of
+# five models; the cause is not found, ROADMAP C14). So a window that counts
+# launches opens with a lead-in of marker kernels (``spin_kernel``, which
+# nothing else launches) and a sync, and is kept only if the profiler saw at
+# least one marker: the loss then ended inside the lead-in. Otherwise it runs
+# again with twice the lead-in.
+PROFILE_LEAD_IN = 256
+PROFILE_LEAD_IN_MAX = 1 << 15
+
+
+def profile_kernels(dev, body):
+    """The device kernel events of ``body()`` under ``torch.profiler``, none
+    lost to the loss above: (events, lead-in kernels launched, markers
+    lost)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = PROFILE_LEAD_IN
+    while True:
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize(dev)
+            body()
+            torch.cuda.synchronize(dev)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        marks = sum("spin_kernel" in e.name for e in kernels)
+        if marks:
+            return [e for e in kernels if "spin_kernel" not in e.name], lead, lead - marks
+        if lead >= PROFILE_LEAD_IN_MAX:
+            fail(f"a profiler window lost all of a lead-in of {lead} kernels")
+        lead *= 2
 
 
 def profile_rwkv_phases(dev, label, call, phases, calls=10):
     """Device ms per launch of each of ``call``'s kernels (``phases``, by a
     part of each kernel's name) under ``torch.profiler``, over ``calls``
-    calls. The window opens with ``PROFILE_LEAD_IN`` small kernels and a
-    sync: in a process that has run the profiler before, a window can lose
-    its first few kernel records (a host pause before the first launch does
-    not help), so the lead-in takes that loss and the line says how much of
-    it was seen. Fails unless the profiler saw exactly one launch of each
-    kernel per call."""
+    calls, in a window of ``profile_kernels``. Fails unless the profiler saw
+    exactly one launch of each kernel per call."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    x = torch.zeros(1, device=dev)
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD_IN):
-            x.add_(1)
-        torch.cuda.synchronize()
+
+    def body():
         for _ in range(calls):
             call()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    kernels, lead, lost = profile_kernels(dev, body)
     us = {p: [e.time_range.elapsed_us() for e in kernels if p in e.name] for p in phases}
     seen = {p: len(t) for p, t in us.items()}
     print(f"{label} kernels, device ms per launch (profiler, {calls} calls; "
-          f"{len(kernels) - sum(seen.values())} other kernels seen: the {PROFILE_LEAD_IN} "
-          "of the lead-in, less any lost, and the calls' own): "
+          f"{len(kernels) - sum(seen.values())} other kernels seen; {lost} of a lead-in of "
+          f"{lead} lost): "
           + ", ".join(f"{p} {sum(t) / len(t) / 1e3:.5f}" for p, t in us.items() if t))
     if any(n != calls for n in seen.values()):
         fail(f"the profiler saw {seen} {label} kernels in {calls} calls")
 
 
 LM_ARCHS = (("llama3.2-3b", 4096), ("rwkv6-1.6b", 1024))  # (arch, prefill step length)
+# the GQA families: gemma3-12b's sliding-window layers (head_dim 256),
+# nemotron-4-15b (LayerNorm, squared ReLU, G = 6), qwen2-moe-a2.7b's MoE
+# blocks (G = 1) and llama3-8b; ``--lm-families`` runs only these
+LM_FAMILIES = (("gemma3-12b", 4096), ("nemotron-4-15b", 4096), ("qwen2-moe-a2.7b", 4096),
+               ("llama3-8b", 4096))
 LM_SERVE = dict(num_requests=8, prompt_len=64, gen_len=64, cache_len=4096)
 
 
 def expected_lm_launches(cfg):
     """Kernel launches of one serve run and one prefill step, from the
-    layer list: each decode step and the prefill step run every layer once."""
+    layer list: each decode step and the prefill step run every layer once,
+    an attention layer (``attn``, ``local_attn``, ``moe``) one
+    flash_attention launch, an rwkv6 layer one rwkv6_scan launch; no other
+    kernel of the repo (a ``moe`` block's routing and expert products are
+    torch ops and library products)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import ATTN_KINDS
+
     steps = LM_SERVE["prompt_len"] + LM_SERVE["gen_len"] + 1
-    return {"flash_attention": steps * sum(b.kind == "attn" for b in cfg.blocks),
-            "rwkv6_scan": steps * sum(b.kind == "rwkv6" for b in cfg.blocks),
-            "rwkv6_scan_bwd": 0}
+    want = dict.fromkeys(ops.launches, 0)
+    want["flash_attention"] = steps * sum(b.kind in ATTN_KINDS for b in cfg.blocks)
+    want["rwkv6_scan"] = steps * sum(b.kind == "rwkv6" for b in cfg.blocks)
+    return want
 
 
 def drive_lm_path(dev, arch, prefill_len):
@@ -2638,10 +2699,13 @@ def drive_lm_path(dev, arch, prefill_len):
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import default_opts, make_prefill_step
     from repro_torch.models.layers import padded_vocab
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import ATTN_KINDS, init_params
 
     cfg = get_arch(arch)
-    print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    kinds = {k: sum(b.kind == k for b in cfg.blocks) for k in dict.fromkeys(
+        b.kind for b in cfg.blocks)}
+    print(f"{arch}: {cfg.num_layers} layers {kinds}, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
           f"{cfg.param_count() / 1e9:.3f} B parameters, {cfg.param_dtype}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2661,13 +2725,16 @@ def drive_lm_path(dev, arch, prefill_len):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     want = expected_lm_launches(cfg)
-    counts = {k: ops.launches[k] for k in want}
+    counts = dict(ops.launches)
     variants = dict(variant_launches)
-    n_attn = sum(b.kind == "attn" for b in cfg.blocks)
-    # the prefill step's attention layers on the tensor-core kernel, the
-    # decode steps' (Sq = 1) on the split-KV decode kernel, none on the
-    # 3xTF32 kernel (both serving models are bf16 at head_dim 64 or 128)
+    instances = dict(sm90_launches)
+    n_attn = sum(b.kind in ATTN_KINDS for b in cfg.blocks)
+    # the prefill step's attention layers on the tensor-core kernel (at
+    # head_dim 256 its own instance), the decode steps' (Sq = 1) on the
+    # split-KV decode kernel, none on the 3xTF32 kernel (every serving model
+    # is bf16 at head_dim 64, 128 or 256)
     want_variants = {"sm90": n_attn, "tf32x3": 0, "decode": want["flash_attention"] - n_attn}
+    want_instances = {h: n_attn * (h == cfg.head_dim) for h in instances}
     # the prefill step's scans (T = prefill_len) on the chunked kernel, the
     # decode steps' (T = 1) on the sequential one
     rwkv = dict(rwkv_launches)
@@ -2687,7 +2754,12 @@ def drive_lm_path(dev, arch, prefill_len):
     print(f"peak max_memory_allocated (serve + prefill step): {peak / 2**20:.1f} MiB")
     print(f"launches: {counts}  predicted from the layer list: {want}")
     print(f"flash_attention launches per kernel: {variants} (serve alone: {serve_variants}) "
-          f" predicted: {want_variants}")
+          f" predicted: {want_variants}; tensor-core launches per head_dim {instances}, "
+          f"predicted {want_instances}")
+    n_moe = sum(b.kind == "moe" for b in cfg.blocks)
+    if n_moe:
+        print(f"{n_moe} moe blocks: their routing and expert products launch no kernel of "
+              "the repo (every launch above is an attention layer's)")
     print(f"rwkv6_scan launches per kernel: {rwkv} (serve alone: {serve_rwkv})  "
           f"predicted: {want_rwkv}")
     V = cfg.vocab_size
@@ -2704,6 +2776,8 @@ def drive_lm_path(dev, arch, prefill_len):
     if variants != want_variants or serve_variants["sm90"] != 0:
         fail(f"{arch}: flash_attention kernels {variants} (serve {serve_variants}), "
              f"predicted {want_variants}")
+    if instances != want_instances:
+        fail(f"{arch}: tensor-core instances {instances}, predicted {want_instances}")
     if rwkv != want_rwkv or serve_rwkv["chunked"] != 0:
         fail(f"{arch}: rwkv6_scan kernels {rwkv} (serve {serve_rwkv}), predicted {want_rwkv}")
     if max(counts.values()) <= 0:
@@ -2715,8 +2789,8 @@ def drive_lm_path(dev, arch, prefill_len):
     torch.cuda.empty_cache()
     # launches per JSON row's kernel: the tensor-core kernel's head_dim 256
     # instance apart from its head_dim 64 / 128 ones
-    per_kernel = {**variants, **rwkv, "sm90": variants["sm90"] - sm90_launches[256],
-                  "sm90_h256": sm90_launches[256]}
+    per_kernel = {**variants, **rwkv, "sm90": variants["sm90"] - instances[256],
+                  "sm90_h256": instances[256]}
     return counts, per_kernel, dict(
         serve_prefill_s=res.prefill_s, gen_s=res.gen_s, tokens_per_s=res.tokens_per_s,
         ms_per_step=res.ms_per_step, prefill_step_s=prefill_s, peak_mib=peak / 2**20,
@@ -2774,8 +2848,8 @@ def time_decode_at(dev, cfg, opts, params, pos, steps=16):
     print(f"decode step at position {pos} of a full cache (batch {B}): {wall:.4f} ms wall "
           f"per step; device busy {busy:.4f} ms per step (profiler, union of kernel "
           f"intervals), idle share {1 - busy / wall:.4f}; split-KV attention "
-          f"{attn_ms:.4f} ms per step in {len(attn) / steps:.1f} launches "
-          f"({len(kernels) / steps:.1f} kernels per step)")
+          f"{attn_ms:.4f} ms per step in {len(attn) / steps:.1f} launches, "
+          f"{attn_ms / busy:.4f} of device busy ({len(kernels) / steps:.1f} kernels per step)")
     if not attn:
         fail("the decode steps at a full cache ran no split-KV attention kernel")
     del cache, prof
@@ -2783,53 +2857,74 @@ def time_decode_at(dev, cfg, opts, params, pos, steps=16):
     return dict(full_cache_wall_ms=wall, full_cache_busy_ms=busy, full_cache_attn_ms=attn_ms)
 
 
-def check_lm_parity(dev, arch):
-    """Full width, two layers, fp32, parameters drawn on the CPU and copied
-    to the card: the same 8 decode steps (2 requests, the same input tokens
-    on both devices) and one 128-token prefill. Logits within 1e-4 of
-    max|logit| (TF32 off: fp32 sums in other orders over d_model = 2048 to
-    8192); greedy tokens identical wherever the top-two margin exceeds that
-    bound."""
-    import gc
+PARITY_WINDOW = 16  # the two-layer parity configs' sliding window, in tokens
+
+
+def two_layer_config(arch):
+    """``arch`` at full width in fp32, cut to two layers: two repeats of a
+    one-block pattern, or, for gemma3-12b's (local x 5, global) pattern, its
+    first and last blocks (one local and one global layer) with the window
+    cut to ``PARITY_WINDOW`` tokens, so that a short run reaches past it."""
     from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+
+    cfg = replace(get_arch(arch), num_layers=2, param_dtype="float32",
+                  compute_dtype="float32")
+    if len(cfg.pattern) == 1:
+        return replace(cfg, n_repeats=2)
+    return replace(cfg, pattern=(cfg.pattern[0], cfg.pattern[-1]), n_repeats=1,
+                   sliding_window=min(cfg.sliding_window, PARITY_WINDOW))
+
+
+def check_lm_parity(dev, arch):
+    """Full width, two layers (``two_layer_config``), fp32, parameters drawn
+    on the CPU and copied to the card: the same decode steps (2 requests,
+    the same input tokens on both devices; 8, or 24 where a sliding window
+    of 16 makes the later steps reach past it) and one 128-token prefill.
+    Logits within 1e-4 of max|logit| (TF32 off: fp32 sums in other orders
+    over d_model = 2048 to 8192); greedy tokens identical wherever the
+    top-two margin exceeds that bound."""
+    import gc
 
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.launch.steps import default_opts, make_prefill_step, make_serve_step
     from repro_torch.models.transformer import init_cache, init_params
     from repro_torch.tree import tree_map
 
-    cfg = replace(get_arch(arch), n_repeats=2, num_layers=2, param_dtype="float32",
-                  compute_dtype="float32")
+    cfg = two_layer_config(arch)
     opts = default_opts(cfg)
+    n_steps = 24 if cfg.sliding_window else 8
     cpu = torch.device("cpu")
     rng = np.random.default_rng(2)
-    steps = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 8)))
+    steps = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, n_steps)))
     prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 128)))
     params = init_params(cfg, opts, seed=3, device=cpu)
     out = []
     for d in (dev, cpu):
         p = params if d == cpu else tree_map(lambda t: t.to(d), params)
         step = make_serve_step(cfg, opts)
-        cache = init_cache(cfg, opts, 2, 16, torch.float32, device=d)
+        cache = init_cache(cfg, opts, 2, n_steps + 8, torch.float32, device=d)
         logits = []
-        for t in range(8):
+        for t in range(n_steps):
             _, lg, cache = step(p, cache, {"token": steps[:, t:t + 1].to(d), "pos": t})
             logits.append(lg.cpu())
         pre = make_prefill_step(cfg, opts)(p, {"tokens": prompt.to(d)}).cpu()
         out.append((torch.stack(logits), pre))
         del p, cache
     (dec_g, pre_g), (dec_c, pre_c) = out
-    for name, g, c in (("decode", dec_g, dec_c), ("prefill", pre_g, pre_c)):
+    layers = "+".join(b.kind for b in cfg.blocks) + (
+        f", window {cfg.sliding_window}" if cfg.sliding_window else "")
+    for name, g, c in ((f"decode ({n_steps} steps)", dec_g, dec_c), ("prefill", pre_g, pre_c)):
         bound = 1e-4 * c.abs().max().item()
         err = (g - c).abs().max().item()
         top2 = c.topk(2, dim=-1).values
         sure = (top2[..., 0] - top2[..., 1]) > bound
         same = bool((g.argmax(-1) == c.argmax(-1))[sure].all())
-        print(f"{arch} 2 layers fp32 {name}: logits max|card - CPU| {err:.3e}, bound "
-              f"{bound:.3e} (1e-4 of max|logit|); greedy tokens identical at "
+        print(f"{arch} 2 layers ({layers}) fp32 {name}: logits max|card - CPU| {err:.3e}, "
+              f"bound {bound:.3e} (1e-4 of max|logit|); greedy tokens identical at "
               f"{int(sure.sum())} of {sure.numel()} positions with a margin above it: {same}")
         if err > bound or not same:
             fail(f"{arch}: the card's logits disagree with the CPU's ({name})")
@@ -2924,9 +3019,16 @@ def drive_train_path(dev, arch="llama3.2-3b"):
 RWKV_PARITY_SETTINGS = ((0, 0), (0, 32), (16, 32))  # (rwkv_chunk, ssm_seq_chunk)
 
 
+def _router_leaves(tree) -> list:
+    """The ``moe`` blocks' router leaves of a parameter or gradient tree."""
+    blocks = [*tree["head_blocks"], *tree["unit"].values(), *tree["tail_blocks"]]
+    return [b["moe"]["router"] for b in blocks if "moe" in b]
+
+
 def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
-    """``arch`` at full width, two layers, fp32 (params drawn on the CPU
-    and copied to the card), one ``make_train_step`` with the loss through
+    """``arch`` at full width, two layers (``two_layer_config``), fp32
+    (params drawn on the CPU and copied to the card), one
+    ``make_train_step`` with the loss through
     ``use_kernels`` on the card and on the CPU from one ``token_batches``
     batch of 2 x 64, at each (rwkv_chunk, ssm_seq_chunk) of ``settings``:
     loss within 1e-5 relative, grad norm within 1e-4 relative, every
@@ -2938,14 +3040,15 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
     against off, within 1e-5 relative. For rwkv6 the line gives the card's
     scan launches: forward and backward kernels where the time mix runs the
     scan (the sequence chunks' recompute adds forward launches), none where
-    ``rwkv_chunk`` sends it through the chunked torch form."""
+    ``rwkv_chunk`` sends it through the chunked torch form. For an MoE
+    model the line also gives the router losses on both devices (each
+    within 1e-5 relative) and the router's gradient leaves' worst share."""
     import gc
     from dataclasses import replace
 
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.data.loader import token_batches
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import default_opts, make_train_step
@@ -2953,8 +3056,8 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_leaves, tree_map, value_and_grad
 
-    cfg = replace(get_arch(arch), n_repeats=2, num_layers=2, param_dtype="float32",
-                  compute_dtype="float32")
+    cfg = two_layer_config(arch)
+    moe = any(b.kind == "moe" for b in cfg.blocks)
     cpu = torch.device("cpu")
     params = init_params(cfg, default_opts(cfg), seed=5, device=cpu)
     b = next(token_batches(np.random.default_rng(6), cfg.vocab_size, 2, 64))
@@ -2967,27 +3070,44 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
             batch = {k: torch.from_numpy(v).to(d, torch.int64) for k, v in b.items()}
             ops.reset_launches()
             _, g = value_and_grad(lambda pp: forward_train(cfg, opts, pp, batch)[0], p)
+            routers = [t.cpu() for t in _router_leaves(g)]
             g = [t.cpu() for t in tree_leaves(g)]
+            if moe:
+                with torch.no_grad():
+                    aux = {k: float(v) for k, v in
+                           forward_train(cfg, opts, p, batch)[1].items() if k != "ce"}
             if d == dev:
                 scans = {k: ops.launches[k] for k in ("rwkv6_scan", "rwkv6_scan_bwd")}
                 with torch.no_grad():
                     plain = forward_train(cfg, replace(opts, use_kernels=False), p, batch)[0]
                 loss_plain = float(plain)
             _, _, m = make_train_step(cfg, opts, lr=1e-4)(p, adamw_init(p), batch)
-            out.append((float(m["loss"]), float(m["grad_norm"]), g))
+            out.append((float(m["loss"]), float(m["grad_norm"]), g, routers,
+                        aux if moe else {}))
             del p, batch
             gc.collect()
-        (lg, ng, gg), (lc, nc, gc_) = out
-        share = max(((a - b_).abs().max() / a.abs().max().clamp_min(1e-30)).item()
-                    for a, b_ in zip(gc_, gg))
+        (lg, ng, gg, rg, ag), (lc, nc, gc_, rc, ac) = out
+
+        def worst(want, got):
+            return max(((a - b_).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+                       for a, b_ in zip(want, got))
+
+        share = worst(gc_, gg)
         tag = (f" rwkv_chunk {rwkv_chunk} ssm_seq_chunk {ssm_seq_chunk}"
                if cfg.family == "ssm" else "")
-        print(f"{arch} 2 layers fp32 train step{tag}: loss {lg:.7f} (card) {lc:.7f} (CPU); "
-              f"grad norm {ng:.7f} (card) {nc:.7f} (CPU); worst gradient leaf max|card - CPU| "
-              f"{share:.3e} of its max|g|; card loss with use_kernels off {loss_plain:.7f}"
-              + (f"; card scan launches in the gradient {scans}" if cfg.family == "ssm" else ""))
+        layers = "+".join(b.kind for b in cfg.blocks) + (
+            f", window {cfg.sliding_window}" if cfg.sliding_window else "")
+        print(f"{arch} 2 layers ({layers}) fp32 train step{tag}: loss {lg:.7f} (card) "
+              f"{lc:.7f} (CPU); grad norm {ng:.7f} (card) {nc:.7f} (CPU); worst gradient leaf "
+              f"max|card - CPU| {share:.3e} of its max|g|; card loss with use_kernels off "
+              f"{loss_plain:.7f}"
+              + (f"; card scan launches in the gradient {scans}" if cfg.family == "ssm" else "")
+              + (f"; router losses {ag} (card) {ac} (CPU); the routers' gradient leaves' "
+                 f"worst {worst(rc, rg):.3e} of max|g|" if moe else ""))
         if abs(lg - lc) > 1e-5 * abs(lc) or abs(ng - nc) > 1e-4 * abs(nc) or share > 1e-4:
             fail(f"{arch}{tag}: the card's training step disagrees with the CPU's")
+        if any(abs(ag[k] - ac[k]) > 1e-5 * abs(ac[k]) for k in ac):
+            fail(f"{arch}: the card's router losses {ag} disagree with the CPU's {ac}")
         if abs(lg - loss_plain) > 1e-5 * abs(loss_plain):
             fail(f"{arch}{tag}: the card's training loss differs between use_kernels on "
                  "and off")
@@ -3037,6 +3157,24 @@ def run_baselines_phases(dev) -> dict:
 
 
 TRACING_PHASE = "tracing: the simulator, the plain round and the kernel ops under a Tracer"
+# the GQA families' training step held card against CPU: qwen2-moe-a2.7b's
+# router and gemma3-12b's local and global layers
+TRAIN_PARITY_FAMILIES = ("qwen2-moe-a2.7b", "gemma3-12b")
+
+
+def run_lm_families(dev) -> None:
+    """``python3 chip_smoke.py --lm-families``: phases 9, 10 and 12 for
+    ``LM_FAMILIES`` alone (serving at full width and depth, the two-layer
+    parities), without the FedEEC phases."""
+    for arch, prefill_len in LM_FAMILIES:
+        phase(f"LM serving path: {arch}, full width and depth, bf16")
+        drive_lm_path(dev, arch, prefill_len)
+    for arch, _ in LM_FAMILIES:
+        phase(f"LM parity: {arch}, full width, two layers, fp32, the card vs the CPU")
+        check_lm_parity(dev, arch)
+    for arch in TRAIN_PARITY_FAMILIES:
+        phase(f"training parity: {arch}, full width, two layers, fp32, the card vs the CPU")
+        check_train_parity(dev, arch)
 
 
 def main() -> None:
@@ -3078,6 +3216,9 @@ def main() -> None:
         check_train_parity(dev, "rwkv6-1.6b", RWKV_PARITY_SETTINGS)
         phase("rwkv6_scan's backward kernel at the training shape")
         time_rwkv_bwd(dev)
+        return
+    if sys.argv[1:] == ["--lm-families"]:
+        run_lm_families(dev)
         return
     if sys.argv[1:] == ["--distill"]:
         phase("distill_loss: every entry and variant vs the plain versions, and times")
@@ -3126,18 +3267,18 @@ def main() -> None:
 
     # each JSON row counts its own CUDA kernel's launches: flash_attention's
     # the tensor-core kernel's at head_dim 64 / 128, flash_attention_sm90_h256's
-    # its head_dim 256 instance's (no main path has that head_dim yet),
+    # its head_dim 256 instance's (gemma3-12b's prefill step),
     # flash_attention_tf32x3's the 3xTF32 kernel's, flash_attention_decode's the
     # split-KV decode kernel's; rwkv6_scan's the sequential kernel's,
     # rwkv6_scan_chunked's the chunked scan's
     lm_variants = {**VARIANTS, **RWKV_VARIANTS}
     counts.update(dict.fromkeys(lm_variants, 0))
-    for arch, prefill_len in LM_ARCHS:
+    for arch, prefill_len in LM_ARCHS + LM_FAMILIES:
         phase(f"LM serving path: {arch}, full width and depth, bf16")
         _, variants, _ = drive_lm_path(dev, arch, prefill_len)
         for k, variant in lm_variants.items():
             counts[k] += variants[variant]
-    for arch, _ in LM_ARCHS:
+    for arch, _ in LM_ARCHS + LM_FAMILIES:
         phase(f"LM parity: {arch}, full width, two layers, fp32, the card vs the CPU")
         check_lm_parity(dev, arch)
     # the training paths' launches: the loss's distill_loss CE entry, and
@@ -3155,6 +3296,9 @@ def main() -> None:
     phase("training parity: rwkv6-1.6b, full width, two layers, fp32, the card vs the CPU, "
           "at (rwkv_chunk, ssm_seq_chunk) " + ", ".join(map(str, RWKV_PARITY_SETTINGS)))
     check_train_parity(dev, "rwkv6-1.6b", RWKV_PARITY_SETTINGS)
+    for arch in TRAIN_PARITY_FAMILIES:
+        phase(f"training parity: {arch}, full width, two layers, fp32, the card vs the CPU")
+        check_train_parity(dev, arch)
     phase("LM checkpoint: train_lm(checkpoint=) on llama3.2-3b reduced to two layers, bf16, "
           "read back")
     check_lm_checkpoint(dev)

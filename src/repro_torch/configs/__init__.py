@@ -10,10 +10,18 @@ from repro_torch.configs.base import (  # noqa: F401
     list_archs,
     reduced,
     register_arch,
+    with_long_variant,
 )
 
 
 def load_all() -> None:
     """Import the architectures the port runs (registration side effects);
-    the reference's other nine wait for their block kinds (ROADMAP A6.3)."""
-    from repro_torch.configs import llama3_2_3b, rwkv6_1_6b  # noqa: F401
+    the reference's other four wait for their block kinds (ROADMAP A6.3)."""
+    from repro_torch.configs import (  # noqa: F401
+        gemma3_12b,
+        llama3_2_3b,
+        llama3_8b,
+        nemotron_4_15b,
+        qwen2_moe_a2_7b,
+        rwkv6_1_6b,
+    )

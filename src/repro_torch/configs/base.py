@@ -4,7 +4,8 @@ Two planes of configuration, copies of those in ``repro.configs.base``:
 
 * ``ArchConfig`` — a production-scale transformer-family architecture. The
   port registers the architectures whose block kinds it runs
-  (``llama3_2_3b``, ``rwkv6_1_6b``); ``ROADMAP.md`` lists the rest.
+  (``gemma3_12b``, ``llama3_2_3b``, ``llama3_8b``, ``nemotron_4_15b``,
+  ``qwen2_moe_a2_7b``, ``rwkv6_1_6b``); ``ROADMAP.md`` lists the rest.
 * ``FLConfig`` — the FedEEC paper-scale experiment (tree topology, models
   per tier, dataset, hyperparameters).
 """
@@ -320,6 +321,26 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     new = replace(new, num_layers=n_layers)
     new.sanity()
     return new
+
+
+def with_long_variant(cfg: ArchConfig, window: int = 8_192) -> ArchConfig:
+    """Beyond-paper: convert a pure full-attention arch into a sliding-window
+    variant so that long_500k becomes architecturally meaningful."""
+    def _swap(blocks):
+        return tuple(
+            BlockKind("local_attn", b.shared) if b.kind == "attn" else b
+            for b in blocks
+        )
+
+    return replace(
+        cfg,
+        name=cfg.name + "-sw",
+        pattern=_swap(cfg.pattern),
+        head_blocks=_swap(cfg.head_blocks),
+        tail_blocks=_swap(cfg.tail_blocks),
+        sliding_window=window,
+        long_context="native",
+    )
 
 
 # ---------------------------------------------------------------------------

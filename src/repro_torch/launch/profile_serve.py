@@ -2,9 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch llama3.2-3b]
 
-For each architecture (both the port serves, unless ``--arch`` names one)
-it builds the full model in bf16 on the card, random weights from a seed,
-with the serving shapes of ``chip_smoke.py``: 8 requests against a
+For each architecture (every one the port serves, unless ``--arch`` names
+some) it builds the full model in bf16 on the card, random weights from a
+seed, one model at a time, with the serving shapes of ``chip_smoke.py``: 8 requests against a
 4096-long cache, filled by 64 decode-step prefill positions. It then runs
 ``--steps`` greedy decode steps without the profiler and as many under
 ``torch.profiler``, and reports: milliseconds per step, the device's busy
@@ -20,7 +20,8 @@ import time
 
 from repro_torch.fl.profile_round import TOP, busy_us
 
-ARCHS = ("llama3.2-3b", "rwkv6-1.6b")
+ARCHS = ("llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "nemotron-4-15b", "qwen2-moe-a2.7b",
+         "llama3-8b")
 
 
 def profile_decode(arch: str, *, requests: int = 8, prompt_len: int = 64,

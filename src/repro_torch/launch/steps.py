@@ -19,10 +19,11 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 def default_opts(cfg, **overrides) -> ModelOpts:
     """The reference's ``default_opts`` on a one-device mesh: no KV
-    replication (``kv_mult=1``), chunked attention for long sequences
-    (``attn_chunk=1024``), ``remat=True``; ``overrides`` replace any
-    field."""
-    kw = dict(kv_mult=1, attn_chunk=1024, remat=True)
+    replication (``kv_mult=1``), routed experts padded to a multiple of
+    the mesh's one model-parallel device (``expert_pad_to=1``: no padding),
+    chunked attention for long sequences (``attn_chunk=1024``),
+    ``remat=True``; ``overrides`` replace any field."""
+    kw = dict(kv_mult=1, expert_pad_to=1, attn_chunk=1024, remat=True)
     kw.update(overrides)
     return ModelOpts(**kw)
 
@@ -46,7 +47,7 @@ def make_train_step(cfg, opts: ModelOpts, *, lr: float = 3e-4, clip: float = 1.0
         grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads), clip)
         params, opt_state = adamw_update_(grads, opt_state, params, lr=lr)
         metrics = {"loss": loss.detach(), "ce": aux["ce"].detach(), "grad_norm": gnorm,
-                   "lb_loss": aux["lb_loss"]}
+                   "lb_loss": aux["lb_loss"].detach()}
         return params, opt_state, metrics
 
     return train_step

@@ -1,7 +1,9 @@
 """Transformer assembly for the LM serving and training paths.
 
 Counterpart of ``repro.models.transformer`` for the block kinds the port
-runs: ``attn`` (GQA + MLP) and ``rwkv6`` (time-mix + channel-mix). An
+runs: ``attn`` (GQA + MLP), ``local_attn`` (the same over a sliding
+window, with its own RoPE base), ``moe`` (GQA + a routed mixture of
+experts, ``models.moe``) and ``rwkv6`` (time-mix + channel-mix). An
 ``ArchConfig`` describes the model as ``head_blocks + pattern*n_repeats +
 tail_blocks``. The repeated unit keeps the reference's stacked layout (each
 ``params["unit"]`` leaf has a leading ``n_repeats`` axis), and
@@ -10,10 +12,14 @@ tail_blocks``. The repeated unit keeps the reference's stacked layout (each
 pass (``torch.utils.checkpoint``), where the reference wraps the scanned
 unit in ``jax.checkpoint``.
 
-Every other block kind (``local_attn``, ``mla``, ``moe``, ``mla_moe``,
-``mamba2``, ``shared_attn``), encoder-decoder models, media frontends and
-learned position embeddings raise ``NotImplementedError`` (ROADMAP A6.3).
-``forward_train`` runs both ported kinds. An ``rwkv6`` block's time mix
+Every other block kind (``mla``, ``mla_moe``, ``mamba2``,
+``shared_attn``), encoder-decoder models, media frontends and learned
+position embeddings raise ``NotImplementedError`` (ROADMAP A6.3).
+``forward_train`` runs every ported kind and adds the ``moe`` blocks'
+router losses (``lb_loss``, ``router_z``, summed over the blocks) to the
+LM loss, as the reference does. A ``local_attn`` block's cache is as long
+as an ``attn`` block's (the reference's ``window_cache`` ring buffer is
+not ported, ROADMAP A6.5). An ``rwkv6`` block's time mix
 trains through ``ops.rwkv6_scan`` (the forward and backward kernels on the
 card), or through the reference's chunk-parallel torch form with
 ``opts.rwkv_chunk``; ``opts.ssm_seq_chunk`` cuts a full-sequence block into
@@ -45,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
     apply_mlp,
@@ -58,7 +65,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-PORTED_KINDS = ("attn", "rwkv6")
+PORTED_KINDS = ("attn", "local_attn", "moe", "rwkv6")
+ATTN_KINDS = ("attn", "local_attn", "moe")  # a GQA half and a KV cache
 
 
 @dataclass(frozen=True)
@@ -71,6 +79,7 @@ class ModelOpts:
     """
 
     kv_mult: int = 1  # KV-head replication for tensor parallelism
+    expert_pad_to: int = 1  # pad routed experts to a multiple of this
     attn_chunk: int = 0  # online-softmax KV chunk of the training attention (0 = one block)
     rwkv_chunk: int = 0  # chunk-parallel RWKV6 (0 = exact scan)
     remat: bool = True  # activation checkpointing around each repeat (training)
@@ -109,13 +118,17 @@ def _dtype(name: str) -> torch.dtype:
 def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts):
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
-    if kind == "attn":
-        return {
+    if kind in ATTN_KINDS:
+        p = {
             "ln1": init_norm(cfg, d, gen.device),
             "attn": A.init_attn(gen, cfg, dt, opts.kv_mult),
             "ln2": init_norm(cfg, d, gen.device),
-            "mlp": init_mlp(gen, cfg, d, cfg.d_ff, dt),
         }
+        if kind == "moe":
+            p["moe"] = M.init_moe(gen, cfg, dt, opts.expert_pad_to)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, d, cfg.d_ff, dt)
+        return p
     if kind == "rwkv6":
         return {
             "ln1": init_norm(cfg, d, gen.device),
@@ -127,8 +140,9 @@ def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts):
 
 def init_block_state(cfg, kind: str, opts: ModelOpts, batch: int, seq: int, dtype,
                      device=None):
-    """Decode-time state for one block occurrence."""
-    if kind == "attn":
+    """Decode-time state for one block occurrence: a full-length KV cache
+    for every attention kind (``local_attn`` included)."""
+    if kind in ATTN_KINDS:
         return A.init_kv_cache(cfg, batch, seq, dtype, opts.kv_mult, device)
     if kind == "rwkv6":
         return S.init_rwkv6_state(cfg, batch, device=device)
@@ -137,20 +151,29 @@ def init_block_state(cfg, kind: str, opts: ModelOpts, batch: int, seq: int, dtyp
 
 def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
                 cache_pos=None, train: bool = False):
-    """Returns (x, new_state). state is None in prefill and training
+    """Returns (x, new_state, aux). state is None in prefill and training
     (full-sequence) mode; ``train`` selects the training attention
-    (``attention.mha`` under autograd) over the forward-only kernel."""
+    (``attention.mha`` under autograd) over the forward-only kernel. aux is
+    a ``moe`` block's router losses {"lb_loss", "router_z"}, and None for
+    the other kinds (the reference adds zeros for them)."""
     decode = state is not None and cache_pos is not None
-    if kind == "attn":
+    if kind in ATTN_KINDS:
+        if kind == "local_attn":
+            window, theta = cfg.sliding_window, cfg.local_rope_theta or cfg.rope_theta
+        else:
+            window, theta = 0, cfg.rope_theta
         h = apply_norm(cfg, p["ln1"], x)
         y, new_state = A.attn_forward(
-            cfg, p["attn"], h, positions=positions, theta=cfg.rope_theta, window=0,
+            cfg, p["attn"], h, positions=positions, theta=theta, window=window,
             cache=state if decode else None, cache_pos=cache_pos, chunk=opts.attn_chunk,
             kv_mult=opts.kv_mult, train=train)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
-        x = x + apply_mlp(cfg, p["mlp"], h)
-        return x, new_state if decode else None
+        if kind == "moe":
+            y, aux = M.moe_forward(cfg, p["moe"], h)
+        else:
+            y, aux = apply_mlp(cfg, p["mlp"], h), None
+        return x + y, new_state if decode else None, aux
     if kind == "rwkv6":
         st0 = state if state is not None else S.init_rwkv6_state(cfg, x.shape[0],
                                                                  device=x.device)
@@ -176,9 +199,9 @@ def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
             for xc in x.split(C, dim=1):
                 xo, st = checkpoint(block1, xc, st, use_reentrant=False)
                 outs.append(xo)
-            return torch.cat(outs, dim=1), None
+            return torch.cat(outs, dim=1), None, None
         x, ns = block1(x, st0)
-        return x, (ns if state is not None else None)
+        return x, (ns if state is not None else None), None
     raise _unported(f"block kind {kind!r}")
 
 
@@ -239,6 +262,11 @@ def _write_state(dst: dict, new: dict) -> None:
             dst[k].copy_(t)
 
 
+def _add_aux(total, aux):
+    """The running router-loss sums plus one block's (None adds nothing)."""
+    return total if aux is None else {k: total[k] + aux[k] for k in total}
+
+
 def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
               train: bool = False):
     """Run head blocks, the repeated unit, and tail blocks.
@@ -246,11 +274,16 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
     states: None (prefill, training) or {"head": [..], "unit": stacked,
     "tail": [..]}, updated in place. ``train``: the training forward, whose
     repeats are checkpointed when ``opts.remat``. Returns the final-normed
-    hidden states."""
+    hidden states and the router losses {"lb_loss", "router_z"} summed over
+    the blocks in layer order (fp32; 0 without a ``moe`` block)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"lb_loss": zero, "router_z": zero}
     for i, blk in enumerate(cfg.head_blocks):
         st = states["head"][i] if states else None
-        x, ns = apply_block(cfg, opts, blk.kind, params["head_blocks"][i], x,
-                            positions=positions, state=st, cache_pos=cache_pos, train=train)
+        x, ns, a = apply_block(cfg, opts, blk.kind, params["head_blocks"][i], x,
+                               positions=positions, state=st, cache_pos=cache_pos,
+                               train=train)
+        aux = _add_aux(aux, a)
         if ns is not None:
             _write_state(st, ns)
 
@@ -261,28 +294,34 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
     unit = [tree_unflatten(params["unit"], [ts[r] for ts in split])
             for r in range(cfg.n_repeats)]
 
-    def repeat(x, r):
+    def repeat(x, aux, r):
+        # the running sums go through the repeat (as the reference's scan
+        # carries them), so a checkpointed repeat adds its blocks' losses
+        # once, and their gradient reaches the router
         for i, blk in enumerate(cfg.pattern):
             p = unit[r][f"blk{i}"]
             st = tree_map(lambda t: t[r], states["unit"][f"blk{i}"]) if states else None
-            x, ns = apply_block(cfg, opts, blk.kind, p, x, positions=positions, state=st,
-                                cache_pos=cache_pos, train=train)
+            x, ns, a = apply_block(cfg, opts, blk.kind, p, x, positions=positions, state=st,
+                                   cache_pos=cache_pos, train=train)
+            aux = _add_aux(aux, a)
             if ns is not None:
                 _write_state(st, ns)
-        return x
+        return x, aux
 
     for r in range(cfg.n_repeats):
         if train and opts.remat:
-            x = checkpoint(repeat, x, r, use_reentrant=False)
+            x, aux = checkpoint(repeat, x, aux, r, use_reentrant=False)
         else:
-            x = repeat(x, r)
+            x, aux = repeat(x, aux, r)
     for i, blk in enumerate(cfg.tail_blocks):
         st = states["tail"][i] if states else None
-        x, ns = apply_block(cfg, opts, blk.kind, params["tail_blocks"][i], x,
-                            positions=positions, state=st, cache_pos=cache_pos, train=train)
+        x, ns, a = apply_block(cfg, opts, blk.kind, params["tail_blocks"][i], x,
+                               positions=positions, state=st, cache_pos=cache_pos,
+                               train=train)
+        aux = _add_aux(aux, a)
         if ns is not None:
             _write_state(st, ns)
-    return apply_norm(cfg, params["final_norm"], x)
+    return apply_norm(cfg, params["final_norm"], x), aux
 
 
 def _logits_matrix(cfg, params):
@@ -339,19 +378,18 @@ def lm_loss_chunked(cfg, opts, h, w_vocab, labels):
 
 def forward_train(cfg, opts, params, batch):
     """batch: tokens (B, S) int, labels (B, S) int. Returns the scalar
-    training loss and {"ce", "lb_loss", "router_z"} (the router terms are 0:
-    no ported block has a router). Attention runs ``attention.mha`` under
-    autograd, the RWKV6 scan ``ops.rwkv6_scan`` (its kernels forward and
-    backward on the card); each repeat is checkpointed with
+    training loss, ce + router_aux_weight * (lb_loss + 0.1 * router_z), and
+    {"ce", "lb_loss", "router_z"} (the router terms summed over the ``moe``
+    blocks; 0 in a model without one). Attention runs ``attention.mha``
+    under autograd, the RWKV6 scan ``ops.rwkv6_scan`` (its kernels forward
+    and backward on the card); each repeat is checkpointed with
     ``opts.remat``."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    h = _backbone(cfg, opts, params, x, positions=positions, train=True)
+    h, aux = _backbone(cfg, opts, params, x, positions=positions, train=True)
     loss = lm_loss_chunked(cfg, opts, h, _logits_matrix(cfg, params), batch["labels"])
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"lb_loss": zero, "router_z": zero}
     total = loss + cfg.router_aux_weight * (aux["lb_loss"] + 0.1 * aux["router_z"])
     return total, {"ce": loss, **aux}
 
@@ -363,7 +401,7 @@ def forward_prefill(cfg, opts, params, batch):
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    h = _backbone(cfg, opts, params, x, positions=positions)
+    h, _ = _backbone(cfg, opts, params, x, positions=positions)
     logits = mm(h[:, -1], _logits_matrix(cfg, params).T.to(h.dtype))
     return mask_padded_logits(logits, cfg.vocab_size)
 
@@ -379,8 +417,8 @@ def forward_decode(cfg, opts, params, batch, states):
     token, pos = batch["token"], int(batch["pos"])
     x = _embed_tokens(cfg, params, token)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    h = _backbone(cfg, opts, params, x, positions=positions, states=states,
-                  cache_pos=pos)
+    h, _ = _backbone(cfg, opts, params, x, positions=positions, states=states,
+                     cache_pos=pos)
     logits = mm(h[:, -1], _logits_matrix(cfg, params).T.to(h.dtype))
     return mask_padded_logits(logits, cfg.vocab_size), states
 
@@ -388,8 +426,8 @@ def forward_decode(cfg, opts, params, batch, states):
 def init_cache(cfg, opts: ModelOpts, batch: int, seq: int, dtype=torch.bfloat16, *,
                device="cuda"):
     """Zeroed decode states: KV caches (B, seq, K, H) in ``dtype`` for
-    attention blocks, fp32-state RWKV6 recurrences; unit states stacked over
-    the repeats."""
+    attention blocks (every attention kind), fp32-state RWKV6 recurrences;
+    unit states stacked over the repeats."""
     _check_ported(cfg)
     dev = resolve_device(device)
 

@@ -666,6 +666,13 @@ DECODE_CASES = [
     (8, 4096, 24, 8, 128, True, 0, 0),
     (8, 4096, 24, 8, 128, True, 0, 63),
     (8, 4096, 24, 8, 128, True, 0, 4095),
+    # gemma3-12b's decode steps: 16/8 heads of 256, the global layers and
+    # the local layers' 1024-key window, in the serving run and at a full
+    # cache
+    (8, 4096, 16, 8, 256, True, 0, 63),
+    (8, 4096, 16, 8, 256, True, 0, 4095),
+    (8, 4096, 16, 8, 256, True, 1024, 63),
+    (8, 4096, 16, 8, 256, True, 1024, 4095),
 ]
 
 
@@ -938,15 +945,40 @@ def test_lm_wrappers_raise_instead_of_falling_back(cuda):
         ops.rwkv6_scan(r, kk, vv, w.cpu(), u, s0)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "llama3-8b",
+                                  "nemotron-4-15b", "qwen2-moe-a2.7b"])
 def test_serve_runs_through_the_kernels(cuda, arch):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import ATTN_KINDS
 
     ops.reset_launches()
     res = serve(arch, num_requests=2, prompt_len=3, gen_len=4, cache_len=8)
     blocks = reduced(get_arch(arch)).blocks
-    kernel, kind = (("flash_attention", "attn") if arch.startswith("llama")
-                    else ("rwkv6_scan", "rwkv6"))
+    kernel, kinds = (("rwkv6_scan", ("rwkv6",)) if arch.startswith("rwkv6")
+                     else ("flash_attention", ATTN_KINDS))
     assert res.tokens.shape == (2, 4) and res.logits_finite
-    assert ops.launches[kernel] == sum(b.kind == kind for b in blocks) * 7
+    assert ops.launches[kernel] == sum(b.kind in kinds for b in blocks) * 7
+
+
+@pytest.mark.parametrize("cf", [None, 0.25])
+def test_moe_forward_on_the_card_matches_the_cpu(cuda, cf):
+    """Reduced qwen2-moe-a2.7b's MoE block, fp32 (TF32 off), the same
+    params and x on both devices: the same routing, so y within 1e-5 of
+    max|y| and the aux losses within 1e-5 relative, with tokens dropped at
+    capacity factor 0.25 and none at the config's."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.device import resolve_device
+    from repro_torch.models import moe as M
+    from repro_torch.tree import tree_map
+
+    resolve_device(cuda)
+    cfg = reduced(get_arch("qwen2-moe-a2.7b"))
+    p = M.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32, 8)
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    want, waux = M.moe_forward(cfg, p, x, capacity_factor=cf)
+    got, aux = M.moe_forward(cfg, tree_map(lambda t: t.to(cuda), p), x.to(cuda),
+                             capacity_factor=cf)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * want.abs().max().item())
+    for k in waux:
+        torch.testing.assert_close(aux[k].cpu(), waux[k], rtol=1e-5, atol=0)

@@ -1,5 +1,8 @@
-"""The port's LM modules against the JAX package's on reduced llama3.2-3b and
-rwkv6-1.6b, from the reference's parameters converted with ``lm_from_jax``
+"""The port's LM modules against the JAX package's on the reduced
+architectures the port serves (llama3.2-3b, rwkv6-1.6b, gemma3-12b with its
+sliding-window layers and QK-norm, llama3-8b, nemotron-4-15b with LayerNorm
+and squared ReLU, qwen2-moe-a2.7b with its MoE blocks), from the
+reference's parameters converted with ``lm_from_jax``
 and the same numpy inputs: attention, the RWKV6 mixes, prefill and decode
 logits within 1e-4 (fp32 through a few layers, sums in other orders). Also
 the port's decode reproduces its own prefill, as the reference's smoke test
@@ -33,7 +36,8 @@ from repro_torch.models.transformer import (
 from repro_torch.tree import tree_map
 
 TOL = 1e-4
-ARCHS = ["llama3.2-3b", "rwkv6-1.6b"]
+ARCHS = ["llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "llama3-8b", "nemotron-4-15b",
+         "qwen2-moe-a2.7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -97,7 +101,28 @@ def test_decode_logits(model, cache_dtype):
     got_leaves, want_leaves = _leaves(c), _leaves(jc)
     assert len(got_leaves) == len(want_leaves)
     for g, w in zip(got_leaves, want_leaves):
-        _close(g, w)
+        if cfg.qk_norm and cache_dtype == "bfloat16":
+            _close_bf16_cache(g, w)
+        else:
+            _close(g, w)
+
+
+def _close_bf16_cache(got, want):
+    """A bf16 cache leaf of a QK-norm model against the reference's. Its
+    keys and values are roundings of fp32 numbers that agree within fp32
+    noise (XLA's rsqrt and mean round otherwise than torch's, so QK-norm
+    moves the last fp32 bits of the keys, and through attention those of the
+    later layers' values); where such a number lies at a rounding boundary
+    the two packages store adjacent bf16 numbers. Elements one bf16 step
+    apart are allowed in under 1% of a leaf, every other element within TOL.
+    Models without QK-norm are held to TOL everywhere."""
+    g = got.float().numpy()
+    w = np.asarray(jnp.asarray(want, jnp.float32))
+    off = np.abs(g - w) > TOL
+    step = np.abs(np.asarray(jnp.nextafter(jnp.asarray(want), jnp.asarray(np.inf, want.dtype))
+                             .astype(jnp.float32)) - w)
+    assert off.sum() < 0.01 * g.size, off.sum()
+    np.testing.assert_array_less(np.abs(g - w)[off], 1.0001 * step[off] + 1e-30)
 
 
 def test_decode_past_the_cache_end(model):

@@ -23,7 +23,8 @@ from repro_torch.launch.serve import main, serve
 from repro_torch.launch.steps import default_opts, make_prefill_step, make_serve_step
 from repro_torch.models.transformer import init_cache
 
-ARCHS = ["llama3.2-3b", "rwkv6-1.6b"]
+ARCHS = ["llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "llama3-8b", "nemotron-4-15b",
+         "qwen2-moe-a2.7b"]
 
 
 def _prompts(vocab, B, prompt_len, seed):

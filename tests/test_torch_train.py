@@ -241,11 +241,15 @@ def test_default_opts_are_the_reference_defaults():
             t.ssm_seq_chunk) == (j.attn_chunk, j.remat, j.loss_chunk, j.use_kernels,
                                  j.rwkv_chunk, j.ssm_seq_chunk) == (0, True, 512, False, 0, 0)
     assert (opts.rwkv_chunk, opts.ssm_seq_chunk) == (0, 0)
+    # the reference pads routed experts to its mesh's model-parallel size:
+    # one device here
+    assert opts.expert_pad_to == t.expert_pad_to == j.expert_pad_to == 1
 
 
 def test_training_a_block_kind_the_port_lacks_raises():
-    """rwkv6 trains (tests/test_torch_rwkv6_train.py); a block kind that is
-    not ported still raises, naming ROADMAP A6.3."""
+    """rwkv6 trains (tests/test_torch_rwkv6_train.py), and local_attn and
+    moe (tests/test_torch_train_families.py); a block kind that is not
+    ported still raises, naming ROADMAP A6.3."""
     from dataclasses import replace
 
     from repro_torch.configs.base import BlockKind
@@ -253,7 +257,7 @@ def test_training_a_block_kind_the_port_lacks_raises():
     cfg = reduced(get_arch(ARCH))
     params = init_params(cfg, ModelOpts(), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
-    lacking = replace(cfg, pattern=(BlockKind("local_attn"),))
+    lacking = replace(cfg, pattern=(BlockKind("mla"),))
     with pytest.raises(NotImplementedError, match="A6.3"):
         forward_train(lacking, ModelOpts(), params, {"tokens": tok, "labels": tok})
 
