@@ -20,7 +20,12 @@ and the LM training path.
                                          # run and 8
     python3 chip_smoke.py --lm-families  # only phases 1-2 and 9, 10 and 12
                                          # for gemma3-12b, nemotron-4-15b,
-                                         # qwen2-moe-a2.7b and llama3-8b
+                                         # qwen2-moe-a2.7b, llama3-8b and
+                                         # deepseek-v2-lite-16b
+    python3 chip_smoke.py --c13          # only phases 1-2 and ROADMAP C13:
+                                         # rwkv6-1.6b's two-layer gradients
+                                         # leaf by leaf, drawn on the CPU and
+                                         # on the card
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
@@ -31,12 +36,13 @@ the result line:
    and power limit, and the TF32 flags the port sets;
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` and print
    nvcc's registers / shared memory / spills per kernel, then one line per
-   instance of the bf16 tensor-core attention kernel (head_dim 64, 128, 256)
-   and of the 3xTF32 attention kernel (fp32 and bf16 at head_dim 32, 64,
-   128, 256) with its registers and local (spill) bytes from
-   ``cudaFuncGetAttributes`` (any local byte fails, but the 3xTF32
-   kernel's bf16 instance's at head_dim 256, which only a direct launch
-   reaches, and which is printed);
+   instance of the bf16 tensor-core attention kernel ((H, Hv) (64, 64),
+   (128, 128), (256, 256), (192, 128)), of the 3xTF32 attention kernel
+   (fp32 and bf16 at (32, 32), (64, 64), (128, 128), (256, 256), (192,
+   128)) and of the latent decode kernel (bf16 and fp32 caches) with its
+   registers and local (spill) bytes from ``cudaFuncGetAttributes`` (any
+   local byte fails, but the 3xTF32 kernel's bf16 instance's at (256, 256),
+   which only a direct launch reaches, and which is printed);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main paths' shapes and the bench shapes (distill_loss: both
    entries, the t entry and the cross-entropy entry that takes no teacher,
@@ -49,7 +55,13 @@ the result line:
    decode kernel for every call with one query, the tensor-core kernel for
    bf16 prefill (head_dim 64 and 128; 256 through an instance of its own
    with a TMA producer, at its edges and at gemma3-12b's global and local
-   layer shapes) and the 3xTF32 tensor-core kernel for the rest; each case
+   layer shapes; (192, 128), deepseek-v2-lite-16b's expanded MLA prefill,
+   at its 4096-token prompt and its edges, in fp32 on the 3xTF32 kernel's
+   instance of the same pair) and the 3xTF32 tensor-core kernel for the
+   rest; MLA's latent decode kernel (8 sequences, 16 heads, 576 / 512,
+   against 4096 rows at q_offset 63, 4095 and past the cache, bf16 and
+   fp32 caches, views of one buffer and two buffers) against
+   ``ref.latent_decode_ref``; each case
    names the one (and instance) that served it, at every decode case the
    3xTF32 kernel, launched directly, is held to the same bound, and rows
    that see no key (ROADMAP C8) go through each of the three and the
@@ -134,7 +146,11 @@ the result line:
 9. LM serving, for llama3.2-3b, rwkv6-1.6b, gemma3-12b (40 sliding-window
    layers of 1024 keys and 8 global ones, head_dim 256, QK-norm),
    nemotron-4-15b, qwen2-moe-a2.7b (24 MoE blocks: 60 experts, top 4, 4
-   shared) and llama3-8b, one after the other (each freed before the next),
+   shared), llama3-8b and deepseek-v2-lite-16b (a dense MLA layer and 26
+   MLA + MoE ones: 64 experts, top 6, 2 shared; its prefill step on the
+   tensor-core kernel's (192, 128) instance, its decode steps on the
+   latent decode kernel, 27 launches each), one after the other (each
+   freed before the next),
    at full width and depth in
    bf16: ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
    64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
@@ -156,7 +172,10 @@ the result line:
 10. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
    128-token prefill; gemma3-12b with one local and one global layer and a
-   16-token window, 24 decode steps (past the window);
+   16-token window, 24 decode steps (past the window); deepseek-v2-lite-16b
+   with its dense ``mla`` layer and one ``mla_moe`` (fp32: the 3xTF32
+   kernel's (192, 128) instance and the latent decode kernel on an fp32
+   cache);
 11. LM training: ``train_lm(arch, use_reduced=False, steps=4, batch=2,
    seq=1024, use_kernels=True)`` for llama3.2-3b then rwkv6-1.6b, full width
    and depth in bf16, with the launch counters zeroed before and held after
@@ -168,8 +187,9 @@ the result line:
    ms, idle share, top kernels);
 12. training parity: llama3.2-3b, rwkv6-1.6b at (rwkv_chunk,
    ssm_seq_chunk) (0, 0), (0, 32) and (16, 32), qwen2-moe-a2.7b (its router
-   losses and the routers' gradients too) and gemma3-12b (one local and
-   one global layer, a 16-token window), at full width, two layers,
+   losses and the routers' gradients too), gemma3-12b (one local and
+   one global layer, a 16-token window) and deepseek-v2-lite-16b (``mla``
+   and ``mla_moe``, its router too), at full width, two layers,
    fp32, one ``make_train_step`` on the card and on the CPU from the same
    params and ``token_batches`` batch (loss, grad norm, every gradient
    leaf), and on the card the loss with ``use_kernels`` on against off;
@@ -184,7 +204,11 @@ the result line:
    4096-token prompt) through the tensor-core kernel's TMA instance, and
    at a decode step through the split-KV kernel, beside
    the 3xTF32 kernel launched directly and SDPA (each SDPA call's backend
-   named from the profiler); the 3xTF32 kernel in fp32 at the llama3.2-3b
+   named from the profiler); deepseek-v2-lite-16b's expanded prefill
+   (1, 4096, 16/16, 192/128) on the (192, 128) instances in bf16 and fp32,
+   and its latent decode kernel at q_offset 63 and 4095 beside fp32 SDPA
+   on the same function (one kv head, keys 576 wide, values their first
+   512), with the fp32-core bound and the 3xTF32 one; the 3xTF32 kernel in fp32 at the llama3.2-3b
    prefill shape, the calls it serves, beside fp32 SDPA (TF32 off), its
    3xTF32 bound and the fp32-core bound; the
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
@@ -234,6 +258,9 @@ TPU_KERNELS = {
     "flash_attention_tf32x3": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_decode": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_sm90_h256": "src/repro/kernels/flash_attention.py:32",
+    "flash_attention_sm90_192": "src/repro/kernels/flash_attention.py:32",
+    # no Pallas kernel: the reference's absorbed MLA decode is jnp einsums
+    "flash_attention_latent_decode": "src/repro/models/attention.py:319-338 (jnp einsums)",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:25",
     "rwkv6_scan_chunked": "src/repro/kernels/rwkv6_scan.py:25",
     # no Pallas kernel: the gradient XLA derives from the reference's lax.scan
@@ -250,16 +277,21 @@ SOURCES = {
     "flash_attention_tf32x3": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_decode": "src/repro_torch/csrc/flash_attention_decode.cu",
     "flash_attention_sm90_h256": "src/repro_torch/csrc/flash_attention_sm90.cu",
+    "flash_attention_sm90_192": "src/repro_torch/csrc/flash_attention_sm90.cu",
+    "flash_attention_latent_decode": "src/repro_torch/csrc/flash_attention_latent_decode.cu",
     "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
     "rwkv6_scan_chunked": "src/repro_torch/csrc/rwkv6_scan_chunked.cu",
     "rwkv6_scan_bwd": "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
 }
 # the kernels' JSON rows: flash_attention's three CUDA kernels each have
-# one, the tensor-core kernel's head_dim 256 instance (TMA producer) one of
-# its own, and rwkv6_scan's two kernels one each; the values are the keys of
-# drive_lm_path's launches per kernel
+# one, the tensor-core kernel's (256, 256) instance (TMA producer) and its
+# (192, 128) instance (MLA's expanded prefill) one each of their own, the
+# latent decode kernel one, and rwkv6_scan's two kernels one each; the
+# values are the keys of drive_lm_path's launches per kernel
 VARIANTS = {"flash_attention": "sm90", "flash_attention_tf32x3": "tf32x3",
-            "flash_attention_decode": "decode", "flash_attention_sm90_h256": "sm90_h256"}
+            "flash_attention_decode": "decode", "flash_attention_sm90_h256": "sm90_h256",
+            "flash_attention_sm90_192": "sm90_192",
+            "flash_attention_latent_decode": "latent_decode"}
 RWKV_VARIANTS = {"rwkv6_scan": "seq", "rwkv6_scan_chunked": "chunked"}
 # distill_loss's JSON rows per entry of ``distill_loss.variant_launches``,
 # and those launches summed over the main paths' runs
@@ -395,27 +427,33 @@ def build_kernels():
     import torch
 
     from repro_torch.kernels.flash_attention import (
-        HEAD_DIMS,
-        SM90_HEAD_DIMS,
+        SM90_INSTANCES,
+        TF32X3_INSTANCES,
+        latent_decode_attrs,
         sm90_attrs,
         tf32x3_attrs,
     )
 
-    for H in SM90_HEAD_DIMS:
-        regs, local = sm90_attrs(H)
+    for H, Hv in SM90_INSTANCES:
+        regs, local = sm90_attrs(H, Hv)
         note = (" (at launch; setmaxnreg: consumers 232, producer 40)" if H == 256 else "")
-        print(f"flash_attention sm90 instance H {H}: {regs} registers a thread{note}, "
-              f"{local} local (spill) bytes a thread")
+        print(f"flash_attention sm90 instance (H, Hv) {(H, Hv)}: {regs} registers a "
+              f"thread{note}, {local} local (spill) bytes a thread")
         if local:
-            fail(f"the flash_attention sm90 instance at H {H} uses {local} local bytes")
+            fail(f"the flash_attention sm90 instance {(H, Hv)} uses {local} local bytes")
     for dtype in (torch.float32, torch.bfloat16):
-        for H in HEAD_DIMS:
-            regs, local = tf32x3_attrs(H, dtype)
-            print(f"flash_attention tf32x3 instance {str(dtype)[6:]} H {H}: {regs} registers "
-                  f"a thread, {local} local (spill) bytes a thread")
+        for H, Hv in TF32X3_INSTANCES:
+            regs, local = tf32x3_attrs(H, Hv, dtype)
+            print(f"flash_attention tf32x3 instance {str(dtype)[6:]} (H, Hv) {(H, Hv)}: {regs} "
+                  f"registers a thread, {local} local (spill) bytes a thread")
             if local and not (H == 256 and dtype == torch.bfloat16):
-                fail(f"the flash_attention tf32x3 instance {dtype} H {H} uses {local} "
+                fail(f"the flash_attention tf32x3 instance {dtype} {(H, Hv)} uses {local} "
                      "local bytes")
+        regs, local = latent_decode_attrs(dtype)
+        print(f"flash_attention latent_decode, a {str(dtype)[6:]} cache: {regs} registers a "
+              f"thread, {local} local (spill) bytes a thread")
+        if local:
+            fail(f"the latent decode kernel for a {dtype} cache uses {local} local bytes")
 
 
 def _distill_inputs(B, N, V, dev, seed=0):
@@ -668,12 +706,12 @@ def _skr_state(B, N, C, Bq, dev, classes=None):
     return probs, labels, q, count, head
 
 
-def _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, seed=0):
+def _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, seed=0, Hv=None):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=g, device=dev).mul_(0.5).to(dtype)
-               for shape in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, H)))
+               for shape in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, Hv or H)))
     return q, k, v
 
 
@@ -729,6 +767,29 @@ C8_CASES = [
     (1, 128, 100, 4, 2, 256, True, 16, 40),  # sm90's H 256 instance in bf16
     (1, 64, 64, 8, 2, 64, False, 8, 40),  # non-causal
 ]
+# deepseek-v2-lite-16b's expanded MLA prefill (src/repro/configs/
+# deepseek_v2_lite_16b.py: 16 heads, q and k 128 nope + 64 rope, v 128), at
+# the (192, 128) instances of the tensor-core and 3xTF32 kernels: its
+# 4096-token prompt, the parity's 128-token prompt, and the instance's edges
+# (Sq * G no multiple of 128; Sk no multiple of 64 at q_offset 60;
+# non-causal at G 4): (B, Sq, Sk, N, K, H, causal, window), Hv = MLA_HV
+MLA_HV = 128
+MLA_PREFILL = (1, 4096, 4096, 16, 16, 192)
+MLA_FLASH_CASES = [
+    (*MLA_PREFILL, True, 0),
+    (1, 128, 128, 16, 16, 192, True, 0),
+    (1, 77, 77, 16, 16, 192, True, 0),
+    (2, 40, 100, 16, 16, 192, True, 0),
+    (1, 96, 160, 4, 1, 192, False, 0),
+]
+# its absorbed decode, one fp32 query a sequence and head against the
+# latent cache of 512 + 64 values a row: (B, S, N, q_offset), the serving
+# batch against its 4096-row cache (q_offset 63 and 4095, and past the
+# cache), one split (q_offset 100), and 5 heads
+LATENT_CASES = [(8, 4096, 16, 63), (8, 4096, 16, 4095), (8, 4096, 16, 5000),
+                (2, 300, 16, 100), (3, 1000, 5, 777)]
+LATENT_DIMS = (512, 64)
+MLA_SCALE = 192**-0.5  # (qk_nope_dim + qk_rope_dim)^-0.5, the reference's
 FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128)  # llama3.2-3b, one 4096-token prompt
 # gemma3-12b's attention layers at one 4096-token prompt
 # (src/repro/configs/gemma3_12b.py: 16 q heads over 8 kv heads, head_dim
@@ -797,6 +858,10 @@ def check_flash_attention(dev):
     cases += [((B, 1, Sk, N, K, H, causal, window), dt, off)
               for B, Sk, N, K, H, causal, window, off in DECODE_CASES for dt in both]
     cases += [(c[:8], dt, c[8]) for c in C8_CASES for dt in both]
+    # deepseek-v2-lite-16b's (192, 128) instances, and a row that sees no key
+    # there (the empty-row kernel writes v's 128 columns)
+    cases += [(c, dt, None, MLA_HV) for c in MLA_FLASH_CASES for dt in both]
+    cases += [((1, 128, 100, 16, 16, 192, True, 16), dt, 40, MLA_HV) for dt in both]
     worst = dict.fromkeys(VARIANTS, 0.0)
     row_of = {v: k for k, v in VARIANTS.items()}
 
@@ -814,26 +879,28 @@ def check_flash_attention(dev):
 
     for case in cases:
         (B, Sq, Sk, N, K, H, causal, window), dtype = case[0], case[1]
-        qo = case[2] if len(case) > 2 else (Sk - Sq if causal else 0)
-        q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev)
+        qo = case[2] if len(case) > 2 and case[2] is not None else (Sk - Sq if causal else 0)
+        Hv = case[3] if len(case) > 3 else H
+        q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, Hv=Hv)
         before, h_before = dict(variant_launches), dict(sm90_launches)
         empty_before = _lib.launches["flash_attention_empty_rows"]
         got = flash_attention(q, k, v, causal=causal, window=window, q_offset=qo)
         served = [n for n in variant_launches if variant_launches[n] > before[n]]
         instances = [h for h in sm90_launches if sm90_launches[h] > h_before[h]]
         empty = _lib.launches["flash_attention_empty_rows"] - empty_before
-        variant = _variant(dtype, Sq, H)
-        row = row_of["sm90_h256" if variant == "sm90" and H == 256 else variant]
+        variant = _variant(dtype, Sq, H, Hv)
+        row = row_of[{256: "sm90_h256", 192: "sm90_192"}.get(H, "sm90")
+                     if variant == "sm90" else variant]
         want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=qo)
         torch.cuda.synchronize()
-        print(f"flash_attention {(B, Sq, Sk, N, K, H)} causal={causal} window={window} "
-              f"q_offset={qo} {str(dtype)[6:]}")
-        err, ok = held("+".join(served + [f"H {h}" for h in instances]
+        print(f"flash_attention {(B, Sq, Sk, N, K, H)}" + (f" Hv {Hv}" if Hv != H else "")
+              + f" causal={causal} window={window} q_offset={qo} {str(dtype)[6:]}")
+        err, ok = held("+".join(served + [f"{h}" for h in instances]
                                 + ["empty_rows"] * empty), got, want, dtype)
         worst[row] = max(worst[row], err)
         if served != [variant]:
             fail(f"flash_attention at {case}: served by {served}, the rule picks {variant}")
-        if instances != ([H] if variant == "sm90" else []):
+        if instances != ([(H, Hv)] if variant == "sm90" else []):
             fail(f"flash_attention at {case}: sm90 instances {instances} launched")
         if empty != int(_has_empty_rows(Sq, Sk, qo, causal, window)):
             fail(f"flash_attention at {case}: {empty} empty-row launches")
@@ -842,7 +909,7 @@ def check_flash_attention(dev):
         if Sq == 1 and not empty:
             out = torch.empty_like(q)
             _lib.launch("flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, Sq, Sk, N, K, H, int(dtype == torch.bfloat16),
+                        out.data_ptr(), B, Sq, Sk, N, K, H, H, int(dtype == torch.bfloat16),
                         int(causal), window, qo, Sk, float(H**-0.5))
             torch.cuda.synchronize()
             err, ok = held("tf32x3, launched directly", out, want, dtype)
@@ -852,6 +919,61 @@ def check_flash_attention(dev):
                      f"at {case}")
             del out
         del q, k, v, got, want
+    return worst
+
+
+def _latent_inputs(B, S, N, dtype, dev, seed=0, two_buffers=False):
+    """fp32 q (B, 1, N, 576) and the cache's c_kv (B, S, 512) and k_rope
+    (B, S, 64) in ``dtype``: views of one (B, S, 576) buffer, as
+    ``init_mla_cache`` makes them, or two buffers."""
+    import torch
+
+    L, Rd = LATENT_DIMS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, 1, N, L + Rd), generator=g, device=dev).mul_(0.5)
+    kv = torch.randn((B, S, L + Rd), generator=g, device=dev).mul_(0.5).to(dtype)
+    if two_buffers:
+        return q, kv[..., :L].contiguous(), kv[..., L:].contiguous()
+    return q, kv[..., :L], kv[..., L:]
+
+
+def check_latent_decode(dev):
+    """MLA's latent decode kernel against its plain version
+    (``ref.latent_decode_ref``) on the same inputs, at ``LATENT_CASES``
+    with a bf16 and an fp32 cache (views of one buffer; the serving shape
+    at q_offset 4095 also with two buffers), scale 192^-0.5: within 3e-5
+    (fp32 sums in another order: both sides widen the cache and compute in
+    fp32, q is never rounded). Each case launches the kernel once and no
+    other attention kernel. Returns the worst error."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import latent_decode, variant_launches
+
+    worst = 0.0
+    cases = [(c, dt, False) for c in LATENT_CASES for dt in (torch.bfloat16, torch.float32)]
+    cases.append(((8, 4096, 16, 4095), torch.bfloat16, True))
+    for (B, S, N, qo), dtype, two in cases:
+        q, ckv, krope = _latent_inputs(B, S, N, dtype, dev, seed=qo, two_buffers=two)
+        before = dict(variant_launches)
+        got = latent_decode(q, ckv, krope, scale=MLA_SCALE, q_offset=qo)
+        served = {n: variant_launches[n] - before[n] for n in variant_launches
+                  if variant_launches[n] > before[n]}
+        want = R.latent_decode_ref(q, ckv, krope, scale=MLA_SCALE, q_offset=qo)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        ok = got.dtype == torch.float32 and got.shape == want.shape and err <= 3e-5
+        print(f"latent_decode q {(B, 1, N, 576)} cache {(B, S)} {str(dtype)[6:]}"
+              f"{' (two buffers)' if two else ''} q_offset={qo} [{'+'.join(served)}]: "
+              f"max|err| {err:.3e}, bound 3e-5, max|want| {want.abs().max().item():.3e}  "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if served != {"latent_decode": 1}:
+            fail(f"latent_decode at {(B, S, N, qo)}: launches {served}")
+        if not ok:
+            fail(f"the latent decode kernel disagrees with its plain version at "
+                 f"{(B, S, N, qo)} {dtype}")
+        del q, ckv, krope, got, want
     return worst
 
 
@@ -1680,7 +1802,8 @@ def drive_sim_path(dev):
 # every op of kernels/ops.py, by its kernel_dispatch_seconds label
 KERNEL_LABELS = ("softmax_xent", "softmax_xent_batched", "distill_loss",
                  "distill_loss_batched", "skr_rectify", "skr_rectify_batched",
-                 "skr_process", "skr_process_batched", "flash_attention", "rwkv6_scan")
+                 "skr_process", "skr_process_batched", "flash_attention", "latent_decode",
+                 "rwkv6_scan")
 FORWARD_LABELS = KERNEL_LABELS[:4]  # one distill_loss forward launch a call
 TRACED_CATEGORIES = {"churn", "dispatch", "execute", "item", "round", "eval", "kernel"}
 
@@ -2325,8 +2448,12 @@ def time_lm_kernels(dev):
     small = reduced(get_arch("llama3.2-3b"))
     red = (small.max_seq_len, small.max_seq_len, small.num_heads, small.num_kv_heads,
            small.head_dim)
-    for name, tag, (B, Sq, Sk, N, K, H), qo, window, dtype in [
+    for name, tag, (B, Sq, Sk, N, K, H, *hv), qo, window, dtype in [
             ("flash_attention", "prefill", FLASH_PREFILL, 0, 0, bf16),
+            ("flash_attention_sm90_192", "deepseek_prefill", (*MLA_PREFILL, MLA_HV), 0, 0,
+             bf16),
+            ("flash_attention_tf32x3", "deepseek_prefill_fp32", (*MLA_PREFILL, MLA_HV), 0, 0,
+             torch.float32),
             ("flash_attention_decode", "decode", FLASH_DECODE, 63, 0, bf16),
             ("flash_attention_decode", "decode", FLASH_DECODE, 4095, 0, bf16),
             ("flash_attention_decode", "gemma3_decode_global", GEMMA3_DECODE, 63, 0, bf16),
@@ -2340,14 +2467,15 @@ def time_lm_kernels(dev):
             ("flash_attention_tf32x3", "reduced_fp32_b8", (8, *red), 0, 0, torch.float32),
             ("flash_attention_tf32x3", "reduced_fp32_b128", (128, *red), 0, 0,
              torch.float32)]:
-        q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev)
+        Hv = hv[0] if hv else H
+        q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, Hv=Hv)
         # the keys some query sees: from the first query's window start
         lo = max(0, qo - window + 1) if window else 0
         n_keys = min(Sk, qo + Sq) - lo
         pairs = attn_pairs(Sq, Sk, qo, True, window)
         size = q.element_size()
-        nbytes = size * (2 * B * Sq * N * H + 2 * B * n_keys * K * H)
-        flops = 4 * B * N * H * pairs
+        nbytes = size * (B * Sq * N * (H + Hv) + B * n_keys * K * (H + Hv))
+        flops = 2 * (H + Hv) * B * N * pairs
         # fp32: three TF32 products a pair on the tensor cores (3xTF32)
         ops_, peak = (flops, BF16_OPS_PER_S) if dtype == bf16 else (3 * flops, TF32_OPS_PER_S)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -2364,8 +2492,9 @@ def time_lm_kernels(dev):
         else:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=True, enable_gqa=True)
-        shape = (f"q {(B, Sq, N, H)} kv {(B, Sk, K, H)} q_offset={qo}"
-                 + (f" window={window}" if window else "") + f" {str(dtype)[6:]}")
+        shape = (f"q {(B, Sq, N, H)} kv {(B, Sk, K, H)}" + (f" v {Hv}" if Hv != H else "")
+                 + f" q_offset={qo}" + (f" window={window}" if window else "")
+                 + f" {str(dtype)[6:]}")
         plain = lambda: R.flash_attention_ref(q, k, v, window=window, q_offset=qo)  # noqa: E731
         launches = 5 if Sq * Sk >= 2**20 else TIMED_LAUNCHES  # 5 at a 4096-token prompt
         print(f"SDPA at {tag} {shape}: backend {sdpa_backend(lib)}")
@@ -2377,13 +2506,13 @@ def time_lm_kernels(dev):
             row = rows[(name, tag, qo)]
             print(f"  {name} {tag}: {row['bound_ms'] / row['ms']:.3f} of its bound "
                   f"({row['bound_by']}, 3xTF32); "
-                  f"a kernel on the fp32 cores (4 H flops a pair at 67 TFLOP/s) is bound at "
-                  f"{fp32_bound:.6f} ms")
+                  f"a kernel on the fp32 cores (2 (H + Hv) flops a pair at 67 TFLOP/s) is "
+                  f"bound at {fp32_bound:.6f} ms")
         if name != "flash_attention_tf32x3":
-            out = torch.empty_like(q)
+            out = q.new_empty((B, Sq, N, Hv))
             tf32x3 = lambda: _lib.launch(  # noqa: E731
                 "flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), B, Sq, Sk, N, K, H, int(dtype == bf16), 1, window, qo, Sk,
+                out.data_ptr(), B, Sq, Sk, N, K, H, Hv, int(dtype == bf16), 1, window, qo, Sk,
                 float(H**-0.5))
             rows[("flash_attention_tf32x3", tag, qo)] = _timed(
                 "flash_attention_tf32x3", tag, shape, tf32x3, plain, lib, nbytes, ops_, peak,
@@ -2393,7 +2522,53 @@ def time_lm_kernels(dev):
                 fail(f"the tf32x3 flash_attention kernel disagrees at the {tag} shape, "
                      f"q_offset {qo}")
         del q, k, v, qt, kt, vt
+    rows.update(time_latent_decode(dev))
     rows.update(time_rwkv_kernels(dev))
+    return rows
+
+
+def time_latent_decode(dev):
+    """The latent decode kernel at deepseek-v2-lite-16b's serving decode:
+    8 sequences, 16 heads, fp32 q (B, 1, 16, 576) against a bf16 4096-row
+    cache (views of one buffer), at q_offset 63 and 4095. The bound counts
+    the cache rows the query sees (576 bf16 values each), q and ctx once
+    against 3.35 TB/s, and 2 (576 + 512) flops a key and head on the fp32
+    cores (67 TFLOP/s: the kernel computes in fp32); the same operations as
+    3xTF32 on the tensor cores (3 x at 495 TFLOP/s) are printed beside it.
+    The library call is F.scaled_dot_product_attention in fp32 (TF32 off)
+    on the same function: q against the rows up to q_offset as one kv head
+    (``enable_gqa``), keys all 576 columns, values the first 512, scale
+    192^-0.5, the rows widened to fp32 once outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+
+    rows = {}
+    L, Rd = LATENT_DIMS
+    for B, S, N, qo in LATENT_CASES[:2]:
+        q, ckv, krope = _latent_inputs(B, S, N, torch.bfloat16, dev)
+        n_keys = min(qo, S - 1) + 1
+        nbytes = B * n_keys * (L + Rd) * 2 + B * N * (L + Rd) * 4 + B * N * L * 4
+        flops = 2 * (L + Rd + L) * B * N * n_keys
+        kv = torch.cat([ckv, krope], -1)[:, :n_keys].float()
+        qt, kt, vt = q.transpose(1, 2), kv[:, None], kv[:, None, :, :L]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, scale=MLA_SCALE, enable_gqa=True)
+        shape = f"q {(B, 1, N, L + Rd)} fp32, cache {(B, S, L + Rd)} bf16, q_offset={qo}"
+        print(f"SDPA at latent_decode {shape}: backend {sdpa_backend(lib)}")
+        rows[("flash_attention_latent_decode", "decode", qo)] = _timed(
+            "flash_attention_latent_decode", "decode", shape,
+            lambda: ops.latent_decode(q, ckv, krope, scale=MLA_SCALE, q_offset=qo),
+            lambda: R.latent_decode_ref(q, ckv, krope, scale=MLA_SCALE, q_offset=qo),
+            lib, nbytes, flops, FP32_OPS_PER_S)
+        tc, _ = bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)
+        row = rows[("flash_attention_latent_decode", "decode", qo)]
+        print(f"  latent_decode at q_offset {qo}: {row['bound_ms'] / row['ms']:.3f} of its "
+              f"bound ({row['bound_by']}, fp32 cores); on the tensor cores as 3xTF32 the "
+              f"bound would be {tc:.6f} ms; bytes alone {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
+        del q, ckv, krope, kv, qt, kt, vt
     return rows
 
 
@@ -2663,23 +2838,27 @@ LM_ARCHS = (("llama3.2-3b", 4096), ("rwkv6-1.6b", 1024))  # (arch, prefill step 
 # nemotron-4-15b (LayerNorm, squared ReLU, G = 6), qwen2-moe-a2.7b's MoE
 # blocks (G = 1) and llama3-8b; ``--lm-families`` runs only these
 LM_FAMILIES = (("gemma3-12b", 4096), ("nemotron-4-15b", 4096), ("qwen2-moe-a2.7b", 4096),
-               ("llama3-8b", 4096))
+               ("llama3-8b", 4096), ("deepseek-v2-lite-16b", 4096))
 LM_SERVE = dict(num_requests=8, prompt_len=64, gen_len=64, cache_len=4096)
 
 
 def expected_lm_launches(cfg):
     """Kernel launches of one serve run and one prefill step, from the
     layer list: each decode step and the prefill step run every layer once,
-    an attention layer (``attn``, ``local_attn``, ``moe``) one
-    flash_attention launch, an rwkv6 layer one rwkv6_scan launch; no other
-    kernel of the repo (a ``moe`` block's routing and expert products are
-    torch ops and library products)."""
+    an attention layer (``attn``, ``local_attn``, ``moe``) or an MLA layer
+    (``mla``, ``mla_moe``: the latent decode kernel at a decode step, the
+    tensor-core kernel's (192, 128) instance at the prefill step, both
+    counted as flash_attention) one flash_attention launch, an rwkv6 layer
+    one rwkv6_scan launch; no other kernel of the repo (a ``moe`` or
+    ``mla_moe`` block's routing and expert products, and MLA's q_lat and
+    ctx W_uv, are torch ops and library products)."""
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import ATTN_KINDS
+    from repro_torch.models.transformer import ATTN_KINDS, MLA_KINDS
 
     steps = LM_SERVE["prompt_len"] + LM_SERVE["gen_len"] + 1
     want = dict.fromkeys(ops.launches, 0)
-    want["flash_attention"] = steps * sum(b.kind in ATTN_KINDS for b in cfg.blocks)
+    want["flash_attention"] = steps * sum(b.kind in ATTN_KINDS + MLA_KINDS
+                                          for b in cfg.blocks)
     want["rwkv6_scan"] = steps * sum(b.kind == "rwkv6" for b in cfg.blocks)
     return want
 
@@ -2699,7 +2878,7 @@ def drive_lm_path(dev, arch, prefill_len):
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import default_opts, make_prefill_step
     from repro_torch.models.layers import padded_vocab
-    from repro_torch.models.transformer import ATTN_KINDS, init_params
+    from repro_torch.models.transformer import ATTN_KINDS, MLA_KINDS, init_params
 
     cfg = get_arch(arch)
     kinds = {k: sum(b.kind == k for b in cfg.blocks) for k in dict.fromkeys(
@@ -2729,12 +2908,18 @@ def drive_lm_path(dev, arch, prefill_len):
     variants = dict(variant_launches)
     instances = dict(sm90_launches)
     n_attn = sum(b.kind in ATTN_KINDS for b in cfg.blocks)
+    n_mla = sum(b.kind in MLA_KINDS for b in cfg.blocks)
+    decode_steps = LM_SERVE["prompt_len"] + LM_SERVE["gen_len"]
     # the prefill step's attention layers on the tensor-core kernel (at
-    # head_dim 256 its own instance), the decode steps' (Sq = 1) on the
-    # split-KV decode kernel, none on the 3xTF32 kernel (every serving model
-    # is bf16 at head_dim 64, 128 or 256)
-    want_variants = {"sm90": n_attn, "tf32x3": 0, "decode": want["flash_attention"] - n_attn}
-    want_instances = {h: n_attn * (h == cfg.head_dim) for h in instances}
+    # head_dim 256 its own instance, MLA's expanded form on its (192, 128)
+    # one), the decode steps' (Sq = 1) on the split-KV decode kernel, or for
+    # MLA on the latent decode kernel, none on the 3xTF32 kernel (every
+    # serving model is bf16 at (64, 64), (128, 128), (256, 256) or (192, 128))
+    want_variants = {"sm90": n_attn + n_mla, "tf32x3": 0, "decode": decode_steps * n_attn,
+                     "latent_decode": decode_steps * n_mla}
+    pairs = ([(cfg.head_dim, cfg.head_dim)] * n_attn
+             + [(cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)] * n_mla)
+    want_instances = {h: pairs.count(h) for h in instances}
     # the prefill step's scans (T = prefill_len) on the chunked kernel, the
     # decode steps' (T = 1) on the sequential one
     rwkv = dict(rwkv_launches)
@@ -2773,7 +2958,8 @@ def drive_lm_path(dev, arch, prefill_len):
         fail(f"{arch}: prefill logits have shape {tuple(logits.shape)}")
     if counts != want:
         fail(f"{arch}: launches {counts}, the layer list predicts {want}")
-    if variants != want_variants or serve_variants["sm90"] != 0:
+    if variants != want_variants or serve_variants["sm90"] != 0 \
+            or serve_variants["latent_decode"] != want_variants["latent_decode"]:
         fail(f"{arch}: flash_attention kernels {variants} (serve {serve_variants}), "
              f"predicted {want_variants}")
     if instances != want_instances:
@@ -2783,14 +2969,15 @@ def drive_lm_path(dev, arch, prefill_len):
     if max(counts.values()) <= 0:
         fail(f"{arch}: no kernel was launched on the serving path")
     full_cache = time_decode_at(dev, cfg, opts, params, LM_SERVE["cache_len"] - 1) \
-        if n_attn else {}
+        if n_attn + n_mla else {}
     del params, logits
     gc.collect()
     torch.cuda.empty_cache()
-    # launches per JSON row's kernel: the tensor-core kernel's head_dim 256
-    # instance apart from its head_dim 64 / 128 ones
-    per_kernel = {**variants, **rwkv, "sm90": variants["sm90"] - instances[256],
-                  "sm90_h256": instances[256]}
+    # launches per JSON row's kernel: the tensor-core kernel's (256, 256) and
+    # (192, 128) instances apart from its (64, 64) / (128, 128) ones
+    per_kernel = {**variants, **rwkv,
+                  "sm90": variants["sm90"] - instances[(256, 256)] - instances[(192, 128)],
+                  "sm90_h256": instances[(256, 256)], "sm90_192": instances[(192, 128)]}
     return counts, per_kernel, dict(
         serve_prefill_s=res.prefill_s, gen_s=res.gen_s, tokens_per_s=res.tokens_per_s,
         ms_per_step=res.ms_per_step, prefill_step_s=prefill_s, peak_mib=peak / 2**20,
@@ -2803,8 +2990,9 @@ def time_decode_at(dev, cfg, opts, params, pos, steps=16):
     rewrites slot ``pos`` and attends to every slot up to it): wall ms per
     step (host clock over ``steps`` steps, ending in a sync) and device ms
     per step (the union of kernel intervals under ``torch.profiler`` over as
-    many steps), with the split-KV attention kernel's device ms per step.
-    Its launches are not main-path launches: the counts are read before."""
+    many steps), with the attention kernel's device ms per step (the
+    split-KV kernel's, or for MLA the latent decode kernel's). Its launches
+    are not main-path launches: the counts are read before."""
     import gc
 
     import torch
@@ -2843,15 +3031,15 @@ def time_decode_at(dev, cfg, opts, params, pos, steps=16):
     if not kernels:
         fail("the profiler recorded no device activity in the decode steps")
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
-    attn = [e for e in kernels if "flash_decode_" in e.name]
+    attn = [e for e in kernels if "flash_decode_" in e.name or "latent_decode_" in e.name]
     attn_ms = sum(e.time_range.elapsed_us() for e in attn) / 1e3 / steps
     print(f"decode step at position {pos} of a full cache (batch {B}): {wall:.4f} ms wall "
           f"per step; device busy {busy:.4f} ms per step (profiler, union of kernel "
-          f"intervals), idle share {1 - busy / wall:.4f}; split-KV attention "
-          f"{attn_ms:.4f} ms per step in {len(attn) / steps:.1f} launches, "
+          f"intervals), idle share {1 - busy / wall:.4f}; decode attention "
+          f"{attn_ms:.4f} ms per step in {len(attn) / steps:.1f} kernel records, "
           f"{attn_ms / busy:.4f} of device busy ({len(kernels) / steps:.1f} kernels per step)")
     if not attn:
-        fail("the decode steps at a full cache ran no split-KV attention kernel")
+        fail("the decode steps at a full cache ran no decode attention kernel")
     del cache, prof
     gc.collect()
     return dict(full_cache_wall_ms=wall, full_cache_busy_ms=busy, full_cache_attn_ms=attn_ms)
@@ -2862,9 +3050,11 @@ PARITY_WINDOW = 16  # the two-layer parity configs' sliding window, in tokens
 
 def two_layer_config(arch):
     """``arch`` at full width in fp32, cut to two layers: two repeats of a
-    one-block pattern, or, for gemma3-12b's (local x 5, global) pattern, its
-    first and last blocks (one local and one global layer) with the window
-    cut to ``PARITY_WINDOW`` tokens, so that a short run reaches past it."""
+    one-block pattern, or its head block and one repeat (deepseek-v2-lite-16b:
+    the dense ``mla`` layer and one ``mla_moe``), or, for gemma3-12b's (local
+    x 5, global) pattern, its first and last blocks (one local and one
+    global layer) with the window cut to ``PARITY_WINDOW`` tokens, so that a
+    short run reaches past it."""
     from dataclasses import replace
 
     from repro_torch.configs import get_arch
@@ -2872,7 +3062,7 @@ def two_layer_config(arch):
     cfg = replace(get_arch(arch), num_layers=2, param_dtype="float32",
                   compute_dtype="float32")
     if len(cfg.pattern) == 1:
-        return replace(cfg, n_repeats=2)
+        return replace(cfg, n_repeats=2 - len(cfg.head_blocks))
     return replace(cfg, pattern=(cfg.pattern[0], cfg.pattern[-1]), n_repeats=1,
                    sliding_window=min(cfg.sliding_window, PARITY_WINDOW))
 
@@ -3057,7 +3247,7 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
     from repro_torch.tree import tree_leaves, tree_map, value_and_grad
 
     cfg = two_layer_config(arch)
-    moe = any(b.kind == "moe" for b in cfg.blocks)
+    moe = any(b.kind in ("moe", "mla_moe") for b in cfg.blocks)
     cpu = torch.device("cpu")
     params = init_params(cfg, default_opts(cfg), seed=5, device=cpu)
     b = next(token_batches(np.random.default_rng(6), cfg.vocab_size, 2, 64))
@@ -3088,22 +3278,21 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
             gc.collect()
         (lg, ng, gg, rg, ag), (lc, nc, gc_, rc, ac) = out
 
-        def worst(want, got):
-            return max(((a - b_).abs().max() / a.abs().max().clamp_min(1e-30)).item()
-                       for a, b_ in zip(want, got))
-
-        share = worst(gc_, gg)
+        shares = _leaf_shares(gc_, gg)
+        share = max(shares)
+        worst_leaf = _leaf_names(params)[shares.index(share)]
         tag = (f" rwkv_chunk {rwkv_chunk} ssm_seq_chunk {ssm_seq_chunk}"
                if cfg.family == "ssm" else "")
         layers = "+".join(b.kind for b in cfg.blocks) + (
             f", window {cfg.sliding_window}" if cfg.sliding_window else "")
         print(f"{arch} 2 layers ({layers}) fp32 train step{tag}: loss {lg:.7f} (card) "
               f"{lc:.7f} (CPU); grad norm {ng:.7f} (card) {nc:.7f} (CPU); worst gradient leaf "
-              f"max|card - CPU| {share:.3e} of its max|g|; card loss with use_kernels off "
+              f"max|card - CPU| {share:.3e} of its max|g| ({worst_leaf}); card loss with "
+              f"use_kernels off "
               f"{loss_plain:.7f}"
               + (f"; card scan launches in the gradient {scans}" if cfg.family == "ssm" else "")
               + (f"; router losses {ag} (card) {ac} (CPU); the routers' gradient leaves' "
-                 f"worst {worst(rc, rg):.3e} of max|g|" if moe else ""))
+                 f"worst {max(_leaf_shares(rc, rg)):.3e} of max|g|" if moe else ""))
         if abs(lg - lc) > 1e-5 * abs(lc) or abs(ng - nc) > 1e-4 * abs(nc) or share > 1e-4:
             fail(f"{arch}{tag}: the card's training step disagrees with the CPU's")
         if any(abs(ag[k] - ac[k]) > 1e-5 * abs(ac[k]) for k in ac):
@@ -3118,6 +3307,139 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _leaf_names(tree, prefix="") -> list:
+    """Each leaf's path in ``tree_leaves`` order, as "unit/blk0/rwkv/wr"."""
+    if isinstance(tree, dict):
+        return [n for k in tree for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix[1:]]
+
+
+def _leaf_shares(want, got) -> list:
+    """Per leaf, max|got - want| as a fraction of max|want|."""
+    return [((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(want, got)]
+
+
+def diagnose_train_parity(dev, arch="rwkv6-1.6b"):
+    """ROADMAP C13: ``check_train_parity``'s gradients (``arch`` at full
+    width, two layers, fp32, seed 5, settings (0, 0)) leaf by leaf, for
+    parameters drawn on the CPU and drawn on the card (each then copied to
+    both devices). For each draw, each leaf's max|card - CPU| as a fraction
+    of its max|g|: the card through the scan's kernels (as the check runs
+    it), the card with the scan's plain version under autograd
+    (``ref.rwkv6_scan_ref``: no kernel of the repo on the scan), and the
+    CPU with one thread against the CPU with all of them (fp32 sums in
+    other orders, no card at all); and, to tell the scan's two kernels
+    apart, the card with the forward kernel and the plain backward
+    (``ref.rwkv6_scan_grad_ref``) and with the plain forward and the
+    backward kernel. A leaf whose share is of one size in all of them is
+    fp32 noise of that leaf, not a kernel's."""
+    import contextlib
+    import gc
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.loader import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rwkv6_scan as RS
+    from repro_torch.launch.steps import default_opts
+    from repro_torch.models.transformer import forward_train, init_params
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+
+    cfg = two_layer_config(arch)
+    opts = default_opts(cfg, attn_chunk=0, remat=False, use_kernels=True)
+    b = next(token_batches(np.random.default_rng(6), cfg.vocab_size, 2, 64))
+    cpu = torch.device("cpu")
+
+    def grads(params, d, plain_scan=False, threads=None, plain=None):
+        p = tree_map(lambda t: t.to(d, copy=True), params)
+        batch = {k: torch.from_numpy(v).to(d, torch.int64) for k, v in b.items()}
+        if plain_scan:
+            scan = mock.patch.object(ops, "rwkv6_scan", lambda *a: R.rwkv6_scan_ref(*a))
+        elif plain == "backward":
+            scan = mock.patch.object(RS, "_backward", lambda *a: R.rwkv6_scan_grad_ref(*a))
+        elif plain == "forward":
+            scan = mock.patch.object(RS, "_forward", lambda *a: R.rwkv6_scan_ref(*a))
+        else:
+            scan = contextlib.nullcontext()
+        n = torch.get_num_threads()
+        if threads:
+            torch.set_num_threads(threads)
+        try:
+            with scan:
+                _, g = value_and_grad(lambda pp: forward_train(cfg, opts, pp, batch)[0], p)
+        finally:
+            torch.set_num_threads(n)
+        return [t.cpu() for t in tree_leaves(g)]
+
+    for draw in ("cpu", "card"):
+        params = init_params(cfg, opts, seed=5, device=cpu if draw == "cpu" else dev)
+        params = tree_map(lambda t: t.cpu(), params)
+        names = _leaf_names(params)
+        want = grads(params, cpu)
+        runs = {"card, kernels": grads(params, dev),
+                "card, plain scan": grads(params, dev, plain_scan=True),
+                "CPU, 1 thread": grads(params, cpu, threads=1),
+                "card, forward kernel + plain backward": grads(params, dev, plain="backward"),
+                "card, plain forward + backward kernel": grads(params, dev, plain="forward")}
+        shares = {k: _leaf_shares(want, g) for k, g in runs.items()}
+        print(f"{arch} 2 layers fp32, parameters drawn on the {draw}: each gradient leaf's "
+              f"max|x - CPU| / max|g| for x = " + ", ".join(shares))
+        order = sorted(range(len(names)), key=lambda i: -shares["card, kernels"][i])
+        for i in order:
+            print(f"  {names[i]:40s} max|g| {want[i].abs().max().item():.3e}  "
+                  + "  ".join(f"{v[i]:.3e}" for v in shares.values()))
+        for k, v in shares.items():
+            j = v.index(max(v))
+            print(f"  worst, {k}: {names[j]} {v[j]:.3e}")
+        scan_error_against_fp64(dev, cfg, opts, params, b)
+        del params, want, runs
+        gc.collect()
+    torch.cuda.empty_cache()
+
+
+def scan_error_against_fp64(dev, cfg, opts, params, b):
+    """Each rwkv6 layer's scan inputs in a forward pass on the card; per
+    layer, y of the forward kernel (the chunked scan at T 64), of the plain
+    fp32 recurrence on the card and on the CPU, each against the same
+    recurrence in fp64: max|y - y64| / max|y64|."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rwkv6_scan as RS
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.tree import tree_map
+
+    seen, scan = [], ops.rwkv6_scan
+
+    def record(*ins):
+        seen.append(tuple(t.detach().clone() for t in ins))
+        return scan(*ins)
+
+    p = tree_map(lambda t: t.to(dev), params)
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in b.items()}
+    with torch.no_grad(), mock.patch.object(ops, "rwkv6_scan", record):
+        forward_train(cfg, opts, p, batch)
+    for layer, ins in enumerate(seen):
+        y64, _ = R.rwkv6_scan_ref(*ins, dtype=torch.float64)
+        scale = y64.abs().max().item()
+        got = {"forward kernel": RS._forward(*ins)[0],
+               "plain, card": R.rwkv6_scan_ref(*ins)[0],
+               "plain, CPU": R.rwkv6_scan_ref(*(t.cpu() for t in ins))[0]}
+        print(f"  layer {layer} scan y against fp64 (max|y64| {scale:.3e}): "
+              + ", ".join(f"{k} {(g.double().cpu() - y64.cpu()).abs().max().item() / scale:.3e}"
+                          for k, g in got.items()))
+    del p, seen
 
 
 def time_train_loss_kernels(dev):
@@ -3159,7 +3481,7 @@ def run_baselines_phases(dev) -> dict:
 TRACING_PHASE = "tracing: the simulator, the plain round and the kernel ops under a Tracer"
 # the GQA families' training step held card against CPU: qwen2-moe-a2.7b's
 # router and gemma3-12b's local and global layers
-TRAIN_PARITY_FAMILIES = ("qwen2-moe-a2.7b", "gemma3-12b")
+TRAIN_PARITY_FAMILIES = ("qwen2-moe-a2.7b", "gemma3-12b", "deepseek-v2-lite-16b")
 
 
 def run_lm_families(dev) -> None:
@@ -3220,6 +3542,10 @@ def main() -> None:
     if sys.argv[1:] == ["--lm-families"]:
         run_lm_families(dev)
         return
+    if sys.argv[1:] == ["--c13"]:
+        phase("ROADMAP C13: rwkv6-1.6b's two-layer training parity, leaf by leaf")
+        diagnose_train_parity(dev)
+        return
     if sys.argv[1:] == ["--distill"]:
         phase("distill_loss: every entry and variant vs the plain versions, and times")
         check_distill_loss(dev)
@@ -3233,6 +3559,7 @@ def main() -> None:
     check_ce_allocates_no_teacher(dev)
     err.update(check_skr_rectify(dev))
     err.update(check_flash_attention(dev))
+    err["flash_attention_latent_decode"] = check_latent_decode(dev)
     rwkv_err = check_rwkv6_scan(dev)
     err.update({k: rwkv_err[v] for k, v in RWKV_VARIANTS.items()})
     err["rwkv6_scan_bwd"] = check_rwkv6_scan_grad(dev)
@@ -3343,6 +3670,8 @@ def main() -> None:
             "flash_attention": ("prefill", 0), "flash_attention_tf32x3": ("prefill_fp32", 0),
             "flash_attention_decode": ("decode", 4095),
             "flash_attention_sm90_h256": ("gemma3_global", 0),
+            "flash_attention_sm90_192": ("deepseek_prefill", 0),
+            "flash_attention_latent_decode": ("decode", 4095),
             "rwkv6_scan": ("decode", None), "rwkv6_scan_chunked": ("prefill", None),
             "rwkv6_scan_bwd": ("train", None)}
     skr_variant = {row: v for v, row in SKR_ROWS.items()}

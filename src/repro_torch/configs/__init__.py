@@ -16,8 +16,9 @@ from repro_torch.configs.base import (  # noqa: F401
 
 def load_all() -> None:
     """Import the architectures the port runs (registration side effects);
-    the reference's other four wait for their block kinds (ROADMAP A6.3)."""
+    the reference's other three wait for their block kinds (ROADMAP A6.3)."""
     from repro_torch.configs import (  # noqa: F401
+        deepseek_v2_lite_16b,
         gemma3_12b,
         llama3_2_3b,
         llama3_8b,

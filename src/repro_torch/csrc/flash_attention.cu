@@ -6,21 +6,26 @@
 // block) grid with the kv axis sequential) for the calls the wrapper
 // (repro_torch/kernels/flash_attention.py:_variant, "tf32x3") sends here:
 // every prefill (Sq > 1) in fp32, and bf16 prefill at H = 32. bf16 prefill
-// at H in {64, 128, 256} goes to flash_attention_sm90.cu and every Sq = 1
-// call to flash_attention_decode.cu; launched directly, this kernel takes
-// any Sq >= 1 in either dtype at H in {32, 64, 128, 256}.
+// at (H, Hv) in {(64, 64), (128, 128), (256, 256), (192, 128)} goes to
+// flash_attention_sm90.cu and every Sq = 1 call to
+// flash_attention_decode.cu; launched directly, this kernel takes any Sq >=
+// 1 in either dtype at (H, Hv) in {(32, 32), (64, 64), (128, 128), (256,
+// 256), (192, 128)}. (192, 128) is deepseek-v2-lite-16b's MLA prefill in
+// its expanded form (q and k 128 nope + 64 rope columns, v 128), which the
+// card-vs-CPU parity runs in fp32.
 //
 //   o[b, i, n] = softmax_j(scale * q[b, i, n] . k[b, j, n / G]) v[b, j, n / G]
 //
 // over the kv positions j that the masks leave: j < k_len; j <= i +
 // q_offset when causal; j > i + q_offset - window when window > 0.
-// q (B, Sq, N, H), k and v (B, Sk, K, H), G = N / K; o in q's dtype. As the
+// q (B, Sq, N, H), k (B, Sk, K, H), v (B, Sk, K, Hv), G = N / K; o (B, Sq,
+// N, Hv) in q's dtype. As the
 // TPU kernel: q is scaled in fp32 before the product, masked scores are
 // -1e30 (not -inf), each kv tile rescales the running sum and accumulator
 // by exp(m_old - m_new), and the output is acc / max(l, 1e-30).
 //
 // What bounds it on an H100: operations. A (query, key) pair that the masks
-// leave costs 4 H flops per q head (S = Q K^T and P V); as 3xTF32 each
+// leave costs 2 H + 2 Hv flops per q head (S = Q K^T and P V); as 3xTF32 each
 // product runs three times on the tensor cores, 3 x 4 H flops against
 // TF32's 495 TFLOP/s: at (1, 4096, 24/8, 128) causal 0.625 ms, against
 // 0.03 ms of bytes and 1.54 ms for any kernel held to the fp32 cores'
@@ -54,8 +59,8 @@
 //   ring filled by 16-byte cp.async: tile k + 1 is in flight while tile k
 //   is consumed. Keys at or past k_len and rows past Sq * G are zero-filled,
 //   so padded V rows are 0 as the TPU kernel pads them. Rows of K are
-//   H + 8 elements apart and rows of V H + 4 (fp32) or H + 8 (bf16), so the
-//   fragment loads below hit 32 distinct banks.
+//   H + 8 elements apart and rows of V Hv + 4 (fp32) or Hv + 8 (bf16), so
+//   the fragment loads below hit 32 distinct banks.
 // - S = Q K^T: within each 8-wide k-step, k-index t reads h = 2t and
 //   k-index t + 4 reads h = 2t + 1 (in A and B alike, so the sum is the
 //   same), which makes B's two elements, K[g][2t] and K[g][2t + 1], one
@@ -70,14 +75,16 @@
 // - O += P V with no shuffles: the S fragment of keys 8j .. 8j + 7 is P's
 //   A fragment for k-step j, reading key 2t as k-index t and key 2t + 1 as
 //   t + 4; V's B fragment takes the same keys, V[2t][g] and V[2t + 1][g].
-// - O's fragment, 16 x H fp32 a warp, is H / 2 registers a thread. At
+// - O's fragment, 16 x Hv fp32 a warp, is Hv / 2 registers a thread. At
 //   H = 64 and 128 a block is 128 rows (8 warps) with 64-key tiles, one
 //   block an SM (capped at 128 registers for two, H = 64 spilled). At
 //   H = 256 it is 64 rows (4 warps) with 32-key tiles: 128 rows of Q and
-//   two stages of K and V would not fit in 227 KB. At H = 32 it is also 64
-//   rows with 32-key tiles, four blocks an SM within 128 registers: the
-//   reduced configs' calls are a few dozen to a thousand blocks, and
-//   smaller blocks spread them over more SMs.
+//   two stages of K and V would not fit in 227 KB. At (192, 128) it is 128
+//   rows with 32-key tiles: Q 96 KB and two stages of K (25 KB each) and V
+//   (16.5 KB each) in fp32, 179 KB. At H = 32 it is 64 rows with 32-key
+//   tiles, four blocks an SM within 128 registers: the reduced configs'
+//   calls are a few dozen to a thousand blocks, and smaller blocks spread
+//   them over more SMs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -90,16 +97,17 @@ constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T, int H>
+template <typename T, int H, int HV>
 struct Cfg {
   static constexpr bool F32 = std::is_same<T, float>::value;
-  static constexpr int WARPS = H == 64 || H == 128 ? 8 : 4;
+  static constexpr bool SQUARE_MID = H == HV && (H == 64 || H == 128);
+  static constexpr int WARPS = SQUARE_MID || H != HV ? 8 : 4;
   static constexpr int MIN_BLOCKS = H == 32 ? 4 : 1;  // blocks an SM, for the register cap
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BM = 16 * WARPS;       // flattened rows a block
-  static constexpr int BN = H == 64 || H == 128 ? 64 : 32;  // keys a K/V tile
+  static constexpr int BN = SQUARE_MID ? 64 : 32;  // keys a K/V tile
   static constexpr int KS = H + 8;            // K row stride, elements
-  static constexpr int VS = F32 ? H + 4 : H + 8;  // V row stride, elements
+  static constexpr int VS = F32 ? HV + 4 : HV + 8;  // V row stride, elements
   static constexpr int VE = 16 / (int)sizeof(T);  // elements a 16-byte copy
   static constexpr int Q_BYTES = BM * H * 4;
   static constexpr int K_TILE = BN * KS;      // elements
@@ -198,12 +206,12 @@ __device__ __forceinline__ int q_slot(int r, int h) {
          ((r >> 3) & 1) + 2 * (h & 1);
 }
 
-template <typename T, int H>
-__global__ void __launch_bounds__(Cfg<T, H>::THREADS, Cfg<T, H>::MIN_BLOCKS)
+template <typename T, int H, int HV>
+__global__ void __launch_bounds__(Cfg<T, H, HV>::THREADS, Cfg<T, H, HV>::MIN_BLOCKS)
 flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     T* __restrict__ o, int Sq, int Sk, int N, int K, int causal, int window,
                     long long q_offset, int k_len, float scale) {
-  using C = Cfg<T, H>;
+  using C = Cfg<T, H, HV>;
   constexpr int BM = C::BM, BN = C::BN, NT = C::NT;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [warp][k-step][lane][4], scaled
@@ -234,7 +242,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int n_tiles = j_hi < kt0 ? 0 : (int)((j_hi - kt0) / BN + 1);
 
   auto load_kv = [&](int stage, long long kt) {
-    constexpr int U = H / C::VE;  // 16-byte units a row
+    constexpr int U = H / C::VE, UV = HV / C::VE;  // 16-byte units a k row, a v row
     T* ks = Ks + stage * C::K_TILE;
     T* vs = Vs + stage * C::V_TILE;
     for (int e = tid; e < BN * U; e += C::THREADS) {
@@ -243,7 +251,17 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       const bool ok = kp < k_len;
       const long long off = ok ? (((long long)b * Sk + kp) * K + kvh) * H + u * C::VE : 0;
       cp_async16(smem_u32(ks + j * C::KS + u * C::VE), k + off, ok);
-      cp_async16(smem_u32(vs + j * C::VS + u * C::VE), v + off, ok);
+      if constexpr (H == HV)  // one walk for both
+        cp_async16(smem_u32(vs + j * C::VS + u * C::VE), v + off, ok);
+    }
+    if constexpr (H != HV) {
+      for (int e = tid; e < BN * UV; e += C::THREADS) {
+        const int j = e / UV, u = e % UV;
+        const long long kp = kt + j;
+        const bool ok = kp < k_len;
+        const long long off = ok ? (((long long)b * Sk + kp) * K + kvh) * HV + u * C::VE : 0;
+        cp_async16(smem_u32(vs + j * C::VS + u * C::VE), v + off, ok);
+      }
     }
   };
   if (n_tiles > 0) load_kv(0, kt0);
@@ -277,9 +295,9 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const long long qpos[2] = {q_offset + t_r[0] / G, q_offset + t_r[1] / G};
   const float* qw = Qs + warp * (H / 8) * 128;
 
-  float acc[H / 8][4];
+  float acc[HV / 8][4];
 #pragma unroll
-  for (int n = 0; n < H / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int n = 0; n < HV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -366,7 +384,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         m[h] = m_new;
       }
 #pragma unroll
-      for (int n = 0; n < H / 8; ++n) {
+      for (int n = 0; n < HV / 8; ++n) {
         acc[n][0] *= alpha[0];
         acc[n][1] *= alpha[0];
         acc[n][2] *= alpha[1];
@@ -383,7 +401,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         split(s[j][3], ph[3], pl[3]);
         const T* vr = vs + (8 * j + 2 * t4) * C::VS + g;
 #pragma unroll
-        for (int n = 0; n < H / 8; ++n) {
+        for (int n = 0; n < HV / 8; ++n) {
           const float v0 = ld1(vr + 8 * n), v1 = ld1(vr + C::VS + 8 * n);
           if constexpr (C::F32) {
             uint32_t bh0, bl0, bh1, bl1;
@@ -413,63 +431,69 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const long long t = t_r[h];
     if (t >= rows_total) continue;
     const float denom = fmaxf(lt, 1e-30f);
-    T* orow = o + (((long long)b * Sq + t / G) * N + (long long)kvh * G + t % G) * H + 2 * t4;
+    T* orow = o + (((long long)b * Sq + t / G) * N + (long long)kvh * G + t % G) * HV + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < H / 8; ++n)
+    for (int n = 0; n < HV / 8; ++n)
       store2(orow + 8 * n, acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
   }
 }
 
-template <typename T, int H>
+template <typename T, int H, int HV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                    int Sk, int N, int K, int causal, int window, long long q_offset,
                    int k_len, float scale, cudaStream_t stream) {
-  using C = Cfg<T, H>;
+  using C = Cfg<T, H, HV>;
   static_assert(C::SMEM <= 232448, "shared memory over the 227 KB a block may have");
   static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_tf32x3_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        flash_tf32x3_kernel<T, H, HV>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const long long rows = (long long)Sq * (N / K);
   const dim3 grid((unsigned)((rows + C::BM - 1) / C::BM), (unsigned)K, (unsigned)B);
-  flash_tf32x3_kernel<T, H><<<grid, C::THREADS, C::SMEM, stream>>>(
+  flash_tf32x3_kernel<T, H, HV><<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Sq, Sk, N, K, causal, window, q_offset, k_len, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int H, const void* q, const void* k, const void* v, void* o, int B,
-                     int Sq, int Sk, int N, int K, int causal, int window,
+cudaError_t dispatch(int H, int Hv, const void* q, const void* k, const void* v, void* o,
+                     int B, int Sq, int Sk, int N, int K, int causal, int window,
                      long long q_offset, int k_len, float scale, cudaStream_t stream) {
+  if (H == 192 && Hv == 128)
+    return launch<T, 192, 128>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
+                               scale, stream);
+  if (H != Hv) return cudaErrorInvalidValue;
   switch (H) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
+      return launch<T, 32, 32>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
+      return launch<T, 64, 64>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
+      return launch<T, 128, 128>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
+      return launch<T, 256, 256>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t attrs(int H, cudaFuncAttributes* a) {
+cudaError_t attrs(int H, int Hv, cudaFuncAttributes* a) {
+  if (H == 192 && Hv == 128) return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 192, 128>);
+  if (H != Hv) return cudaErrorInvalidValue;
   switch (H) {
     case 32:
-      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 32>);
+      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 32, 32>);
     case 64:
-      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 64>);
+      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 64, 64>);
     case 128:
-      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 128>);
+      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 128, 128>);
     case 256:
-      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 256>);
+      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 256, 256>);
     default:
       return cudaErrorInvalidValue;
   }
@@ -477,28 +501,30 @@ cudaError_t attrs(int H, cudaFuncAttributes* a) {
 
 }  // namespace
 
-// is_bf16: 0 for fp32 q/k/v/o, 1 for bf16. Pointers 16-byte aligned and
-// contiguous; H in {32, 64, 128, 256} (else cudaErrorInvalidValue); N % K == 0
-// (the wrapper checks).
+// is_bf16: 0 for fp32 q/k/v/o, 1 for bf16. q and k (.., H), v and o (..,
+// Hv); pointers 16-byte aligned and contiguous; (H, Hv) in {(32, 32), (64,
+// 64), (128, 128), (256, 256), (192, 128)} (else cudaErrorInvalidValue);
+// N % K == 0 (the wrapper checks).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                               int Sq, int Sk, int N, int K, int H, int is_bf16, int causal,
-                               int window, long long q_offset, int k_len, float scale,
-                               cudaStream_t stream) {
+                               int Sq, int Sk, int N, int K, int H, int Hv, int is_bf16,
+                               int causal, int window, long long q_offset, int k_len,
+                               float scale, cudaStream_t stream) {
   if ((long long)B * Sq * N == 0) return (int)cudaGetLastError();
   const cudaError_t e =
-      is_bf16 ? dispatch<__nv_bfloat16>(H, q, k, v, o, B, Sq, Sk, N, K, causal, window,
+      is_bf16 ? dispatch<__nv_bfloat16>(H, Hv, q, k, v, o, B, Sq, Sk, N, K, causal, window,
                                         q_offset, k_len, scale, stream)
-              : dispatch<float>(H, q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset,
+              : dispatch<float>(H, Hv, q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset,
                                 k_len, scale, stream);
   return (int)e;
 }
 
 // The registers a thread and the local (spill and stack) bytes a thread of
-// the instance for head_dim H and dtype (is_bf16), as cudaFuncGetAttributes
+// the instance (H, Hv) for dtype (is_bf16), as cudaFuncGetAttributes
 // reports them.
-extern "C" int flash_attention_attrs(int H, int is_bf16, int* regs, long long* local_bytes) {
+extern "C" int flash_attention_attrs(int H, int Hv, int is_bf16, int* regs,
+                                     long long* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t e = is_bf16 ? attrs<__nv_bfloat16>(H, &a) : attrs<float>(H, &a);
+  const cudaError_t e = is_bf16 ? attrs<__nv_bfloat16>(H, Hv, &a) : attrs<float>(H, Hv, &a);
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (long long)a.localSizeBytes;

@@ -15,8 +15,9 @@
 //
 //   o[b, i, n, h] = (1 / Sk) sum_j v[b, j, n / G, h]   for each empty row i
 //
-// v (B, Sk, K, H) and o (B, Sq, N, H), fp32 or bf16; the sum is fp32, o is
-// rounded once to its dtype.
+// v (B, Sk, K, H) and o (B, Sq, N, H), fp32 or bf16, where H is v's head_dim
+// (Hv: 128 in MLA's expanded prefill, whose q and k are 192 wide); the sum
+// is fp32, o is rounded once to its dtype.
 //
 // What bounds it: reading v once per (batch, kv head) (bytes). No ported
 // model reaches such a row, so the design is the simplest one: one block

@@ -2,12 +2,15 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:_kernel for the
 // calls the wrapper (repro_torch/kernels/flash_attention.py:_variant) sends
-// here: q, k, v in bf16, head_dim H in {64, 128, 256}, more than one query
-// (a prefill). Decode (Sq = 1) goes to flash_attention_decode.cu; fp32
-// prefill at every head_dim, and bf16 prefill at H = 32, go to the 3xTF32
-// kernel in flash_attention.cu. H = 64 and 128 run flash_sm90_kernel, the
-// design below; H = 256 (gemma3-12b's) runs flash_sm90_h256_kernel, the
-// same arithmetic with a TMA producer, described above it.
+// here: q, k, v in bf16, (q and k's head_dim H, v's Hv) in {(64, 64),
+// (128, 128), (256, 256), (192, 128)}, more than one query (a prefill).
+// Decode (Sq = 1) goes to flash_attention_decode.cu; fp32 prefill at every
+// head_dim, and bf16 prefill at H = 32, go to the 3xTF32 kernel in
+// flash_attention.cu. (64, 64), (128, 128) and (192, 128) run
+// flash_sm90_kernel, the design below; (256, 256) (gemma3-12b's) runs
+// flash_sm90_h256_kernel, the same arithmetic with a TMA producer,
+// described above it. (192, 128) is deepseek-v2-lite-16b's MLA prefill in
+// its expanded form: q and k are 128 nope + 64 rope columns, v 128.
 //
 //   o[b, i, n] = softmax_j(scale * q[b, i, n] . k[b, j, n / G]) v[b, j, n / G]
 //
@@ -18,9 +21,10 @@
 // the output is acc / max(l, 1e-30), rounded once to bf16.
 //
 // What bounds it on an H100: operations. A (query, key) pair that the masks
-// leave costs 4 H flops per q head; at (1, 4096, 24/8, 128) causal that is
-// 0.104 ms at the bf16 tensor-core peak (989 TFLOP/s) against 0.03 ms of
-// bytes, and only wgmma reaches that rate.
+// leave costs 2 H + 2 Hv flops per q head; at (1, 4096, 24/8, 128) causal
+// that is 0.104 ms at the bf16 tensor-core peak (989 TFLOP/s) against 0.03
+// ms of bytes, at (1, 4096, 16/16, 192/128) 0.0869 ms against 0.025 ms, and
+// only wgmma reaches that rate.
 //
 // What the design does about it:
 // - A block of 256 threads (two warpgroups) owns BM = 128 flattened
@@ -29,7 +33,7 @@
 //   for the G q heads that share it. Each warpgroup is one 64-row wgmma M
 //   tile. Blocks are taken heaviest first (the last q rows see the most
 //   keys under the causal mask), so the last wave is short.
-// - Q (BM x H) is loaded once; K and V come in tiles of BN = 64 keys
+// - Q (BM x H) is loaded once; K (BN x H) and V (BN x Hv) come in tiles of BN = 64 keys
 //   through a two-stage ring: tile k + 1 is copied with 16-byte cp.async
 //   while tile k is consumed; cp.async.wait_group and __syncthreads order
 //   them. The loaders write wgmma's 128-byte swizzled layout themselves
@@ -48,11 +52,15 @@
 //   wholly inside the masks skip the per-element mask arithmetic.
 // - O += P V keeps p in fp32 as the TPU kernel does: P = P_hi + P_lo with
 //   P_hi = bf16(p), P_lo = bf16(p - P_hi) (about 16 bits of p), and two
-//   wgmma m64nHk16 per 16 keys into one fp32 accumulator. A comes from
+//   wgmma m64nHvk16 per 16 keys into one fp32 accumulator. A comes from
 //   registers: the S fragment of 16 keys, packed to bf16 pairs, is the A
 //   fragment of one k16 step. B = V from shared memory in its [key][h]
-//   layout, with B's transpose bit set. That is 6 H flops per pair in
-//   place of 4 H; the bound counts the work itself, 4 H.
+//   layout, with B's transpose bit set. That is 2 H + 4 Hv flops per pair
+//   in place of 2 H + 2 Hv; the bound counts the work itself.
+// - (192, 128): Q and K rows are three 64-column swizzle chunks, S = Q K^T
+//   12 k16 steps; V and O as at (128, 128). Shared memory Q 48 KB + K 2 x
+//   24 KB + V 2 x 16 KB = 128 KB, one block an SM as at (128, 128). The
+//   scale is H^-0.5 = 192^-0.5, the reference's (nope + rope)^-0.5.
 //
 // No TMA and no warp specialisation (producer warp, setmaxnreg, mbarrier
 // ring): every thread loads and computes, and tiles are synchronised with
@@ -76,13 +84,15 @@ constexpr int kThreads = 256;  // two warpgroups of 64 rows
 constexpr int kMinBlocks = 1;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int H>
+template <int H, int HV>
 struct Cfg {
-  static constexpr int UNITS = H / 8;                 // 16-byte units per row
+  static constexpr int UNITS = H / 8;                 // 16-byte units per q or k row
+  static constexpr int V_UNITS = HV / 8;              // 16-byte units per v or o row
   static constexpr int Q_BYTES = kBM * H * 2;
-  static constexpr int KV_BYTES = kBN * H * 2;        // one K or V tile
-  static constexpr int SMEM = Q_BYTES + 4 * KV_BYTES + 1024;  // + room to align
-  static constexpr int O_REGS = H / 2;                // m64nHk16 fp32 fragment
+  static constexpr int K_BYTES = kBN * H * 2;         // one K tile
+  static constexpr int V_BYTES = kBN * HV * 2;        // one V tile
+  static constexpr int SMEM = Q_BYTES + 2 * (K_BYTES + V_BYTES) + 1024;  // + room to align
+  static constexpr int O_REGS = HV / 2;               // m64nHvk16 fp32 fragment
 };
 
 // Byte offset of 16-byte unit u of row r in a tile of R rows laid out for
@@ -207,17 +217,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&two);
 }
 
-template <int H>
+template <int H, int HV>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_sm90_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
                   int Sk, int N, int K, int causal, int window, long long q_offset,
                   int k_len, float scale) {
-  using C = Cfg<H>;
+  using C = Cfg<H, HV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle repeats every 1 KB
   const uint32_t sK = sQ + C::Q_BYTES;                         // 2 stages
-  const uint32_t sV = sK + 2 * C::KV_BYTES;                    // 2 stages
+  const uint32_t sV = sK + 2 * C::K_BYTES;                     // 2 stages
 
   // blocks heaviest first: the q block index runs slowest, in reverse
   const int G = N / K;
@@ -257,9 +267,18 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       const long long kp = kt + j;
       const bool ok = kp < k_len;
       const long long off = ok ? (((long long)b * Sk + kp) * K + kvh) * H + u * 8 : 0;
-      const uint32_t dst = (uint32_t)stage * C::KV_BYTES + swz<kBN>(j, u);
+      const uint32_t dst = (uint32_t)stage * C::K_BYTES + swz<kBN>(j, u);
       cp_async16(sK + dst, k + off, ok);
-      cp_async16(sV + dst, v + off, ok);
+      if constexpr (H == HV) cp_async16(sV + dst, v + off, ok);  // one walk for both
+    }
+    if constexpr (H != HV) {
+      for (int e = tid; e < kBN * C::V_UNITS; e += kThreads) {
+        const int j = e / C::V_UNITS, u = e % C::V_UNITS;
+        const long long kp = kt + j;
+        const bool ok = kp < k_len;
+        const long long off = ok ? (((long long)b * Sk + kp) * K + kvh) * HV + u * 8 : 0;
+        cp_async16(sV + (uint32_t)stage * C::V_BYTES + swz<kBN>(j, u), v + off, ok);
+      }
     }
   };
   if (n_tiles > 0) load_kv(0, kt0);
@@ -302,7 +321,7 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
         const uint32_t chunk = kk / 4, off = (kk % 4) * 32;
         const uint64_t da = make_desc(sQ + chunk * kBM * 128 + wg * 64 * 128 + off, 16, 1024);
         const uint64_t db =
-            make_desc(sK + stage * C::KV_BYTES + chunk * kBN * 128 + off, 16, 1024);
+            make_desc(sK + stage * C::K_BYTES + chunk * kBN * 128 + off, 16, 1024);
         wgmma_ss_n64(s, da, db, kk > 0);
       }
       wgmma_commit();
@@ -370,7 +389,7 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = make_desc(sV + stage * C::KV_BYTES + kk * 16 * 128, kBN * 128, 1024);
+        const uint64_t db = make_desc(sV + stage * C::V_BYTES + kk * 16 * 128, kBN * 128, 1024);
         wgmma_rs(acc, p_hi[kk], db);
         wgmma_rs(acc, p_lo[kk], db);
       }
@@ -392,9 +411,9 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     if (t >= rows_total) continue;
     const float denom = fmaxf(lt, 1e-30f);
     __nv_bfloat16* orow =
-        o + (((long long)b * Sq + t / G) * N + (long long)kvh * G + t % G) * H + col;
+        o + (((long long)b * Sq + t / G) * N + (long long)kvh * G + t % G) * HV + col;
 #pragma unroll
-    for (int i = 0; i < H / 8; ++i) {
+    for (int i = 0; i < HV / 8; ++i) {
       const __nv_bfloat162 two =
           __floats2bfloat162_rn(acc[4 * i + 2 * h] / denom, acc[4 * i + 2 * h + 1] / denom);
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) = two;
@@ -402,21 +421,22 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
-template <int H>
+template <int H, int HV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                    int N, int K, int causal, int window, long long q_offset, int k_len,
                    float scale, cudaStream_t stream) {
-  constexpr int smem = Cfg<H>::SMEM;
+  constexpr int smem = Cfg<H, HV>::SMEM;
+  static_assert(smem <= 232448, "shared memory over the 227 KB a block may have");
   static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_sm90_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_sm90_kernel<H, HV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const long long rows = (long long)Sq * (N / K);
   const dim3 grid((unsigned)((rows + kBM - 1) / kBM), (unsigned)K, (unsigned)B);
-  flash_sm90_kernel<H><<<grid, kThreads, smem, stream>>>(
+  flash_sm90_kernel<H, HV><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, N, K,
       causal, window, q_offset, k_len, scale);
@@ -791,48 +811,46 @@ cudaError_t launch_h256(const void* q, const void* k, const void* v, void* o, in
 
 }  // namespace
 
-// bf16 q/k/v/o only. Pointers 16-byte aligned and contiguous; H in {64, 128,
-// 256} (else cudaErrorInvalidValue); N % K == 0 (the wrapper checks).
+// bf16 q/k/v/o only. q and k (.., H), v and o (.., Hv); pointers 16-byte
+// aligned and contiguous; (H, Hv) in {(64, 64), (128, 128), (256, 256),
+// (192, 128)} (else cudaErrorInvalidValue); N % K == 0 (the wrapper checks).
 extern "C" int flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
-                                    int B, int Sq, int Sk, int N, int K, int H, int causal,
-                                    int window, long long q_offset, int k_len, float scale,
-                                    cudaStream_t stream) {
+                                    int B, int Sq, int Sk, int N, int K, int H, int Hv,
+                                    int causal, int window, long long q_offset, int k_len,
+                                    float scale, cudaStream_t stream) {
   if ((long long)B * Sq * N == 0) return (int)cudaGetLastError();
-  switch (H) {
-    case 64:
-      return (int)launch<64>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
-                             scale, stream);
-    case 128:
-      return (int)launch<128>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
-                              scale, stream);
-    case 256:
-      return (int)launch_h256(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
-                              scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (H == 64 && Hv == 64)
+    return (int)launch<64, 64>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
+                               scale, stream);
+  if (H == 128 && Hv == 128)
+    return (int)launch<128, 128>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
+                                 scale, stream);
+  if (H == 192 && Hv == 128)
+    return (int)launch<192, 128>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
+                                 scale, stream);
+  if (H == 256 && Hv == 256)
+    return (int)launch_h256(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
+                            scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The registers a thread and the local (spill and stack) bytes a thread of
-// the instance for head_dim H, as cudaFuncGetAttributes reports them. The
-// H = 256 instance's count is the one at launch (384 threads, one block an
+// the instance (H, Hv), as cudaFuncGetAttributes reports them. The (256,
+// 256) instance's count is the one at launch (384 threads, one block an
 // SM); setmaxnreg moves its consumers to 232 and its producer to 40.
-extern "C" int flash_attention_sm90_attrs(int H, int* regs, long long* local_bytes) {
+extern "C" int flash_attention_sm90_attrs(int H, int Hv, int* regs, long long* local_bytes) {
   cudaFuncAttributes a;
   cudaError_t e;
-  switch (H) {
-    case 64:
-      e = cudaFuncGetAttributes(&a, flash_sm90_kernel<64>);
-      break;
-    case 128:
-      e = cudaFuncGetAttributes(&a, flash_sm90_kernel<128>);
-      break;
-    case 256:
-      e = cudaFuncGetAttributes(&a, flash_sm90_h256_kernel);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (H == 64 && Hv == 64)
+    e = cudaFuncGetAttributes(&a, flash_sm90_kernel<64, 64>);
+  else if (H == 128 && Hv == 128)
+    e = cudaFuncGetAttributes(&a, flash_sm90_kernel<128, 128>);
+  else if (H == 192 && Hv == 128)
+    e = cudaFuncGetAttributes(&a, flash_sm90_kernel<192, 128>);
+  else if (H == 256 && Hv == 256)
+    e = cudaFuncGetAttributes(&a, flash_sm90_h256_kernel);
+  else
+    return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (long long)a.localSizeBytes;

@@ -63,20 +63,28 @@ _SIGNATURES = {
     # p, label, label_is_i64, q, count, head, out, q_out, count_out,
     # head_out, err, B, N, C, Bq, stream
     "skr_process": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, o, B, Sq, Sk, N, K, H, is_bf16, causal, window, q_offset,
+    # q, k, v, o, B, Sq, Sk, N, K, H, Hv, is_bf16, causal, window, q_offset,
     # k_len, scale, stream
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
                         _I, _F, _P],
-    # q, k, v, o, B, Sq, Sk, N, K, H, causal, window, q_offset, k_len,
+    # q, k, v, o, B, Sq, Sk, N, K, H, Hv, causal, window, q_offset, k_len,
     # scale, stream (bf16 only)
-    "flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _I,
+    "flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _I,
                              _F, _P],
-    # H, regs out, local bytes out (no stream)
-    "flash_attention_sm90_attrs": [_I, ctypes.POINTER(ctypes.c_int),
+    # H, Hv, regs out, local bytes out (no stream)
+    "flash_attention_sm90_attrs": [_I, _I, ctypes.POINTER(ctypes.c_int),
                                    ctypes.POINTER(ctypes.c_longlong)],
-    # H, is_bf16, regs out, local bytes out (no stream)
-    "flash_attention_attrs": [_I, _I, ctypes.POINTER(ctypes.c_int),
+    # H, Hv, is_bf16, regs out, local bytes out (no stream)
+    "flash_attention_attrs": [_I, _I, _I, ctypes.POINTER(ctypes.c_int),
                               ctypes.POINTER(ctypes.c_longlong)],
+    # q, c_kv, k_rope, o, ws, B, S, N, c_kv batch and row strides, k_rope
+    # batch and row strides (elements), is_bf16, q_offset, scale, chunk,
+    # splits, stream
+    "flash_attention_latent_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
+                                      _I, _LL, _F, _I, _I, _P],
+    # is_bf16, regs out, local bytes out (no stream)
+    "flash_attention_latent_decode_attrs": [_I, ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_longlong)],
     # q, k, v, o, ws, B, Sk, N, K, H, is_bf16, causal, window, q_offset,
     # k_len, scale, chunk, splits, stream (Sq = 1)
     "flash_attention_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,

@@ -12,8 +12,10 @@ launches per entry (``map``, ``fused``),
 ``kernels.distill_loss.variant_launches``, distill_loss's
 launches per entry and kernel (``fwd:regs``, ``fwd_ce:stream``,
 ``bwd_ce:slices``, ...), ``kernels.flash_attention.variant_launches``,
-flash_attention's (``sm90``, ``tf32x3``, ``decode``),
-``kernels.flash_attention.sm90_launches``, the ``sm90`` ones per head_dim,
+flash_attention's (``sm90``, ``tf32x3``, ``decode``, and ``latent_decode``,
+whose launches also count as ``flash_attention``),
+``kernels.flash_attention.sm90_launches``, the ``sm90`` ones per (H, Hv)
+instance,
 and
 ``kernels.rwkv6_scan.variant_launches``, rwkv6_scan's (``seq``,
 ``chunked``).
@@ -39,6 +41,7 @@ from repro_torch.kernels.distill_loss import (
     softmax_xent_batched as _softmax_xent_batched,
 )
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention import latent_decode as _latent
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6
 from repro_torch.kernels.skr_rectify import (
     skr_process_batched as _skr_process_batched,
@@ -121,10 +124,19 @@ def skr_process_batched(probs, labels, q, count, head):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
-    """GQA attention, q (B, Sq, N, H), k/v (B, Sk, K, H), absolute-position
-    causal / sliding-window masks with the queries at ``q_offset``."""
+    """GQA attention, q (B, Sq, N, H), k (B, Sk, K, H), v (B, Sk, K, Hv),
+    absolute-position causal / sliding-window masks with the queries at
+    ``q_offset``; (B, Sq, N, Hv) in q's dtype."""
     return _traced("flash_attention", _flash, q, k, v, causal=causal,
                    window=window, q_offset=q_offset)
+
+
+def latent_decode(q, c_kv, k_rope, *, scale, q_offset):
+    """MLA's absorbed decode over the compressed cache: q (B, 1, N, L + R)
+    fp32 against c_kv (B, S, L) joined to k_rope (B, S, R), c_kv also the
+    values; ctx (B, 1, N, L) fp32 over the keys at or before ``q_offset``."""
+    return _traced("latent_decode", _latent, q, c_kv, k_rope, scale=scale,
+                   q_offset=q_offset)
 
 
 def rwkv6_scan(r, k, v, w, u, s0):

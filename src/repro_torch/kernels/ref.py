@@ -178,7 +178,8 @@ def softmax_xent_grad_ref(logits, labels, label_weight=1.0, *, g=None):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
-    """q (B,Sq,N,H), k/v (B,Sk,K,H). GQA; absolute-position masks. The
+    """q (B,Sq,N,H), k (B,Sk,K,H), v (B,Sk,K,Hv); the output (B,Sq,N,Hv).
+    GQA; absolute-position masks; the scale is H^-0.5 of q's head_dim. The
     (B, K, G, Sq, Sk) fp32 scores are materialised."""
     B, Sq, N, H = q.shape
     K = k.shape[2]
@@ -199,14 +200,38 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     return o.reshape(B, Sq, N, v.shape[-1]).to(q.dtype)
 
 
+def latent_decode_ref(q, c_kv, k_rope, *, scale, q_offset):
+    """MLA's absorbed decode over the compressed cache, one query a
+    sequence at position ``q_offset``, as the reference computes it in jnp
+    (``repro.models.attention.mla_forward``'s decode branch):
+
+      ctx[b, n] = softmax_j(scale (q[b, n, :L] . c_kv[b, j] + q[b, n, L:] . k_rope[b, j])) c_kv[b, j]
+
+    over j <= q_offset (every cache row once q_offset >= S). q (B, 1, N,
+    L + R) fp32 (``q_lat`` joined to ``q_rope``); c_kv (B, S, L) and k_rope
+    (B, S, R) in the cache's dtype, read as fp32. Returns ctx (B, 1, N, L),
+    fp32."""
+    L = c_kv.shape[-1]
+    qf = q.to(torch.float32)
+    ckv = c_kv.to(torch.float32)
+    s_nope = torch.einsum("bqnl,bsl->bnqs", qf[..., :L], ckv)
+    s_rope = torch.einsum("bqnd,bsd->bnqs", qf[..., L:], k_rope.to(torch.float32))
+    s = (s_nope + s_rope) * scale
+    valid = torch.arange(c_kv.shape[1], device=q.device) <= q_offset
+    s = torch.where(valid, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bnqs,bsl->bqnl", p, ckv)
+
+
 # --- rwkv6 scan --------------------------------------------------------------
 
 
-def rwkv6_scan_ref(r, k, v, w, u, s0):
+def rwkv6_scan_ref(r, k, v, w, u, s0, dtype=torch.float32):
     """Exact RWKV6 recurrence. r/k/v/w: (B,T,H,hd) fp32, u: (H,hd),
-    s0: (B,H,hd,hd). Returns (y (B,T,H,hd), sT)."""
-    r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
-    s = s0.to(torch.float32)
+    s0: (B,H,hd,hd). Returns (y (B,T,H,hd), sT), computed in ``dtype``
+    (fp64 is the yardstick the fp32 forms are held to, ROADMAP C13)."""
+    r, k, v, w, u = (t.to(dtype) for t in (r, k, v, w, u))
+    s = s0.to(dtype)
     uu = u[None, ..., None]
     ys = []
     for t in range(r.shape[1]):

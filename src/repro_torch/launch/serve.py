@@ -5,8 +5,10 @@ sequential cache build over the prompt (decode-step prefill: exact), then
 batched greedy generation with the same ``serve_step``. Every attention
 layer (``attn``, gemma3-12b's sliding-window ``local_attn``, the attention
 half of qwen2-moe-a2.7b's ``moe`` blocks) runs the ``flash_attention``
-kernel and every RWKV6 time-mix the ``rwkv6_scan`` kernel on the card;
-``--arch`` takes every architecture the port registers.
+kernel, every MLA layer of deepseek-v2-lite-16b (``mla``, ``mla_moe``)
+the latent decode kernel over its compressed cache, and every RWKV6
+time-mix the ``rwkv6_scan`` kernel on the card; ``--arch`` takes every
+architecture the port registers.
 
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --requests 4 --gen 16
   python -m repro_torch.launch.serve --full            # llama3.2-3b, bf16

@@ -1,13 +1,16 @@
 """Attention: GQA (full / sliding-window / causal, chunked online-softmax)
-with a KV cache.
+with a KV cache, and MLA (DeepSeek multi-head latent attention, with an
+absorbed decode path).
 
-Counterpart of the GQA part of ``repro.models.attention``; MLA and cross
-attention wait (ROADMAP A6.3).
+Counterpart of ``repro.models.attention`` but for cross attention, which
+waits (ROADMAP A6.3).
 
 Conventions
 -----------
 * q/k/v layout: (batch, seq, heads, head_dim).
-* KV caches: dict(k=(B, S, K, H), v=(B, S, K, H)).
+* KV caches: dict(k=(B, S, K, H), v=(B, S, K, H)) — or for MLA,
+  dict(c_kv=(B, S, lora), k_rope=(B, S, rope_dim)), two views of one (B,
+  S, lora + rope_dim) buffer (``init_mla_cache``).
 * ``mha`` is the reference's jnp attention in torch ops (einsum, softmax),
   differentiated by autograd, as the reference's is by XLA. It is the
   training path: ``attn_forward(train=True)``, which ``forward_train``
@@ -17,6 +20,12 @@ Conventions
   version (``kernels.ref.flash_attention_ref``) on the CPU. The kernels
   have no backward (nor have the TPU kernels), and their wrappers raise on
   the card if an input requires grad.
+* MLA's prefill runs the expanded form (q and k 192 wide, v 128 at
+  deepseek-v2-lite-16b's dims) through ``ops.flash_attention``, its
+  training the same form through ``mha``; its decode the absorbed form
+  through ``ops.latent_decode``, over the compressed cache in place, with
+  q_lat = q_nope W_uk and ctx W_uv in fp32 as the reference computes them
+  (library products: the reference's are jnp einsums).
 """
 from __future__ import annotations
 
@@ -173,3 +182,95 @@ def init_kv_cache(cfg, batch: int, seq: int, dtype, kv_mult: int = 1, device=Non
     shape = (batch, seq, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg, dtype):
+    d, n = cfg.d_model, cfg.num_heads
+    nope, rope_d, vd, lora = (
+        cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank,
+    )
+    return {
+        "wq": dense_init(gen, d, n * (nope + rope_d), dtype),
+        "w_dkv": dense_init(gen, d, lora + rope_d, dtype),
+        "kv_norm": torch.zeros((lora,), dtype=torch.float32, device=gen.device),
+        "w_uk": dense_init(gen, lora, n * nope, dtype),
+        "w_uv": dense_init(gen, lora, n * vd, dtype),
+        "wo": dense_init(gen, n * vd, d, dtype, scale=(n * vd) ** -0.5),
+    }
+
+
+def mla_forward(cfg, params, x, *, positions, theta: float, cache: Optional[dict] = None,
+                cache_pos: Optional[int] = None, chunk: int = 0, return_kv: bool = False,
+                train: bool = False):
+    """MLA. Prefill / train: the expanded computation (``mha`` with
+    ``chunk`` when ``train``, else ``ops.flash_attention``). Decode: the
+    absorbed form, attending directly over the compressed (c_kv, k_rope)
+    cache of lora + rope_dim values a token; the new entry is written at the
+    clamped slot in place (as ``attn_forward``'s decode), and the returned
+    cache is the same dict."""
+    B, S, _ = x.shape
+    n = cfg.num_heads
+    nope, rope_d, vd, lora = (
+        cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank,
+    )
+
+    q = _split_heads(mm(x, params["wq"]), n, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    sin, cos = rope_angles(positions, rope_d, theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+
+    dkv = mm(x, params["w_dkv"])
+    c_kv = rmsnorm(dkv[..., :lora], params["kv_norm"])
+    k_rope = apply_rope(dkv[..., None, lora:], sin, cos)[:, :, 0]  # (B, S, rope)
+
+    scale = (nope + rope_d) ** -0.5
+
+    if cache is None:
+        # expanded path: k_rope is one head, broadcast over the n heads
+        k_nope = _split_heads(mm(c_kv, params["w_uk"]), n, nope)
+        v = _split_heads(mm(c_kv, params["w_uv"]), n, vd)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, n, rope_d)], dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        if train:
+            o = mha(qfull, k, v, q_positions=positions, k_positions=positions, causal=True,
+                    chunk=chunk)
+        else:
+            o = ops.flash_attention(qfull, k, v, causal=True, q_offset=0)
+        y = mm(o.reshape(B, S, n * vd), params["wo"])
+        if return_kv:
+            return y, {"c_kv": c_kv, "k_rope": k_rope}
+        return y, None
+
+    # absorbed decode: the write lands where the reference's
+    # dynamic_update_slice clamps it; the keys at or before cache_pos attend
+    at = max(0, min(cache_pos, cache["c_kv"].shape[1] - S))
+    cache["c_kv"][:, at:at + S] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, at:at + S] = k_rope.to(cache["k_rope"].dtype)
+    w_uk = params["w_uk"].reshape(lora, n, nope)
+    # absorb W_uk into the query: q_lat (B, S, n, lora), joined to q_rope,
+    # both fp32 (a few hundred KB; the cache is read where it lies)
+    q_lat = torch.einsum("bqnd,lnd->bqnl", q_nope.to(torch.float32), w_uk.to(torch.float32))
+    q_abs = torch.cat([q_lat, q_rope.to(torch.float32)], dim=-1)
+    ctx_lat = ops.latent_decode(q_abs, cache["c_kv"], cache["k_rope"], scale=scale,
+                                q_offset=cache_pos)
+    w_uv = params["w_uv"].reshape(lora, n, vd)
+    ctx = torch.einsum("bqnl,lnv->bqnv", ctx_lat, w_uv.to(torch.float32))
+    y = mm(ctx.reshape(B, S, n * vd).to(x.dtype), params["wo"])
+    return y, cache
+
+
+def init_mla_cache(cfg, batch: int, seq: int, dtype, device=None, lead: tuple = ()):
+    """The compressed cache: one zeroed ``lead + (batch, seq, lora +
+    rope_dim)`` buffer, returned as the reference's two leaves, ``c_kv``
+    (its first lora columns) and ``k_rope`` (the rest), views of it. The
+    latent decode kernel reads a key's row of both where it lies. ``lead``
+    stacks the repeats of a scanned unit in the same buffer."""
+    lora = cfg.kv_lora_rank
+    buf = torch.zeros(tuple(lead) + (batch, seq, lora + cfg.qk_rope_dim), dtype=dtype,
+                      device=device)
+    return {"c_kv": buf[..., :lora], "k_rope": buf[..., lora:]}

@@ -3,7 +3,9 @@
 Counterpart of ``repro.models.transformer`` for the block kinds the port
 runs: ``attn`` (GQA + MLP), ``local_attn`` (the same over a sliding
 window, with its own RoPE base), ``moe`` (GQA + a routed mixture of
-experts, ``models.moe``) and ``rwkv6`` (time-mix + channel-mix). An
+experts, ``models.moe``), ``mla`` (DeepSeek's multi-head latent attention
++ an MLP of ``dense_d_ff``), ``mla_moe`` (MLA + the mixture of experts)
+and ``rwkv6`` (time-mix + channel-mix). An
 ``ArchConfig`` describes the model as ``head_blocks + pattern*n_repeats +
 tail_blocks``. The repeated unit keeps the reference's stacked layout (each
 ``params["unit"]`` leaf has a leading ``n_repeats`` axis), and
@@ -12,12 +14,14 @@ tail_blocks``. The repeated unit keeps the reference's stacked layout (each
 pass (``torch.utils.checkpoint``), where the reference wraps the scanned
 unit in ``jax.checkpoint``.
 
-Every other block kind (``mla``, ``mla_moe``, ``mamba2``,
-``shared_attn``), encoder-decoder models, media frontends and learned
-position embeddings raise ``NotImplementedError`` (ROADMAP A6.3).
-``forward_train`` runs every ported kind and adds the ``moe`` blocks'
-router losses (``lb_loss``, ``router_z``, summed over the blocks) to the
-LM loss, as the reference does. A ``local_attn`` block's cache is as long
+The other block kinds (``mamba2``, ``shared_attn``), encoder-decoder
+models, media frontends and learned position embeddings raise
+``NotImplementedError`` (ROADMAP A6.3). ``forward_train`` runs every
+ported kind and adds the ``moe`` and ``mla_moe`` blocks' router losses
+(``lb_loss``, ``router_z``, summed over the blocks) to the LM loss, as the
+reference does. An MLA block's cache is the compressed one (``c_kv`` and
+``k_rope``, views of one buffer per block occurrence, the unit's repeats
+stacked in it). A ``local_attn`` block's cache is as long
 as an ``attn`` block's (the reference's ``window_cache`` ring buffer is
 not ported, ROADMAP A6.5). An ``rwkv6`` block's time mix
 trains through ``ops.rwkv6_scan`` (the forward and backward kernels on the
@@ -65,8 +69,9 @@ from repro_torch.models.layers import (
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-PORTED_KINDS = ("attn", "local_attn", "moe", "rwkv6")
+PORTED_KINDS = ("attn", "local_attn", "moe", "mla", "mla_moe", "rwkv6")
 ATTN_KINDS = ("attn", "local_attn", "moe")  # a GQA half and a KV cache
+MLA_KINDS = ("mla", "mla_moe")  # an MLA half and a compressed cache
 
 
 @dataclass(frozen=True)
@@ -90,8 +95,9 @@ class ModelOpts:
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A6.3); the port runs "
-        f"block kinds {PORTED_KINDS}")
+        f"{what} is not ported to repro_torch yet (ROADMAP A6.3: the mamba2 and "
+        "shared_attn blocks, the encoder-decoder model, media frontends and learned "
+        f"position embeddings wait); the port runs block kinds {PORTED_KINDS}")
 
 
 def _check_ported(cfg) -> None:
@@ -118,16 +124,19 @@ def _dtype(name: str) -> torch.dtype:
 def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts):
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS or kind in MLA_KINDS:
+        mla = kind in MLA_KINDS
         p = {
             "ln1": init_norm(cfg, d, gen.device),
-            "attn": A.init_attn(gen, cfg, dt, opts.kv_mult),
+            **({"mla": A.init_mla(gen, cfg, dt)} if mla
+               else {"attn": A.init_attn(gen, cfg, dt, opts.kv_mult)}),
             "ln2": init_norm(cfg, d, gen.device),
         }
-        if kind == "moe":
+        if kind in ("moe", "mla_moe"):
             p["moe"] = M.init_moe(gen, cfg, dt, opts.expert_pad_to)
         else:
-            p["mlp"] = init_mlp(gen, cfg, d, cfg.d_ff, dt)
+            p["mlp"] = init_mlp(gen, cfg, d, (cfg.dense_d_ff or cfg.d_ff) if mla else cfg.d_ff,
+                                dt)
         return p
     if kind == "rwkv6":
         return {
@@ -139,9 +148,16 @@ def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts):
 
 
 def init_block_state(cfg, kind: str, opts: ModelOpts, batch: int, seq: int, dtype,
-                     device=None):
+                     device=None, lead: tuple = ()):
     """Decode-time state for one block occurrence: a full-length KV cache
-    for every attention kind (``local_attn`` included)."""
+    for every attention kind (``local_attn`` included), the compressed
+    cache for the MLA kinds. ``lead`` stacks that many occurrences (a
+    unit's repeats) on leading axes of each leaf."""
+    if kind in MLA_KINDS:
+        return A.init_mla_cache(cfg, batch, seq, dtype, device, lead)
+    if lead:
+        return tree_map(lambda t: t.new_zeros(tuple(lead) + t.shape),
+                        init_block_state(cfg, kind, opts, batch, seq, dtype, device))
     if kind in ATTN_KINDS:
         return A.init_kv_cache(cfg, batch, seq, dtype, opts.kv_mult, device)
     if kind == "rwkv6":
@@ -154,22 +170,28 @@ def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
     """Returns (x, new_state, aux). state is None in prefill and training
     (full-sequence) mode; ``train`` selects the training attention
     (``attention.mha`` under autograd) over the forward-only kernel. aux is
-    a ``moe`` block's router losses {"lb_loss", "router_z"}, and None for
-    the other kinds (the reference adds zeros for them)."""
+    a ``moe`` or ``mla_moe`` block's router losses {"lb_loss", "router_z"},
+    and None for the other kinds (the reference adds zeros for them)."""
     decode = state is not None and cache_pos is not None
-    if kind in ATTN_KINDS:
-        if kind == "local_attn":
-            window, theta = cfg.sliding_window, cfg.local_rope_theta or cfg.rope_theta
-        else:
-            window, theta = 0, cfg.rope_theta
+    if kind in ATTN_KINDS or kind in MLA_KINDS:
         h = apply_norm(cfg, p["ln1"], x)
-        y, new_state = A.attn_forward(
-            cfg, p["attn"], h, positions=positions, theta=theta, window=window,
-            cache=state if decode else None, cache_pos=cache_pos, chunk=opts.attn_chunk,
-            kv_mult=opts.kv_mult, train=train)
+        if kind in MLA_KINDS:
+            y, new_state = A.mla_forward(
+                cfg, p["mla"], h, positions=positions, theta=cfg.rope_theta,
+                cache=state if decode else None, cache_pos=cache_pos, chunk=opts.attn_chunk,
+                train=train)
+        else:
+            if kind == "local_attn":
+                window, theta = cfg.sliding_window, cfg.local_rope_theta or cfg.rope_theta
+            else:
+                window, theta = 0, cfg.rope_theta
+            y, new_state = A.attn_forward(
+                cfg, p["attn"], h, positions=positions, theta=theta, window=window,
+                cache=state if decode else None, cache_pos=cache_pos, chunk=opts.attn_chunk,
+                kv_mult=opts.kv_mult, train=train)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
-        if kind == "moe":
+        if kind in ("moe", "mla_moe"):
             y, aux = M.moe_forward(cfg, p["moe"], h)
         else:
             y, aux = apply_mlp(cfg, p["mlp"], h), None
@@ -426,24 +448,22 @@ def forward_decode(cfg, opts, params, batch, states):
 def init_cache(cfg, opts: ModelOpts, batch: int, seq: int, dtype=torch.bfloat16, *,
                device="cuda"):
     """Zeroed decode states: KV caches (B, seq, K, H) in ``dtype`` for
-    attention blocks (every attention kind), fp32-state RWKV6 recurrences;
-    unit states stacked over the repeats."""
+    attention blocks (every attention kind), compressed caches (B, seq,
+    lora) and (B, seq, rope_dim) in ``dtype`` for MLA blocks, fp32-state
+    RWKV6 recurrences; unit states stacked over the repeats."""
     _check_ported(cfg)
     dev = resolve_device(device)
 
-    def one(kind):
-        return init_block_state(cfg, kind, opts, batch, seq, dtype, dev)
+    def one(kind, lead=()):
+        return init_block_state(cfg, kind, opts, batch, seq, dtype, dev, lead)
 
     states: dict[str, Any] = {
         "head": [one(b.kind) for b in cfg.head_blocks],
         "tail": [one(b.kind) for b in cfg.tail_blocks],
     }
     if cfg.n_repeats:
-        states["unit"] = {
-            f"blk{i}": tree_map(lambda t: t.new_zeros((cfg.n_repeats,) + t.shape),
-                                one(b.kind))
-            for i, b in enumerate(cfg.pattern)
-        }
+        states["unit"] = {f"blk{i}": one(b.kind, (cfg.n_repeats,))
+                          for i, b in enumerate(cfg.pattern)}
     else:
         states["unit"] = None
     return states

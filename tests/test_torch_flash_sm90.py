@@ -149,7 +149,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ops.reset_launches()
     out = ops.flash_attention(q, k, v)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
-    assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0}
+    assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0, "latent_decode": 0}
     assert ops.launches["flash_attention"] == 0
 
 
@@ -165,15 +165,17 @@ def test_cpu_h256_bf16_prefill_takes_the_plain_version_and_counts_nothing():
     out = ops.flash_attention(q, k, v, window=16, q_offset=3)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert torch.equal(out, R.flash_attention_ref(q, k, v, window=16, q_offset=3))
-    assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0}
-    assert FA.sm90_launches == {64: 0, 128: 0, 256: 0}
+    assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0, "latent_decode": 0}
+    assert FA.sm90_launches == {(64, 64): 0, (128, 128): 0, (256, 256): 0, (192, 128): 0}
     assert ops.launches["flash_attention"] == 0
 
 
 def test_reset_launches_zeroes_the_variant_counts():
     FA.variant_launches["sm90"] += 3
     FA.variant_launches["tf32x3"] += 1
-    FA.sm90_launches[256] += 3
+    FA.variant_launches["latent_decode"] += 2
+    FA.sm90_launches[(256, 256)] += 3
+    FA.sm90_launches[(192, 128)] += 1
     ops.reset_launches()
-    assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0}
-    assert FA.sm90_launches == {64: 0, 128: 0, 256: 0}
+    assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0, "latent_decode": 0}
+    assert FA.sm90_launches == {(64, 64): 0, (128, 128): 0, (256, 256): 0, (192, 128): 0}

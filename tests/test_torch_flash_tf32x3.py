@@ -223,5 +223,5 @@ def test_cpu_fp32_prefill_takes_the_plain_version_and_counts_nothing():
         out = ops.flash_attention(q, k, v, window=8, q_offset=3)
         assert out.dtype == dtype and out.shape == q.shape
         assert torch.equal(out, R.flash_attention_ref(q, k, v, window=8, q_offset=3))
-    assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0}
+    assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0, "latent_decode": 0}
     assert ops.launches["flash_attention"] == 0

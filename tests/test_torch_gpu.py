@@ -519,10 +519,10 @@ def test_coalesced_step_gradients_match_the_cpu(cuda, name, leaf):
 # --- the LM serving kernels ---------------------------------------------------
 
 
-def _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, seed=0):
+def _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, seed=0, Hv=None):
     g = torch.Generator(device=dev).manual_seed(seed)
     return tuple(torch.randn(s, generator=g, device=dev).mul_(0.5).to(dtype)
-                 for s in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, H)))
+                 for s in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, Hv or H)))
 
 
 # fp32 within 3e-5 (sums in another order: the JAX kernel tests' bound);
@@ -580,21 +580,23 @@ def test_flash_attention_sm90_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, wi
     got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert variant_launches == {"sm90": 1, "tf32x3": 0, "decode": 0}
-    assert sm90_launches[H] == 1 and sum(sm90_launches.values()) == 1
+    assert variant_launches == {"sm90": 1, "tf32x3": 0, "decode": 0, "latent_decode": 0}
+    assert sm90_launches[(H, H)] == 1 and sum(sm90_launches.values()) == 1
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=1e-6)
 
 
 def test_flash_attention_sm90_instances_spill_nothing(cuda):
     """cudaFuncGetAttributes: no local (spill or stack) bytes in any of the
     tensor-core kernel's instances."""
-    from repro_torch.kernels.flash_attention import SM90_HEAD_DIMS, sm90_attrs
+    from repro_torch.kernels.flash_attention import SM90_INSTANCES, sm90_attrs
 
-    for H in SM90_HEAD_DIMS:
-        regs, local = sm90_attrs(H)
-        assert 0 < regs <= 255 and local == 0, (H, regs, local)
+    for H, Hv in SM90_INSTANCES:
+        regs, local = sm90_attrs(H, Hv)
+        assert 0 < regs <= 255 and local == 0, (H, Hv, regs, local)
     with pytest.raises(RuntimeError):
-        sm90_attrs(32)
+        sm90_attrs(32, 32)
+    with pytest.raises(RuntimeError):
+        sm90_attrs(48, 32)
 
 
 # the 3xTF32 kernel (csrc/flash_attention.cu) at head_dim 256 in fp32 (64
@@ -613,7 +615,7 @@ def test_flash_attention_tf32x3_fp32_h256_matches_plain(cuda, B, Sq, Sk, N, K, H
     got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert variant_launches == {"sm90": 0, "tf32x3": 1, "decode": 0}
+    assert variant_launches == {"sm90": 0, "tf32x3": 1, "decode": 0, "latent_decode": 0}
     torch.testing.assert_close(got, want, rtol=0.0, atol=3e-5)
 
 
@@ -627,7 +629,7 @@ def test_flash_attention_tf32x3_launched_at_decode_matches_plain(cuda, B, Sk, N,
     q, k, v = _attn_inputs(B, 1, Sk, N, K, H, torch.float32, cuda)
     got = torch.empty_like(q)
     _lib.launch("flash_attention", cuda, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                got.data_ptr(), B, 1, Sk, N, K, H, 0, 1, 0, q_offset, Sk, float(H**-0.5))
+                got.data_ptr(), B, 1, Sk, N, K, H, H, 0, 1, 0, q_offset, Sk, float(H**-0.5))
     want = R.flash_attention_ref(q, k, v, q_offset=q_offset)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0.0, atol=3e-5)
@@ -638,16 +640,18 @@ def test_flash_attention_tf32x3_instances_spill_nothing(cuda):
     kernel's instances, in fp32 and bf16, but the bf16 one at head_dim 256
     (reached only by a direct launch), which builds within a thread's 255
     registers."""
-    from repro_torch.kernels.flash_attention import HEAD_DIMS, tf32x3_attrs
+    from repro_torch.kernels.flash_attention import TF32X3_INSTANCES, tf32x3_attrs
 
     for dtype in (torch.float32, torch.bfloat16):
-        for H in HEAD_DIMS:
-            regs, local = tf32x3_attrs(H, dtype)
-            assert 0 < regs <= 255, (H, dtype, regs)
+        for H, Hv in TF32X3_INSTANCES:
+            regs, local = tf32x3_attrs(H, Hv, dtype)
+            assert 0 < regs <= 255, (H, Hv, dtype, regs)
             if not (H == 256 and dtype == torch.bfloat16):
-                assert local == 0, (H, dtype, regs, local)
+                assert local == 0, (H, Hv, dtype, regs, local)
     with pytest.raises(RuntimeError):
-        tf32x3_attrs(48, torch.float32)
+        tf32x3_attrs(48, 48, torch.float32)
+    with pytest.raises(RuntimeError):
+        tf32x3_attrs(48, 32, torch.float32)
 
 
 # the split-KV decode kernel: the CPU emulation's cases
@@ -687,7 +691,7 @@ def test_flash_attention_decode_matches_plain(cuda, B, Sk, N, K, H, causal, wind
     got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 1}
+    assert variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 1, "latent_decode": 0}
     assert got.dtype == dtype
     rtol, atol = (2.0**-7, 1e-6) if dtype == torch.bfloat16 else (0.0, 3e-5)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
@@ -760,8 +764,136 @@ def test_flash_attention_variants_are_counted(cuda):
                         q_offset=7)  # decode: split-KV
     ops.flash_attention(*(t.float() for t in prefill))  # fp32
     ops.flash_attention(*_attn_inputs(1, 16, 16, 6, 2, 32, torch.bfloat16, cuda))  # H = 32
-    assert variant_launches == {"sm90": 1, "tf32x3": 2, "decode": 1}
+    assert variant_launches == {"sm90": 1, "tf32x3": 2, "decode": 1, "latent_decode": 0}
     assert ops.launches["flash_attention"] == 4
+
+
+# deepseek-v2-lite-16b's MLA: the expanded prefill's (192, 128) instances
+# (q and k 128 nope + 64 rope, v 128, 16 heads of one kv head each) at its
+# 4096-token prompt, the parity's 128 tokens and the instances' edges; bf16
+# within one bf16 ulp of |want| through the tensor-core kernel, fp32 within
+# 3e-5 through the 3xTF32 kernel
+@pytest.mark.parametrize("B,Sq,Sk,N,K,causal,q_offset", [
+    (1, 4096, 4096, 16, 16, True, 0),
+    (1, 128, 128, 16, 16, True, 0),
+    (1, 77, 77, 16, 16, True, 0),
+    (2, 40, 100, 16, 16, True, 60),
+    (1, 96, 160, 4, 1, False, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_mla_prefill_matches_plain(cuda, B, Sq, Sk, N, K, causal, q_offset,
+                                                   dtype):
+    from repro_torch.kernels.flash_attention import sm90_launches, variant_launches
+
+    q, k, v = _attn_inputs(B, Sq, Sk, N, K, 192, dtype, cuda, Hv=128)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    want = R.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Sq, N, 128) and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert variant_launches["sm90"] == 1 and sm90_launches[(192, 128)] == 1
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=1e-6)
+    else:
+        assert variant_launches["tf32x3"] == 1 and sum(sm90_launches.values()) == 0
+        torch.testing.assert_close(got, want, rtol=0.0, atol=3e-5)
+
+
+def _latent_inputs(B, S, N, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, 1, N, 576), generator=g, device=dev).mul_(0.5)
+    kv = torch.randn((B, S, 576), generator=g, device=dev).mul_(0.5).to(dtype)
+    return q, kv[..., :512], kv[..., 512:]
+
+
+# MLA's absorbed decode through the latent decode kernel at deepseek's
+# dims (16 heads, 512 + 64): the serving batch against a 4096-row cache at
+# q_offset 0, 63, 4095 and past the cache, one split, fewer heads, a bf16
+# or fp32 cache; within 3e-5 of the plain version (both compute in fp32)
+@pytest.mark.parametrize("B,S,N,q_offset", [(8, 4096, 16, 0), (8, 4096, 16, 63),
+                                            (8, 4096, 16, 4095), (8, 4096, 16, 5000),
+                                            (2, 300, 16, 100), (3, 1000, 5, 777)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_latent_decode_matches_plain(cuda, B, S, N, q_offset, dtype):
+    from repro_torch.kernels.flash_attention import variant_launches
+
+    q, ckv, krope = _latent_inputs(B, S, N, dtype, cuda, seed=q_offset)
+    ops.reset_launches()
+    got = ops.latent_decode(q, ckv, krope, scale=192**-0.5, q_offset=q_offset)
+    want = R.latent_decode_ref(q, ckv, krope, scale=192**-0.5, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert variant_launches["latent_decode"] == 1 and ops.launches["flash_attention"] == 1
+    assert got.shape == (B, 1, N, 512) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0.0, atol=3e-5)
+    # two buffers in place of views of one: the same bits
+    two = ops.latent_decode(q, ckv.contiguous(), krope.contiguous(), scale=192**-0.5,
+                            q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert torch.equal(two, got)
+
+
+def test_latent_decode_and_mla_prefill_at_the_reduced_dims_raise(cuda):
+    """The reduced config's MLA dims (q and k 48, v 32; latent 32 + 16)
+    have no CUDA instance: each call raises, nothing is launched."""
+    ops.reset_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _attn_inputs(1, 16, 16, 4, 4, 48, dtype, cuda, Hv=32)
+        with pytest.raises(ValueError, match="takes"):
+            ops.flash_attention(q, k, v)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    kv = torch.randn((2, 16, 48), generator=g, device=cuda)
+    q = torch.randn((2, 1, 4, 48), generator=g, device=cuda)
+    with pytest.raises(ValueError, match="takes"):
+        ops.latent_decode(q, kv[..., :32], kv[..., 32:], scale=48**-0.5, q_offset=3)
+    assert ops.launches["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_layers_on_the_card_match_the_cpu(cuda, dtype):
+    """Reduced deepseek-v2-lite-16b at full MLA dims (16 heads; q and k 128
+    + 64, v 128; latent 512 + 64), two layers (``mla``, ``mla_moe``): the
+    prefill logits and 6 decode steps' on the card against the CPU from the
+    same params, within 1e-4 of max|logit| in fp32 (TF32 off); in bf16
+    finite (its products round otherwise on the two devices). Both go
+    through the (192, 128) prefill instance (3xTF32 in fp32, tensor cores
+    in bf16) and the latent decode kernel, one launch a layer and step."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import variant_launches
+    from repro_torch.models.transformer import (
+        ModelOpts,
+        forward_decode,
+        forward_prefill,
+        init_cache,
+        init_params,
+    )
+    from repro_torch.tree import tree_map
+
+    cfg = replace(reduced(get_arch("deepseek-v2-lite-16b")), num_heads=16, kv_lora_rank=512,
+                  qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128, param_dtype=dtype,
+                  compute_dtype=dtype)
+    dt = getattr(torch, dtype)
+    opts = ModelOpts()
+    params = init_params(cfg, opts, seed=0, device="cpu")
+    toks = torch.randint(1, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d), params)
+        ops.reset_launches()
+        pre = forward_prefill(cfg, opts, p, {"tokens": toks.to(d)})
+        cache = init_cache(cfg, opts, 2, 8, dt, device=d)
+        steps = [forward_decode(cfg, opts, p, {"token": toks[:, t:t + 1].to(d), "pos": t},
+                                cache)[0] for t in range(6)]
+        out[d.type] = (pre.float().cpu(), torch.stack(steps).float().cpu(),
+                       dict(variant_launches))
+    (pre_g, dec_g, launched), (pre_c, dec_c, _) = out["cuda"], out["cpu"]
+    assert launched == {"sm90": 2 * (dtype == "bfloat16"), "tf32x3": 2 * (dtype == "float32"),
+                        "decode": 0, "latent_decode": 12}
+    for g, c in ((pre_g, pre_c), (dec_g, dec_c)):
+        assert torch.isfinite(g).all()
+        if dtype == "float32":
+            assert (g - c).abs().max().item() <= 1e-4 * c.abs().max().item()
 
 
 def test_flash_attention_sm90_rejects_other_head_dims(cuda):
@@ -769,14 +901,17 @@ def test_flash_attention_sm90_rejects_other_head_dims(cuda):
     o = torch.empty_like(q)
     with pytest.raises(RuntimeError):  # cudaErrorInvalidValue, nothing launched
         _lib.launch("flash_attention_sm90", cuda, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    o.data_ptr(), 1, 16, 16, 2, 1, 32, 1, 0, 0, 16, 32**-0.5)
+                    o.data_ptr(), 1, 16, 16, 2, 1, 32, 32, 1, 0, 0, 16, 32**-0.5)
+    with pytest.raises(RuntimeError):  # (192, 64): no instance either
+        _lib.launch("flash_attention_sm90", cuda, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    o.data_ptr(), 1, 16, 16, 2, 1, 192, 64, 1, 0, 0, 16, 192**-0.5)
     # the head_dim 256 instance refuses a k it cannot map for TMA (off a
     # 16-byte boundary): the launch raises, and nothing retries it elsewhere
     q, k, v = _attn_inputs(1, 16, 17, 2, 1, 256, torch.bfloat16, cuda)
     o = torch.empty_like(q)
     with pytest.raises(RuntimeError):
         _lib.launch("flash_attention_sm90", cuda, q.data_ptr(), k.data_ptr() + 2, v.data_ptr(),
-                    o.data_ptr(), 1, 16, 16, 2, 1, 256, 1, 0, 0, 16, 256**-0.5)
+                    o.data_ptr(), 1, 16, 16, 2, 1, 256, 256, 1, 0, 0, 16, 256**-0.5)
 
 
 def _rwkv_inputs(B, T, H, hd, dev, seed=0):
@@ -787,6 +922,29 @@ def _rwkv_inputs(B, T, H, hd, dev, seed=0):
     u = torch.randn((H, hd), generator=g, device=dev) * 0.3
     s0 = torch.randn((B, H, hd, hd), generator=g, device=dev) * 0.1
     return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("T", [64, 1024])
+def test_rwkv6_chunked_forward_is_fp32_noise_from_fp64(cuda, T):
+    """ROADMAP C13: the chunked forward kernel (T > 16) sets the spread of
+    rwkv6-1.6b's two-layer training parity on a card parameter draw; its y,
+    like the plain sequential recurrence's on the card, is within 1e-6 of
+    max|y| of the recurrence in fp64, and no further than four times the
+    plain one (tests/test_torch_rwkv6_chunked.py holds the kernel's
+    algorithm so on the CPU)."""
+    from repro_torch.kernels.rwkv6_scan import variant_launches
+
+    r, k, v, w, u, s0 = _rwkv_inputs(2, T, 32, 64, cuda)
+    ops.reset_launches()
+    got, _ = ops.rwkv6_scan(r, k, v, w, u, s0)
+    assert variant_launches["chunked"] == 1
+    plain, _ = R.rwkv6_scan_ref(r, k, v, w, u, s0)
+    y64, _ = R.rwkv6_scan_ref(r, k, v, w, u, s0, dtype=torch.float64)
+    scale = y64.abs().max().item()
+    err = (got.double() - y64).abs().max().item() / scale
+    err_plain = (plain.double() - y64).abs().max().item() / scale
+    assert err <= 1e-6 and err_plain <= 1e-6, (err, err_plain)
+    assert err <= 4 * err_plain + 1e-7, (err, err_plain)
 
 
 # every gradient within 1e-4 of that input's max |g| (fp32 sums in other

@@ -239,7 +239,7 @@ def test_decode_profiler_needs_a_card():
             profile_serve.profile_decode("rwkv6-1.6b")
 
 
-@pytest.mark.parametrize("kind", ["mla", "mla_moe", "mamba2", "shared_attn"])
+@pytest.mark.parametrize("kind", ["mamba2", "shared_attn"])
 def test_unported_block_kinds_raise(kind):
     from dataclasses import replace
 
@@ -254,7 +254,7 @@ def test_unported_block_kinds_raise(kind):
         init_params(cfg, ModelOpts(), device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["local_attn", "moe"])
+@pytest.mark.parametrize("kind", ["local_attn", "moe", "mla", "mla_moe"])
 def test_ported_block_kinds_initialise_and_run(kind):
     """The kinds that raised before they were ported: a model of that kind
     alone initialises, prefills and decodes on the CPU, and a block of it
@@ -271,17 +271,25 @@ def test_ported_block_kinds_initialise_and_run(kind):
         init_params,
     )
 
-    base = reduced(get_arch("qwen2-moe-a2.7b" if kind == "moe" else "gemma3-12b"))
+    arch = {"moe": "qwen2-moe-a2.7b", "mla": "deepseek-v2-lite-16b",
+            "mla_moe": "deepseek-v2-lite-16b"}.get(kind, "gemma3-12b")
+    base = reduced(get_arch(arch))
     block = init_block(torch.Generator(), base, kind, ModelOpts())
-    assert set(block) == {"ln1", "attn", "ln2", "moe" if kind == "moe" else "mlp"}
-    cfg = replace(base, pattern=(BlockKind(kind),), n_repeats=2, num_layers=2)
+    attn = "mla" if kind.startswith("mla") else "attn"
+    assert set(block) == {"ln1", attn, "ln2", "moe" if kind.endswith("moe") else "mlp"}
+    cfg = replace(base, head_blocks=(), pattern=(BlockKind(kind),), n_repeats=2, num_layers=2)
     params = init_params(cfg, ModelOpts(), device="cpu")
     tok = torch.ones((2, 3), dtype=torch.long)
     logits = forward_prefill(cfg, ModelOpts(), params, {"tokens": tok})
     cache = init_cache(cfg, ModelOpts(), 2, 4, torch.float32, device="cpu")
     step, _ = forward_decode(cfg, ModelOpts(), params, {"token": tok[:, :1], "pos": 0}, cache)
     assert torch.isfinite(logits).all() and torch.isfinite(step).all()
-    assert cache["unit"]["blk0"]["k"].shape == (2, 2, 4, cfg.num_kv_heads, cfg.head_dim)
+    if attn == "mla":
+        shapes = {k: tuple(t.shape) for k, t in cache["unit"]["blk0"].items()}
+        assert shapes == {"c_kv": (2, 2, 4, cfg.kv_lora_rank),
+                          "k_rope": (2, 2, 4, cfg.qk_rope_dim)}
+    else:
+        assert cache["unit"]["blk0"]["k"].shape == (2, 2, 4, cfg.num_kv_heads, cfg.head_dim)
 
 
 @pytest.mark.parametrize("change", [dict(enc_dec=True), dict(frontend="vision_stub"),

@@ -246,10 +246,39 @@ def test_default_opts_are_the_reference_defaults():
     assert opts.expert_pad_to == t.expert_pad_to == j.expert_pad_to == 1
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_mla_forward_train_matches_the_reference(remat):
+    """Reduced deepseek-v2-lite-16b (an ``mla`` layer with a dense MLP, an
+    ``mla_moe`` layer whose router losses join the loss), fp32, its
+    attention the expanded form through ``mha``: the loss within 1e-5
+    relative and every gradient leaf, the router's included, within 1e-4
+    of that leaf's max |g| against ``jax.value_and_grad``, with the repeats
+    checkpointed and not."""
+    arch = "deepseek-v2-lite-16b"
+    jcfg, cfg = jax_reduced(jax_get_arch(arch)), reduced(get_arch(arch))
+    jp = jax.tree.map(np.asarray,
+                      jax_init_params(jax.random.PRNGKey(2), jcfg, JaxOpts(remat=False)))
+    batch = next(jax_token_batches(np.random.default_rng(2), jcfg.vocab_size, B, S))
+    jo, to = _opts(False, remat=remat)
+    jb = _jax_batch(batch)
+    (want, _), wg = jax.value_and_grad(lambda p: jax_forward_train(jcfg, jo, p, jb),
+                                       has_aux=True)(jax.tree.map(jnp.asarray, jp))
+    loss, g = value_and_grad(lambda p: forward_train(cfg, to, p, _torch_batch(batch))[0],
+                             lm_from_jax(jp))
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    want_g = tree_leaves(lm_from_jax(jax.tree.map(np.asarray, wg)))
+    got_g = tree_leaves(g)
+    assert len(want_g) == len(got_g)
+    for a, b in zip(want_g, got_g):
+        assert (a - b).abs().max() <= 1e-4 * a.abs().max()
+    assert g["unit"]["blk0"]["moe"]["router"].abs().max() > 0
+    assert g["head_blocks"][0]["mla"]["w_uk"].abs().max() > 0
+
+
 def test_training_a_block_kind_the_port_lacks_raises():
-    """rwkv6 trains (tests/test_torch_rwkv6_train.py), and local_attn and
-    moe (tests/test_torch_train_families.py); a block kind that is not
-    ported still raises, naming ROADMAP A6.3."""
+    """rwkv6 trains (tests/test_torch_rwkv6_train.py), local_attn and moe
+    (tests/test_torch_train_families.py), mla and mla_moe (below); a block
+    kind that is not ported still raises, naming ROADMAP A6.3."""
     from dataclasses import replace
 
     from repro_torch.configs.base import BlockKind
@@ -257,7 +286,7 @@ def test_training_a_block_kind_the_port_lacks_raises():
     cfg = reduced(get_arch(ARCH))
     params = init_params(cfg, ModelOpts(), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
-    lacking = replace(cfg, pattern=(BlockKind("mla"),))
+    lacking = replace(cfg, pattern=(BlockKind("mamba2"),))
     with pytest.raises(NotImplementedError, match="A6.3"):
         forward_train(lacking, ModelOpts(), params, {"tokens": tok, "labels": tok})
 

@@ -114,7 +114,7 @@ def test_train_step_matches_the_reference(setup):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "llama3-8b", "nemotron-4-15b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
 def test_train_lm_on_cpu(arch):
     res = train_lm(arch, steps=2, batch=2, seq=16, log_every=1, device="cpu")
     assert len(res.losses) == 2 and np.isfinite(res.losses + res.grad_norms).all()
