@@ -22,6 +22,9 @@ and the LM training path.
                                          # for gemma3-12b, nemotron-4-15b,
                                          # qwen2-moe-a2.7b, llama3-8b and
                                          # deepseek-v2-lite-16b
+    python3 chip_smoke.py --latent       # only phases 1-2, the latent decode
+                                         # kernel's checks and times (3, 13)
+                                         # and 9 for deepseek-v2-lite-16b
     python3 chip_smoke.py --c13          # only phases 1-2 and ROADMAP C13:
                                          # rwkv6-1.6b's two-layer gradients
                                          # leaf by leaf, drawn on the CPU and
@@ -59,9 +62,10 @@ the result line:
    at its 4096-token prompt and its edges, in fp32 on the 3xTF32 kernel's
    instance of the same pair) and the 3xTF32 tensor-core kernel for the
    rest; MLA's latent decode kernel (8 sequences, 16 heads, 576 / 512,
-   against 4096 rows at q_offset 63, 4095 and past the cache, bf16 and
-   fp32 caches, views of one buffer and two buffers) against
-   ``ref.latent_decode_ref``; each case
+   against 4096 rows at q_offset 0, 50, 63, 127, 4095 and past the cache,
+   one sequence at 4095, bf16 and fp32 caches, views of one buffer and two
+   buffers) against ``ref.latent_decode_ref``, each case with its plan;
+   each case
    names the one (and instance) that served it, at every decode case the
    3xTF32 kernel, launched directly, is held to the same bound, and rows
    that see no key (ROADMAP C8) go through each of the three and the
@@ -167,8 +171,9 @@ the result line:
    at position 4095 of a full cache of random values (gemma3-12b's local
    layers then attend to their last 1024 keys): wall ms per step
    (host clock, ending in a sync) and device ms per step (the union of
-   kernel intervals under ``torch.profiler``), with the attention kernel's
-   share;
+   kernel intervals under ``torch.profiler``, in a window opened by a
+   marker lead-in, rerun with a doubled lead-in if every marker is lost,
+   the lost count printed), with the attention kernel's share;
 10. LM parity: each architecture at full width, two layers, fp32, on the
    card and on the CPU from the same parameters: 8 decode steps and one
    128-token prefill; gemma3-12b with one local and one global layer and a
@@ -206,9 +211,11 @@ the result line:
    the 3xTF32 kernel launched directly and SDPA (each SDPA call's backend
    named from the profiler); deepseek-v2-lite-16b's expanded prefill
    (1, 4096, 16/16, 192/128) on the (192, 128) instances in bf16 and fp32,
-   and its latent decode kernel at q_offset 63 and 4095 beside fp32 SDPA
-   on the same function (one kv head, keys 576 wide, values their first
-   512), with the fp32-core bound and the 3xTF32 one; the 3xTF32 kernel in fp32 at the llama3.2-3b
+   and its latent decode kernel at q_offset 63, 127 and 4095 beside fp32
+   SDPA on the same function (one kv head, keys 576 wide, values their
+   first 512), with its bound (bytes) and the fp32-core and 3xTF32
+   operation figures, cold at 4095 too, its split and merge passes under
+   the profiler; the 3xTF32 kernel in fp32 at the llama3.2-3b
    prefill shape, the calls it serves, beside fp32 SDPA (TF32 off), its
    3xTF32 bound and the fp32-core bound; the
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
@@ -420,7 +427,8 @@ def build_kernels():
     _lib.lib()
     print(f"built {path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
     for line in report.splitlines():
-        if line.startswith("==") or "Compiling entry" in line or "Used" in line or "spill" in line:
+        if line.startswith("==") or "Compiling entry" in line or "Used" in line or "spill" in line \
+                or "Performance Loss" in line:
             print("  " + line.strip())
     if "sm_90a" not in report:
         fail("kernels were not compiled for sm_90a")
@@ -784,10 +792,19 @@ MLA_FLASH_CASES = [
 ]
 # its absorbed decode, one fp32 query a sequence and head against the
 # latent cache of 512 + 64 values a row: (B, S, N, q_offset), the serving
-# batch against its 4096-row cache (q_offset 63 and 4095, and past the
-# cache), one split (q_offset 100), and 5 heads
-LATENT_CASES = [(8, 4096, 16, 63), (8, 4096, 16, 4095), (8, 4096, 16, 5000),
+# batch against its 4096-row cache at serve's first and last q_offset (0
+# and 127: splits of 64 keys, the value columns across blocks), 63, a
+# range that ends inside an iteration (50), a full cache (16 splits) and
+# past it; one sequence (16 splits, 4 value-column groups), a short cache,
+# and 5 heads
+LATENT_CASES = [(8, 4096, 16, 63), (8, 4096, 16, 4095), (8, 4096, 16, 127),
+                (8, 4096, 16, 0), (8, 4096, 16, 50), (8, 4096, 16, 5000), (1, 4096, 16, 4095),
                 (2, 300, 16, 100), (3, 1000, 5, 777)]
+# the cases also run on two buffers in place of views of one: (case, dtype)
+LATENT_TWO_BUFFERS = [((8, 4096, 16, 4095), "bfloat16"), ((8, 4096, 16, 127), "bfloat16"),
+                      ((8, 4096, 16, 127), "float32")]
+LATENT_TIMED = (63, 127, 4095)  # serve's middle and last q_offset, a full cache
+LATENT_COLD_COPIES = 3  # caches rotated for a cold-L2 time: 3 x 37.7 MB past the 50 MB L2
 LATENT_DIMS = (512, 64)
 MLA_SCALE = 192**-0.5  # (qk_nope_dim + qk_rope_dim)^-0.5, the reference's
 FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128)  # llama3.2-3b, one 4096-token prompt
@@ -940,19 +957,20 @@ def _latent_inputs(B, S, N, dtype, dev, seed=0, two_buffers=False):
 def check_latent_decode(dev):
     """MLA's latent decode kernel against its plain version
     (``ref.latent_decode_ref``) on the same inputs, at ``LATENT_CASES``
-    with a bf16 and an fp32 cache (views of one buffer; the serving shape
-    at q_offset 4095 also with two buffers), scale 192^-0.5: within 3e-5
-    (fp32 sums in another order: both sides widen the cache and compute in
-    fp32, q is never rounded). Each case launches the kernel once and no
-    other attention kernel. Returns the worst error."""
+    with a bf16 and an fp32 cache (views of one buffer; the cases of
+    ``LATENT_TWO_BUFFERS`` also with two buffers), scale 192^-0.5: within
+    3e-5 (the kernel's split products are fp32-accurate; q is never
+    rounded). Each case launches the kernel once and no other attention
+    kernel, and prints its plan (chunk, splits, value-column groups).
+    Returns the worst error."""
     import torch
 
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.flash_attention import latent_decode, variant_launches
+    from repro_torch.kernels.flash_attention import _latent_plan, latent_decode, variant_launches
 
     worst = 0.0
     cases = [(c, dt, False) for c in LATENT_CASES for dt in (torch.bfloat16, torch.float32)]
-    cases.append(((8, 4096, 16, 4095), torch.bfloat16, True))
+    cases += [(c, getattr(torch, dt), True) for c, dt in LATENT_TWO_BUFFERS]
     for (B, S, N, qo), dtype, two in cases:
         q, ckv, krope = _latent_inputs(B, S, N, dtype, dev, seed=qo, two_buffers=two)
         before = dict(variant_launches)
@@ -965,7 +983,8 @@ def check_latent_decode(dev):
         worst = max(worst, err)
         ok = got.dtype == torch.float32 and got.shape == want.shape and err <= 3e-5
         print(f"latent_decode q {(B, 1, N, 576)} cache {(B, S)} {str(dtype)[6:]}"
-              f"{' (two buffers)' if two else ''} q_offset={qo} [{'+'.join(served)}]: "
+              f"{' (two buffers)' if two else ''} q_offset={qo} [{'+'.join(served)}, plan "
+              f"{_latent_plan(B, S, qo)}]: "
               f"max|err| {err:.3e}, bound 3e-5, max|want| {want.abs().max().item():.3e}  "
               f"{'ok' if ok else 'MISMATCH'}")
         if served != {"latent_decode": 1}:
@@ -2530,25 +2549,37 @@ def time_lm_kernels(dev):
 def time_latent_decode(dev):
     """The latent decode kernel at deepseek-v2-lite-16b's serving decode:
     8 sequences, 16 heads, fp32 q (B, 1, 16, 576) against a bf16 4096-row
-    cache (views of one buffer), at q_offset 63 and 4095. The bound counts
-    the cache rows the query sees (576 bf16 values each), q and ctx once
-    against 3.35 TB/s, and 2 (576 + 512) flops a key and head on the fp32
-    cores (67 TFLOP/s: the kernel computes in fp32); the same operations as
-    3xTF32 on the tensor cores (3 x at 495 TFLOP/s) are printed beside it.
-    The library call is F.scaled_dot_product_attention in fp32 (TF32 off)
-    on the same function: q against the rows up to q_offset as one kv head
-    (``enable_gqa``), keys all 576 columns, values the first 512, scale
-    192^-0.5, the rows widened to fp32 once outside the timed call."""
+    cache (views of one buffer), at q_offset ``LATENT_TIMED`` (63 and 127,
+    the middle and the end of ``serve``'s positions, and 4095, a full
+    cache), device time through the CUDA-graph timer. The bound is the
+    least time for the work: the cache rows the query sees (576 bf16
+    values each), q and ctx once against 3.35 TB/s, or the operations,
+    2 (576 + 512) flops a key and head, as fp32-accurate products on the
+    tensor cores (three TF32 products at 495 TFLOP/s, as row 4b's bound)
+    if that is longer; bytes bind at these shapes. The same operations on
+    the fp32 cores (67 TFLOP/s, the SIMT kernel's bound) and as 3xTF32 are
+    printed beside it. The library call is F.scaled_dot_product_attention
+    in fp32 (TF32 off) on the same function: q against the rows up to
+    q_offset as one kv head (``enable_gqa``), keys all 576 columns, values
+    the first 512, scale 192^-0.5, the rows widened to fp32 once outside
+    the timed call. These times are warm: the 37.7 MB cache stays in the 50
+    MB L2 between launches. At 4095 the kernel is also timed cold, on
+    ``LATENT_COLD_COPIES`` caches in turn (``cold_ms``), as a serving step
+    finds each layer's cache."""
+    import itertools
+
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import _latent_plan
 
     rows = {}
     L, Rd = LATENT_DIMS
-    for B, S, N, qo in LATENT_CASES[:2]:
-        q, ckv, krope = _latent_inputs(B, S, N, torch.bfloat16, dev)
+    B, S, N = 8, 4096, 16
+    q, ckv, krope = _latent_inputs(B, S, N, torch.bfloat16, dev)
+    for qo in LATENT_TIMED:
         n_keys = min(qo, S - 1) + 1
         nbytes = B * n_keys * (L + Rd) * 2 + B * N * (L + Rd) * 4 + B * N * L * 4
         flops = 2 * (L + Rd + L) * B * N * n_keys
@@ -2562,13 +2593,35 @@ def time_latent_decode(dev):
             "flash_attention_latent_decode", "decode", shape,
             lambda: ops.latent_decode(q, ckv, krope, scale=MLA_SCALE, q_offset=qo),
             lambda: R.latent_decode_ref(q, ckv, krope, scale=MLA_SCALE, q_offset=qo),
-            lib, nbytes, flops, FP32_OPS_PER_S)
-        tc, _ = bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)
+            lib, nbytes, 3 * flops, TF32_OPS_PER_S)
         row = rows[("flash_attention_latent_decode", "decode", qo)]
-        print(f"  latent_decode at q_offset {qo}: {row['bound_ms'] / row['ms']:.3f} of its "
-              f"bound ({row['bound_by']}, fp32 cores); on the tensor cores as 3xTF32 the "
-              f"bound would be {tc:.6f} ms; bytes alone {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
-        del q, ckv, krope, kv, qt, kt, vt
+        if qo == S - 1:
+            caches = [(ckv, krope)] + [
+                _latent_inputs(B, S, N, torch.bfloat16, dev, seed=1 + i)[1:]
+                for i in range(LATENT_COLD_COPIES - 1)]
+            turn = itertools.count()
+
+            def cold():
+                c, k = caches[next(turn) % len(caches)]
+                ops.latent_decode(q, c, k, scale=MLA_SCALE, q_offset=qo)
+
+            row["cold_ms"] = device_ms(cold)
+            print(f"  latent_decode at q_offset {qo}, cold ({LATENT_COLD_COPIES} caches in "
+                  f"turn): {row['cold_ms']:.5f} ms device, "
+                  f"{row['bound_ms'] / row['cold_ms']:.3f} of its bound")
+            del caches
+        chunk, splits, vsplits = _latent_plan(B, S, qo)
+        profile_phases(dev, f"latent_decode at q_offset {qo}",
+                       lambda: ops.latent_decode(q, ckv, krope, scale=MLA_SCALE, q_offset=qo),
+                       ("latent_decode_wgmma", "latent_decode_merge")[:1 + (splits > 1)])
+        print(f"  latent_decode at q_offset {qo} (plan: chunk {chunk}, {splits} splits x "
+              f"{vsplits} value-column groups, {B * splits * vsplits} blocks): "
+              f"{row['bound_ms'] / row['ms']:.3f} of its bound ({row['bound_by']}); bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms, operations on the fp32 cores "
+              f"{flops / FP32_OPS_PER_S * 1e3:.6f} ms, as 3xTF32 "
+              f"{3 * flops / TF32_OPS_PER_S * 1e3:.6f} ms")
+        del kv, qt, kt, vt
+    del q, ckv, krope
     return rows
 
 
@@ -2607,7 +2660,7 @@ def time_rwkv_kernels(dev):
                   f"{'ok' if err <= 3e-5 else 'MISMATCH'}")
             if err > 3e-5:
                 fail("the sequential rwkv6_scan kernel disagrees at the prefill shape")
-            profile_rwkv_phases(dev, "rwkv6_scan_chunked", lambda: ops.rwkv6_scan(*ins),
+            profile_phases(dev, "rwkv6_scan_chunked", lambda: ops.rwkv6_scan(*ins),
                                 ("local_pass", "chunk_scan", "correct"))
     rows[("rwkv6_scan_bwd", "train", None)] = time_rwkv_bwd(dev)
     return rows
@@ -2678,7 +2731,7 @@ def time_rwkv_bwd(dev, launches=5):
           f"operations on the fp32 cores {fp32_bound:.6f} ms ({fp32_by}); this design's "
           f"traffic and work at chunk {C}, sub-chunk {L} (a diagnostic): {b:.6f} ms ({by}: "
           f"bytes {tb:.6f}, tensor cores {ttc:.6f} + fp32 {tfp:.6f} ms)")
-    profile_rwkv_phases(dev, "rwkv6_scan_bwd", lambda: _backward(*ins, dy, dsT),
+    profile_phases(dev, "rwkv6_scan_bwd", lambda: _backward(*ins, dy, dsT),
                         ("local", "chunk_scan", "grads"))
     return row
 
@@ -2808,7 +2861,7 @@ def profile_kernels(dev, body):
         lead *= 2
 
 
-def profile_rwkv_phases(dev, label, call, phases, calls=10):
+def profile_phases(dev, label, call, phases, calls=10):
     """Device ms per launch of each of ``call``'s kernels (``phases``, by a
     part of each kernel's name) under ``torch.profiler``, over ``calls``
     calls, in a window of ``profile_kernels``. Fails unless the profiler saw
@@ -2990,14 +3043,14 @@ def time_decode_at(dev, cfg, opts, params, pos, steps=16):
     rewrites slot ``pos`` and attends to every slot up to it): wall ms per
     step (host clock over ``steps`` steps, ending in a sync) and device ms
     per step (the union of kernel intervals under ``torch.profiler`` over as
-    many steps), with the attention kernel's device ms per step (the
-    split-KV kernel's, or for MLA the latent decode kernel's). Its launches
-    are not main-path launches: the counts are read before."""
+    many steps, in a window of ``profile_kernels``: a marker lead-in, rerun
+    with a doubled lead-in if every marker is lost, the lost count
+    printed), with the attention kernel's device ms per step (the split-KV
+    kernel's, or for MLA the latent decode kernel's). Its launches are not
+    main-path launches: the counts are read before."""
     import gc
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl.profile_round import busy_us
     from repro_torch.launch.steps import make_serve_step
@@ -3025,9 +3078,7 @@ def time_decode_at(dev, cfg, opts, params, pos, steps=16):
 
     run(2)
     wall = run(steps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(steps)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels, lead, lost = profile_kernels(dev, lambda: run(steps))
     if not kernels:
         fail("the profiler recorded no device activity in the decode steps")
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
@@ -3037,12 +3088,14 @@ def time_decode_at(dev, cfg, opts, params, pos, steps=16):
           f"per step; device busy {busy:.4f} ms per step (profiler, union of kernel "
           f"intervals), idle share {1 - busy / wall:.4f}; decode attention "
           f"{attn_ms:.4f} ms per step in {len(attn) / steps:.1f} kernel records, "
-          f"{attn_ms / busy:.4f} of device busy ({len(kernels) / steps:.1f} kernels per step)")
+          f"{attn_ms / busy:.4f} of device busy ({len(kernels) / steps:.1f} kernels per step; "
+          f"{lost} of a lead-in of {lead} markers lost)")
     if not attn:
         fail("the decode steps at a full cache ran no decode attention kernel")
-    del cache, prof
+    del cache
     gc.collect()
-    return dict(full_cache_wall_ms=wall, full_cache_busy_ms=busy, full_cache_attn_ms=attn_ms)
+    return dict(full_cache_wall_ms=wall, full_cache_busy_ms=busy, full_cache_attn_ms=attn_ms,
+                full_cache_markers_lost=lost)
 
 
 PARITY_WINDOW = 16  # the two-layer parity configs' sliding window, in tokens
@@ -3541,6 +3594,13 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--lm-families"]:
         run_lm_families(dev)
+        return
+    if sys.argv[1:] == ["--latent"]:
+        phase("the latent decode kernel vs its plain version, and its times")
+        check_latent_decode(dev)
+        time_latent_decode(dev)
+        phase("LM serving path: deepseek-v2-lite-16b, full width and depth, bf16")
+        drive_lm_path(dev, "deepseek-v2-lite-16b", 4096)
         return
     if sys.argv[1:] == ["--c13"]:
         phase("ROADMAP C13: rwkv6-1.6b's two-layer training parity, leaf by leaf")

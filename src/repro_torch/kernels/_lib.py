@@ -79,9 +79,9 @@ _SIGNATURES = {
                               ctypes.POINTER(ctypes.c_longlong)],
     # q, c_kv, k_rope, o, ws, B, S, N, c_kv batch and row strides, k_rope
     # batch and row strides (elements), is_bf16, q_offset, scale, chunk,
-    # splits, stream
+    # splits, vsplits, stream
     "flash_attention_latent_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
-                                      _I, _LL, _F, _I, _I, _P],
+                                      _I, _LL, _F, _I, _I, _I, _P],
     # is_bf16, regs out, local bytes out (no stream)
     "flash_attention_latent_decode_attrs": [_I, ctypes.POINTER(ctypes.c_int),
                                             ctypes.POINTER(ctypes.c_longlong)],

@@ -44,7 +44,12 @@ keys (c_kv joined to k_rope, 576 wide) and, in their first 512 columns,
 the values. The reference computes it in jnp einsums
 (``repro.models.attention.mla_forward``); the kernel reads c_kv and k_rope
 where they lie (two pointers, each with its row stride), so the cache is
-never copied, cast or joined.
+never copied, cast or joined. Both products run on the tensor cores with
+fp32's accuracy: on a bf16 cache (the serving path) wgmma, the cache
+staged by TMA in its own dtype and q and p split into three bf16 parts;
+on an fp32 cache mma.sync with every operand split into TF32 hi and lo.
+``_latent_plan`` spreads a call over splits of the key range and, at
+short ranges, groups of value columns.
 
 A query row whose visible key range is empty (a window that ends before
 the keys do, ROADMAP C8) gets the mean of v over all Sk keys, as the plain
@@ -131,6 +136,41 @@ def _decode_plan(B: int, K: int, k_len: int, q_offset: int, causal: bool,
     chunk = max(DECODE_MIN_CHUNK, -(-n // want))
     chunk = -(-chunk // DECODE_CHUNK_ALIGN) * DECODE_CHUNK_ALIGN
     return j_lo, chunk, -(-n // chunk)
+
+
+# the latent decode kernel's plan: splits of a multiple of LATENT_TILE keys
+# (an iteration of its bf16 kernel, wgmma's M of 64; the fp32 kernel's tiles
+# are 32); one block an SM (215 KB of shared memory), so the grid stays
+# within one wave of SMS blocks. Splits of the key range come first, at most
+# LATENT_MAX_SPLITS: each writes 16 x 514 fp32 partials (32.9 KB) that the
+# merge pass reads back, and at 16 splits of a full 4096-row bf16 sequence
+# (4.7 MB) that traffic is 0.53 MB each way. What is left of the wave goes
+# to value-column groups (1, 2 or 4 blocks share a split's 512 columns, each
+# recomputing S from rows that L2 holds), so serving's short ranges fill
+# the card too
+LATENT_TILE = 64
+LATENT_MAX_SPLITS = 16
+LATENT_MAX_VSPLITS = 4
+
+
+def _latent_plan(B: int, S: int, q_offset: int) -> tuple[int, int, int]:
+    """(chunk, splits, vsplits) of the latent decode kernel for B sequences
+    at ``q_offset`` against an S-row cache: its visible keys are [0,
+    min(q_offset, S - 1)], split s takes [s chunk, (s + 1) chunk) of them
+    (chunk a multiple of LATENT_TILE, no split empty), and vsplits blocks
+    share each split's value columns. The grid is B x splits x vsplits
+    blocks, at most SMS when B <= SMS. At B = 8: 16 splits of 256 keys at
+    a full cache, 1 x 4 and 2 x 4 (splits x vsplits) at 1-64 and 65-128
+    keys."""
+    n = min(q_offset, S - 1) + 1
+    want = max(1, min(LATENT_MAX_SPLITS, SMS // max(1, B)))
+    per = -(-n // want)
+    chunk = -(-per // LATENT_TILE) * LATENT_TILE
+    splits = -(-n // chunk)
+    vsplits = 1
+    while vsplits < LATENT_MAX_VSPLITS and 2 * B * splits * vsplits <= SMS:
+        vsplits *= 2
+    return chunk, splits, vsplits
 
 
 def _has_empty_rows(Sq: int, Sk: int, q_offset: int, causal: bool, window: int) -> bool:
@@ -261,7 +301,9 @@ def latent_decode(q, c_kv, k_rope, *, scale: float, q_offset: int):
     R) in bf16 or fp32, each with unit stride along its last axis and any
     row stride (views of one (B, S, L + R) buffer, or two buffers). Returns
     ctx (B, 1, N, L) fp32 = softmax_j(scale q . [c_kv, k_rope][j]) c_kv[j]
-    over j <= q_offset (``ref.latent_decode_ref``)."""
+    over j <= q_offset (``ref.latent_decode_ref``). On the card one launch
+    of the kernel on ``_latent_plan``'s grid, and of its merge pass when
+    the plan has more than one split."""
     _check_latent(q, c_kv, k_rope)
     if not q.is_cuda:
         return R.latent_decode_ref(q, c_kv, k_rope, scale=scale, q_offset=q_offset)
@@ -275,6 +317,8 @@ def latent_decode(q, c_kv, k_rope, *, scale: float, q_offset: int):
         raise ValueError(f"latent_decode: needs q_offset >= 0 and a cache row, got "
                          f"q_offset {q_offset} and {S} rows")
     _lib.check_cuda("latent_decode", q)
+    if q.data_ptr() % 16:
+        raise ValueError("latent_decode: the kernel takes a 16-byte aligned q")
     size = c_kv.element_size()
     for name, t in (("c_kv", c_kv), ("k_rope", k_rope)):
         if t.device != q.device or t.stride(2) != 1 or (t.stride(1) * size) % 16 or \
@@ -284,13 +328,13 @@ def latent_decode(q, c_kv, k_rope, *, scale: float, q_offset: int):
     out = q.new_empty((B, 1, N, L))
     if out.numel() == 0:
         return out
-    _, chunk, splits = _decode_plan(B, 1, S, int(q_offset), True, 0)
+    chunk, splits, vsplits = _latent_plan(B, S, int(q_offset))
     ws = torch.empty(B * N * splits * (L + 2) if splits > 1 else 0, dtype=torch.float32,
                      device=q.device)
     _lib.launch("flash_attention_latent_decode", q.device, q.data_ptr(), c_kv.data_ptr(),
                 k_rope.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, N,
                 c_kv.stride(0), c_kv.stride(1), k_rope.stride(0), k_rope.stride(1),
                 int(c_kv.dtype == torch.bfloat16), int(q_offset), float(scale), chunk, splits,
-                count_as="flash_attention")
+                vsplits, count_as="flash_attention")
     variant_launches["latent_decode"] += 1
     return out

@@ -808,11 +808,16 @@ def _latent_inputs(B, S, N, dtype, dev, seed=0):
 
 # MLA's absorbed decode through the latent decode kernel at deepseek's
 # dims (16 heads, 512 + 64): the serving batch against a 4096-row cache at
-# q_offset 0, 63, 4095 and past the cache, one split, fewer heads, a bf16
-# or fp32 cache; within 3e-5 of the plain version (both compute in fp32)
+# q_offset 0, 63 and 127 (splits of 64 keys, the value columns across
+# blocks), 50 (a range that ends inside an iteration), 4095 and past the
+# cache, one sequence at 4095 (16 splits x 4 value-column groups), a short
+# cache, fewer heads, a bf16 or fp32 cache; within 3e-5 of the plain
+# version (the kernel's split products are fp32-accurate)
 @pytest.mark.parametrize("B,S,N,q_offset", [(8, 4096, 16, 0), (8, 4096, 16, 63),
                                             (8, 4096, 16, 4095), (8, 4096, 16, 5000),
-                                            (2, 300, 16, 100), (3, 1000, 5, 777)])
+                                            (2, 300, 16, 100), (3, 1000, 5, 777),
+                                            (8, 4096, 16, 127), (8, 4096, 16, 50),
+                                            (1, 4096, 16, 4095)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_latent_decode_matches_plain(cuda, B, S, N, q_offset, dtype):
     from repro_torch.kernels.flash_attention import variant_launches
@@ -830,6 +835,16 @@ def test_latent_decode_matches_plain(cuda, B, S, N, q_offset, dtype):
                             q_offset=q_offset)
     torch.cuda.synchronize()
     assert torch.equal(two, got)
+
+
+def test_latent_decode_kernel_uses_no_local_memory(cuda):
+    """The latent decode kernel keeps its fragments and accumulators in
+    registers for both cache dtypes: no spill or stack bytes."""
+    from repro_torch.kernels.flash_attention import latent_decode_attrs
+
+    for dtype in (torch.bfloat16, torch.float32):
+        regs, local = latent_decode_attrs(dtype)
+        assert 0 < regs <= 255 and local == 0
 
 
 def test_latent_decode_and_mla_prefill_at_the_reduced_dims_raise(cuda):

@@ -209,47 +209,106 @@ def _latent_inputs(B, S, N, L, Rd, dtype, seed=0):
     return torch.from_numpy(q), buf[..., :L], buf[..., L:]
 
 
-def _emulate_latent(q, ckv, krope, scale, q_offset, tile=32):
-    """The kernel's arithmetic on its plan (``FA._decode_plan`` with one kv
-    head): per split, tiles of ``tile`` keys; scores summed then scaled;
-    keys past the split masked with -1e30; an online softmax in the log2
-    domain per tile; then, in split order, m* = max m_s, l = sum l_s 2^(m_s
-    - m*), ctx = sum acc_s 2^(m_s - m*) / max(l, 1e-30)."""
-    B, _, N, _ = q.shape
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero, as the kernel's ``tf32_rna`` (``cvt.rna.tf32.f32``) rounds:
+    add half of the dropped 13 bits' range to the bit pattern and clear
+    them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def _bf16_parts(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x as three bf16 parts, each rounded to nearest even, largest first,
+    as the kernel's ``split3``: x1 + x2 + x3 is x within 2^-24 |x|."""
+    x1 = x.bfloat16().float()
+    x2 = (x - x1).bfloat16().float()
+    return x1, x2, (x - x1 - x2).bfloat16().float()
+
+
+def _emulate_latent(q, ckv, krope, scale, q_offset, q_residual=True):
+    """The kernel's arithmetic on its plan (``FA._latent_plan``), per split
+    in steps from the split's start, rows past the split zero. A bf16 cache
+    (the wgmma kernel): steps of 64 keys; q and p as three bf16 parts; S as
+    two warpgroups' partials over D / 2-column halves, each (q3 K + q2 K) +
+    q1 K (K exact); ctx as three accumulators, acc_k = acc_k alpha + p_k V,
+    summed (acc_3 + acc_2) + acc_1 at the split's end. An fp32 cache (the
+    mma.sync kernel): steps of 32 keys; q and p split into TF32 hi + lo; S
+    as 8 warps' partials over D / 8 columns, each q_lo K_hi + q_hi K_lo +
+    q_hi K_hi; ctx = ctx alpha + p V with p split as q. Both: the partials
+    added in order, scaled; keys past the split -1e30; an online softmax in
+    the log2 domain; then, in split order, m* = max m_s, l = sum l_s 2^(m_s
+    - m*), ctx = sum acc_s 2^(m_s - m*) / max(l, 1e-30). The plan's
+    value-column groups repeat the same arithmetic on their columns, so
+    they change nothing here. ``q_residual=False`` keeps q's first part alone: q
+    rounded once, to bf16 (C6) or to TF32."""
+    B, _, N, D = q.shape
     S, L = ckv.shape[1], ckv.shape[2]
     kv = torch.cat([ckv, krope], -1).float()
-    _, chunk, splits = FA._decode_plan(B, 1, S, q_offset, True, 0)
+    if ckv.dtype == torch.bfloat16:
+        step, slices, parts = FA.LATENT_TILE, 2, _bf16_parts
+
+        def terms(xs, b, eq):
+            return [torch.einsum(eq, x, b) for x in reversed(xs)]
+    else:
+        step, slices, parts = 32, 8, _split
+
+        def terms(xs, b, eq):
+            (ah, al), (bh, bl) = xs, _split(b)
+            out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            return [out + torch.einsum(eq, ah, bh)]
+
+    def add(ts):  # in order, left to right
+        return sum(ts[1:], ts[0])
+
+    qs = parts(q[:, 0].float())
+    if not q_residual:
+        qs = (qs[0],) + tuple(torch.zeros_like(x) for x in qs[1:])
+    chunk, splits, _ = FA._latent_plan(B, S, q_offset)
+    width = D // slices
     j_hi = min(q_offset, S - 1)
-    parts = []
+    out_parts = []
     for s in range(splits):
         s0, s1 = s * chunk, min(s * chunk + chunk - 1, j_hi)
         m = torch.full((B, N), -1e30)
         l = torch.zeros((B, N))
-        acc = torch.zeros((B, N, L))
-        for base in range(s0, s1 + 1, tile):
-            keys = torch.arange(base, base + tile)
+        accs = None
+        for base in range(s0, s1 + 1, step):
+            keys = torch.arange(base, base + step)
             rows = kv[:, keys.clamp(max=S - 1)] * (keys <= s1)[None, :, None]
-            sc = torch.einsum("bnd,bjd->bnj", q[:, 0], rows) * scale
-            sc = torch.where(keys <= s1, sc, -1e30)
+            sc = torch.zeros((B, N, step))
+            for w in range(slices):
+                c = slice(w * width, (w + 1) * width)
+                sc = sc + add(terms(tuple(x[..., c] for x in qs), rows[..., c], "bnd,bjd->bnj"))
+            sc = torch.where(keys <= s1, sc * scale, -1e30)
             m_new = torch.maximum(m, sc.amax(-1))
             p = torch.exp2((sc - m_new[..., None]) * LOG2E)
             alpha = torch.exp2((m - m_new) * LOG2E)
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum("bnj,bjl->bnl", p, rows[..., :L])
+            pv = terms(parts(p), rows[..., :L], "bnj,bjl->bnl")
+            accs = pv if accs is None else [a * alpha[..., None] + t for a, t in zip(accs, pv)]
             m = m_new
-        parts.append((m, l, acc))
-    m_star = torch.stack([m for m, _, _ in parts]).amax(0)
+        out_parts.append((m, l, add(accs)))
+    m_star = torch.stack([m for m, _, _ in out_parts]).amax(0)
     lsum, out = torch.zeros((B, N)), torch.zeros((B, N, L))
-    for m, l, acc in parts:
+    for m, l, acc in out_parts:
         f = torch.exp2((m - m_star) * LOG2E)
         lsum = lsum + l * f
         out = out + acc * f[..., None]
     return (out / lsum.clamp_min(1e-30)[..., None])[:, None]
 
 
-LATENT_CASES = [  # (B, S, N, q_offset)
+LATENT_CASES = [  # (B, S, N, q_offset); at B = 8 serving's q_offset 0, a
+    # range that ends inside a step, and 127 (splits of 64 keys, the value
+    # columns across blocks)
     (2, 40, 4, 0), (2, 40, 4, 33), (2, 40, 4, 39), (2, 40, 4, 57),
     (1, 700, 16, 650), (3, 300, 16, 299),
+    (8, 130, 16, 0), (8, 130, 16, 50), (8, 130, 16, 127),
 ]
 
 
@@ -290,6 +349,79 @@ def test_the_emulation_needs_its_mask_past_the_split():
     with mock.patch.object(torch, "where", side_effect=lambda c, a, b: a):
         wrong = _emulate_latent(q, ckv, krope, 192**-0.5, 650)
     assert np.abs(wrong.numpy() - want).max() > 100 * TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_emulation_needs_q_s_residual(dtype):
+    """The split is not vacuous (C6's kin): q rounded once, with no residual
+    product (to bf16 for the bf16 cache's kernel, which is C6 itself; to
+    TF32 for the fp32 cache's), misses the reference einsums by more than
+    100 TOL at deepseek-v2-lite-16b's dims, where the split form is within
+    TOL. The cache at unit scale (c_kv is RMS-normed) and q at 2."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy((rng.standard_normal((2, 1, 16, 576)) * 2).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 700, 576)).astype(np.float32)).to(dtype)
+    ckv, krope = kv[..., :512], kv[..., 512:]
+    want = _jax_absorbed(q.numpy(), ckv.float().numpy(), krope.float().numpy(), 192**-0.5, 40)
+    split = _emulate_latent(q, ckv, krope, 192**-0.5, 40)
+    np.testing.assert_allclose(split.numpy(), want, rtol=0, atol=TOL)
+    rounded = _emulate_latent(q, ckv, krope, 192**-0.5, 40, q_residual=False)
+    assert np.abs(rounded.numpy() - want).max() > 100 * TOL
+
+
+def test_tf32_rna_keeps_ten_mantissa_bits():
+    """The emulation's rounding: 13 low bits cleared, to nearest with ties
+    away from zero, and hi + lo within 2^-22 of x."""
+    x = torch.tensor([1.0 + 2.0**-11, 1.0 + 2.0**-10 + 2.0**-11, -(1.0 + 2.0**-11), 3.0e-3])
+    hi = tf32_rna(x)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert hi[:3].tolist() == [1.0 + 2.0**-10, 1.0 + 2.0**-9, -(1.0 + 2.0**-10)]
+    xs = torch.from_numpy(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    h, lo = _split(xs)
+    assert ((h + lo - xs).abs() <= 2.0**-22 * xs.abs()).all()
+
+
+def test_bf16_parts_keep_24_bits():
+    """The wgmma kernel's split of q and p: three bf16 parts, each exact in
+    bf16, whose sum is x within 2^-24 |x|; two parts alone miss that."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(4000).astype(np.float32))
+    x = torch.cat([x, torch.exp2(-torch.arange(20.0)), torch.tensor([0.0, -3.0e-3])])
+    x1, x2, x3 = _bf16_parts(x)
+    for part in (x1, x2, x3):
+        assert torch.equal(part, part.bfloat16().float())
+    assert ((x1 + x2 + x3 - x).abs() <= 2.0**-24 * x.abs()).all()
+    assert ((x1 + x2 - x).abs() > 2.0**-20 * x.abs()).any()
+
+
+# serving's ranges (q_offset 0-127 at B = 8), a mid-tile end, a full cache
+# and past it, one sequence, other batches and caches
+PLAN_CASES = [(8, 4096, qo) for qo in (0, 1, 30, 31, 32, 50, 63, 64, 100, 127, 255, 1000,
+                                        4095, 5000)]
+PLAN_CASES += [(1, 4096, 4095), (1, 4096, 10), (2, 300, 100), (3, 1000, 777), (16, 4096, 4095),
+               (132, 4096, 4095), (200, 64, 63), (8, 1, 0), (8, 40, 39)]
+
+
+@pytest.mark.parametrize("B,S,q_offset", PLAN_CASES)
+def test_latent_plan_covers_the_range_and_fills_the_card(B, S, q_offset):
+    """``_latent_plan``: chunks a multiple of the tile, no split empty, the
+    splits cover [0, min(q_offset, S - 1)], at most LATENT_MAX_SPLITS, 1-8
+    value-column groups, and a grid within one wave of one block an SM.
+    At B = 8 every range that ``serve`` runs (1-128 keys) gets 32 blocks
+    at least (more than 8 at 64 and 128 keys), a full cache 128."""
+    chunk, splits, vsplits = FA._latent_plan(B, S, q_offset)
+    n = min(q_offset, S - 1) + 1
+    assert chunk % FA.LATENT_TILE == 0 and chunk > 0
+    assert (splits - 1) * chunk < n <= splits * chunk
+    assert 1 <= splits <= FA.LATENT_MAX_SPLITS
+    assert vsplits in (1, 2, 4)
+    blocks = B * splits * vsplits
+    assert blocks <= max(FA.SMS, B)
+    if B == 8 and n <= 128:
+        assert blocks >= 32
+    if B == 8 and n in (64, 128):
+        assert blocks > 8
+    if B == 8 and n == 4096:
+        assert (splits, vsplits) == (16, 1) and blocks == 128
 
 
 # --- the compressed cache ------------------------------------------------------
@@ -383,33 +515,50 @@ def test_cuda_calls_at_the_reduced_mla_dims_raise():
 def test_latent_decode_launch_arguments():
     """At deepseek-v2-lite-16b's serving shape (8 sequences, 16 heads, a
     4096-row cache whose leaves are views of one buffer), the wrapper hands
-    the kernel both pointers with their strides, the plan of ``_decode_plan``
-    with one kv head (16 splits of 256 keys at q_offset 4095) and a workspace
-    for the merge; it counts the launch as flash_attention's and as the
+    the kernel both pointers with their strides, the plan of
+    ``_latent_plan`` and a workspace for the merge when there is more than
+    one split: at q_offset 0 and 63 one split of 64 keys across 4
+    value-column groups (32 blocks, no workspace), at 127 two splits x 4
+    groups (64 blocks), at 4095 16 splits of 256 keys (128 blocks); it
+    counts each launch as flash_attention's and as the
     ``latent_decode`` variant. It refuses a q that is not fp32 (C6) and a
     leaf whose last axis is strided."""
     q, ckv, krope = _latent_inputs(8, 4096, 16, 512, 64, torch.bfloat16)
     q = q.float()
+    want = {0: (64, 1, 4), 63: (64, 1, 4), 127: (64, 2, 4), 4095: (256, 16, 1)}
     ops.reset_launches()
+    workspaces = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        workspaces.append(t)
+        return t
+
     with _on_the_card(), mock.patch.object(_lib, "launch") as launch:
-        out = FA.latent_decode(q, ckv, krope, scale=192**-0.5, q_offset=4095)
+        for qo in want:
+            with mock.patch.object(torch, "empty", side_effect=empty):
+                out = FA.latent_decode(q, ckv, krope, scale=192**-0.5, q_offset=qo)
+            assert out.shape == (8, 1, 16, 512) and out.dtype == torch.float32
         with pytest.raises(TypeError):
             FA.latent_decode(q.bfloat16(), ckv, krope, scale=192**-0.5, q_offset=5)
         strided = torch.zeros((8, 4096, 128), dtype=torch.bfloat16)[..., ::2]
         with pytest.raises(ValueError, match="unit stride"):
             FA.latent_decode(q, ckv, strided, scale=192**-0.5, q_offset=5)
-    assert out.shape == (8, 1, 16, 512) and out.dtype == torch.float32
-    assert launch.call_count == 1
-    args, kw = launch.call_args
-    assert args[0] == "flash_attention_latent_decode" and kw == {"count_as": "flash_attention"}
-    (q_ptr, ckv_ptr, kr_ptr, _, ws_ptr, B, S, N, cbs, crs, kbs, krs, is_bf16, qo, scale,
-     chunk, splits) = args[2:]
-    assert (q_ptr, ckv_ptr, kr_ptr) == (q.data_ptr(), ckv.data_ptr(), krope.data_ptr())
-    assert kr_ptr - ckv_ptr == 512 * 2
-    assert (B, S, N, cbs, crs, kbs, krs, is_bf16, qo) == (8, 4096, 16, 4096 * 576, 576,
-                                                         4096 * 576, 576, 1, 4095)
-    assert (chunk, splits) == (256, 16) and scale == pytest.approx(192**-0.5)
-    assert FA.variant_launches["latent_decode"] == 1
+    assert launch.call_count == len(want)
+    for (qo, plan), (args, kw), ws in zip(want.items(), launch.call_args_list, workspaces):
+        assert args[0] == "flash_attention_latent_decode"
+        assert kw == {"count_as": "flash_attention"}
+        (q_ptr, ckv_ptr, kr_ptr, _, ws_ptr, B, S, N, cbs, crs, kbs, krs, is_bf16, got_qo,
+         scale, chunk, splits, vsplits) = args[2:]
+        assert (q_ptr, ckv_ptr, kr_ptr) == (q.data_ptr(), ckv.data_ptr(), krope.data_ptr())
+        assert kr_ptr - ckv_ptr == 512 * 2
+        assert (B, S, N, cbs, crs, kbs, krs, is_bf16, got_qo) == (
+            8, 4096, 16, 4096 * 576, 576, 4096 * 576, 576, 1, qo)
+        assert (chunk, splits, vsplits) == plan and scale == pytest.approx(192**-0.5)
+        assert ws_ptr == ws.data_ptr() and ws.dtype == torch.float32
+        assert ws.numel() == (8 * 16 * splits * (512 + 2) if splits > 1 else 0)
+    assert FA.variant_launches["latent_decode"] == len(want)
 
 
 def _c_params(entry: str) -> list[str]:
