@@ -20,8 +20,9 @@ and the LM training path.
                                          # run and 8
     python3 chip_smoke.py --lm-families  # only phases 1-2 and 9, 10 and 12
                                          # for gemma3-12b, nemotron-4-15b,
-                                         # qwen2-moe-a2.7b, llama3-8b and
-                                         # deepseek-v2-lite-16b
+                                         # qwen2-moe-a2.7b, llama3-8b,
+                                         # deepseek-v2-lite-16b and
+                                         # zamba2-7b
     python3 chip_smoke.py --latent       # only phases 1-2, the latent decode
                                          # kernel's checks and times (3, 13)
                                          # and 9 for deepseek-v2-lite-16b
@@ -40,9 +41,10 @@ the result line:
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` and print
    nvcc's registers / shared memory / spills per kernel, then one line per
    instance of the bf16 tensor-core attention kernel ((H, Hv) (64, 64),
-   (128, 128), (256, 256), (192, 128)), of the 3xTF32 attention kernel
-   (fp32 and bf16 at (32, 32), (64, 64), (128, 128), (256, 256), (192,
-   128)) and of the latent decode kernel (bf16 and fp32 caches) with its
+   (128, 128), (256, 256), (192, 128), (112, 112)), of the 3xTF32 attention
+   kernel (fp32 and bf16 at (32, 32), (64, 64), (128, 128), (256, 256),
+   (192, 128), (112, 112)) and of the latent decode kernel (bf16 and fp32
+   caches) with its
    registers and local (spill) bytes from ``cudaFuncGetAttributes`` (any
    local byte fails, but the 3xTF32 kernel's bf16 instance's at (256, 256),
    which only a direct launch reaches, and which is printed);
@@ -60,8 +62,12 @@ the result line:
    with a TMA producer, at its edges and at gemma3-12b's global and local
    layer shapes; (192, 128), deepseek-v2-lite-16b's expanded MLA prefill,
    at its 4096-token prompt and its edges, in fp32 on the 3xTF32 kernel's
-   instance of the same pair) and the 3xTF32 tensor-core kernel for the
-   rest; MLA's latent decode kernel (8 sequences, 16 heads, 576 / 512,
+   instance of the same pair; (112, 112), zamba2-7b's shared attention
+   block, at its edges and its 4096-token prompt, in fp32 on the 3xTF32
+   kernel's instance) and the 3xTF32 tensor-core kernel for the
+   rest (zamba2-7b's decode step at q_offset 0, 63, 100 and 4095 on the
+   decode kernel's head_dim 112 lane map); MLA's latent decode kernel (8
+   sequences, 16 heads, 576 / 512,
    against 4096 rows at q_offset 0, 50, 63, 127, 4095 and past the cache,
    one sequence at 4095, bf16 and fp32 caches, views of one buffer and two
    buffers) against ``ref.latent_decode_ref``, each case with its plan;
@@ -153,10 +159,17 @@ the result line:
    shared), llama3-8b and deepseek-v2-lite-16b (a dense MLA layer and 26
    MLA + MoE ones: 64 experts, top 6, 2 shared; its prefill step on the
    tensor-core kernel's (192, 128) instance, its decode steps on the
-   latent decode kernel, 27 launches each), one after the other (each
+   latent decode kernel, 27 launches each), zamba2-7b (68 mamba2 blocks,
+   torch ops, and 13 occurrences of one shared attention block at head_dim
+   112: 13 tensor-core launches on its (112, 112) instance at the prefill
+   step, 1,664 decode launches in ``serve``), one after the other (each
    freed before the next),
    at full width and depth in
-   bf16: ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
+   bf16, but for the depth of five families, cut to keep the run within
+   its time (``SERVE_REPEATS``: gemma3-12b 2 of 8 repeats, nemotron-4-15b,
+   qwen2-moe-a2.7b and llama3-8b 8 of 32 / 24 / 32 layers,
+   deepseek-v2-lite-16b its head block and 8 of 26 repeats):
+   ``serve(..., use_reduced=False)`` of 8 requests (64-token prompts,
    64 generated tokens, a 4096-long cache) and one ``make_prefill_step``
    call at batch 1 (4096 tokens; rwkv6's 1024), with every launch counter
    zeroed before and held after
@@ -180,7 +193,8 @@ the result line:
    16-token window, 24 decode steps (past the window); deepseek-v2-lite-16b
    with its dense ``mla`` layer and one ``mla_moe`` (fp32: the 3xTF32
    kernel's (192, 128) instance and the latent decode kernel on an fp32
-   cache);
+   cache); zamba2-7b at four layers, (mamba2, shared_attn) twice (the
+   3xTF32 kernel's (112, 112) instance and the decode kernel at 112);
 11. LM training: ``train_lm(arch, use_reduced=False, steps=4, batch=2,
    seq=1024, use_kernels=True)`` for llama3.2-3b then rwkv6-1.6b, full width
    and depth in bf16, with the launch counters zeroed before and held after
@@ -189,7 +203,8 @@ the result line:
    rwkv6 layer and step one chunked rwkv6_scan forward and one backward
    launch: wall s, tokens/s, loss and grad norm per step, and the peak
    memory; then one step's breakdown under ``torch.profiler`` (device busy
-   ms, idle share, top kernels);
+   ms, idle share, top kernels; the window opens with a marker lead-in,
+   whose lost count is printed, and fails if it lost all of it);
 12. training parity: llama3.2-3b, rwkv6-1.6b at (rwkv_chunk,
    ssm_seq_chunk) (0, 0), (0, 32) and (16, 32), qwen2-moe-a2.7b (its router
    losses and the routers' gradients too), gemma3-12b (one local and
@@ -231,7 +246,9 @@ the result line:
    allocated enters a main path's peak memory;
 14. the next round of each serial and batched run of 6 under
    ``torch.profiler``: kernels in the round, device busy s and idle share
-   (last, after every other profiler window).
+   (last, after every other profiler window), in a window opened by a
+   marker lead-in, the round after in a window with twice the lead-in if
+   every marker is lost, the lost count printed.
 
 It ends with the kernels' JSON line (distill_loss has a row per entry and
 direction, each with its launches per variant; skr_rectify a row per
@@ -266,6 +283,7 @@ TPU_KERNELS = {
     "flash_attention_decode": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_sm90_h256": "src/repro/kernels/flash_attention.py:32",
     "flash_attention_sm90_192": "src/repro/kernels/flash_attention.py:32",
+    "flash_attention_sm90_112": "src/repro/kernels/flash_attention.py:32",
     # no Pallas kernel: the reference's absorbed MLA decode is jnp einsums
     "flash_attention_latent_decode": "src/repro/models/attention.py:319-338 (jnp einsums)",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:25",
@@ -285,19 +303,21 @@ SOURCES = {
     "flash_attention_decode": "src/repro_torch/csrc/flash_attention_decode.cu",
     "flash_attention_sm90_h256": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_sm90_192": "src/repro_torch/csrc/flash_attention_sm90.cu",
+    "flash_attention_sm90_112": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_latent_decode": "src/repro_torch/csrc/flash_attention_latent_decode.cu",
     "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
     "rwkv6_scan_chunked": "src/repro_torch/csrc/rwkv6_scan_chunked.cu",
     "rwkv6_scan_bwd": "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
 }
 # the kernels' JSON rows: flash_attention's three CUDA kernels each have
-# one, the tensor-core kernel's (256, 256) instance (TMA producer) and its
-# (192, 128) instance (MLA's expanded prefill) one each of their own, the
+# one, the tensor-core kernel's (256, 256) instance (TMA producer), its
+# (192, 128) instance (MLA's expanded prefill) and its (112, 112) instance
+# (zamba2-7b's shared attention block) one each of their own, the
 # latent decode kernel one, and rwkv6_scan's two kernels one each; the
 # values are the keys of drive_lm_path's launches per kernel
 VARIANTS = {"flash_attention": "sm90", "flash_attention_tf32x3": "tf32x3",
             "flash_attention_decode": "decode", "flash_attention_sm90_h256": "sm90_h256",
-            "flash_attention_sm90_192": "sm90_192",
+            "flash_attention_sm90_192": "sm90_192", "flash_attention_sm90_112": "sm90_112",
             "flash_attention_latent_decode": "latent_decode"}
 RWKV_VARIANTS = {"rwkv6_scan": "seq", "rwkv6_scan_chunked": "chunked"}
 # distill_loss's JSON rows per entry of ``distill_loss.variant_launches``,
@@ -749,6 +769,15 @@ FLASH_CASES = [
     (1, 200, 200, 8, 2, 64, True, 70),
     (1, 96, 160, 8, 2, 128, False, 0),
     (2, 300, 300, 4, 4, 64, True, 0),
+    # the (112, 112) instances' edges (rows of 14 units in 128-wide tiles;
+    # 32-key tiles at fp32): Sq * G no multiple of 128, Sk no multiple of 64
+    # at q_offset 60, a window across tile edges, non-causal at G = 2, and
+    # zamba2-7b's parity prompt (32 heads, MHA)
+    (1, 77, 77, 4, 4, 112, True, 0),
+    (2, 40, 100, 4, 2, 112, True, 0),
+    (1, 200, 200, 8, 8, 112, True, 70),
+    (1, 96, 160, 8, 4, 112, False, 0),
+    (1, 128, 128, 32, 32, 112, True, 0),
 ]
 # the split-KV decode kernel's edges, one query against the cache
 # (B, Sk, N, K, H, causal, window, q_offset): G in {1, 3, 4, 8, 16}, every
@@ -764,6 +793,10 @@ DECODE_CASES = [
     (2, 300, 4, 2, 32, False, 0, 5),
     (1, 520, 16, 1, 64, True, 24, 400),
     (1, 520, 16, 1, 64, True, 0, 519),
+    # head_dim 112: a key row on 16 lanes (bf16; 32 in fp32), the last 2
+    # (4) idle; several splits, a window, G = 2
+    (1, 700, 4, 2, 112, True, 0, 650),
+    (2, 1000, 8, 8, 112, True, 100, 900),
 ]
 # ROADMAP C8, rows that see no key (a window that ends before the keys do),
 # through each of the three kernels and then the empty-row kernel:
@@ -774,6 +807,7 @@ C8_CASES = [
     (1, 128, 100, 24, 8, 128, True, 16, 40),  # sm90 in bf16, tf32x3 in fp32
     (1, 128, 100, 4, 2, 256, True, 16, 40),  # sm90's H 256 instance in bf16
     (1, 64, 64, 8, 2, 64, False, 8, 40),  # non-causal
+    (1, 128, 100, 4, 4, 112, True, 16, 40),  # sm90's (112, 112) in bf16, tf32x3 in fp32
 ]
 # deepseek-v2-lite-16b's expanded MLA prefill (src/repro/configs/
 # deepseek_v2_lite_16b.py: 16 heads, q and k 128 nope + 64 rope, v 128), at
@@ -817,6 +851,14 @@ GEMMA3_PREFILL = (1, 4096, 4096, 16, 8, 256)
 GEMMA3_DECODE = (8, 1, 4096, 16, 8, 256)
 GEMMA3_WINDOW = 1024
 FLASH_DECODE = (8, 1, 4096, 24, 8, 128)  # 8 requests against a 4096-long cache
+# zamba2-7b's shared attention block (src/repro/configs/zamba2_7b.py: 32
+# heads, MHA, head_dim 112) at its 4096-token prefill step and at a decode
+# step of the serving batch against its 4096-long cache: q_offset 0, 63
+# (one 64-key step of the decode kernel), 100 (a range that ends inside a
+# step) and 4095
+ZAMBA2_PREFILL = (1, 4096, 4096, 32, 32, 112)
+ZAMBA2_DECODE = (8, 1, 4096, 32, 32, 112)
+ZAMBA2_DECODE_OFFSETS = (0, 63, 100, 4095)
 # (B, T, H, hd, extreme): T <= 16 runs the sequential kernel, longer T the
 # chunked scan (ragged last chunks, many chunks, hd 128); extreme puts
 # w = 1e-30 at every 7th step and w = 1 in half the rows of every 5th
@@ -847,7 +889,12 @@ def check_flash_attention(dev):
     0.01). The prefill and decode shapes also run in fp32 at 3e-5, where
     a dropped or misread kv tile of the 4096-key walk (about 1e-3) fails.
     gemma3-12b's global and local layer shapes run in bf16, through the
-    tensor-core kernel's head_dim 256 instance. Each case names the kernel
+    tensor-core kernel's head_dim 256 instance; zamba2-7b's (head_dim 112:
+    the tensor-core kernel's (112, 112) instance, the decode kernel's lane
+    map with idle lanes, the 3xTF32 kernel's (112, 112) instance) at its
+    4096-token prefill and its decode step at q_offset 0, 63, 100 (a range
+    that ends inside a 64-key step) and 4095, in both dtypes. Each case
+    names the kernel
     that served it, and fails unless that is the one ``_variant`` picks (and,
     for the bf16 tensor-core kernel, the instance of its head_dim). At every
     decode case (one query) the 3xTF32 kernel, which the wrapper does not
@@ -870,6 +917,9 @@ def check_flash_attention(dev):
     cases += [((*FLASH_PREFILL, True, 0), dt, 0) for dt in both]
     cases += [((*GEMMA3_PREFILL, True, w), torch.bfloat16, 0) for w in (0, GEMMA3_WINDOW)]
     cases += [((*FLASH_DECODE, True, 0), dt, off) for dt in both for off in (0, 63, 4095)]
+    cases += [((*ZAMBA2_PREFILL, True, 0), dt, 0) for dt in both]
+    cases += [((*ZAMBA2_DECODE, True, 0), dt, off) for dt in both
+              for off in ZAMBA2_DECODE_OFFSETS]
     cases += [((*GEMMA3_DECODE, True, w), dt, off) for dt in both
               for w in (0, GEMMA3_WINDOW) for off in (63, 4095)]
     cases += [((B, 1, Sk, N, K, H, causal, window), dt, off)
@@ -906,7 +956,7 @@ def check_flash_attention(dev):
         instances = [h for h in sm90_launches if sm90_launches[h] > h_before[h]]
         empty = _lib.launches["flash_attention_empty_rows"] - empty_before
         variant = _variant(dtype, Sq, H, Hv)
-        row = row_of[{256: "sm90_h256", 192: "sm90_192"}.get(H, "sm90")
+        row = row_of[{256: "sm90_h256", 192: "sm90_192", 112: "sm90_112"}.get(H, "sm90")
                      if variant == "sm90" else variant]
         want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=qo)
         torch.cuda.synchronize()
@@ -2352,41 +2402,39 @@ def profile_dispatch(held):
     """The next round of each ``compare_dispatch`` run under
     ``torch.profiler``, serial then batched: the kernels launched in the
     round, the device's busy s and idle share, and the port's launches.
-    Run last: a later profiler window in a process can lose its first few
-    kernel records (PR 18), which matters to a window of a few kernels and
-    not to a round's 10^5."""
+    The window is ``profile_kernels``' (a marker lead-in; if every marker
+    is lost, the round after runs in a window with twice the lead-in),
+    device activity alone: a round's host ops number in the millions, and
+    reading them back took minutes. Run last."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl.profile_round import busy_us
     from repro_torch.kernels import ops
 
     for scenario, rounds, engines in held:
         for mode, engine in engines.items():
-            torch.cuda.synchronize()
-            ops.reset_launches()
-            # device activity only: the host ops of a round number in the
-            # millions, and reading them back took minutes
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ran = {}
+
+            def body(engine=engine, ran=ran):
+                ops.reset_launches()
+                ran["round"] = len(engine.round_s) + 1
                 t0 = time.perf_counter()
-                engine.run(rounds + 1, sync=torch.cuda.synchronize)
-                wall = time.perf_counter() - t0
+                engine.run(ran["round"], sync=torch.cuda.synchronize)
+                ran["wall"] = time.perf_counter() - t0
+
             t1 = time.perf_counter()
-            # the raw records: building prof.events()' tree of a round's
-            # records took 40 s a round
-            kernels = [(e.start_ns(), e.start_ns() + e.duration_ns())
-                       for e in prof.profiler.kineto_results.events()
-                       if e.device_type() == DeviceType.CUDA]
+            kernels, lead, lost = profile_kernels(torch.cuda.current_device(), body,
+                                                  host_ops=False)
             if not kernels:
                 fail("the profiler recorded no device activity")
-            busy = busy_us(kernels) / 1e9
-            print(f"{scenario} {mode:<7} round {rounds + 1} under the profiler: "
+            busy = busy_us([(t0, t1) for _, t0, t1 in kernels]) / 1e9
+            wall = ran["wall"]
+            print(f"{scenario} {mode:<7} round {ran['round']} under the profiler: "
                   f"{len(kernels)} kernels, device busy {busy:.4f} s of {wall:.4f} s "
                   f"(idle share {1 - busy / wall:.4f}), port launches "
                   f"{ {k: ops.launches[k] for k in DISPATCH_KERNELS} }, "
-                  f"dispatch stats {engine.dispatch_stats}; the trace read in "
-                  f"{time.perf_counter() - t1:.1f} s")
+                  f"dispatch stats {engine.dispatch_stats}; {lost} of a lead-in of {lead} "
+                  f"markers lost; window and trace {time.perf_counter() - t1:.1f} s")
 
 
 def attn_pairs(Sq, Sk, qo, causal, window) -> int:
@@ -2410,8 +2458,7 @@ def sdpa_backend(fn) -> str:
     fn()
     torch.cuda.synchronize()
     kernels, _, _ = profile_kernels(torch.cuda.current_device(), fn)
-    names = sorted(e.name for e in kernels
-                   if "elementwise" not in e.name and "Memset" not in e.name)
+    names = sorted(n for n, _, _ in kernels if "elementwise" not in n and "Memset" not in n)
     low = " ".join(names).lower()
     # cuDNN's own kernels carry "flash" in their names too, so test it first
     kind = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
@@ -2423,7 +2470,9 @@ def time_lm_kernels(dev):
     """Times at the LM serving path's shapes: flash_attention in bf16 at the
     4096-token prefill and at a decode step of 8 requests with the queries
     at position 63 (the middle of the serve run's 128 positions) and 4095
-    (a full cache); gemma3-12b's global and local layers (head_dim 256, the
+    (a full cache); zamba2-7b's shared attention block (32 heads of 112,
+    MHA) the same, and its prefill in fp32 on the 3xTF32 kernel;
+    gemma3-12b's global and local layers (head_dim 256, the
     tensor-core kernel's TMA instance) at a 4096-token prompt, and at a
     decode step of 8 requests (the split-KV kernel: the global layer at
     positions 63 and 4095, the local layer's 1024-key window at 4095); the
@@ -2471,6 +2520,11 @@ def time_lm_kernels(dev):
             ("flash_attention", "prefill", FLASH_PREFILL, 0, 0, bf16),
             ("flash_attention_sm90_192", "deepseek_prefill", (*MLA_PREFILL, MLA_HV), 0, 0,
              bf16),
+            ("flash_attention_sm90_112", "zamba2_prefill", ZAMBA2_PREFILL, 0, 0, bf16),
+            ("flash_attention_tf32x3", "zamba2_prefill_fp32", ZAMBA2_PREFILL, 0, 0,
+             torch.float32),
+            ("flash_attention_decode", "zamba2_decode", ZAMBA2_DECODE, 63, 0, bf16),
+            ("flash_attention_decode", "zamba2_decode", ZAMBA2_DECODE, 4095, 0, bf16),
             ("flash_attention_tf32x3", "deepseek_prefill_fp32", (*MLA_PREFILL, MLA_HV), 0, 0,
              torch.float32),
             ("flash_attention_decode", "decode", FLASH_DECODE, 63, 0, bf16),
@@ -2835,27 +2889,37 @@ PROFILE_LEAD_IN = 256
 PROFILE_LEAD_IN_MAX = 1 << 15
 
 
-def profile_kernels(dev, body):
-    """The device kernel events of ``body()`` under ``torch.profiler``, none
-    lost to the loss above: (events, lead-in kernels launched, markers
-    lost)."""
+def profile_kernels(dev, body, host_ops=True):
+    """The device kernel records of ``body()`` under ``torch.profiler``,
+    none lost to the loss above: (records, lead-in kernels launched,
+    markers lost), each record (name, start ns, end ns), read from the
+    profiler's raw records (building ``prof.events()``' tree of 16
+    zamba2-7b decode steps took most of a minute). ``host_ops``: record
+    host activity too. A window of device activity alone lost records
+    inside it, not only at its start (16 zamba2-7b decode steps on an
+    H100: 25.8 attention records a step of 26, 6,369.4 kernels of 6,440;
+    ROADMAP C14), so only ``profile_dispatch``, whose rounds issue millions of host
+    ops, leaves host activity out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     lead = PROFILE_LEAD_IN
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     while True:
         torch.cuda.synchronize(dev)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(lead):
                 torch.cuda._sleep(1)
             torch.cuda.synchronize(dev)
             body()
             torch.cuda.synchronize(dev)
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        marks = sum("spin_kernel" in e.name for e in kernels)
+        records = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA]
+        marks = sum("spin_kernel" in r[0] for r in records)
         if marks:
-            return [e for e in kernels if "spin_kernel" not in e.name], lead, lead - marks
+            return [r for r in records if "spin_kernel" not in r[0]], lead, lead - marks
         if lead >= PROFILE_LEAD_IN_MAX:
             fail(f"a profiler window lost all of a lead-in of {lead} kernels")
         lead *= 2
@@ -2876,7 +2940,7 @@ def profile_phases(dev, label, call, phases, calls=10):
             call()
 
     kernels, lead, lost = profile_kernels(dev, body)
-    us = {p: [e.time_range.elapsed_us() for e in kernels if p in e.name] for p in phases}
+    us = {p: [(t1 - t0) / 1e3 for n, t0, t1 in kernels if p in n] for p in phases}
     seen = {p: len(t) for p, t in us.items()}
     print(f"{label} kernels, device ms per launch (profiler, {calls} calls; "
           f"{len(kernels) - sum(seen.values())} other kernels seen; {lost} of a lead-in of "
@@ -2889,22 +2953,48 @@ def profile_phases(dev, label, call, phases, calls=10):
 LM_ARCHS = (("llama3.2-3b", 4096), ("rwkv6-1.6b", 1024))  # (arch, prefill step length)
 # the GQA families: gemma3-12b's sliding-window layers (head_dim 256),
 # nemotron-4-15b (LayerNorm, squared ReLU, G = 6), qwen2-moe-a2.7b's MoE
-# blocks (G = 1) and llama3-8b; ``--lm-families`` runs only these
+# blocks (G = 1) and llama3-8b; deepseek-v2-lite-16b's MLA; zamba2-7b's
+# mamba2 blocks and shared attention block (head_dim 112);
+# ``--lm-families`` runs only these
 LM_FAMILIES = (("gemma3-12b", 4096), ("nemotron-4-15b", 4096), ("qwen2-moe-a2.7b", 4096),
-               ("llama3-8b", 4096), ("deepseek-v2-lite-16b", 4096))
+               ("llama3-8b", 4096), ("deepseek-v2-lite-16b", 4096), ("zamba2-7b", 4096))
+# The served families' depth cut to keep the whole run within its time
+# (the served repeats of each pattern; full width, every kernel instance a
+# family launches still launched: gemma3-12b's local and global layers,
+# deepseek-v2-lite-16b's dense mla head block and its mla_moe blocks). The
+# models not named here are served at full depth.
+SERVE_REPEATS = {"gemma3-12b": 2, "nemotron-4-15b": 8, "qwen2-moe-a2.7b": 8, "llama3-8b": 8,
+                 "deepseek-v2-lite-16b": 8}
+
+
+def served_config(arch):
+    """``arch`` at full width, its depth cut to ``SERVE_REPEATS`` where it
+    names the architecture."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    if arch not in SERVE_REPEATS:
+        return cfg
+    n = SERVE_REPEATS[arch]
+    return replace(cfg, n_repeats=n, num_layers=cfg.num_layers - len(cfg.pattern) * (
+        cfg.n_repeats - n))
 LM_SERVE = dict(num_requests=8, prompt_len=64, gen_len=64, cache_len=4096)
 
 
 def expected_lm_launches(cfg):
     """Kernel launches of one serve run and one prefill step, from the
     layer list: each decode step and the prefill step run every layer once,
-    an attention layer (``attn``, ``local_attn``, ``moe``) or an MLA layer
+    an attention layer (``attn``, ``local_attn``, ``moe``, ``shared_attn``) or an MLA layer
     (``mla``, ``mla_moe``: the latent decode kernel at a decode step, the
     tensor-core kernel's (192, 128) instance at the prefill step, both
-    counted as flash_attention) one flash_attention launch, an rwkv6 layer
-    one rwkv6_scan launch; no other kernel of the repo (a ``moe`` or
-    ``mla_moe`` block's routing and expert products, and MLA's q_lat and
-    ctx W_uv, are torch ops and library products)."""
+    counted as flash_attention) one flash_attention launch, each occurrence
+    of a ``shared_attn`` block one flash_attention launch (zamba2-7b: 13 a
+    step, at head_dim 112), an rwkv6 layer one rwkv6_scan launch; no other
+    kernel of the repo (a ``moe`` or ``mla_moe`` block's routing and expert
+    products, MLA's q_lat and ctx W_uv, and a ``mamba2`` block, are torch
+    ops and library products)."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import ATTN_KINDS, MLA_KINDS
 
@@ -2917,8 +3007,9 @@ def expected_lm_launches(cfg):
 
 
 def drive_lm_path(dev, arch, prefill_len):
-    """The LM serving path at full width and depth, bf16: ``serve`` as
-    ``--full`` runs it, then one prefill step at batch 1."""
+    """The LM serving path at full width and depth (``served_config``: some
+    families' depth cut), bf16: ``serve`` as ``--full`` runs it, then one
+    prefill step at batch 1."""
     import gc
 
     import numpy as np
@@ -2932,23 +3023,28 @@ def drive_lm_path(dev, arch, prefill_len):
     from repro_torch.launch.steps import default_opts, make_prefill_step
     from repro_torch.models.layers import padded_vocab
     from repro_torch.models.transformer import ATTN_KINDS, MLA_KINDS, init_params
+    from repro_torch.tree import tree_leaves
 
-    cfg = get_arch(arch)
+    cfg = served_config(arch)
     kinds = {k: sum(b.kind == k for b in cfg.blocks) for k in dict.fromkeys(
         b.kind for b in cfg.blocks)}
-    print(f"{arch}: {cfg.num_layers} layers {kinds}, d_model {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
-          f"{cfg.param_count() / 1e9:.3f} B parameters, {cfg.param_dtype}")
+    full = get_arch(arch).num_layers
+    print(f"{arch}: {cfg.num_layers} layers" + (f" (of {full}: depth cut)" if
+                                                 cfg.num_layers != full else "")
+          + f" {kinds}, d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}, {cfg.param_dtype}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    res = serve(arch, use_reduced=False, device=dev, **LM_SERVE)
+    res = serve(cfg, use_reduced=False, device=dev, **LM_SERVE)
     serve_peak = torch.cuda.max_memory_allocated()
     serve_variants = dict(variant_launches)
     serve_rwkv = dict(rwkv_launches)
 
     opts = default_opts(cfg)
     params = init_params(cfg, opts, seed=1, device=dev)
+    print(f"{arch}: {sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B parameters "
+          "served (a shared block once)")
     toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (1, prefill_len))
     toks = torch.from_numpy(toks).to(dev)
     torch.cuda.synchronize()
@@ -2965,9 +3061,10 @@ def drive_lm_path(dev, arch, prefill_len):
     decode_steps = LM_SERVE["prompt_len"] + LM_SERVE["gen_len"]
     # the prefill step's attention layers on the tensor-core kernel (at
     # head_dim 256 its own instance, MLA's expanded form on its (192, 128)
-    # one), the decode steps' (Sq = 1) on the split-KV decode kernel, or for
-    # MLA on the latent decode kernel, none on the 3xTF32 kernel (every
-    # serving model is bf16 at (64, 64), (128, 128), (256, 256) or (192, 128))
+    # one, zamba2-7b's shared block on its (112, 112) one), the decode
+    # steps' (Sq = 1) on the split-KV decode kernel, or for MLA on the
+    # latent decode kernel, none on the 3xTF32 kernel (every serving model
+    # is bf16 at (64, 64), (128, 128), (256, 256), (192, 128) or (112, 112))
     want_variants = {"sm90": n_attn + n_mla, "tf32x3": 0, "decode": decode_steps * n_attn,
                      "latent_decode": decode_steps * n_mla}
     pairs = ([(cfg.head_dim, cfg.head_dim)] * n_attn
@@ -3026,11 +3123,14 @@ def drive_lm_path(dev, arch, prefill_len):
     del params, logits
     gc.collect()
     torch.cuda.empty_cache()
-    # launches per JSON row's kernel: the tensor-core kernel's (256, 256) and
-    # (192, 128) instances apart from its (64, 64) / (128, 128) ones
+    # launches per JSON row's kernel: the tensor-core kernel's (256, 256),
+    # (192, 128) and (112, 112) instances apart from its (64, 64) / (128,
+    # 128) ones
     per_kernel = {**variants, **rwkv,
-                  "sm90": variants["sm90"] - instances[(256, 256)] - instances[(192, 128)],
-                  "sm90_h256": instances[(256, 256)], "sm90_192": instances[(192, 128)]}
+                  "sm90": variants["sm90"] - instances[(256, 256)] - instances[(192, 128)]
+                  - instances[(112, 112)],
+                  "sm90_h256": instances[(256, 256)], "sm90_192": instances[(192, 128)],
+                  "sm90_112": instances[(112, 112)]}
     return counts, per_kernel, dict(
         serve_prefill_s=res.prefill_s, gen_s=res.gen_s, tokens_per_s=res.tokens_per_s,
         ms_per_step=res.ms_per_step, prefill_step_s=prefill_s, peak_mib=peak / 2**20,
@@ -3081,9 +3181,9 @@ def time_decode_at(dev, cfg, opts, params, pos, steps=16):
     kernels, lead, lost = profile_kernels(dev, lambda: run(steps))
     if not kernels:
         fail("the profiler recorded no device activity in the decode steps")
-    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
-    attn = [e for e in kernels if "flash_decode_" in e.name or "latent_decode_" in e.name]
-    attn_ms = sum(e.time_range.elapsed_us() for e in attn) / 1e3 / steps
+    busy = busy_us([(t0, t1) for _, t0, t1 in kernels]) / 1e6 / steps
+    attn = [(t0, t1) for n, t0, t1 in kernels if "flash_decode_" in n or "latent_decode_" in n]
+    attn_ms = sum(t1 - t0 for t0, t1 in attn) / 1e6 / steps
     print(f"decode step at position {pos} of a full cache (batch {B}): {wall:.4f} ms wall "
           f"per step; device busy {busy:.4f} ms per step (profiler, union of kernel "
           f"intervals), idle share {1 - busy / wall:.4f}; decode attention "
@@ -3107,7 +3207,9 @@ def two_layer_config(arch):
     the dense ``mla`` layer and one ``mla_moe``), or, for gemma3-12b's (local
     x 5, global) pattern, its first and last blocks (one local and one
     global layer) with the window cut to ``PARITY_WINDOW`` tokens, so that a
-    short run reaches past it."""
+    short run reaches past it; zamba2-7b's (mamba2 x 5, shared_attn)
+    pattern to its first and last block, repeated twice (four layers, no
+    tail)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_arch
@@ -3116,6 +3218,11 @@ def two_layer_config(arch):
                   compute_dtype="float32")
     if len(cfg.pattern) == 1:
         return replace(cfg, n_repeats=2 - len(cfg.head_blocks))
+    if any(b.shared for b in cfg.pattern):
+        # zamba2-7b: (mamba2, shared_attn) twice, so two mamba2 blocks and
+        # two occurrences of the one shared block, each with its own cache
+        return replace(cfg, pattern=(cfg.pattern[0], cfg.pattern[-1]), n_repeats=2,
+                       tail_blocks=(), num_layers=4)
     return replace(cfg, pattern=(cfg.pattern[0], cfg.pattern[-1]), n_repeats=1,
                    sliding_window=min(cfg.sliding_window, PARITY_WINDOW))
 
@@ -3166,7 +3273,8 @@ def check_lm_parity(dev, arch):
         top2 = c.topk(2, dim=-1).values
         sure = (top2[..., 0] - top2[..., 1]) > bound
         same = bool((g.argmax(-1) == c.argmax(-1))[sure].all())
-        print(f"{arch} 2 layers ({layers}) fp32 {name}: logits max|card - CPU| {err:.3e}, "
+        print(f"{arch} {cfg.num_layers} layers ({layers}) fp32 {name}: logits max|card - CPU| "
+              f"{err:.3e}, "
               f"bound {bound:.3e} (1e-4 of max|logit|); greedy tokens identical at "
               f"{int(sure.sum())} of {sure.numel()} positions with a margin above it: {same}")
         if err > bound or not same:
@@ -3213,6 +3321,7 @@ def drive_train_path(dev, arch="llama3.2-3b"):
     from repro_torch.kernels import ops
     from repro_torch.kernels.distill_loss import variant_launches as distill_launches
     from repro_torch.kernels.rwkv6_scan import variant_launches as rwkv_launches
+    from repro_torch.launch.train import PROFILE_LEAD_IN as TRAIN_LEAD_IN
     from repro_torch.launch.train import train_lm
 
     cfg = get_arch(arch)
@@ -3238,7 +3347,8 @@ def drive_train_path(dev, arch="llama3.2-3b"):
     print(f"train step {LM_TRAIN['steps']} under torch.profiler: device busy "
           f"{1e3 * res.profile['busy_s']:.4f} ms, idle share {res.profile['idle_share']:.4f} "
           f"of step {LM_TRAIN['steps'] - 1}'s wall, "
-          f"{res.profile['kernels_per_step']:.1f} kernels")
+          f"{res.profile['kernels_per_step']:.1f} kernels; {res.profile['markers_lost']} of "
+          f"the window's lead-in of {TRAIN_LEAD_IN} markers lost")
     print(f"training peak max_memory_allocated: {peak / 2**20:.1f} MiB "
           f"({peak / 1e9:.2f} GB)")
     print(f"launches: {counts}  predicted from the layer list: {want}")
@@ -3246,6 +3356,9 @@ def drive_train_path(dev, arch="llama3.2-3b"):
           f"entry and kernel: {ce}")
     if not res.profile["busy_s"] > 0:
         fail("the profiler recorded no device time in the training step")
+    if res.profile["markers_lost"] >= TRAIN_LEAD_IN:
+        fail("the training step's profiler window lost its whole lead-in: its first "
+             "kernel records may be lost too (ROADMAP C14)")
     if not all(math.isfinite(v) for v in res.losses + res.grad_norms):
         fail(f"non-finite training loss or grad norm: {res.losses} {res.grad_norms}")
     if counts != want:
@@ -3545,7 +3658,8 @@ def run_lm_families(dev) -> None:
         phase(f"LM serving path: {arch}, full width and depth, bf16")
         drive_lm_path(dev, arch, prefill_len)
     for arch, _ in LM_FAMILIES:
-        phase(f"LM parity: {arch}, full width, two layers, fp32, the card vs the CPU")
+        phase(f"LM parity: {arch}, full width, {two_layer_config(arch).num_layers} layers, "
+              "fp32, the card vs the CPU")
         check_lm_parity(dev, arch)
     for arch in TRAIN_PARITY_FAMILIES:
         phase(f"training parity: {arch}, full width, two layers, fp32, the card vs the CPU")
@@ -3666,7 +3780,8 @@ def main() -> None:
         for k, variant in lm_variants.items():
             counts[k] += variants[variant]
     for arch, _ in LM_ARCHS + LM_FAMILIES:
-        phase(f"LM parity: {arch}, full width, two layers, fp32, the card vs the CPU")
+        phase(f"LM parity: {arch}, full width, {two_layer_config(arch).num_layers} layers, "
+              "fp32, the card vs the CPU")
         check_lm_parity(dev, arch)
     # the training paths' launches: the loss's distill_loss CE entry, and
     # rwkv6's scans (each forward on the chunked kernel) and their backward
@@ -3731,6 +3846,7 @@ def main() -> None:
             "flash_attention_decode": ("decode", 4095),
             "flash_attention_sm90_h256": ("gemma3_global", 0),
             "flash_attention_sm90_192": ("deepseek_prefill", 0),
+            "flash_attention_sm90_112": ("zamba2_prefill", 0),
             "flash_attention_latent_decode": ("decode", 4095),
             "rwkv6_scan": ("decode", None), "rwkv6_scan_chunked": ("prefill", None),
             "rwkv6_scan_bwd": ("train", None)}

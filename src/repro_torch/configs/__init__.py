@@ -16,7 +16,8 @@ from repro_torch.configs.base import (  # noqa: F401
 
 def load_all() -> None:
     """Import the architectures the port runs (registration side effects);
-    the reference's other three wait for their block kinds (ROADMAP A6.3)."""
+    the reference's other two wait for the encoder-decoder model and the
+    media frontend (ROADMAP A6.3)."""
     from repro_torch.configs import (  # noqa: F401
         deepseek_v2_lite_16b,
         gemma3_12b,
@@ -25,4 +26,5 @@ def load_all() -> None:
         nemotron_4_15b,
         qwen2_moe_a2_7b,
         rwkv6_1_6b,
+        zamba2_7b,
     )

@@ -6,13 +6,14 @@
 // block) grid with the kv axis sequential) for the calls the wrapper
 // (repro_torch/kernels/flash_attention.py:_variant, "tf32x3") sends here:
 // every prefill (Sq > 1) in fp32, and bf16 prefill at H = 32. bf16 prefill
-// at (H, Hv) in {(64, 64), (128, 128), (256, 256), (192, 128)} goes to
-// flash_attention_sm90.cu and every Sq = 1 call to
+// at (H, Hv) in {(64, 64), (128, 128), (256, 256), (192, 128), (112, 112)}
+// goes to flash_attention_sm90.cu and every Sq = 1 call to
 // flash_attention_decode.cu; launched directly, this kernel takes any Sq >=
-// 1 in either dtype at (H, Hv) in {(32, 32), (64, 64), (128, 128), (256,
-// 256), (192, 128)}. (192, 128) is deepseek-v2-lite-16b's MLA prefill in
-// its expanded form (q and k 128 nope + 64 rope columns, v 128), which the
-// card-vs-CPU parity runs in fp32.
+// 1 in either dtype at (H, Hv) in {(32, 32), (64, 64), (112, 112), (128,
+// 128), (256, 256), (192, 128)}. (192, 128) is deepseek-v2-lite-16b's MLA
+// prefill in its expanded form (q and k 128 nope + 64 rope columns, v
+// 128), and (112, 112) zamba2-7b's shared attention block, which the
+// card-vs-CPU parities run in fp32.
 //
 //   o[b, i, n] = softmax_j(scale * q[b, i, n] . k[b, j, n / G]) v[b, j, n / G]
 //
@@ -81,10 +82,12 @@
 //   H = 256 it is 64 rows (4 warps) with 32-key tiles: 128 rows of Q and
 //   two stages of K and V would not fit in 227 KB. At (192, 128) it is 128
 //   rows with 32-key tiles: Q 96 KB and two stages of K (25 KB each) and V
-//   (16.5 KB each) in fp32, 179 KB. At H = 32 it is 64 rows with 32-key
-//   tiles, four blocks an SM within 128 registers: the reduced configs'
-//   calls are a few dozen to a thousand blocks, and smaller blocks spread
-//   them over more SMs.
+//   (16.5 KB each) in fp32, 179 KB. At (112, 112) it is 64 rows (4 warps)
+//   with 32-key tiles, as every H that is neither 64 nor 128: 14 k8 steps
+//   of S, O 56 registers a thread, 87 KB in fp32. At H = 32 it is 64 rows
+//   with 32-key tiles, four blocks an SM within 128 registers: the reduced
+//   configs' calls are a few dozen to a thousand blocks, and smaller blocks
+//   spread them over more SMs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -472,6 +475,8 @@ cudaError_t dispatch(int H, int Hv, const void* q, const void* k, const void* v,
       return launch<T, 32, 32>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
     case 64:
       return launch<T, 64, 64>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
+    case 112:
+      return launch<T, 112, 112>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
     case 128:
       return launch<T, 128, 128>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len, scale, stream);
     case 256:
@@ -490,6 +495,8 @@ cudaError_t attrs(int H, int Hv, cudaFuncAttributes* a) {
       return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 32, 32>);
     case 64:
       return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 64, 64>);
+    case 112:
+      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 112, 112>);
     case 128:
       return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 128, 128>);
     case 256:
@@ -503,7 +510,8 @@ cudaError_t attrs(int H, int Hv, cudaFuncAttributes* a) {
 
 // is_bf16: 0 for fp32 q/k/v/o, 1 for bf16. q and k (.., H), v and o (..,
 // Hv); pointers 16-byte aligned and contiguous; (H, Hv) in {(32, 32), (64,
-// 64), (128, 128), (256, 256), (192, 128)} (else cudaErrorInvalidValue);
+// 64), (112, 112), (128, 128), (256, 256), (192, 128)} (else
+// cudaErrorInvalidValue);
 // N % K == 0 (the wrapper checks).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int Sq, int Sk, int N, int K, int H, int Hv, int is_bf16,

@@ -29,10 +29,15 @@
 //   heads share each K/V row it reads (GQA costs no extra reads), their
 //   scaled q rows held in registers in fp32.
 // - A key row is read by a group of LPK lanes with 16-byte loads (LPK = H
-//   elements / 8 for bf16, / 4 for fp32, at most 32); the dot product is
-//   reduced by shuffles within the group. The warps and lane groups take
-//   interleaved keys, and each lane issues the loads of U keys before it
-//   uses any, so many loads are in flight per thread.
+//   elements / 8 for bf16, / 4 for fp32, rounded up to a power of two, at
+//   most 32); the dot product is reduced by xor shuffles within the group,
+//   which need LPK to be a power of two that divides 32. At H = 112
+//   (zamba2-7b's shared attention block) a row is 14 loads in bf16 and 28
+//   in fp32: LPK is 16 and 32, and the lanes past the row's last load are
+//   idle (they load nothing, hold zeros and add zeros to the sums). The
+//   warps and lane groups take interleaved keys, and each lane issues the
+//   loads of U keys before it uses any, so many loads are in flight per
+//   thread.
 // - Each lane group keeps its own online softmax per row (scores in the
 //   log2 domain, q pre-scaled by scale * log2 e); at the end the groups of a
 //   warp merge by shuffles and the warps through shared memory, in a fixed
@@ -56,15 +61,24 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRows = 8;  // q heads per block
 
+constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
 template <typename T, int H, int GT>
 struct Layout {
   static constexpr int VE = 16 / (int)sizeof(T);                // elements per 16-byte load
-  static constexpr int LPK = H / VE < 32 ? H / VE : 32;         // lanes per key row
-  static constexpr int PIECES = H / (LPK * VE);                 // 16-byte loads per row and lane
+  static constexpr int UNITS = H / VE;                          // 16-byte loads per row
+  static constexpr int LPK = UNITS < 32 ? pow2_ceil(UNITS) : 32;  // lanes per key row
+  static constexpr int PIECES = (UNITS + LPK - 1) / LPK;        // 16-byte loads per row and lane
+  static constexpr bool IDLE = PIECES * LPK != UNITS;           // some lanes load nothing
   static constexpr int EPL = PIECES * VE;                       // elements per lane
   static constexpr int KPW = 32 / LPK;                          // keys per warp at once
   static constexpr int U = GT >= 8 ? 2 : (GT >= 4 ? 4 : 8);     // keys per lane in flight
   static constexpr int STEP = kWarps * KPW * U;                 // keys per block step
+  static_assert(H % VE == 0 && (IDLE ? PIECES == 1 : UNITS % LPK == 0), "no lane map for H");
+  // whether load p of lane gl holds columns of the row
+  static __device__ __forceinline__ bool holds(int p, int gl) {
+    return !IDLE || p * LPK + gl < UNITS;
+  }
 };
 
 __device__ __forceinline__ void unpack(const uint4& x, float* out, float) {
@@ -125,7 +139,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
     for (int p = 0; p < L::PIECES; ++p) {
       float x[L::VE];
-      if (r < rows) {
+      if (r < rows && L::holds(p, gl)) {
         const T* src = q + ((long long)b * N + (long long)kvh * G + g0 + r) * H +
                        p * L::LPK * L::VE + gl * L::VE;
         unpack(*reinterpret_cast<const uint4*>(src), x, T());
@@ -160,7 +174,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k, const T* __
       ok[u] = j <= s1;
 #pragma unroll
       for (int p = 0; p < L::PIECES; ++p) {
-        if (ok[u]) {
+        if (ok[u] && L::holds(p, gl)) {
           const long long off = base_off + j * row_stride + p * L::LPK * L::VE;
           kr[u][p] = __ldg(reinterpret_cast<const uint4*>(k + off));
           vr[u][p] = __ldg(reinterpret_cast<const uint4*>(v + off));
@@ -252,6 +266,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k, const T* __
     for (int r = 0; r < GT; ++r) {
 #pragma unroll
       for (int p = 0; p < L::PIECES; ++p) {
+        if (!L::holds(p, gl)) continue;
 #pragma unroll
         for (int e = 0; e < L::VE; ++e)
           sm_acc[warp][r][p * L::LPK * L::VE + gl * L::VE + e] = acc[r][p * L::VE + e];
@@ -295,7 +310,7 @@ template <typename T, int H>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_merge(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
                    T* __restrict__ o, long long rows_total, int splits) {
-  constexpr int CPL = H / 32;  // columns per lane
+  constexpr int CPL = (H + 31) / 32;  // columns per lane (the last partial at H = 112)
   const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows_total) return;
@@ -310,11 +325,13 @@ flash_decode_merge(const float* __restrict__ ws_acc, const float* __restrict__ w
     lsum += ml[2 * s + 1] * f;
     const float* src = ws_acc + (row * splits + s) * H + lane;
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) a[c] += src[32 * c] * f;
+    for (int c = 0; c < CPL; ++c)
+      if (H % 32 == 0 || lane + 32 * c < H) a[c] += src[32 * c] * f;
   }
   const float denom = fmaxf(lsum, 1e-30f);
 #pragma unroll
-  for (int c = 0; c < CPL; ++c) store(o + row * H + lane + 32 * c, a[c] / denom);
+  for (int c = 0; c < CPL; ++c)
+    if (H % 32 == 0 || lane + 32 * c < H) store(o + row * H + lane + 32 * c, a[c] / denom);
 }
 
 template <typename T, int H, int GT>
@@ -370,6 +387,9 @@ cudaError_t by_head_dim(int H, int G, const void* q, const void* k, const void* 
     case 64:
       return by_group<T, 64>(G, q, k, v, o, ws, B, Sk, N, K, causal, window, q_offset, k_len,
                              scale, chunk, splits, stream);
+    case 112:
+      return by_group<T, 112>(G, q, k, v, o, ws, B, Sk, N, K, causal, window, q_offset, k_len,
+                              scale, chunk, splits, stream);
     case 128:
       return by_group<T, 128>(G, q, k, v, o, ws, B, Sk, N, K, causal, window, q_offset, k_len,
                               scale, chunk, splits, stream);
@@ -384,7 +404,7 @@ cudaError_t by_head_dim(int H, int G, const void* q, const void* k, const void* 
 }  // namespace
 
 // q (B, 1, N, H), k and v (B, Sk, K, H), o like q; is_bf16: 0 for fp32, 1
-// for bf16. Pointers 16-byte aligned and contiguous; H in {32, 64, 128, 256};
+// for bf16. Pointers 16-byte aligned and contiguous; H in {32, 64, 112, 128, 256};
 // N % K == 0 (the wrapper checks). chunk and splits cover the visible key
 // range (chunk * splits >= its length, no split empty; splits = 0 when it
 // is empty). ws: fp32 workspace of B * N * splits * (H + 2) floats when

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py:_kernel for the
 // calls the wrapper (repro_torch/kernels/flash_attention.py:_variant) sends
 // here: q, k, v in bf16, (q and k's head_dim H, v's Hv) in {(64, 64),
-// (128, 128), (256, 256), (192, 128)}, more than one query (a prefill).
+// (128, 128), (256, 256), (192, 128), (112, 112)}, more than one query (a
+// prefill).
 // Decode (Sq = 1) goes to flash_attention_decode.cu; fp32 prefill at every
 // head_dim, and bf16 prefill at H = 32, go to the 3xTF32 kernel in
 // flash_attention.cu. (64, 64), (128, 128) and (192, 128) run
@@ -11,6 +12,8 @@
 // flash_sm90_h256_kernel, the same arithmetic with a TMA producer,
 // described above it. (192, 128) is deepseek-v2-lite-16b's MLA prefill in
 // its expanded form: q and k are 128 nope + 64 rope columns, v 128.
+// (112, 112) is zamba2-7b's shared attention block (32 heads of 112) and
+// runs flash_sm90_kernel too, on tiles padded to 128 columns (below).
 //
 //   o[b, i, n] = softmax_j(scale * q[b, i, n] . k[b, j, n / G]) v[b, j, n / G]
 //
@@ -61,6 +64,19 @@
 //   12 k16 steps; V and O as at (128, 128). Shared memory Q 48 KB + K 2 x
 //   24 KB + V 2 x 16 KB = 128 KB, one block an SM as at (128, 128). The
 //   scale is H^-0.5 = 192^-0.5, the reference's (nope + rope)^-0.5.
+// - (112, 112): a row is 14 of the 16-byte units, so each tile is laid out
+//   as at (128, 128) (two 64-column swizzle chunks; 96 KB, one block an SM)
+//   and the loaders copy units 0-13 only. S = Q K^T takes 7 k16 steps,
+//   which read columns 0-111: units 14-15 of Q and K are never read. P V
+//   runs as m64n128k16, the (128, 128) instance's product and O fragment,
+//   over V's 128 staged columns: units 14-15 of V are zeroed once in
+//   shared memory at the start (never loaded from global memory; the
+//   loaders never write them), so O's columns 112-127 are zeros, and the
+//   epilogue writes columns 0-111 only. m64n112k16 is a legal wgmma too,
+//   but its N is no multiple of the 64-column swizzle atom of an MN-major
+//   B; the padded N keeps the layout the (128, 128) instance runs, for 14%
+//   more P V work (2 H + 4 x 128 flops a pair in place of 2 H + 4 H). The
+//   scale is 112^-0.5, the head_dim's own.
 //
 // No TMA and no warp specialisation (producer warp, setmaxnreg, mbarrier
 // ring): every thread loads and computes, and tiles are synchronised with
@@ -88,11 +104,14 @@ template <int H, int HV>
 struct Cfg {
   static constexpr int UNITS = H / 8;                 // 16-byte units per q or k row
   static constexpr int V_UNITS = HV / 8;              // 16-byte units per v or o row
-  static constexpr int Q_BYTES = kBM * H * 2;
-  static constexpr int K_BYTES = kBN * H * 2;         // one K tile
-  static constexpr int V_BYTES = kBN * HV * 2;        // one V tile
+  static constexpr int HP = (H + 63) / 64 * 64;       // staged q / k row: whole swizzle chunks
+  static constexpr int HVP = (HV + 63) / 64 * 64;     // staged v row, and O's columns
+  static constexpr int Q_BYTES = kBM * HP * 2;
+  static constexpr int K_BYTES = kBN * HP * 2;        // one K tile
+  static constexpr int V_BYTES = kBN * HVP * 2;       // one V tile
   static constexpr int SMEM = Q_BYTES + 2 * (K_BYTES + V_BYTES) + 1024;  // + room to align
-  static constexpr int O_REGS = HV / 2;               // m64nHvk16 fp32 fragment
+  static constexpr int O_REGS = HVP / 2;              // m64nHVPk16 fp32 fragment
+  static_assert(H % 16 == 0 && HV % 8 == 0, "S takes k16 steps; rows are 16-byte units");
 };
 
 // Byte offset of 16-byte unit u of row r in a tile of R rows laid out for
@@ -228,6 +247,17 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle repeats every 1 KB
   const uint32_t sK = sQ + C::Q_BYTES;                         // 2 stages
   const uint32_t sV = sK + 2 * C::K_BYTES;                     // 2 stages
+  if constexpr (C::HVP != HV) {
+    // V's padding units (never loaded) are zeros, so O's padding columns
+    // are; the first __syncthreads and proxy fence below publish them
+    for (int e = threadIdx.x; e < 2 * kBN * (C::HVP - HV) / 8; e += kThreads) {
+      const int per = (C::HVP - HV) / 8, row = e / per, u = HV / 8 + e % per;
+      const uint32_t dst = sV + (uint32_t)(row / kBN) * C::V_BYTES + swz<kBN>(row % kBN, u);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(0u), "r"(0u),
+                   "r"(0u), "r"(0u)
+                   : "memory");
+    }
+  }
 
   // blocks heaviest first: the q block index runs slowest, in reverse
   const int G = N / K;
@@ -813,7 +843,8 @@ cudaError_t launch_h256(const void* q, const void* k, const void* v, void* o, in
 
 // bf16 q/k/v/o only. q and k (.., H), v and o (.., Hv); pointers 16-byte
 // aligned and contiguous; (H, Hv) in {(64, 64), (128, 128), (256, 256),
-// (192, 128)} (else cudaErrorInvalidValue); N % K == 0 (the wrapper checks).
+// (192, 128), (112, 112)} (else cudaErrorInvalidValue); N % K == 0 (the
+// wrapper checks).
 extern "C" int flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
                                     int B, int Sq, int Sk, int N, int K, int H, int Hv,
                                     int causal, int window, long long q_offset, int k_len,
@@ -827,6 +858,9 @@ extern "C" int flash_attention_sm90(const void* q, const void* k, const void* v,
                                  scale, stream);
   if (H == 192 && Hv == 128)
     return (int)launch<192, 128>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
+                                 scale, stream);
+  if (H == 112 && Hv == 112)
+    return (int)launch<112, 112>(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
                                  scale, stream);
   if (H == 256 && Hv == 256)
     return (int)launch_h256(q, k, v, o, B, Sq, Sk, N, K, causal, window, q_offset, k_len,
@@ -847,6 +881,8 @@ extern "C" int flash_attention_sm90_attrs(int H, int Hv, int* regs, long long* l
     e = cudaFuncGetAttributes(&a, flash_sm90_kernel<128, 128>);
   else if (H == 192 && Hv == 128)
     e = cudaFuncGetAttributes(&a, flash_sm90_kernel<192, 128>);
+  else if (H == 112 && Hv == 112)
+    e = cudaFuncGetAttributes(&a, flash_sm90_kernel<112, 112>);
   else if (H == 256 && Hv == 256)
     e = cudaFuncGetAttributes(&a, flash_sm90_h256_kernel);
   else

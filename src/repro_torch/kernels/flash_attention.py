@@ -19,15 +19,19 @@ raises (it never retries on another kernel); on a CPU tensor it computes
 the plain version in ``ref.py``:
 
 - ``"decode"``, ``repro_torch/csrc/flash_attention_decode.cu``: every call
-  with Sq = 1, fp32 or bf16, any head_dim in ``HEAD_DIMS`` with Hv = H.
+  with Sq = 1, fp32 or bf16, any head_dim in ``HEAD_DIMS`` with Hv = H
+  (at 112 a key row is spread over a power-of-two group of lanes, some of
+  them idle);
   The kv range is split across blocks by ``_decode_plan`` and the partial
   softmax states are merged;
 - ``"sm90"``, ``repro_torch/csrc/flash_attention_sm90.cu``: bf16 prefill
   (Sq > 1) at (H, Hv) in ``SM90_INSTANCES``, both products on the tensor
   cores (wgmma); (256, 256) (gemma3-12b's) runs an instance of its own,
   with a TMA producer warpgroup, and (192, 128) (deepseek-v2-lite-16b's
-  MLA prefill) an instance of the (64, 64) / (128, 128) kernel with Q and
-  K 192 wide;
+  MLA prefill) and (112, 112) (zamba2-7b's shared attention block)
+  instances of the (64, 64) / (128, 128) kernel, with Q and K 192 wide,
+  or with rows of 112 staged in 128-wide tiles whose last 16 columns are
+  zeros;
 - ``"tf32x3"``, ``repro_torch/csrc/flash_attention.cu``: the rest of
   prefill (fp32 at every (H, Hv) of ``TF32X3_INSTANCES``, bf16 at head_dim
   32), both products on the tensor cores as 3xTF32 (each operand split
@@ -79,10 +83,10 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ref as R
 
-HEAD_DIMS = (32, 64, 128, 256)  # the decode kernel's, H = Hv
+HEAD_DIMS = (32, 64, 112, 128, 256)  # the decode kernel's, H = Hv
 # (H, Hv) instances: q and k's head_dim, v's
-SM90_INSTANCES = ((64, 64), (128, 128), (256, 256), (192, 128))
-TF32X3_INSTANCES = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
+SM90_INSTANCES = ((64, 64), (128, 128), (256, 256), (192, 128), (112, 112))
+TF32X3_INSTANCES = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128), (112, 112))
 DTYPES = (torch.float32, torch.bfloat16)
 # the latent decode kernel's one instance: deepseek-v2-lite-16b's cache rows
 # (kv_lora_rank 512 + qk_rope_dim 64), of which the first 512 are v, and

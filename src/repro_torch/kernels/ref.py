@@ -223,6 +223,33 @@ def latent_decode_ref(q, c_kv, k_rope, *, scale, q_offset):
     return torch.einsum("bnqs,bsl->bqnl", p, ckv)
 
 
+# --- mamba2 scan -------------------------------------------------------------
+
+
+def mamba2_scan_ref(x, dt, A, B, C, s0, dtype=torch.float32):
+    """Exact Mamba2 (SSD) recurrence, step for step as the reference's
+    ``lax.scan`` in ``repro.models.ssm.mamba2_block``:
+
+      a_t = exp(dt_t A);  s <- a_t s + (dt_t x_t) (x) B_t;  y_t = s . C_t
+
+    x (Bt, S, H, P), dt (Bt, S, H), A (H,) (negative rates), B and C
+    (Bt, S, N), s0 (Bt, H, P, N). Returns (y (Bt, S, H, P), sT), computed
+    in ``dtype``; y has no D x skip term. The reference has no Pallas
+    kernel here (its scan is XLA's), so this is the plain version the
+    chunked form (``models.ssm.mamba2_scan_chunked``) is held to, and the
+    one decode runs (S = 1)."""
+    x, dt, A, B, C = (t.to(dtype) for t in (x, dt, A, B, C))
+    a = torch.exp(dt * A)
+    s = s0.to(dtype)
+    ys = []
+    for t in range(x.shape[1]):
+        s = (a[:, t, :, None, None] * s
+             + (dt[:, t, :, None] * x[:, t])[..., None] * B[:, t, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", s, C[:, t]))
+    y = torch.stack(ys, 1) if ys else x.new_zeros(x.shape)
+    return y, s
+
+
 # --- rwkv6 scan --------------------------------------------------------------
 
 

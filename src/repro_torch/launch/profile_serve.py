@@ -21,7 +21,7 @@ import time
 from repro_torch.fl.profile_round import TOP, busy_us
 
 ARCHS = ("llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "nemotron-4-15b", "qwen2-moe-a2.7b",
-         "llama3-8b", "deepseek-v2-lite-16b")
+         "llama3-8b", "deepseek-v2-lite-16b", "zamba2-7b")
 
 
 def profile_decode(arch: str, *, requests: int = 8, prompt_len: int = 64,

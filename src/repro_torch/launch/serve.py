@@ -6,9 +6,11 @@ batched greedy generation with the same ``serve_step``. Every attention
 layer (``attn``, gemma3-12b's sliding-window ``local_attn``, the attention
 half of qwen2-moe-a2.7b's ``moe`` blocks) runs the ``flash_attention``
 kernel, every MLA layer of deepseek-v2-lite-16b (``mla``, ``mla_moe``)
-the latent decode kernel over its compressed cache, and every RWKV6
-time-mix the ``rwkv6_scan`` kernel on the card; ``--arch`` takes every
-architecture the port registers.
+the latent decode kernel over its compressed cache, every occurrence of
+zamba2-7b's shared attention block the ``flash_attention`` kernel at head
+dim 112 (its mamba2 blocks run torch ops: the reference's scan is XLA's,
+no Pallas kernel), and every RWKV6 time-mix the ``rwkv6_scan`` kernel on
+the card; ``--arch`` takes every architecture the port registers.
 
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --requests 4 --gen 16
   python -m repro_torch.launch.serve --full            # llama3.2-3b, bf16
@@ -25,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch, list_archs, reduced
+from repro_torch.configs import ArchConfig, get_arch, list_archs, reduced
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import default_opts, make_serve_step
 from repro_torch.models.transformer import init_cache, init_params
@@ -52,16 +54,19 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(arch: str, *, num_requests: int = 4, prompt_len: int = 16, gen_len: int = 16,
-          cache_len: int = 64, seed: int = 0, use_reduced: bool = True,
+def serve(arch: str | ArchConfig, *, num_requests: int = 4, prompt_len: int = 16,
+          gen_len: int = 16, cache_len: int = 64, seed: int = 0, use_reduced: bool = True,
           greedy: bool = True, device="cuda") -> ServeResult:
     """Serve ``num_requests`` random prompts of ``prompt_len`` tokens and
-    generate ``gen_len`` more each. Sampling is greedy (argmax) whatever
-    ``greedy`` says, as in the reference."""
+    generate ``gen_len`` more each, for ``arch`` (a registered name, reduced
+    unless ``use_reduced=False``, or an ``ArchConfig`` taken as it is).
+    Sampling is greedy (argmax) whatever ``greedy`` says, as in the
+    reference."""
     dev = resolve_device(device)
-    cfg = get_arch(arch)
-    if use_reduced:
-        cfg = reduced(cfg)
+    if isinstance(arch, ArchConfig):
+        cfg = arch
+    else:
+        cfg = reduced(get_arch(arch)) if use_reduced else get_arch(arch)
     if prompt_len < 1 or prompt_len + gen_len > cache_len:
         raise ValueError(f"need 1 <= prompt_len and prompt_len + gen_len <= cache_len "
                          f"({prompt_len} + {gen_len} > {cache_len})")

@@ -64,15 +64,29 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+# A profiler window in a process that has run the profiler before can lose
+# its first kernel records (ROADMAP C14). The training step's window opens
+# with this many marker kernels (``torch.cuda._sleep``'s ``spin_kernel``,
+# which nothing else launches) and a sync, before the first profiled step's
+# clock starts; the breakdown leaves them out and reports how many were
+# lost: while one marker is seen, the loss ended before the step's kernels.
+PROFILE_LEAD_IN = 256
+
+
 def _device_breakdown(prof, steps: int, wall_s: float, top: int = 8) -> dict:
     """Device busy s per step (the union of kernel intervals), its idle
     share of ``wall_s`` (an unprofiled step's wall time: the profiler slows
-    the host), kernels per step and the ``top`` kernels by device time."""
+    the host), kernels per step, the ``top`` kernels by device time, and
+    the markers of the window's lead-in that the profiler lost
+    (``markers_lost``; all of them lost means the steps' first records may
+    be lost too)."""
     from torch.autograd import DeviceType
 
     from repro_torch.fl.profile_round import busy_us
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if "spin_kernel" not in e.name]
+    lost = PROFILE_LEAD_IN - (len(events) - len(kernels))
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6 / steps
@@ -81,7 +95,7 @@ def _device_breakdown(prof, steps: int, wall_s: float, top: int = 8) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6 / steps
     return dict(busy_s=busy, idle_share=1 - busy / wall_s,
                 kernels_per_step=len(kernels) / steps,
-                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:top], markers_lost=lost)
 
 
 def train_lm(arch: str | ArchConfig, *, steps: int = 50, batch: int = 8,
@@ -124,6 +138,9 @@ def train_lm(arch: str | ArchConfig, *, steps: int = 50, batch: int = 8,
 
                 prof = profiled.enter_context(
                     profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+                if dev.type == "cuda":
+                    for _ in range(PROFILE_LEAD_IN):
+                        torch.cuda._sleep(1)
             b = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in next(gen).items()}
             _sync(dev)
             t0 = time.perf_counter()
@@ -141,7 +158,8 @@ def train_lm(arch: str | ArchConfig, *, steps: int = 50, batch: int = 8,
         p = res.profile
         print(f"[train_lm] the last {profile_last} step(s) under torch.profiler: device busy "
               f"{p['busy_s']:.4f} s per step, idle share {p['idle_share']:.4f} of step "
-              f"{steps - profile_last}'s wall, {p['kernels_per_step']:.1f} kernels per step")
+              f"{steps - profile_last}'s wall, {p['kernels_per_step']:.1f} kernels per step "
+              f"({p['markers_lost']} of a lead-in of {PROFILE_LEAD_IN} markers lost)")
         for name, sec in p["top"]:
             print(f"  {1e3 * sec:10.4f} ms  {name[:90]}")
     if not np.isfinite(res.losses).all():

@@ -4,8 +4,11 @@ Counterpart of ``repro.models.transformer`` for the block kinds the port
 runs: ``attn`` (GQA + MLP), ``local_attn`` (the same over a sliding
 window, with its own RoPE base), ``moe`` (GQA + a routed mixture of
 experts, ``models.moe``), ``mla`` (DeepSeek's multi-head latent attention
-+ an MLP of ``dense_d_ff``), ``mla_moe`` (MLA + the mixture of experts)
-and ``rwkv6`` (time-mix + channel-mix). An
++ an MLP of ``dense_d_ff``), ``mla_moe`` (MLA + the mixture of experts),
+``rwkv6`` (time-mix + channel-mix), ``mamba2`` (a pre-norm Mamba2 mixer)
+and ``shared_attn`` (zamba2's attention + MLP block, one parameter copy,
+``params["shared"]["shared_attn"]``, used at each of its occurrences in
+the repeated unit, each occurrence with its own KV cache slot). An
 ``ArchConfig`` describes the model as ``head_blocks + pattern*n_repeats +
 tail_blocks``. The repeated unit keeps the reference's stacked layout (each
 ``params["unit"]`` leaf has a leading ``n_repeats`` axis), and
@@ -14,10 +17,12 @@ tail_blocks``. The repeated unit keeps the reference's stacked layout (each
 pass (``torch.utils.checkpoint``), where the reference wraps the scanned
 unit in ``jax.checkpoint``.
 
-The other block kinds (``mamba2``, ``shared_attn``), encoder-decoder
-models, media frontends and learned position embeddings raise
-``NotImplementedError`` (ROADMAP A6.3). ``forward_train`` runs every
-ported kind and adds the ``moe`` and ``mla_moe`` blocks' router losses
+Encoder-decoder models, media frontends and learned position embeddings
+raise ``NotImplementedError`` (ROADMAP A6.3); a block kind the reference
+does not know either raises ``ValueError``, as the reference's does.
+``forward_train`` runs every ported kind but ``mamba2`` and the shared
+blocks (zamba2 training, ROADMAP A6.6, raises ``NotImplementedError``) and
+adds the ``moe`` and ``mla_moe`` blocks' router losses
 (``lb_loss``, ``router_z``, summed over the blocks) to the LM loss, as the
 reference does. An MLA block's cache is the compressed one (``c_kv`` and
 ``k_rope``, views of one buffer per block occurrence, the unit's repeats
@@ -29,7 +34,8 @@ card), or through the reference's chunk-parallel torch form with
 ``opts.rwkv_chunk``; ``opts.ssm_seq_chunk`` cuts a full-sequence block into
 sequence chunks, each recomputed in the backward pass
 (``torch.utils.checkpoint``), with the recurrent state carried from chunk
-to chunk, as the reference's chunked-remat time scan.
+to chunk, as the reference's chunked-remat time scan; ``mamba2`` blocks
+take the same chunking.
 
 Entry points:
   init_params(cfg, opts, seed=, device=)      -> param tree
@@ -69,9 +75,11 @@ from repro_torch.models.layers import (
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-PORTED_KINDS = ("attn", "local_attn", "moe", "mla", "mla_moe", "rwkv6")
-ATTN_KINDS = ("attn", "local_attn", "moe")  # a GQA half and a KV cache
+PORTED_KINDS = ("attn", "local_attn", "moe", "mla", "mla_moe", "rwkv6", "mamba2",
+                "shared_attn")
+ATTN_KINDS = ("attn", "local_attn", "moe", "shared_attn")  # a GQA half and a KV cache
 MLA_KINDS = ("mla", "mla_moe")  # an MLA half and a compressed cache
+SSM_KINDS = ("rwkv6", "mamba2")  # a recurrent state
 
 
 @dataclass(frozen=True)
@@ -95,15 +103,18 @@ class ModelOpts:
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A6.3: the mamba2 and "
-        "shared_attn blocks, the encoder-decoder model, media frontends and learned "
-        f"position embeddings wait); the port runs block kinds {PORTED_KINDS}")
+        f"{what} is not ported to repro_torch yet (ROADMAP A6.3: the encoder-decoder "
+        "model, media frontends and learned position embeddings wait)")
+
+
+def _unknown(kind: str) -> ValueError:
+    return ValueError(f"unknown block kind {kind!r}; the block kinds are {PORTED_KINDS}")
 
 
 def _check_ported(cfg) -> None:
     for blk in cfg.blocks:
-        if blk.kind not in PORTED_KINDS or blk.shared:
-            raise _unported(f"block kind {blk.kind!r}{' (shared)' if blk.shared else ''}")
+        if blk.kind not in PORTED_KINDS:
+            raise _unknown(blk.kind)
     if cfg.enc_dec:
         raise _unported("the encoder-decoder model")
     if cfg.frontend:
@@ -122,6 +133,8 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts):
+    """One block's parameters; a ``shared_attn`` block has an ``attn``
+    block's."""
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
     if kind in ATTN_KINDS or kind in MLA_KINDS:
@@ -144,15 +157,18 @@ def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts):
             "rwkv": S.init_rwkv6(gen, cfg, dt),
             "ln2": init_norm(cfg, d, gen.device),
         }
-    raise _unported(f"block kind {kind!r}")
+    if kind == "mamba2":
+        return {"ln1": init_norm(cfg, d, gen.device), "mamba": S.init_mamba2(gen, cfg, dt)}
+    raise _unknown(kind)
 
 
 def init_block_state(cfg, kind: str, opts: ModelOpts, batch: int, seq: int, dtype,
                      device=None, lead: tuple = ()):
     """Decode-time state for one block occurrence: a full-length KV cache
-    for every attention kind (``local_attn`` included), the compressed
-    cache for the MLA kinds. ``lead`` stacks that many occurrences (a
-    unit's repeats) on leading axes of each leaf."""
+    for every attention kind (``local_attn`` and ``shared_attn`` included),
+    the compressed cache for the MLA kinds, the fp32 recurrent state of an
+    SSM kind (whatever ``dtype``, as the reference's). ``lead`` stacks that
+    many occurrences (a unit's repeats) on leading axes of each leaf."""
     if kind in MLA_KINDS:
         return A.init_mla_cache(cfg, batch, seq, dtype, device, lead)
     if lead:
@@ -162,7 +178,9 @@ def init_block_state(cfg, kind: str, opts: ModelOpts, batch: int, seq: int, dtyp
         return A.init_kv_cache(cfg, batch, seq, dtype, opts.kv_mult, device)
     if kind == "rwkv6":
         return S.init_rwkv6_state(cfg, batch, device=device)
-    raise _unported(f"block kind {kind!r}")
+    if kind == "mamba2":
+        return S.init_mamba2_state(cfg, batch, device=device)
+    raise _unknown(kind)
 
 
 def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
@@ -196,12 +214,15 @@ def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
         else:
             y, aux = apply_mlp(cfg, p["mlp"], h), None
         return x + y, new_state if decode else None, aux
-    if kind == "rwkv6":
-        st0 = state if state is not None else S.init_rwkv6_state(cfg, x.shape[0],
-                                                                 device=x.device)
+    if kind in SSM_KINDS:
+        init_state = S.init_rwkv6_state if kind == "rwkv6" else S.init_mamba2_state
+        st0 = state if state is not None else init_state(cfg, x.shape[0], device=x.device)
 
         def block1(xc, st):
             h = apply_norm(cfg, p["ln1"], xc)
+            if kind == "mamba2":
+                y, st2 = S.mamba2_block(cfg, p["mamba"], h, st)
+                return xc + y, st2
             n = xc.shape[1]
             if opts.rwkv_chunk and n % opts.rwkv_chunk == 0 and n > 1:
                 y, st_tm = S.rwkv6_time_mix_chunked(cfg, p["rwkv"], h, st, opts.rwkv_chunk)
@@ -224,7 +245,7 @@ def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
             return torch.cat(outs, dim=1), None, None
         x, ns = block1(x, st0)
         return x, (ns if state is not None else None), None
-    raise _unported(f"block kind {kind!r}")
+    raise _unknown(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -251,11 +272,16 @@ def init_params(cfg, opts: ModelOpts, *, seed: int = 0, device="cuda"):
         params["out"] = embed_init(gen, V, cfg.d_model, dt)  # (V, d), used transposed
     params["head_blocks"] = [init_block(gen, cfg, b.kind, opts) for b in cfg.head_blocks]
     params["tail_blocks"] = [init_block(gen, cfg, b.kind, opts) for b in cfg.tail_blocks]
+    # one copy per distinct shared kind of the pattern; the unit's stacked
+    # leaves skip the shared positions
     params["shared"] = {}
+    for b in cfg.pattern:
+        if b.shared and b.kind not in params["shared"]:
+            params["shared"][b.kind] = init_block(gen, cfg, b.kind, opts)
     params["unit"] = _stack_repeats(
         cfg.n_repeats,
         lambda: {f"blk{i}": init_block(gen, cfg, b.kind, opts)
-                 for i, b in enumerate(cfg.pattern)})
+                 for i, b in enumerate(cfg.pattern) if not b.shared})
     return params
 
 
@@ -321,7 +347,8 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
         # carries them), so a checkpointed repeat adds its blocks' losses
         # once, and their gradient reaches the router
         for i, blk in enumerate(cfg.pattern):
-            p = unit[r][f"blk{i}"]
+            # a shared block's one copy, and this occurrence's own cache slot
+            p = params["shared"][blk.kind] if blk.shared else unit[r][f"blk{i}"]
             st = tree_map(lambda t: t[r], states["unit"][f"blk{i}"]) if states else None
             x, ns, a = apply_block(cfg, opts, blk.kind, p, x, positions=positions, state=st,
                                    cache_pos=cache_pos, train=train)
@@ -405,8 +432,16 @@ def forward_train(cfg, opts, params, batch):
     blocks; 0 in a model without one). Attention runs ``attention.mha``
     under autograd, the RWKV6 scan ``ops.rwkv6_scan`` (its kernels forward
     and backward on the card); each repeat is checkpointed with
-    ``opts.remat``."""
+    ``opts.remat``. A model with ``mamba2`` or shared blocks (zamba2-7b)
+    raises ``NotImplementedError``: its training waits (ROADMAP A6.6)."""
     _check_ported(cfg)
+    lacking = sorted({b.kind + " (shared)" * b.shared for b in cfg.blocks
+                      if b.kind == "mamba2" or b.shared})
+    if lacking:
+        raise NotImplementedError(
+            f"training a model with {', '.join(lacking)} blocks is not ported to repro_torch "
+            "yet (ROADMAP A6.6: zamba2 training, the shared block's gradient summed over its "
+            "occurrences and the mamba2 scan under autograd); prefill and decode run")
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)

@@ -130,9 +130,11 @@ CASES = [
     (2, 300, 4, 2, 32, False, 0, 5),
     (1, 520, 16, 1, 64, True, 24, 400),
     (1, 520, 16, 1, 64, True, 0, 519),
+    (1, 700, 4, 2, 112, True, 0, 650),
 ]
 IDS = ["g1_h32_2splits", "g3_h64_3splits", "g4_h128_window", "g8_h256_6splits",
-       "g3_past_the_end", "window_across_splits", "noncausal", "g16_window", "g16_3splits"]
+       "g3_past_the_end", "window_across_splits", "noncausal", "g16_window", "g16_3splits",
+       "g2_h112_3splits"]
 
 
 @pytest.mark.parametrize("B,Sk,N,K,H,causal,window,q_offset", CASES, ids=IDS)
@@ -211,7 +213,7 @@ def test_empty_rows_found_from_ints(causal, window, Sq, Sk, q_offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H", [32, 64, 128, 256])
+@pytest.mark.parametrize("H", [32, 64, 112, 128, 256])
 def test_every_decode_call_takes_the_decode_kernel(dtype, H):
     assert FA._variant(dtype, 1, H) == "decode"
     assert FA._variant(dtype, 2, H) != "decode"

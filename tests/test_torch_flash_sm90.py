@@ -88,7 +88,9 @@ def _pallas(q, k, v, dtype, **kw):
 # 128; Sk no multiple of 64 with q_offset > 0; a window across tile edges;
 # non-causal at G = 4; H = 64 at G = 1; then the same edges at H = 256 and
 # G = 2 (gemma3-12b's head_dim and grouping; its local layers' window of
-# 1024 over 4096 keys scaled down to 40 over 150)
+# 1024 over 4096 keys scaled down to 40 over 150); then H = 112 (zamba2-7b's
+# shared attention block, whose rows the kernel stages in 128-wide tiles:
+# the zero columns add nothing to S and nothing to O's first 112)
 EDGES = [
     (1, 77, 77, 24, 8, 128, True, 0, 0),
     (2, 40, 100, 6, 2, 128, True, 0, 60),
@@ -99,19 +101,22 @@ EDGES = [
     (1, 40, 100, 4, 2, 256, True, 0, 60),
     (1, 150, 150, 4, 2, 256, True, 40, 0),
     (1, 48, 100, 4, 2, 256, False, 0, 0),
+    (1, 77, 77, 4, 4, 112, True, 0, 0),
+    (1, 40, 100, 4, 2, 112, True, 0, 60),
 ]
 IDS = ["rows_ragged", "keys_ragged_offset", "window", "noncausal_g4", "h64_g1",
-       "h256_rows_ragged", "h256_keys_ragged_offset", "h256_window", "h256_noncausal"]
+       "h256_rows_ragged", "h256_keys_ragged_offset", "h256_window", "h256_noncausal",
+       "h112_rows_ragged", "h112_keys_ragged_offset"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq", [1, 2, 4096])
-@pytest.mark.parametrize("H", [32, 64, 128, 256])
+@pytest.mark.parametrize("H", [32, 64, 112, 128, 256])
 def test_variant(dtype, Sq, H):
     if Sq == 1:
         want = "decode"
     else:
-        want = "sm90" if dtype == torch.bfloat16 and H in (64, 128, 256) else "tf32x3"
+        want = "sm90" if dtype == torch.bfloat16 and H in (64, 112, 128, 256) else "tf32x3"
     assert FA._variant(dtype, Sq, H) == want
 
 
@@ -166,7 +171,8 @@ def test_cpu_h256_bf16_prefill_takes_the_plain_version_and_counts_nothing():
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert torch.equal(out, R.flash_attention_ref(q, k, v, window=16, q_offset=3))
     assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0, "latent_decode": 0}
-    assert FA.sm90_launches == {(64, 64): 0, (128, 128): 0, (256, 256): 0, (192, 128): 0}
+    assert FA.sm90_launches == {(64, 64): 0, (128, 128): 0, (256, 256): 0, (192, 128): 0,
+                                (112, 112): 0}
     assert ops.launches["flash_attention"] == 0
 
 
@@ -176,6 +182,8 @@ def test_reset_launches_zeroes_the_variant_counts():
     FA.variant_launches["latent_decode"] += 2
     FA.sm90_launches[(256, 256)] += 3
     FA.sm90_launches[(192, 128)] += 1
+    FA.sm90_launches[(112, 112)] += 2
     ops.reset_launches()
     assert FA.variant_launches == {"sm90": 0, "tf32x3": 0, "decode": 0, "latent_decode": 0}
-    assert FA.sm90_launches == {(64, 64): 0, (128, 128): 0, (256, 256): 0, (192, 128): 0}
+    assert FA.sm90_launches == {(64, 64): 0, (128, 128): 0, (256, 256): 0, (192, 128): 0,
+                                (112, 112): 0}

@@ -132,9 +132,11 @@ EDGES = [
     (2, 1, 300, 8, 8, 32, True, 0, 299, torch.float32),  # decode, G = 1
     (1, 1, 520, 16, 1, 64, True, 24, 400, torch.float32),  # decode, G = 16, window
     (2, 40, 100, 4, 2, 32, True, 24, 60, torch.bfloat16),  # bf16 at H 32
+    (1, 77, 100, 4, 4, 112, True, 0, 23, torch.float32),  # H 112: 64 rows, 32 keys
 ]
 IDS = ["rows_ragged", "keys_ragged_offset", "window", "noncausal_g4", "g1", "h32",
-       "h256_ragged_offset", "h256_window", "decode_g1", "decode_g16_window", "bf16_h32"]
+       "h256_ragged_offset", "h256_window", "decode_g1", "decode_g16_window", "bf16_h32",
+       "h112_ragged_offset"]
 
 
 def test_tf32_rna_keeps_ten_mantissa_bits():

@@ -570,6 +570,14 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
     (2, 77, 77, 6, 2, 256, True, 0, 0),
     (1, 4096, 4096, 16, 8, 256, True, 0, 0),
     (1, 4096, 4096, 16, 8, 256, True, 1024, 0),
+    # the (112, 112) instance (zamba2-7b's shared attention block: rows of
+    # 14 units in 128-wide tiles): the same edges, then its 4096-token
+    # prompt at 32 heads
+    (1, 77, 77, 4, 4, 112, True, 0, 0),
+    (2, 40, 100, 4, 2, 112, True, 0, 60),
+    (1, 200, 200, 8, 8, 112, True, 70, 0),
+    (1, 96, 160, 8, 4, 112, False, 0, 0),
+    (1, 4096, 4096, 32, 32, 112, True, 0, 0),
 ])
 def test_flash_attention_sm90_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
                                             q_offset):
@@ -607,6 +615,27 @@ def test_flash_attention_sm90_instances_spill_nothing(cuda):
     (1, 200, 200, 8, 2, 256, True, 70, 0),
 ])
 def test_flash_attention_tf32x3_fp32_h256_matches_plain(cuda, B, Sq, Sk, N, K, H, causal,
+                                                        window, q_offset):
+    from repro_torch.kernels.flash_attention import variant_launches
+
+    q, k, v = _attn_inputs(B, Sq, Sk, N, K, H, torch.float32, cuda)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    want = R.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert variant_launches == {"sm90": 0, "tf32x3": 1, "decode": 0, "latent_decode": 0}
+    torch.testing.assert_close(got, want, rtol=0.0, atol=3e-5)
+
+
+# the 3xTF32 kernel's (112, 112) instance in fp32 (64 rows a block, 32-key
+# tiles; the card-vs-CPU parities of zamba2-7b run it): ragged rows and
+# keys with q_offset, a window, and the 4096-token prompt; within 3e-5
+@pytest.mark.parametrize("B,Sq,Sk,N,K,H,causal,window,q_offset", [
+    (1, 77, 100, 4, 4, 112, True, 0, 23),
+    (1, 200, 200, 8, 2, 112, True, 70, 0),
+    (1, 4096, 4096, 32, 32, 112, True, 0, 0),
+])
+def test_flash_attention_tf32x3_fp32_h112_matches_plain(cuda, B, Sq, Sk, N, K, H, causal,
                                                         window, q_offset):
     from repro_torch.kernels.flash_attention import variant_launches
 
@@ -677,6 +706,16 @@ DECODE_CASES = [
     (8, 4096, 16, 8, 256, True, 0, 4095),
     (8, 4096, 16, 8, 256, True, 1024, 63),
     (8, 4096, 16, 8, 256, True, 1024, 4095),
+    # zamba2-7b's shared attention block, 32 heads of 112 (a key row on 16
+    # lanes in bf16, 32 in fp32, some idle): the serving batch at positions
+    # 0, 63, 100 (a range that ends inside a 64-key step) and 4095, then
+    # several splits and a window at G = 2 and 1
+    (8, 4096, 32, 32, 112, True, 0, 0),
+    (8, 4096, 32, 32, 112, True, 0, 63),
+    (8, 4096, 32, 32, 112, True, 0, 100),
+    (8, 4096, 32, 32, 112, True, 0, 4095),
+    (1, 700, 4, 2, 112, True, 0, 650),
+    (2, 1000, 8, 8, 112, True, 100, 900),
 ]
 
 
@@ -861,6 +900,54 @@ def test_latent_decode_and_mla_prefill_at_the_reduced_dims_raise(cuda):
     with pytest.raises(ValueError, match="takes"):
         ops.latent_decode(q, kv[..., :32], kv[..., 32:], scale=48**-0.5, q_offset=3)
     assert ops.launches["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_on_the_card_matches_the_cpu(cuda, dtype):
+    """Reduced zamba2-7b at the shared attention block's head_dim 112 (4
+    heads, MHA) and n_repeats 2: (5 mamba2 + the shared block) twice and a
+    tail mamba2. Prefill logits and 6 decode steps' on the card against the
+    CPU from the same params, within 1e-4 of max|logit| in fp32 (TF32 off);
+    finite in bf16. The shared block's two occurrences launch the (112,
+    112) prefill instance (3xTF32 in fp32, tensor cores in bf16) and the
+    decode kernel, one launch each a step."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import sm90_launches, variant_launches
+    from repro_torch.models.transformer import (
+        ModelOpts,
+        forward_decode,
+        forward_prefill,
+        init_cache,
+        init_params,
+    )
+    from repro_torch.tree import tree_map
+
+    cfg = replace(reduced(get_arch("zamba2-7b")), num_heads=4, num_kv_heads=4, head_dim=112,
+                  n_repeats=2, num_layers=13, param_dtype=dtype, compute_dtype=dtype)
+    dt = getattr(torch, dtype)
+    opts = ModelOpts()
+    params = init_params(cfg, opts, seed=0, device="cpu")
+    toks = torch.randint(1, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d), params)
+        ops.reset_launches()
+        pre = forward_prefill(cfg, opts, p, {"tokens": toks.to(d)})
+        cache = init_cache(cfg, opts, 2, 8, dt, device=d)
+        steps = [forward_decode(cfg, opts, p, {"token": toks[:, t:t + 1].to(d), "pos": t},
+                                cache)[0] for t in range(6)]
+        out[d.type] = (pre.float().cpu(), torch.stack(steps).float().cpu(),
+                       dict(variant_launches), dict(sm90_launches))
+    (pre_g, dec_g, launched, inst), (pre_c, dec_c, _, _) = out["cuda"], out["cpu"]
+    assert launched == {"sm90": 2 * (dtype == "bfloat16"), "tf32x3": 2 * (dtype == "float32"),
+                        "decode": 12, "latent_decode": 0}
+    assert inst[(112, 112)] == 2 * (dtype == "bfloat16")
+    for g, c in ((pre_g, pre_c), (dec_g, dec_c)):
+        assert torch.isfinite(g).all()
+        if dtype == "float32":
+            assert (g - c).abs().max().item() <= 1e-4 * c.abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1119,7 +1206,7 @@ def test_lm_wrappers_raise_instead_of_falling_back(cuda):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "llama3-8b",
-                                  "nemotron-4-15b", "qwen2-moe-a2.7b"])
+                                  "nemotron-4-15b", "qwen2-moe-a2.7b", "zamba2-7b"])
 def test_serve_runs_through_the_kernels(cuda, arch):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.launch.serve import serve

@@ -239,26 +239,31 @@ def test_decode_profiler_needs_a_card():
             profile_serve.profile_decode("rwkv6-1.6b")
 
 
-@pytest.mark.parametrize("kind", ["mamba2", "shared_attn"])
+@pytest.mark.parametrize("kind", ["mamba", "retnet"])
 def test_unported_block_kinds_raise(kind):
+    """A block kind the reference does not know either: the port raises
+    ValueError naming it, as the reference's ``init_block`` does, from
+    ``init_block`` and, for a model with such a block, ``init_params``."""
     from dataclasses import replace
 
     from repro_torch.configs import BlockKind, get_arch, reduced
     from repro_torch.models.transformer import ModelOpts, init_block, init_params
 
     cfg = reduced(get_arch("llama3.2-3b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=repr(kind)):
         init_block(torch.Generator(), cfg, kind, ModelOpts())
-    cfg = replace(cfg, pattern=(BlockKind(kind, shared=kind == "shared_attn"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = replace(cfg, pattern=(BlockKind(kind),))
+    with pytest.raises(ValueError, match=repr(kind)):
         init_params(cfg, ModelOpts(), device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["local_attn", "moe", "mla", "mla_moe"])
+@pytest.mark.parametrize("kind", ["local_attn", "moe", "mla", "mla_moe", "mamba2",
+                                  "shared_attn"])
 def test_ported_block_kinds_initialise_and_run(kind):
     """The kinds that raised before they were ported: a model of that kind
     alone initialises, prefills and decodes on the CPU, and a block of it
-    has the reference's parameter keys."""
+    has the reference's parameter keys. A shared block has one parameter
+    copy (``params["shared"]``) and a cache slot for each occurrence."""
     from dataclasses import replace
 
     from repro_torch.configs import BlockKind, get_arch, reduced
@@ -272,24 +277,37 @@ def test_ported_block_kinds_initialise_and_run(kind):
     )
 
     arch = {"moe": "qwen2-moe-a2.7b", "mla": "deepseek-v2-lite-16b",
-            "mla_moe": "deepseek-v2-lite-16b"}.get(kind, "gemma3-12b")
+            "mla_moe": "deepseek-v2-lite-16b", "mamba2": "zamba2-7b",
+            "shared_attn": "zamba2-7b"}.get(kind, "gemma3-12b")
     base = reduced(get_arch(arch))
     block = init_block(torch.Generator(), base, kind, ModelOpts())
     attn = "mla" if kind.startswith("mla") else "attn"
-    assert set(block) == {"ln1", attn, "ln2", "moe" if kind.endswith("moe") else "mlp"}
-    cfg = replace(base, head_blocks=(), pattern=(BlockKind(kind),), n_repeats=2, num_layers=2)
+    if kind == "mamba2":
+        assert set(block) == {"ln1", "mamba"}
+    else:
+        assert set(block) == {"ln1", attn, "ln2", "moe" if kind.endswith("moe") else "mlp"}
+    shared = kind == "shared_attn"
+    cfg = replace(base, head_blocks=(), tail_blocks=(), pattern=(BlockKind(kind, shared),),
+                  n_repeats=2, num_layers=2)
     params = init_params(cfg, ModelOpts(), device="cpu")
+    assert set(params["shared"]) == ({kind} if shared else set())
+    assert set(params["unit"]) == (set() if shared else {"blk0"})
     tok = torch.ones((2, 3), dtype=torch.long)
     logits = forward_prefill(cfg, ModelOpts(), params, {"tokens": tok})
     cache = init_cache(cfg, ModelOpts(), 2, 4, torch.float32, device="cpu")
     step, _ = forward_decode(cfg, ModelOpts(), params, {"token": tok[:, :1], "pos": 0}, cache)
     assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+    shapes = {k: tuple(t.shape) for k, t in cache["unit"]["blk0"].items()}
     if attn == "mla":
-        shapes = {k: tuple(t.shape) for k, t in cache["unit"]["blk0"].items()}
         assert shapes == {"c_kv": (2, 2, 4, cfg.kv_lora_rank),
                           "k_rope": (2, 2, 4, cfg.qk_rope_dim)}
+    elif kind == "mamba2":
+        W = cfg.conv_width
+        assert shapes == {"conv_x": (2, 2, W - 1, cfg.d_inner),
+                          "conv_BC": (2, 2, W - 1, 2 * cfg.ssm_state),
+                          "s": (2, 2, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)}
     else:
-        assert cache["unit"]["blk0"]["k"].shape == (2, 2, 4, cfg.num_kv_heads, cfg.head_dim)
+        assert shapes["k"] == (2, 2, 4, cfg.num_kv_heads, cfg.head_dim)
 
 
 @pytest.mark.parametrize("change", [dict(enc_dec=True), dict(frontend="vision_stub"),

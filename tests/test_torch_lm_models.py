@@ -3,7 +3,8 @@ architectures the port serves (llama3.2-3b, rwkv6-1.6b, gemma3-12b with its
 sliding-window layers and QK-norm, llama3-8b, nemotron-4-15b with LayerNorm
 and squared ReLU, qwen2-moe-a2.7b with its MoE blocks, deepseek-v2-lite-16b
 with MLA: its prefill held to the reference's expanded form, its decode to
-the absorbed one), from the
+the absorbed one, zamba2-7b with its mamba2 blocks and one shared attention
+block), from the
 reference's parameters converted with ``lm_from_jax``
 and the same numpy inputs: attention, the RWKV6 mixes, prefill and decode
 logits within 1e-4 (fp32 through a few layers, sums in other orders). Also
@@ -39,7 +40,7 @@ from repro_torch.tree import tree_map
 
 TOL = 1e-4
 ARCHS = ["llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "llama3-8b", "nemotron-4-15b",
-         "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"]
+         "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "zamba2-7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)

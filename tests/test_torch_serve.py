@@ -24,7 +24,7 @@ from repro_torch.launch.steps import default_opts, make_prefill_step, make_serve
 from repro_torch.models.transformer import init_cache
 
 ARCHS = ["llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "llama3-8b", "nemotron-4-15b",
-         "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"]
+         "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "zamba2-7b"]
 
 
 def _prompts(vocab, B, prompt_len, seed):

@@ -277,18 +277,23 @@ def test_mla_forward_train_matches_the_reference(remat):
 
 def test_training_a_block_kind_the_port_lacks_raises():
     """rwkv6 trains (tests/test_torch_rwkv6_train.py), local_attn and moe
-    (tests/test_torch_train_families.py), mla and mla_moe (below); a block
-    kind that is not ported still raises, naming ROADMAP A6.3."""
+    (tests/test_torch_train_families.py), mla and mla_moe (below); zamba2-7b
+    serves (tests/test_torch_mamba2.py) but its training, a model with
+    mamba2 or shared blocks, still raises, naming ROADMAP A6.6."""
     from dataclasses import replace
 
     from repro_torch.configs.base import BlockKind
 
-    cfg = reduced(get_arch(ARCH))
+    cfg = reduced(get_arch("zamba2-7b"))
     params = init_params(cfg, ModelOpts(), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
-    lacking = replace(cfg, pattern=(BlockKind("mamba2"),))
-    with pytest.raises(NotImplementedError, match="A6.3"):
-        forward_train(lacking, ModelOpts(), params, {"tokens": tok, "labels": tok})
+    with pytest.raises(NotImplementedError, match="A6.6"):
+        forward_train(cfg, ModelOpts(), params, {"tokens": tok, "labels": tok})
+    lacking = replace(cfg, pattern=(BlockKind("mamba2"),), n_repeats=1, tail_blocks=(),
+                      num_layers=1)
+    with pytest.raises(NotImplementedError, match="A6.6"):
+        forward_train(lacking, ModelOpts(), init_params(lacking, ModelOpts(), device="cpu"),
+                      {"tokens": tok, "labels": tok})
 
 
 def test_checkpoint_option_is_not_ported(tmp_path):
