@@ -3,10 +3,10 @@
 Two planes of configuration, copies of those in ``repro.configs.base``:
 
 * ``ArchConfig`` — a production-scale transformer-family architecture. The
-  port registers the architectures whose block kinds it runs
+  port registers every architecture of the reference
   (``deepseek_v2_lite_16b``, ``gemma3_12b``, ``llama3_2_3b``,
-  ``llama3_8b``, ``nemotron_4_15b``, ``qwen2_moe_a2_7b``, ``rwkv6_1_6b``,
-  ``zamba2_7b``); ``ROADMAP.md`` lists the rest.
+  ``llama3_8b``, ``llava_next_mistral_7b``, ``nemotron_4_15b``,
+  ``qwen2_moe_a2_7b``, ``rwkv6_1_6b``, ``whisper_small``, ``zamba2_7b``).
 * ``FLConfig`` — the FedEEC paper-scale experiment (tree topology, models
   per tier, dataset, hyperparameters).
 """

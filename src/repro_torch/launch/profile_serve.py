@@ -5,7 +5,8 @@
 For each architecture (every one the port serves, unless ``--arch`` names
 some) it builds the full model in bf16 on the card, random weights from a
 seed, one model at a time, with the serving shapes of ``chip_smoke.py``: 8 requests against a
-4096-long cache, filled by 64 decode-step prefill positions. It then runs
+4096-long cache, filled by 64 decode-step prefill positions (whisper-small's
+encoder states random, as ``launch.serve`` draws them). It then runs
 ``--steps`` greedy decode steps without the profiler and as many under
 ``torch.profiler``, and reports: milliseconds per step, the device's busy
 time per step (the union of kernel intervals) and idle share, kernels
@@ -21,7 +22,8 @@ import time
 from repro_torch.fl.profile_round import TOP, busy_us
 
 ARCHS = ("llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "nemotron-4-15b", "qwen2-moe-a2.7b",
-         "llama3-8b", "deepseek-v2-lite-16b", "zamba2-7b")
+         "llama3-8b", "deepseek-v2-lite-16b", "zamba2-7b", "whisper-small",
+         "llava-next-mistral-7b")
 
 
 def profile_decode(arch: str, *, requests: int = 8, prompt_len: int = 64,
@@ -36,6 +38,7 @@ def profile_decode(arch: str, *, requests: int = 8, prompt_len: int = 64,
 
     from repro_torch.configs import get_arch
     from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import fill_enc_out
     from repro_torch.launch.steps import default_opts, make_serve_step
     from repro_torch.models.transformer import init_cache, init_params
 
@@ -46,8 +49,10 @@ def profile_decode(arch: str, *, requests: int = 8, prompt_len: int = 64,
     step = make_serve_step(cfg, opts)
     cache = init_cache(cfg, opts, requests, cache_len, getattr(torch, cfg.compute_dtype),
                        device=dev)
-    prompts = np.random.default_rng(seed).integers(1, cfg.vocab_size, (requests, prompt_len))
-    prompts = torch.from_numpy(prompts).to(dev)
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (requests, prompt_len))).to(dev)
+    if cfg.enc_dec:
+        fill_enc_out(cfg, cache, rng)
     tok = None
     for t in range(prompt_len):
         tok, _, cache = step(params, cache, {"token": prompts[:, t:t + 1], "pos": t})

@@ -9,8 +9,13 @@ kernel, every MLA layer of deepseek-v2-lite-16b (``mla``, ``mla_moe``)
 the latent decode kernel over its compressed cache, every occurrence of
 zamba2-7b's shared attention block the ``flash_attention`` kernel at head
 dim 112 (its mamba2 blocks run torch ops: the reference's scan is XLA's,
-no Pallas kernel), and every RWKV6 time-mix the ``rwkv6_scan`` kernel on
-the card; ``--arch`` takes every architecture the port registers.
+no Pallas kernel), every RWKV6 time-mix the ``rwkv6_scan`` kernel, and
+whisper-small's self and cross attention the ``flash_attention`` kernel at
+head dim 64 on the card; ``--arch`` takes every architecture the port
+registers. As in the reference, whisper-small's cache holds random encoder
+states (``enc_out``, drawn with the prompts' generator after them; the
+encoder does not run), and llava-next-mistral-7b serves text alone (decode
+never sees media).
 
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --requests 4 --gen 16
   python -m repro_torch.launch.serve --full            # llama3.2-3b, bf16
@@ -54,6 +59,14 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def fill_enc_out(cfg, cache: dict, rng: np.random.Generator) -> None:
+    """Fill an encoder-decoder cache's ``enc_out`` with standard normal
+    numbers from ``rng`` in the compute dtype, as the reference's ``serve``
+    does in place of running the encoder."""
+    e = rng.normal(0, 1, (cache["enc_out"].shape[0], cfg.enc_seq_len, cfg.d_model))
+    cache["enc_out"].copy_(torch.from_numpy(e).to(getattr(torch, cfg.compute_dtype)))
+
+
 def serve(arch: str | ArchConfig, *, num_requests: int = 4, prompt_len: int = 16,
           gen_len: int = 16, cache_len: int = 64, seed: int = 0, use_reduced: bool = True,
           greedy: bool = True, device="cuda") -> ServeResult:
@@ -80,6 +93,8 @@ def serve(arch: str | ArchConfig, *, num_requests: int = 4, prompt_len: int = 16
     prompts = torch.from_numpy(prompts).to(dev, torch.int64)
     cache = init_cache(cfg, opts, B, cache_len, getattr(torch, cfg.compute_dtype),
                        device=dev)
+    if cfg.enc_dec:
+        fill_enc_out(cfg, cache, rng)
     finite = torch.ones((), dtype=torch.bool, device=dev)
 
     # exact prefill via decode steps (cache build)

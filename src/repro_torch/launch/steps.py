@@ -28,6 +28,41 @@ def default_opts(cfg, **overrides) -> ModelOpts:
     return ModelOpts(**kw)
 
 
+def input_specs(cfg, batch: int, seq: int, mode: str) -> dict[str, torch.Tensor]:
+    """The batch of one (arch, batch, seq, mode) workload as tensors on the
+    ``meta`` device (shape and dtype, no storage), the reference's
+    ``input_specs`` with its ``ShapeDtypeStruct``s.
+
+    ``mode`` is ``"train"``, ``"prefill"`` or ``"decode"``. VLM
+    (``vision_stub``): ``seq`` counts media + text, split as
+    ``media = min(num_media_tokens, seq // 2)`` rows of patch embeddings
+    and ``seq - media`` tokens. Audio (``enc_dec``): ``seq`` is the
+    decoder's length, and the encoder takes (batch, enc_seq_len, d_model)
+    stubbed frame embeddings. Embeddings have the compute dtype, token ids
+    int32. Decode is one token against a ``seq``-long cache."""
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
+    if mode == "decode":
+        return {"token": spec((batch, 1), torch.int32), "pos": spec((), torch.int32)}
+    text = seq
+    specs: dict[str, torch.Tensor] = {}
+    if cfg.frontend == "vision_stub":
+        media = min(cfg.num_media_tokens, seq // 2)
+        text = seq - media
+        specs["media"] = spec((batch, media, cfg.d_model), cdt)
+    specs["tokens"] = spec((batch, text), torch.int32)
+    if mode == "train":
+        specs["labels"] = spec((batch, text), torch.int32)
+    if cfg.enc_dec:
+        specs["frames"] = spec((batch, cfg.enc_seq_len, cfg.d_model), cdt)
+    return specs
+
+
 def make_train_step(cfg, opts: ModelOpts, *, lr: float = 3e-4, clip: float = 1.0):
     """One training step: the gradient of ``forward_train`` over the param
     leaves (autograd), ``clip_by_global_norm``, then AdamW.

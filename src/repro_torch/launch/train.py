@@ -39,7 +39,7 @@ from repro_torch.configs import get_arch, list_archs, reduced
 from repro_torch.configs.base import ArchConfig, FLConfig
 from repro_torch.data.loader import token_batches
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import default_opts, make_train_step
+from repro_torch.launch.steps import default_opts, input_specs, make_train_step
 from repro_torch.models.transformer import init_params
 from repro_torch.optim import adamw_init
 from repro_torch.tree import tree_leaves
@@ -98,6 +98,16 @@ def _device_breakdown(prof, steps: int, wall_s: float, top: int = 8) -> dict:
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:top], markers_lost=lost)
 
 
+def stub_inputs(cfg, batch: int, device) -> dict[str, torch.Tensor]:
+    """The stubbed frontends' inputs of a training batch, zeros with
+    ``input_specs``' shapes and dtypes as the reference's ``train_lm`` feeds
+    them: its split of 32 positions gives ``media`` the reference's
+    min(num_media_tokens, 16) rows, and ``frames`` has enc_seq_len rows."""
+    specs = input_specs(cfg, batch, 32, "train")
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in specs.items() if k not in ("tokens", "labels")}
+
+
 def train_lm(arch: str | ArchConfig, *, steps: int = 50, batch: int = 8,
              seq: int = 128,
              use_reduced: bool = True, lr: float = 1e-3, seed: int = 0,
@@ -142,6 +152,7 @@ def train_lm(arch: str | ArchConfig, *, steps: int = 50, batch: int = 8,
                     for _ in range(PROFILE_LEAD_IN):
                         torch.cuda._sleep(1)
             b = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in next(gen).items()}
+            b.update(stub_inputs(cfg, batch, dev))
             _sync(dev)
             t0 = time.perf_counter()
             params, opt_state, m = step(params, opt_state, b)

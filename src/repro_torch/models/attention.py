@@ -1,9 +1,9 @@
 """Attention: GQA (full / sliding-window / causal, chunked online-softmax)
-with a KV cache, and MLA (DeepSeek multi-head latent attention, with an
-absorbed decode path).
+with a KV cache, cross attention (whisper's decoder over the encoder's
+states), and MLA (DeepSeek multi-head latent attention, with an absorbed
+decode path).
 
-Counterpart of ``repro.models.attention`` but for cross attention, which
-waits (ROADMAP A6.3).
+Counterpart of ``repro.models.attention``.
 
 Conventions
 -----------
@@ -20,6 +20,11 @@ Conventions
   version (``kernels.ref.flash_attention_ref``) on the CPU. The kernels
   have no backward (nor have the TPU kernels), and their wrappers raise on
   the card if an input requires grad.
+* Cross attention is non-causal over all of the encoder's states, by
+  ``ops.flash_attention(causal=False)`` at prefill and decode and by
+  ``mha(causal=False)`` under ``train``. As the reference, it caches
+  nothing: k and v are projected from the encoder's states at every call,
+  each decode step included.
 * MLA's prefill runs the expanded form (q and k 192 wide, v 128 at
   deepseek-v2-lite-16b's dims) through ``ops.flash_attention``, its
   training the same form through ``mha``; its decode the absorbed form
@@ -182,6 +187,42 @@ def init_kv_cache(cfg, batch: int, seq: int, dtype, kv_mult: int = 1, device=Non
     shape = (batch, seq, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(gen: torch.Generator, cfg, dtype):
+    d, n, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, d, n * hd, dtype),
+        "wk": dense_init(gen, d, n * hd, dtype),
+        "wv": dense_init(gen, d, n * hd, dtype),
+        "wo": dense_init(gen, n * hd, d, dtype, scale=(n * hd) ** -0.5),
+    }
+
+
+def cross_attn_forward(cfg, params, x, enc_out, *, train: bool = False):
+    """x: (B, S, d) decoder states; enc_out: (B, Se, d) encoder states.
+    Every query sees every encoder state. q, k and v have the dtypes
+    ``mm``'s promotion gives (a bf16 ``enc_out`` against an fp32 model
+    projects in fp32, as jnp does); attention runs in the wider of q's and
+    k's, and its output has q's dtype, as the reference's ``mha`` gives."""
+    B, S, _ = x.shape
+    n, hd = cfg.num_heads, cfg.head_dim
+    q = _split_heads(mm(x, params["wq"]), n, hd)
+    k = _split_heads(mm(enc_out, params["wk"]), n, hd)
+    v = _split_heads(mm(enc_out, params["wv"]), n, hd)
+    if train:
+        o = mha(q, k, v, q_positions=torch.arange(S, device=x.device),
+                k_positions=torch.arange(enc_out.shape[1], device=x.device), causal=False)
+    else:
+        dt = torch.promote_types(q.dtype, k.dtype)
+        o = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=False,
+                                q_offset=0).to(q.dtype)
+    return mm(o.reshape(B, S, n * hd), params["wo"])
 
 
 # ---------------------------------------------------------------------------

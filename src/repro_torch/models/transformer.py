@@ -17,9 +17,19 @@ tail_blocks``. The repeated unit keeps the reference's stacked layout (each
 pass (``torch.utils.checkpoint``), where the reference wraps the scanned
 unit in ``jax.checkpoint``.
 
-Encoder-decoder models, media frontends and learned position embeddings
-raise ``NotImplementedError`` (ROADMAP A6.3); a block kind the reference
-does not know either raises ``ValueError``, as the reference's does.
+whisper-small's encoder-decoder form runs as the reference's: with
+``cfg.enc_dec`` every block has a cross attention half (``ln_x``,
+``xattn``) over the encoder's states, which ``_encode`` computes from
+``batch["frames"]`` (the stubbed audio frontend's output, bidirectional
+attention layers stacked under ``params["encoder"]``) at prefill and in
+training, and which decode reads from ``states["enc_out"]``;
+``cfg.learned_pos_emb`` adds ``params["pos_embed"]`` rows to the token
+embeddings (its start clamped as the reference's ``dynamic_slice`` clamps
+it). llava-next-mistral-7b's ``vision_stub`` frontend prepends
+``batch["media"]`` (the stubbed vision tower's patch embeddings) to the
+token embeddings at prefill and in training; decode never sees media. A
+frontend name other than the two stubs, or a block kind the reference
+does not know, raises ``ValueError``.
 ``forward_train`` runs every ported kind but ``mamba2`` and the shared
 blocks (zamba2 training, ROADMAP A6.6, raises ``NotImplementedError``) and
 adds the ``moe`` and ``mla_moe`` blocks' router losses
@@ -80,6 +90,7 @@ PORTED_KINDS = ("attn", "local_attn", "moe", "mla", "mla_moe", "rwkv6", "mamba2"
 ATTN_KINDS = ("attn", "local_attn", "moe", "shared_attn")  # a GQA half and a KV cache
 MLA_KINDS = ("mla", "mla_moe")  # an MLA half and a compressed cache
 SSM_KINDS = ("rwkv6", "mamba2")  # a recurrent state
+FRONTENDS = (None, "", "vision_stub", "audio_stub")  # stubs: the batch carries their output
 
 
 @dataclass(frozen=True)
@@ -101,12 +112,6 @@ class ModelOpts:
     ssm_seq_chunk: int = 0  # chunked-remat SSM time scan (0 = one full scan)
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A6.3: the encoder-decoder "
-        "model, media frontends and learned position embeddings wait)")
-
-
 def _unknown(kind: str) -> ValueError:
     return ValueError(f"unknown block kind {kind!r}; the block kinds are {PORTED_KINDS}")
 
@@ -115,12 +120,9 @@ def _check_ported(cfg) -> None:
     for blk in cfg.blocks:
         if blk.kind not in PORTED_KINDS:
             raise _unknown(blk.kind)
-    if cfg.enc_dec:
-        raise _unported("the encoder-decoder model")
-    if cfg.frontend:
-        raise _unported(f"frontend {cfg.frontend!r}")
-    if cfg.learned_pos_emb:
-        raise _unported("learned position embeddings")
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"unknown frontend {cfg.frontend!r}; the frontends are "
+                         f"{FRONTENDS[2:]} (or none)")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -132,9 +134,12 @@ def _dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts):
+def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts, *,
+               cross: bool = False):
     """One block's parameters; a ``shared_attn`` block has an ``attn``
-    block's."""
+    block's. ``cross`` adds a cross attention half (``ln_x``, ``xattn``) to
+    an attention block, as the reference does to every decoder block of an
+    encoder-decoder model."""
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
     if kind in ATTN_KINDS or kind in MLA_KINDS:
@@ -150,6 +155,9 @@ def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts):
         else:
             p["mlp"] = init_mlp(gen, cfg, d, (cfg.dense_d_ff or cfg.d_ff) if mla else cfg.d_ff,
                                 dt)
+        if cross:
+            p["ln_x"] = init_norm(cfg, d, gen.device)
+            p["xattn"] = A.init_cross_attn(gen, cfg, dt)
         return p
     if kind == "rwkv6":
         return {
@@ -184,12 +192,14 @@ def init_block_state(cfg, kind: str, opts: ModelOpts, batch: int, seq: int, dtyp
 
 
 def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
-                cache_pos=None, train: bool = False):
+                cache_pos=None, enc_out=None, train: bool = False):
     """Returns (x, new_state, aux). state is None in prefill and training
     (full-sequence) mode; ``train`` selects the training attention
-    (``attention.mha`` under autograd) over the forward-only kernel. aux is
-    a ``moe`` or ``mla_moe`` block's router losses {"lb_loss", "router_z"},
-    and None for the other kinds (the reference adds zeros for them)."""
+    (``attention.mha`` under autograd) over the forward-only kernel. A
+    block with ``xattn`` adds its cross attention over ``enc_out`` between
+    the attention half and the MLP half. aux is a ``moe`` or ``mla_moe``
+    block's router losses {"lb_loss", "router_z"}, and None for the other
+    kinds (the reference adds zeros for them)."""
     decode = state is not None and cache_pos is not None
     if kind in ATTN_KINDS or kind in MLA_KINDS:
         h = apply_norm(cfg, p["ln1"], x)
@@ -208,6 +218,9 @@ def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
                 cache=state if decode else None, cache_pos=cache_pos, chunk=opts.attn_chunk,
                 kv_mult=opts.kv_mult, train=train)
         x = x + y
+        if enc_out is not None and "xattn" in p:
+            h = apply_norm(cfg, p["ln_x"], x)
+            x = x + A.cross_attn_forward(cfg, p["xattn"], h, enc_out, train=train)
         h = apply_norm(cfg, p["ln2"], x)
         if kind in ("moe", "mla_moe"):
             y, aux = M.moe_forward(cfg, p["moe"], h)
@@ -264,24 +277,36 @@ def init_params(cfg, opts: ModelOpts, *, seed: int = 0, device="cuda"):
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = _dtype(cfg.param_dtype)
     V = padded_vocab(cfg.vocab_size)
+    d, cross = cfg.d_model, cfg.enc_dec
     params: dict[str, Any] = {
-        "embed": embed_init(gen, V, cfg.d_model, dt),
-        "final_norm": init_norm(cfg, cfg.d_model, dev),
+        "embed": embed_init(gen, V, d, dt),
+        "final_norm": init_norm(cfg, d, dev),
     }
     if not cfg.tie_embeddings:
-        params["out"] = embed_init(gen, V, cfg.d_model, dt)  # (V, d), used transposed
-    params["head_blocks"] = [init_block(gen, cfg, b.kind, opts) for b in cfg.head_blocks]
-    params["tail_blocks"] = [init_block(gen, cfg, b.kind, opts) for b in cfg.tail_blocks]
+        params["out"] = embed_init(gen, V, d, dt)  # (V, d), used transposed
+    if cfg.learned_pos_emb:
+        params["pos_embed"] = embed_init(gen, cfg.max_seq_len, d, dt)
+    params["head_blocks"] = [init_block(gen, cfg, b.kind, opts, cross=cross)
+                             for b in cfg.head_blocks]
+    params["tail_blocks"] = [init_block(gen, cfg, b.kind, opts, cross=cross)
+                             for b in cfg.tail_blocks]
     # one copy per distinct shared kind of the pattern; the unit's stacked
     # leaves skip the shared positions
     params["shared"] = {}
     for b in cfg.pattern:
         if b.shared and b.kind not in params["shared"]:
-            params["shared"][b.kind] = init_block(gen, cfg, b.kind, opts)
+            params["shared"][b.kind] = init_block(gen, cfg, b.kind, opts, cross=cross)
     params["unit"] = _stack_repeats(
         cfg.n_repeats,
-        lambda: {f"blk{i}": init_block(gen, cfg, b.kind, opts)
+        lambda: {f"blk{i}": init_block(gen, cfg, b.kind, opts, cross=cross)
                  for i, b in enumerate(cfg.pattern) if not b.shared})
+    if cfg.enc_dec:
+        # the encoder: enc_layers attention blocks without cross attention,
+        # stacked on a leading axis as the reference stacks them for its scan
+        params["encoder"] = _stack_repeats(cfg.enc_layers,
+                                           lambda: init_block(gen, cfg, "attn", opts))
+        params["enc_pos"] = embed_init(gen, cfg.enc_seq_len, d, dt)
+        params["enc_norm"] = init_norm(cfg, d, dev)
     return params
 
 
@@ -296,6 +321,38 @@ def _stack_repeats(n: int, make) -> dict:
     for r in range(1, n):
         tree_map(lambda o, t: o[r].copy_(t), out, make())
     return out
+
+
+# ---------------------------------------------------------------------------
+# encoder (bidirectional, whisper)
+# ---------------------------------------------------------------------------
+
+
+def _encode(cfg, opts, params, frames, *, train: bool = False):
+    """frames: (B, Se, d), the stubbed conv / mel frontend's output. The
+    reference's encoder: ``enc_pos`` rows added, then each stacked layer is
+    pre-norm attention without RoPE or QK-norm, every frame seeing every
+    frame (``ops.flash_attention(causal=False)``, or ``mha`` under
+    ``train``), and the MLP; then ``enc_norm``."""
+    B, Se, _ = frames.shape
+    n, hd = cfg.num_heads, cfg.head_dim
+    x = frames + params["enc_pos"][None, :Se].to(frames.dtype)
+    positions = torch.arange(Se, device=x.device)
+    layers = [t.unbind(0) for t in tree_leaves(params["encoder"])]
+    for r in range(cfg.enc_layers):
+        lp = tree_unflatten(params["encoder"], [ts[r] for ts in layers])
+        h = apply_norm(cfg, lp["ln1"], x)
+        q = mm(h, lp["attn"]["wq"]).reshape(B, Se, n, hd)
+        k = mm(h, lp["attn"]["wk"]).reshape(B, Se, -1, hd)
+        v = mm(h, lp["attn"]["wv"]).reshape(B, Se, -1, hd)
+        if train:
+            o = A.mha(q, k, v, q_positions=positions, k_positions=positions, causal=False)
+        else:
+            o = ops.flash_attention(q, k, v, causal=False, q_offset=0)
+        x = x + mm(o.reshape(B, Se, n * hd), lp["attn"]["wo"])
+        h = apply_norm(cfg, lp["ln2"], x)
+        x = x + apply_mlp(cfg, lp["mlp"], h)
+    return apply_norm(cfg, params["enc_norm"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -316,11 +373,12 @@ def _add_aux(total, aux):
 
 
 def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
-              train: bool = False):
+              enc_out=None, train: bool = False):
     """Run head blocks, the repeated unit, and tail blocks.
 
     states: None (prefill, training) or {"head": [..], "unit": stacked,
-    "tail": [..]}, updated in place. ``train``: the training forward, whose
+    "tail": [..]}, updated in place. ``enc_out``: the encoder's states,
+    which every block with cross attention reads. ``train``: the training forward, whose
     repeats are checkpointed when ``opts.remat``. Returns the final-normed
     hidden states and the router losses {"lb_loss", "router_z"} summed over
     the blocks in layer order (fp32; 0 without a ``moe`` block)."""
@@ -330,7 +388,7 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
         st = states["head"][i] if states else None
         x, ns, a = apply_block(cfg, opts, blk.kind, params["head_blocks"][i], x,
                                positions=positions, state=st, cache_pos=cache_pos,
-                               train=train)
+                               enc_out=enc_out, train=train)
         aux = _add_aux(aux, a)
         if ns is not None:
             _write_state(st, ns)
@@ -351,7 +409,7 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
             p = params["shared"][blk.kind] if blk.shared else unit[r][f"blk{i}"]
             st = tree_map(lambda t: t[r], states["unit"][f"blk{i}"]) if states else None
             x, ns, a = apply_block(cfg, opts, blk.kind, p, x, positions=positions, state=st,
-                                   cache_pos=cache_pos, train=train)
+                                   cache_pos=cache_pos, enc_out=enc_out, train=train)
             aux = _add_aux(aux, a)
             if ns is not None:
                 _write_state(st, ns)
@@ -366,7 +424,7 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
         st = states["tail"][i] if states else None
         x, ns, a = apply_block(cfg, opts, blk.kind, params["tail_blocks"][i], x,
                                positions=positions, state=st, cache_pos=cache_pos,
-                               train=train)
+                               enc_out=enc_out, train=train)
         aux = _add_aux(aux, a)
         if ns is not None:
             _write_state(st, ns)
@@ -377,8 +435,29 @@ def _logits_matrix(cfg, params):
     return params["embed"] if cfg.tie_embeddings else params["out"]  # (V_pad, d)
 
 
-def _embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens]
+def _embed_tokens(cfg, params, tokens, *, offset: int = 0):
+    """Token embeddings, plus ``pos_embed`` rows from ``offset`` on with
+    learned position embeddings. As the reference's
+    ``dynamic_slice_in_dim``, the start is clamped to [0, max_seq_len - S],
+    so the rows past the table repeat its last S."""
+    x = params["embed"][tokens]
+    if cfg.learned_pos_emb:
+        S = tokens.shape[1]
+        start = max(0, min(int(offset), params["pos_embed"].shape[0] - S))
+        x = x + params["pos_embed"][start:start + S][None].to(x.dtype)
+    return x
+
+
+def _inputs(cfg, opts, params, batch, train: bool = False):
+    """The embedded sequence of a prefill or training batch, with the media
+    prefix (``vision_stub``, when ``batch`` has ``media``) in front of the
+    tokens, and the encoder's states (``enc_dec``, from ``batch["frames"]``)
+    or None."""
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.frontend == "vision_stub" and "media" in batch:
+        x = torch.cat([batch["media"].to(x.dtype), x], dim=1)
+    enc_out = _encode(cfg, opts, params, batch["frames"], train=train) if cfg.enc_dec else None
+    return x, enc_out
 
 
 # ---------------------------------------------------------------------------
@@ -426,7 +505,9 @@ def lm_loss_chunked(cfg, opts, h, w_vocab, labels):
 
 
 def forward_train(cfg, opts, params, batch):
-    """batch: tokens (B, S) int, labels (B, S) int. Returns the scalar
+    """batch: tokens (B, S) int, labels (B, S) int, and media (B, M, d)
+    (``vision_stub``) or frames (B, Se, d) (``enc_dec``) where the config
+    takes them; only the text positions carry labels. Returns the scalar
     training loss, ce + router_aux_weight * (lb_loss + 0.1 * router_z), and
     {"ce", "lb_loss", "router_z"} (the router terms summed over the ``moe``
     blocks; 0 in a model without one). Attention runs ``attention.mha``
@@ -442,10 +523,10 @@ def forward_train(cfg, opts, params, batch):
             f"training a model with {', '.join(lacking)} blocks is not ported to repro_torch "
             "yet (ROADMAP A6.6: zamba2 training, the shared block's gradient summed over its "
             "occurrences and the mamba2 scan under autograd); prefill and decode run")
-    tokens = batch["tokens"]
-    x = _embed_tokens(cfg, params, tokens)
+    x, enc_out = _inputs(cfg, opts, params, batch, train=True)
     positions = torch.arange(x.shape[1], device=x.device)
-    h, aux = _backbone(cfg, opts, params, x, positions=positions, train=True)
+    h, aux = _backbone(cfg, opts, params, x, positions=positions, enc_out=enc_out, train=True)
+    h = h[:, x.shape[1] - batch["tokens"].shape[1]:]  # the text positions
     loss = lm_loss_chunked(cfg, opts, h, _logits_matrix(cfg, params), batch["labels"])
     total = loss + cfg.router_aux_weight * (aux["lb_loss"] + 0.1 * aux["router_z"])
     return total, {"ce": loss, **aux}
@@ -453,12 +534,12 @@ def forward_train(cfg, opts, params, batch):
 
 def forward_prefill(cfg, opts, params, batch):
     """Full-sequence forward returning last-position logits (B, V_pad).
-    batch: tokens (B, S) int."""
+    batch: tokens (B, S) int, and media (B, M, d) or frames (B, Se, d) as
+    ``forward_train`` takes them; positions run over media and text."""
     _check_ported(cfg)
-    tokens = batch["tokens"]
-    x = _embed_tokens(cfg, params, tokens)
+    x, enc_out = _inputs(cfg, opts, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    h, _ = _backbone(cfg, opts, params, x, positions=positions)
+    h, _ = _backbone(cfg, opts, params, x, positions=positions, enc_out=enc_out)
     logits = mm(h[:, -1], _logits_matrix(cfg, params).T.to(h.dtype))
     return mask_padded_logits(logits, cfg.vocab_size)
 
@@ -467,15 +548,17 @@ def forward_decode(cfg, opts, params, batch, states):
     """One-token decode against a cache.
 
     batch: token (B, 1) int, pos (Python int) — the write/attend position.
-    states: tree from ``init_cache`` (possibly filled), updated in place.
+    states: tree from ``init_cache`` (possibly filled), updated in place;
+    an encoder-decoder model's cross attention reads ``states["enc_out"]``
+    and leaves it as it is.
     Returns (logits (B, V_pad), states).
     """
     _check_ported(cfg)
     token, pos = batch["token"], int(batch["pos"])
-    x = _embed_tokens(cfg, params, token)
+    x = _embed_tokens(cfg, params, token, offset=pos)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     h, _ = _backbone(cfg, opts, params, x, positions=positions, states=states,
-                     cache_pos=pos)
+                     cache_pos=pos, enc_out=states.get("enc_out"))
     logits = mm(h[:, -1], _logits_matrix(cfg, params).T.to(h.dtype))
     return mask_padded_logits(logits, cfg.vocab_size), states
 
@@ -485,7 +568,9 @@ def init_cache(cfg, opts: ModelOpts, batch: int, seq: int, dtype=torch.bfloat16,
     """Zeroed decode states: KV caches (B, seq, K, H) in ``dtype`` for
     attention blocks (every attention kind), compressed caches (B, seq,
     lora) and (B, seq, rope_dim) in ``dtype`` for MLA blocks, fp32-state
-    RWKV6 recurrences; unit states stacked over the repeats."""
+    RWKV6 recurrences; unit states stacked over the repeats; for an
+    encoder-decoder model ``enc_out`` (B, enc_seq_len, d) zeros in
+    ``dtype``, which the caller fills with the encoder's states."""
     _check_ported(cfg)
     dev = resolve_device(device)
 
@@ -501,5 +586,8 @@ def init_cache(cfg, opts: ModelOpts, batch: int, seq: int, dtype=torch.bfloat16,
                           for i, b in enumerate(cfg.pattern)}
     else:
         states["unit"] = None
+    if cfg.enc_dec:
+        states["enc_out"] = torch.zeros((batch, cfg.enc_seq_len, cfg.d_model), dtype=dtype,
+                                        device=dev)
     return states
 

@@ -90,7 +90,10 @@ def _pallas(q, k, v, dtype, **kw):
 # G = 2 (gemma3-12b's head_dim and grouping; its local layers' window of
 # 1024 over 4096 keys scaled down to 40 over 150); then H = 112 (zamba2-7b's
 # shared attention block, whose rows the kernel stages in 128-wide tiles:
-# the zero columns add nothing to S and nothing to O's first 112)
+# the zero columns add nothing to S and nothing to O's first 112); then
+# H = 64 non-causal as whisper-small's encoder and cross attention run it
+# (12 heads, MHA): Sq * G and Sk both ragged, and Sq > Sk (the last key
+# tile masked by k_len alone)
 EDGES = [
     (1, 77, 77, 24, 8, 128, True, 0, 0),
     (2, 40, 100, 6, 2, 128, True, 0, 60),
@@ -103,10 +106,13 @@ EDGES = [
     (1, 48, 100, 4, 2, 256, False, 0, 0),
     (1, 77, 77, 4, 4, 112, True, 0, 0),
     (1, 40, 100, 4, 2, 112, True, 0, 60),
+    (1, 77, 100, 12, 12, 64, False, 0, 0),
+    (1, 150, 36, 6, 2, 64, False, 0, 0),
 ]
 IDS = ["rows_ragged", "keys_ragged_offset", "window", "noncausal_g4", "h64_g1",
        "h256_rows_ragged", "h256_keys_ragged_offset", "h256_window", "h256_noncausal",
-       "h112_rows_ragged", "h112_keys_ragged_offset"]
+       "h112_rows_ragged", "h112_keys_ragged_offset", "h64_noncausal_ragged",
+       "h64_noncausal_sq_over_sk"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

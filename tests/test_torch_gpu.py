@@ -537,6 +537,10 @@ def _attn_inputs(B, Sq, Sk, N, K, H, dtype, dev, seed=0, Hv=None):
     (2, 40, 100, 4, 2, 64, True, 24, 60),
     (1, 17, 33, 2, 1, 256, True, 0, 16),
     (8, 1, 300, 24, 8, 128, True, 0, 130),  # decode against a longer cache
+    # head_dim 64 non-causal, as whisper-small's encoder and cross attention
+    # run it: Sq * G and Sk ragged; Sq > Sk
+    (1, 77, 100, 12, 12, 64, False, 0, 0),
+    (2, 300, 70, 6, 2, 64, False, 0, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window, q_offset,
@@ -578,6 +582,15 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
     (1, 200, 200, 8, 8, 112, True, 70, 0),
     (1, 96, 160, 8, 4, 112, False, 0, 0),
     (1, 4096, 4096, 32, 32, 112, True, 0, 0),
+    # the (64, 64) instance non-causal (the last row tile's and key tile's
+    # edges, Sq > Sk), then whisper-small's prefill step (12 heads, MHA):
+    # the encoder over 1500 frames and the cross attention over them,
+    # non-causal, and the decoder's 4096 tokens, causal
+    (1, 77, 100, 12, 12, 64, False, 0, 0),
+    (2, 300, 70, 6, 2, 64, False, 0, 0),
+    (1, 1500, 1500, 12, 12, 64, False, 0, 0),
+    (1, 4096, 1500, 12, 12, 64, False, 0, 0),
+    (1, 4096, 4096, 12, 12, 64, True, 0, 0),
 ])
 def test_flash_attention_sm90_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
                                             q_offset):
@@ -716,6 +729,15 @@ DECODE_CASES = [
     (8, 4096, 32, 32, 112, True, 0, 4095),
     (1, 700, 4, 2, 112, True, 0, 650),
     (2, 1000, 8, 8, 112, True, 100, 900),
+    # whisper-small, 12 heads of 64, MHA: the self-attention of the serving
+    # batch against its 4096-long cache at positions 0, 63 and 4095, and
+    # the cross attention over 1500 frames (non-causal: 6 splits, the last
+    # 220 keys) and over 200 (one split)
+    (8, 4096, 12, 12, 64, True, 0, 0),
+    (8, 4096, 12, 12, 64, True, 0, 63),
+    (8, 4096, 12, 12, 64, True, 0, 4095),
+    (8, 1500, 12, 12, 64, False, 0, 0),
+    (8, 200, 12, 12, 64, False, 0, 0),
 ]
 
 
@@ -948,6 +970,70 @@ def test_zamba2_on_the_card_matches_the_cpu(cuda, dtype):
         assert torch.isfinite(g).all()
         if dtype == "float32":
             assert (g - c).abs().max().item() <= 1e-4 * c.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["whisper-small", "llava-next-mistral-7b"])
+def test_enc_dec_and_media_on_the_card_match_the_cpu(cuda, arch, dtype):
+    """Reduced whisper-small at its head_dim 64 (4 heads, MHA: two encoder
+    layers over 32 random frames, one decoder layer with cross attention)
+    and reduced llava-next-mistral-7b at its head_dim 128 (a prefill with 16
+    media rows). Prefill logits and 6 decode steps' (whisper's against
+    random encoder states) on the card against the CPU from the same
+    params, within 1e-4 of max|logit| in fp32 (TF32 off); finite in bf16.
+    Every attention launches one kernel: whisper's prefill step 2 encoder
+    layers, a self and a cross attention (the (64, 64) prefill instance in
+    bf16, 3xTF32 in fp32), each decode step a self and a cross attention on
+    the decode kernel."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import sm90_launches, variant_launches
+    from repro_torch.models.transformer import (
+        ModelOpts,
+        forward_decode,
+        forward_prefill,
+        init_cache,
+        init_params,
+    )
+    from repro_torch.tree import tree_map
+
+    H = 64 if arch == "whisper-small" else 128
+    cfg = replace(reduced(get_arch(arch)), num_heads=4, num_kv_heads=4, head_dim=H,
+                  param_dtype=dtype, compute_dtype=dtype)
+    dt = getattr(torch, dtype)
+    opts = ModelOpts()
+    params = init_params(cfg, opts, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (2, 40), generator=g)
+    stubs = ({"frames": torch.randn((2, cfg.enc_seq_len, cfg.d_model), generator=g)}
+             if cfg.enc_dec else
+             {"media": torch.randn((2, cfg.num_media_tokens, cfg.d_model), generator=g)})
+    enc = torch.randn((2, cfg.enc_seq_len, cfg.d_model), generator=g)
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d), params)
+        ops.reset_launches()
+        pre = forward_prefill(cfg, opts, p, {"tokens": toks.to(d),
+                                             **{k: t.to(d, dt) for k, t in stubs.items()}})
+        cache = init_cache(cfg, opts, 2, 8, dt, device=d)
+        if cfg.enc_dec:
+            cache["enc_out"].copy_(enc)
+        steps = [forward_decode(cfg, opts, p, {"token": toks[:, t:t + 1].to(d), "pos": t},
+                                cache)[0] for t in range(6)]
+        out[d.type] = (pre.float().cpu(), torch.stack(steps).float().cpu(),
+                       dict(variant_launches), dict(sm90_launches))
+    (pre_g, dec_g, launched, inst), (pre_c, dec_c, _, _) = out["cuda"], out["cpu"]
+    n_pre, n_dec = (4, 12) if cfg.enc_dec else (1, 6)
+    assert launched == {"sm90": n_pre * (dtype == "bfloat16"),
+                        "tf32x3": n_pre * (dtype == "float32"), "decode": n_dec,
+                        "latent_decode": 0}
+    assert inst[(H, H)] == n_pre * (dtype == "bfloat16")
+    for g_, c in ((pre_g, pre_c), (dec_g, dec_c)):
+        assert torch.isfinite(g_).all()
+        if dtype == "float32":
+            V = cfg.vocab_size
+            assert (g_ - c)[..., :V].abs().max().item() <= 1e-4 * c[..., :V].abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

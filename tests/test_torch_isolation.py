@@ -310,16 +310,50 @@ def test_ported_block_kinds_initialise_and_run(kind):
         assert shapes["k"] == (2, 2, 4, cfg.num_kv_heads, cfg.head_dim)
 
 
-@pytest.mark.parametrize("change", [dict(enc_dec=True), dict(frontend="vision_stub"),
+@pytest.mark.parametrize("change", [dict(enc_dec=True, enc_layers=1, enc_seq_len=8),
+                                    dict(frontend="vision_stub", num_media_tokens=4),
                                     dict(learned_pos_emb=True)])
-def test_unported_model_features_raise(change):
+def test_model_features_initialise_and_run(change):
+    """The model features that raised until the port ran them (an
+    encoder-decoder model, the vision frontend's media prefix, learned
+    position embeddings) initialise, prefill and decode on a reduced
+    llama3.2-3b."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.transformer import (
+        ModelOpts,
+        forward_decode,
+        forward_prefill,
+        init_cache,
+        init_params,
+    )
+
+    cfg = replace(reduced(get_arch("llama3.2-3b")), **change)
+    params = init_params(cfg, ModelOpts(), device="cpu")
+    assert ("encoder" in params) == cfg.enc_dec and ("pos_embed" in params) == \
+        cfg.learned_pos_emb
+    batch = {"tokens": torch.ones((2, 3), dtype=torch.long)}
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((2, cfg.enc_seq_len, cfg.d_model))
+    if cfg.frontend == "vision_stub":
+        batch["media"] = torch.randn((2, cfg.num_media_tokens, cfg.d_model))
+    logits = forward_prefill(cfg, ModelOpts(), params, batch)
+    cache = init_cache(cfg, ModelOpts(), 2, 4, torch.float32, device="cpu")
+    step, _ = forward_decode(cfg, ModelOpts(), params,
+                             {"token": batch["tokens"][:, :1], "pos": 0}, cache)
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+
+
+def test_unknown_frontend_raises():
+    """A frontend name the reference does not know raises."""
     from dataclasses import replace
 
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models.transformer import ModelOpts, init_params
 
-    cfg = replace(reduced(get_arch("llama3.2-3b")), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = replace(reduced(get_arch("llama3.2-3b")), frontend="video_stub")
+    with pytest.raises(ValueError, match="frontend"):
         init_params(cfg, ModelOpts(), device="cpu")
 
 

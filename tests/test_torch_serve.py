@@ -2,7 +2,8 @@
 
 A serve-style loop (decode-step prefill over the prompts, then greedy
 generation with ``make_serve_step``) runs the reduced models on both sides
-from the reference's parameters and the same prompts, drawn as
+from the reference's parameters and the same prompts (and, for
+whisper-small, the same random encoder states), drawn as
 ``repro.launch.serve`` draws them; the greedy tokens must be identical.
 """
 import jax
@@ -19,12 +20,13 @@ from repro.models import init_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
 from repro_torch.configs import get_arch, reduced
 from repro_torch.convert import lm_from_jax, lm_to_jax
-from repro_torch.launch.serve import main, serve
+from repro_torch.launch.serve import fill_enc_out, main, serve
 from repro_torch.launch.steps import default_opts, make_prefill_step, make_serve_step
 from repro_torch.models.transformer import init_cache
 
 ARCHS = ["llama3.2-3b", "rwkv6-1.6b", "gemma3-12b", "llama3-8b", "nemotron-4-15b",
-         "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "zamba2-7b"]
+         "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "zamba2-7b", "whisper-small",
+         "llava-next-mistral-7b"]
 
 
 def _prompts(vocab, B, prompt_len, seed):
@@ -41,12 +43,21 @@ def test_greedy_tokens_match_the_reference(arch):
     cfg = reduced(get_arch(arch))
     opts = default_opts(cfg)
     p = lm_from_jax(jax.tree.map(np.asarray, jp))
-    prompts = _prompts(cfg.vocab_size, B, prompt_len, seed)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab_size, (B, prompt_len)).astype(np.int32)
 
     jstep = jax.jit(jax_make_serve_step(jcfg, jo))
     jc = jax_init_cache(jcfg, jo, B, cache_len, jnp.float32)
     step = make_serve_step(cfg, opts)
     c = init_cache(cfg, opts, B, cache_len, torch.float32, device="cpu")
+    if cfg.enc_dec:
+        # after the prompts, from the same generator, as the reference's serve
+        state = rng.bit_generator.state
+        jc["enc_out"] = jnp.asarray(rng.normal(0, 1, (B, cfg.enc_seq_len, cfg.d_model)),
+                                    jnp.float32)
+        rng.bit_generator.state = state
+        fill_enc_out(cfg, c, rng)
+        np.testing.assert_array_equal(c["enc_out"].numpy(), np.asarray(jc["enc_out"]))
     want, got = [], []
     for t in range(prompt_len + gen_len):
         if t < prompt_len:
