@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the FedEEC trainer (the
 plain path and the simulator's scenario path), the HierFAVG-family
-baselines, checkpoint and resume, the telemetry plane, the LM serving path
-and the LM training path.
+baselines, checkpoint and resume, the telemetry plane, the LM serving path,
+the LM training path and the LM examples (BSBODP + SKR distillation between
+two LMs, batched decode serving).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rwkv-chunks  # only phases 1-2, the chunked
@@ -31,6 +32,11 @@ and the LM training path.
                                          # rwkv6-1.6b's two-layer gradients
                                          # leaf by leaf, drawn on the CPU and
                                          # on the card
+    python3 chip_smoke.py --lm-distill   # only phases 1-2, 3's distill_loss
+                                         # and skr_rectify checks and times
+                                         # at the LM distillation step's
+                                         # shapes, and 12's distillation
+                                         # path, its parity and serve_decode
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
@@ -54,7 +60,8 @@ the result line:
    entries, the t entry and the cross-entropy entry that takes no teacher,
    each case naming the kernels that served it (``regs`` or ``stream``
    forward, ``rows`` or ``slices`` backward), on fp32 and on bf16 logits up
-   to the LM training loss's (1, 1024, 128256), at and across each
+   to the LM training loss's (1, 1024, 128256) and the LM distillation
+   step's fp32 (1, 128, 128256), at and across each
    variant's threshold, on logits off a 16-byte boundary, and the CE entry
    bit for bit against the t entry on an all-zero t; then a check that the
    CE forward allocates nothing of the logits' size; flash_attention has three kernels: the split-KV
@@ -92,13 +99,17 @@ the result line:
    has two entries: the map alone, exact, and the
    fused entry, SKR's queue pass and map in one launch, with count, head
    and q exact and Q within 1e-6, at a teacher step of the main path, four
-   pairs, (4, 256, 1024), repeated labels and more rows than a chunk), then the
+   pairs, (4, 256, 1024), repeated labels, more rows than a chunk, and the
+   LM distillation step's teacher step (1, 128, 128256, queues of 20), its
+   labels over all classes or from 64), then the
    FedEEC kernels' device time (a CUDA graph of many launches between CUDA
    events) beside the plain version's, the bound and, where one PyTorch
    call computes the same function, that call's time (distill_loss's
    entries at (1, 8, 10) and at (4, 256, 2048) fp32, the latter also cold:
-   rotating through inputs past the 50 MB L2; skr_rectify's map and fused
-   entry at (1, 8, 10) and (4, 256, 1024), queues of 20), and SKR per
+   rotating through inputs past the 50 MB L2, and the t entry at the LM
+   distillation step's (1, 128, 128256) fp32 at beta 1.5; skr_rectify's map
+   at (1, 8, 10) and (4, 256, 1024), its fused entry there and at (1, 128,
+   128256), queues of 20), and SKR per
    teacher step issued eagerly as the main path issues it, beside the
    loop of torch ops it replaced and the other label check, with the torch
    ops each dispatches;
@@ -227,7 +238,21 @@ the result line:
    fp32, one ``make_train_step`` on the card and on the CPU from the same
    params and ``token_batches`` batch (loss, grad norm, every gradient
    leaf), and on the card the loss with ``use_kernels`` on against off;
-   then
+   before them, the LM distillation path (``examples.train_lm_distill``):
+   llama3.2-3b at full width and depth teaches llama3-8b at full width and
+   8 of 32 layers (``served_config``), bf16 weights, fp32 from the logits on,
+   ``run``'s 20 steps of 4 x 32 tokens over the shared 128,256-token
+   vocabulary, with the launch counters zeroed before and held after to 20
+   distill_loss t-entry launches each way (``stream`` forward, ``slices``
+   backward), 20 of SKR's fused entry and 28 tensor-core (128, 128)
+   attention launches a step (the teacher's; the student's attention is
+   ``mha``): step wall ms, peak memory, losses, SKR's pushes and rectified
+   rows, then one step under the profiler (device busy ms and the shares
+   of SKR's fused entry, distill_loss, the teacher's attention and AdamW);
+   its card-vs-CPU parity at two layers each in fp32 (the teacher's logits,
+   tlogq from the card's logits and from each device's, SKR's state, the
+   loss, every gradient leaf), and ``serve_decode.main(["rwkv6-1.6b"])`` on
+   the card (16 sequential scan launches); then
    ``train_lm(checkpoint=)`` on llama3.2-3b reduced to two layers in bf16,
    the file read back with the port's ``load_pytree`` and held bit for bit
    to the card's params and AdamW state;
@@ -249,7 +274,8 @@ the result line:
    instance, its self and cross attention at a decode step) beside SDPA;
    the 3xTF32 kernel in fp32 at the llama3.2-3b
    prefill shape, the calls it serves, beside fp32 SDPA (TF32 off), its
-   3xTF32 bound and the fp32-core bound; the
+   3xTF32 bound and the fp32-core bound; the tensor-core kernel at the LM
+   distillation teacher's (4, 32, 24/8, 128) beside SDPA; the
    sequential rwkv6_scan kernel, launched directly, at the prefill shape
    beside the chunked one, and the chunked one's three kernels' device ms
    under the profiler; the rwkv6_scan backward kernel at the training
@@ -528,11 +554,20 @@ def _unaligned(x):
     return out
 
 
+# the LM distillation step's shapes (``examples.train_lm_distill`` at full
+# width): its student loss's (B, N, V), B 4 x S 32 rows of the shared
+# 128,256-token vocabulary; its teacher step's SKR (B, N, C, Bq); its
+# teacher's attention (B, Sq, Sk, N, K, H), llama3.2-3b's prefill of 4 x 32
+# tokens
+DISTILL_TEACHER_SHAPE = (1, 128, 128256)
+SKR_TEACHER_SHAPE = (1, 128, 128256, 20)
+DISTILL_TEACHER_ATTN = (4, 32, 32, 24, 8, 128)
 # (B, N, V): FedEEC's rows (V = 10), vocabularies no multiple of 4 or 8, the
 # fp32 bench shape, fp32's register-layout threshold (16 KB: V = 4096) and
-# bf16's (V = 8192) from both sides, and llama3.2-3b's vocabulary
+# bf16's (V = 8192) from both sides, llama3.2-3b's vocabulary, and the LM
+# distillation step's
 DISTILL_SHAPES = [(1, 8, 10), (4, 8, 10), (3, 37, 1000), (2, 33, 4095), (2, 33, 4096),
-                  (2, 33, 4097), (4, 256, 2048), (2, 64, 128256)]
+                  (2, 33, 4097), (4, 256, 2048), (2, 64, 128256), DISTILL_TEACHER_SHAPE]
 DISTILL_BF16_SHAPES = [(1, 8, 10), (3, 37, 1000), (2, 5, 1003), (2, 33, 4095), (2, 33, 4096),
                        (2, 33, 4097), (2, 17, 8191), (2, 17, 8192), (2, 17, 8193),
                        (4, 256, 2048)]
@@ -689,10 +724,14 @@ def check_skr_rectify(dev):
     worst = 0.0
     # (B, N, C, Bq, classes the labels come from): the main path's teacher
     # step, four pairs, the bench shape, labels from 2 classes (later rows
-    # see earlier pushes, heads wrap), and more rows than a chunk of 1024
+    # see earlier pushes, heads wrap), more rows than a chunk of 1024, and
+    # the LM distillation step's teacher step (128 rows of 128,256 classes,
+    # labels over all of them or from 64, every class's queue partly full,
+    # so that Eq. 31 fires)
     for B, N, C, Bq, classes in [(1, 8, 10, 20, None), (4, 8, 10, 20, None),
                                  (4, 256, 1024, 20, None), (2, 64, 10, 4, 2),
-                                 (2, 1500, 10, 20, 3)]:
+                                 (2, 1500, 10, 20, 3), (*SKR_TEACHER_SHAPE, None),
+                                 (*SKR_TEACHER_SHAPE, 64)]:
         ins = _skr_state(B, N, C, Bq, dev, classes)
         got = skr_process_batched(*ins)
         want = R.skr_process_batched_ref(*ins)
@@ -807,6 +846,9 @@ FLASH_CASES = [
     (1, 77, 100, 12, 12, 64, False, 0),
     (2, 300, 70, 6, 2, 64, False, 0),
     (1, 200, 36, 12, 12, 64, False, 0),
+    # the LM distillation step's teacher prefill (llama3.2-3b, 4 x 32
+    # tokens): every 128-row query tile partial, one 64-key tile
+    (*DISTILL_TEACHER_ATTN, True, 0),
 ]
 # the split-KV decode kernel's edges, one query against the cache
 # (B, Sk, N, K, H, causal, window, q_offset): G in {1, 3, 4, 8, 16}, every
@@ -1350,6 +1392,9 @@ def time_kernels(dev):
     rows.update(time_distill(dev, "lm", 4, 256, 2048, torch.float32, DISTILL_TIMED))
     rows.update(time_distill(dev, "lm_cold", 4, 256, 2048, torch.float32, DISTILL_TIMED,
                              cold=True))
+    # the LM distillation step's student loss: the t entry in fp32 at beta 1.5
+    rows.update(time_distill(dev, "lm_distill", *DISTILL_TEACHER_SHAPE, torch.float32,
+                             [("t", 1.5)], launches=20))
     for tag, (B, N, C) in [("main", (1, 8, 10)), ("lm", (4, 256, 1024))]:
         probs, labels, qbar, counts = _skr_inputs(B, N, C, dev)
         labels = labels.long()
@@ -1377,9 +1422,11 @@ def time_kernels(dev):
 
 def time_skr_fused(dev):
     """The fused SKR entry (queue pass + map) through its launch function,
-    at the main path's teacher step (1, 8, 10, queues of 20) and at (4,
-    256, 1024, 20). Its plain version is a loop of about 20 torch ops a
-    row, so at the second shape a graph holds one call of it, not 200. The
+    at the main path's teacher step (1, 8, 10, queues of 20), at (4, 256,
+    1024, 20) and at the LM distillation step's teacher step (1, 128,
+    128256, 20; a graph of 10 launches). Its plain version is a loop of
+    about 20 torch ops a row, so at the larger shapes a graph holds one
+    call of it, not 200. The
     bound counts probs and int64 labels read, Q written, and the state
     (q, count, head) read and written once; operations, 2·n·C + n·Bq (the
     argmax, the map's products, at most Bq adds a row for the queue mean),
@@ -1390,8 +1437,10 @@ def time_skr_fused(dev):
     from repro_torch.kernels import ref as R
 
     rows = {}
-    for tag, (B, N, C, Bq), plain_launches in [("main", (1, 8, 10, 20), TIMED_LAUNCHES),
-                                               ("lm", (4, 256, 1024, 20), 1)]:
+    for tag, (B, N, C, Bq), launches, plain_launches in [
+            ("main", (1, 8, 10, 20), TIMED_LAUNCHES, TIMED_LAUNCHES),
+            ("lm", (4, 256, 1024, 20), TIMED_LAUNCHES, 1),
+            ("lm_distill", SKR_TEACHER_SHAPE, 10, 1)]:
         probs, labels, q, count, head = ins = _skr_state(B, N, C, Bq, dev)
         out, new_q = torch.empty_like(probs), torch.empty_like(q)
         ints = torch.zeros(2 * B * C + B, dtype=torch.int32, device=dev)  # err words zero
@@ -1406,7 +1455,7 @@ def time_skr_fused(dev):
             return R.skr_process_batched_ref(*ins)
 
         n = B * N
-        ms, eager = device_ms(launch), eager_ms(launch)
+        ms, eager = device_ms(launch, launches), eager_ms(launch, launches)
         plain_ms = device_ms(plain, plain_launches)
         b, by = bound_ms(4 * 2 * n * C + 8 * n + 2 * (4 * B * C * Bq + 8 * B * C) + 4 * B,
                          2 * n * C + n * Bq)
@@ -2582,6 +2631,7 @@ def time_lm_kernels(dev):
            small.head_dim)
     for name, tag, (B, Sq, Sk, N, K, H, *hv), qo, window, dtype, *non_causal in [
             ("flash_attention", "prefill", FLASH_PREFILL, 0, 0, bf16),
+            ("flash_attention", "distill_teacher", DISTILL_TEACHER_ATTN, 0, 0, bf16),
             ("flash_attention_sm90_192", "deepseek_prefill", (*MLA_PREFILL, MLA_HV), 0, 0,
              bf16),
             ("flash_attention_sm90_112", "zamba2_prefill", ZAMBA2_PREFILL, 0, 0, bf16),
@@ -3766,6 +3816,330 @@ def time_train_loss_kernels(dev):
     return rows
 
 
+# The LM distillation path (``repro_torch.examples.train_lm_distill``):
+# llama3.2-3b teaches llama3-8b over the shared 128,256-token vocabulary,
+# the teacher at full width and depth, the student at full width and
+# ``SERVE_REPEATS``' depth (8 of 32 layers: full depth's bf16 params,
+# gradients and fp32 moments alone are 96 GB), bf16, the example's steps of
+# B x S tokens
+DISTILL_PAIR = ("llama3.2-3b", "llama3-8b")
+DISTILL_STEPS = 20
+DISTILL_PHASE = ("LM distillation path: llama3.2-3b (full depth) teaches llama3-8b (8 of 32 "
+                 f"layers), full width, bf16, {DISTILL_STEPS} steps")
+DISTILL_PARITY_PHASE = ("LM distillation parity: llama3.2-3b teaches llama3-8b, full width, "
+                        "two layers each, fp32, one step, the card vs the CPU")
+SERVE_DECODE_PHASE = "serve_decode example: rwkv6-1.6b reduced, on the card"
+ADAMW_MARK = "distribution_elementwise"  # the uniform_ kernel that marks AdamW's start
+
+
+def expected_distill_launches(teacher_cfg, steps) -> dict:
+    """Kernel launches of ``steps`` distillation steps, from the layer list:
+    a step's teacher forward one flash_attention launch an attention layer
+    (bf16 prefill of S tokens), one launch of SKR's fused entry, and one
+    forward and one backward launch of distill_loss's t entry; the
+    student's attention is ``mha`` under autograd, no kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    want = dict.fromkeys(ops.launches, 0)
+    want.update(distill_loss_fwd=steps, distill_loss_bwd=steps, skr_rectify=steps,
+                flash_attention=steps * sum(b.kind in ATTN_KINDS for b in teacher_cfg.blocks))
+    return want
+
+
+def profile_distill_step(dev, teacher_cfg, student_cfg, pt, ps, skr) -> None:
+    """One distillation step (the teacher's knowledge, the student's
+    gradient, AdamW) under ``torch.profiler`` in a window of
+    ``profile_kernels``, after one step outside it: device busy ms (the
+    union of kernel intervals) and the device ms and share of busy of SKR's
+    fused entry, distill_loss's two launches, the teacher's attention and
+    AdamW's passes (every kernel after a ``uniform_`` kernel launched
+    between the gradient and the update). A window that lost one of these
+    records (ROADMAP C14) is taken again, up to ``PROFILE_WINDOWS``."""
+    import re
+
+    import torch
+
+    from repro_torch.examples import train_lm_distill as D
+    from repro_torch.fl.profile_round import busy_us
+    from repro_torch.models.transformer import ATTN_KINDS
+    from repro_torch.optim import adamw_init, adamw_update_
+
+    vocab = min(teacher_cfg.vocab_size, student_cfg.vocab_size)
+    ot, os_ = D.pair_opts(teacher_cfg), D.pair_opts(student_cfg)
+    opt = adamw_init(ps)
+    tokens, labels = (torch.from_numpy(a).to(dev, torch.int64)
+                      for a in next(D.token_draws(vocab, 1)))
+    state = {"skr": skr}
+
+    def step():
+        tlogq, state["skr"] = D.teach(teacher_cfg, ot, pt, state["skr"], tokens, labels, vocab)
+        _, grads = D.student_grads(student_cfg, os_, ps, tokens, labels, tlogq, vocab)
+        torch.empty(1, device=dev).uniform_()
+        adamw_update_(grads, opt, ps, lr=D.LR, weight_decay=0.0)
+
+    step()
+    torch.cuda.synchronize()
+    parts = {"skr": lambda n: "skr_process_kernel" in n,
+             "distill_loss": lambda n: re.search(r"\b(fwd_regs|fwd_stream|bwd)<", n),
+             "attention": lambda n: "flash_sm90_kernel" in n,
+             "mark": lambda n: ADAMW_MARK in n}
+    want = {"skr": 1, "distill_loss": 2, "mark": 1,
+            "attention": sum(b.kind in ATTN_KINDS for b in teacher_cfg.blocks)}
+    for window in range(1, PROFILE_WINDOWS + 1):
+        kernels, lead, lost = profile_kernels(dev, step)
+        WINDOWS["taken"] += 1
+        got = {p: [(t0, t1) for n, t0, t1 in kernels if match(n)] for p, match in parts.items()}
+        seen = {p: len(v) for p, v in got.items()}
+        if seen == want:
+            break
+        WINDOWS["retaken"] += 1
+        print(f"distillation step: profiler window {window} saw {seen} kernels, want {want} "
+              f"({lost} of a lead-in of {lead} lost), records lost inside it (ROADMAP C14)")
+    else:
+        fail(f"the profiler saw {seen} of the distillation step's kernels, want {want}, in "
+             f"each of {PROFILE_WINDOWS} windows")
+    busy = busy_us([(t0, t1) for _, t0, t1 in kernels]) / 1e6
+    mark_end = got["mark"][0][1]
+    adamw = [(t0, t1) for _, t0, t1 in kernels if t0 >= mark_end]
+    ms = {p: sum(t1 - t0 for t0, t1 in v) / 1e6 for p, v in got.items() if p != "mark"}
+    ms["adamw"] = busy_us(adamw) / 1e6
+    top: dict[str, float] = {}
+    for n, t0, t1 in kernels:
+        top[n[:60]] = top.get(n[:60], 0.0) + (t1 - t0) / 1e6
+    print(f"one distillation step under torch.profiler (window {window}): device busy "
+          f"{busy:.4f} ms, {len(kernels)} kernels ({lost} of a lead-in of {lead} markers "
+          f"lost); " + ", ".join(f"{p} {m:.4f} ms ({m / busy:.4f} of busy)"
+                                 for p, m in ms.items())
+          + f" (AdamW: {len(adamw)} kernels)")
+    print("  top kernels by device ms: " + "; ".join(
+        f"{n} {m:.4f}" for n, m in sorted(top.items(), key=lambda kv: -kv[1])[:6]))
+    if not busy > 0:
+        fail("the profiler recorded no device time in the distillation step")
+    del opt
+
+
+def drive_distill_path(dev):
+    """The LM distillation path, ``train_lm_distill.run`` on the card at the
+    published widths (``DISTILL_PAIR``: the student's depth cut), bf16
+    weights, fp32 from the logits on, with the launch counters zeroed just
+    before and read just after, held to ``expected_distill_launches``:
+    distill_loss's t entry on the ``stream`` forward and the ``slices``
+    backward (V = 128,256 in fp32), SKR's fused entry, the teacher's
+    attention on the tensor-core kernel's (128, 128) instance. Prints each
+    step's wall ms (ends in a sync), the peak memory, the losses and SKR's
+    pushes and rectified rows, then one more step under the profiler.
+    Returns the launches and the tensor-core (128, 128) launches."""
+    import gc
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.examples import train_lm_distill as D
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.distill_loss import variant_launches as distill_launches
+    from repro_torch.kernels.flash_attention import sm90_launches
+    from repro_torch.kernels.flash_attention import variant_launches as flash_launches
+    from repro_torch.kernels.skr_rectify import variant_launches as skr_launches
+    from repro_torch.models.transformer import init_params
+
+    tcfg, scfg = get_arch(DISTILL_PAIR[0]), served_config(DISTILL_PAIR[1])
+    vocab = min(tcfg.vocab_size, scfg.vocab_size)
+    for role, cfg in (("teacher", tcfg), ("student", scfg)):
+        print(f"{role} {cfg.name}: {cfg.num_layers} of {get_arch(cfg.name).num_layers} layers, "
+              f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.head_dim}, {cfg.param_count() / 1e9:.3f} B parameters, {cfg.param_dtype}")
+    print(f"{DISTILL_STEPS} steps of B {D.B} x S {D.S} tokens, V {vocab}, T {D.TEMP}, "
+          f"beta {D.BETA}, SKR queues of {D.QUEUE_LEN}; AdamW lr {D.LR}, fp32 moments")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pt = init_params(tcfg, D.pair_opts(tcfg), seed=0, device=dev)
+    ps = init_params(scfg, D.pair_opts(scfg), seed=1, device=dev)
+    ops.reset_launches()
+    res = D.run(tcfg, scfg, steps=DISTILL_STEPS, pt=pt, ps=ps, device=dev)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    distill = {k: n for k, n in distill_launches.items() if n}
+    skr = dict(skr_launches)
+    flash = dict(flash_launches)
+    instances = {h: n for h, n in sm90_launches.items() if n}
+    add_variant_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_distill_launches(tcfg, DISTILL_STEPS)
+    n = DISTILL_STEPS
+    want_flash = {"sm90": want["flash_attention"], "tf32x3": 0, "decode": 0,
+                  "latent_decode": 0}
+    want_instances = {(tcfg.head_dim, tcfg.head_dim): want["flash_attention"]}
+    ms = [1e3 * s for s in res.step_s]
+    rows = n * D.B * D.S
+    print("step wall ms (host clock, ending in a sync): " + ", ".join(f"{m:.2f}" for m in ms)
+          + f"; median {statistics.median(ms):.4f}, of steps 2-{n} "
+          f"{statistics.median(ms[1:]):.4f}")
+    print(f"peak max_memory_allocated: {peak / 2**20:.1f} MiB ({peak / 1e9:.2f} GB)")
+    print("losses: " + ", ".join(f"{x:.5f}" for x in res.losses))
+    print(f"SKR: {sum(res.pushes)} queue pushes and {sum(res.rectified)} rows rectified in "
+          f"{rows} rows (per step {res.pushes}, {res.rectified}); final state: "
+          f"{int((res.skr['count'] > 0).sum())} classes with a queue, counts summing to "
+          f"{int(res.skr['count'].sum())}")
+    print(f"launches: {counts}  predicted from the layer list: {want}")
+    print(f"distill_loss launches per entry and kernel: {distill}; skr_rectify per entry: "
+          f"{skr}; flash_attention per kernel: {flash}, tensor-core instances {instances}")
+    if len(res.losses) != n or not all(math.isfinite(x) for x in res.losses):
+        fail(f"distillation: non-finite or missing losses {res.losses}")
+    if counts != want:
+        fail(f"distillation: launches {counts}, predicted {want}")
+    if distill != {"fwd:stream": n, "bwd:slices": n}:
+        fail(f"distillation: distill_loss kernels {distill}, want {n} fwd:stream and "
+             f"{n} bwd:slices")
+    if skr != {"map": 0, "fused": n}:
+        fail(f"distillation: skr_rectify entries {skr}, want {n} fused")
+    if flash != want_flash or instances != want_instances:
+        fail(f"distillation: flash_attention {flash} {instances}, predicted {want_flash} "
+             f"{want_instances}")
+    if int(res.skr["count"].max()) < D.QUEUE_LEN and int(res.skr["count"].sum()) != sum(
+            res.pushes):
+        fail(f"distillation: SKR's queue counts sum to {int(res.skr['count'].sum())}, "
+             f"{sum(res.pushes)} rows pushed")
+    profile_distill_step(dev, tcfg, scfg, pt, res.params, res.skr)
+    del pt, ps, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, instances.get((128, 128), 0)
+
+
+def check_distill_parity(dev):
+    """The distillation step at the published widths, two layers each
+    (``two_layer_config``), fp32, params drawn on the card (the CPU's
+    generator takes tens of seconds for their 2.1 B values) and copied to
+    the CPU, one ``token_draws`` batch, and a queue state with 1-20 entries on
+    every class the labels name (so that Eq. 31 fires on each misattributed
+    row): the teacher's logits and knowledge and the student's loss and
+    gradient on each device (TF32 off). Bars: the teacher's fp32 logits
+    within 1e-5 of max|z| (sums of 3,072 products in other orders; the LM
+    parities hold logits to 1e-4); the card's logits through the CPU's
+    softmax, SKR and log within 1e-5 of the card's tlogq, with the same
+    queue state; each device's tlogq from its own logits within 4 max|dz|
+    / T + 1e-5 of the other's (log softmax(z / T) moves by at most 2
+    max|dz| / T, and Eq. 31's log(1 - p_c) by at most as much again, since
+    a misattributed row has p_c < 1/2); SKR's count and head exact and q
+    within 1e-6; the loss within 1e-5 relative; each gradient leaf within
+    1e-4 of its max|g|."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.skr import skr_init
+    from repro_torch.examples import train_lm_distill as D
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    tcfg, scfg = (two_layer_config(a) for a in DISTILL_PAIR)
+    vocab = min(tcfg.vocab_size, scfg.vocab_size)
+    ot, os_ = D.pair_opts(tcfg), D.pair_opts(scfg)
+    cpu = torch.device("cpu")
+    on_card = (init_params(tcfg, ot, seed=8, device=dev), init_params(scfg, os_, seed=9,
+                                                                      device=dev))
+    on_cpu = tuple(tree_map(lambda t: t.cpu(), p) for p in on_card)
+    tokens, labels = (torch.from_numpy(a).long() for a in next(D.token_draws(vocab, 1)))
+    rows = labels.reshape(-1)
+    skr = skr_init(vocab, D.QUEUE_LEN)
+    rng = np.random.default_rng(10)
+    cls = labels.unique()
+    skr["q"][cls] = torch.from_numpy(rng.uniform(0.1, 0.9, (len(cls), D.QUEUE_LEN))
+                                     .astype(np.float32))
+    skr["count"][cls] = torch.from_numpy(rng.integers(1, D.QUEUE_LEN + 1, len(cls))
+                                         .astype(np.int32))
+    skr["head"][cls] = torch.from_numpy(rng.integers(0, D.QUEUE_LEN, len(cls))
+                                        .astype(np.int32))
+    out = []
+    for d, (p_t, p_s) in ((dev, on_card), (cpu, on_cpu)):
+        def to(t):
+            return t.to(d, copy=True)
+
+        tok, lab = tokens.to(d), labels.to(d)
+        # teacher_knowledge, its logits kept
+        with torch.no_grad():
+            z = D.logits_fn(tcfg, ot, p_t, tok, train=False)[..., :vocab].float()
+        probs, q, state = D.knowledge(tree_map(to, skr), z.reshape(-1, vocab), rows.to(d))
+        tlogq = D.log_knowledge(q)
+        loss, grads = D.student_grads(scfg, os_, p_s, tok, lab, tlogq, vocab)
+        pushed = int((probs.gather(1, rows.to(d)[:, None])[:, 0] >= probs.amax(1)).sum())
+        out.append((z.reshape(-1, vocab).cpu(), tlogq.cpu(),
+                    {k: v.cpu() for k, v in state.items()}, float(loss),
+                    [g.cpu() for g in tree_leaves(grads)], pushed,
+                    int((q != probs).any(1).sum())))
+        del p_t, p_s, z, probs, q, state, tlogq, grads
+        gc.collect()
+    (zg, tg, sg, lg, gg, pg, rg), (zc, tc, sc, lc, gc_, pc, rc) = out
+    _, q_same, s_same = D.knowledge(skr, zg, rows)
+    same_err = (D.log_knowledge(q_same) - tg).abs().max().item()
+    z_err, z_bound = (zg - zc).abs().max().item(), 1e-5 * zc.abs().max().item()
+    t_err, t_bound = (tg - tc).abs().max().item(), 4 * z_err / D.TEMP + 1e-5
+    q_err = (sg["q"] - sc["q"]).abs().max().item()
+    same = all(torch.equal(sg[k], sc[k]) and torch.equal(sg[k], s_same[k])
+               for k in ("count", "head"))
+    q_err = max(q_err, (sg["q"] - s_same["q"]).abs().max().item())
+    shares = _leaf_shares(gc_, gg)
+    share = max(shares)
+    worst = _leaf_names(on_cpu[1])[shares.index(share)]
+    print(f"{tcfg.name} -> {scfg.name}, two layers each, fp32, V {vocab}: teacher logits "
+          f"max|card - CPU| {z_err:.3e} (bound {z_bound:.3e}, 1e-5 of max|z|); tlogq from "
+          f"the card's logits max|card - CPU| {same_err:.3e} (bound 1e-5); tlogq from each "
+          f"device's logits max|card - CPU| {t_err:.3e} (bound {t_bound:.3e}, 4 max|dz| / T "
+          f"+ 1e-5); SKR count/head {'exact' if same else 'MISMATCH'}, q max|err| "
+          f"{q_err:.3e} (bound 1e-6); rows pushed {pg} (card) {pc} (CPU), rectified {rg} "
+          f"(card) {rc} (CPU) of {len(tg)}; loss {lg:.7f} (card) {lc:.7f} (CPU); worst "
+          f"gradient leaf max|card - CPU| {share:.3e} of its max|g| ({worst})")
+    if z_err > z_bound:
+        fail("distillation: the card's teacher logits disagree with the CPU's")
+    if same_err > 1e-5 or t_err > t_bound or not same or q_err > 1e-6:
+        fail("distillation: the card's teacher knowledge or SKR state disagrees with the CPU's")
+    if abs(lg - lc) > 1e-5 * abs(lc) or share > 1e-4:
+        fail("distillation: the card's student loss or gradient disagrees with the CPU's")
+    if rc == 0 or (pg, rg) != (pc, rc):
+        fail(f"distillation parity: rows pushed {pg} / {pc}, rectified {rg} / {rc}")
+    del on_card, on_cpu, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive_serve_decode(dev) -> int:
+    """``serve_decode.main(["rwkv6-1.6b"])`` on the card (its default
+    device), with the launch counters zeroed before and read after: the
+    (requests, gen_len) tokens in the vocabulary and one sequential
+    rwkv6_scan launch a layer and serve step (prompt + generated tokens),
+    no other kernel. Returns those launches."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.examples import serve_decode
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6_scan import variant_launches as rwkv_launches
+
+    cfg = reduced(get_arch("rwkv6-1.6b"))
+    ops.reset_launches()
+    res = serve_decode.main(["rwkv6-1.6b"])
+    torch.cuda.synchronize()
+    counts, rwkv = dict(ops.launches), dict(rwkv_launches)
+    n = (serve_decode.PROMPT_LEN + serve_decode.GEN_LEN) * sum(
+        b.kind == "rwkv6" for b in cfg.blocks)
+    want = dict.fromkeys(ops.launches, 0)
+    want["rwkv6_scan"] = n
+    print(f"serve_decode: tokens {res.tokens.shape}, launches {counts} (predicted {want}), "
+          f"rwkv6_scan per kernel {rwkv}")
+    if res.tokens.shape != (serve_decode.REQUESTS, serve_decode.GEN_LEN) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        fail(f"serve_decode: tokens {res.tokens}")
+    if counts != want or rwkv != {"seq": n, "chunked": 0}:
+        fail(f"serve_decode: launches {counts} {rwkv}, predicted {want}")
+    return n
+
+
 def run_baselines_phases(dev) -> dict:
     """The baselines' main path, their card-vs-CPU step parity, the hierfavg
     gate signatures and resume on the card; returns the main path's
@@ -3803,6 +4177,28 @@ def run_lm_families(dev) -> None:
     for arch in TRAIN_PARITY_FAMILIES:
         phase(f"training parity: {arch}, full width, two layers, fp32, the card vs the CPU")
         check_train_parity(dev, arch)
+
+
+def run_lm_distill_phases(dev) -> None:
+    """``python3 chip_smoke.py --lm-distill``: the kernels' checks and times
+    at the LM distillation step's shapes, its path at full width, its
+    card-vs-CPU parity and the serve_decode example."""
+    import torch
+
+    phase("the LM distillation step's kernels vs their plain versions")
+    for beta in (0.0, 1.5):
+        _distill_case(dev, *DISTILL_TEACHER_SHAPE, torch.float32, beta, False)
+    check_skr_rectify(dev)
+    phase("the LM distillation step's kernel times")
+    time_distill(dev, "lm_distill", *DISTILL_TEACHER_SHAPE, torch.float32, [("t", 1.5)],
+                 launches=20)
+    time_skr_fused(dev)
+    phase(DISTILL_PHASE)
+    drive_distill_path(dev)
+    phase(DISTILL_PARITY_PHASE)
+    check_distill_parity(dev)
+    phase(SERVE_DECODE_PHASE)
+    drive_serve_decode(dev)
 
 
 def main() -> None:
@@ -3858,6 +4254,9 @@ def main() -> None:
     if sys.argv[1:] == ["--c13"]:
         phase("ROADMAP C13: rwkv6-1.6b's two-layer training parity, leaf by leaf")
         diagnose_train_parity(dev)
+        return
+    if sys.argv[1:] == ["--lm-distill"]:
+        run_lm_distill_phases(dev)
         return
     if sys.argv[1:] == ["--distill"]:
         phase("distill_loss: every entry and variant vs the plain versions, and times")
@@ -3933,6 +4332,18 @@ def main() -> None:
             counts[k] += train_counts[k]
         for k, variant in RWKV_VARIANTS.items():
             counts[k] += train_variants[variant]
+    # the LM distillation path's launches: distill_loss's t entry, SKR's
+    # fused entry, the teacher's attention on the (128, 128) instance; the
+    # serve_decode example's sequential scans
+    phase(DISTILL_PHASE)
+    distill_counts, distill_sm90 = drive_distill_path(dev)
+    for k in ("distill_loss_fwd", "distill_loss_bwd", "skr_rectify"):
+        counts[k] += distill_counts[k]
+    counts["flash_attention"] += distill_sm90
+    phase(DISTILL_PARITY_PHASE)
+    check_distill_parity(dev)
+    phase(SERVE_DECODE_PHASE)
+    counts["rwkv6_scan"] += drive_serve_decode(dev)
     phase("training parity: llama3.2-3b, full width, two layers, fp32, the card vs the CPU")
     check_train_parity(dev)
     phase("training parity: rwkv6-1.6b, full width, two layers, fp32, the card vs the CPU, "

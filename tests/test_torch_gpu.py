@@ -50,9 +50,11 @@ def test_kernels_build_for_sm90a(cuda):
 # forward within 1e-5 relative: fp32 sums in another order. Gradient within
 # 1e-6 absolute plus 1e-5 relative: the two sides' logZ may differ by one
 # fp32 ulp (about 1e-6 at logZ ~ 10), which moves every dz element by that
-# relative amount, and the largest elements reach a few units here
+# relative amount, and the largest elements reach a few units here. (1, 128,
+# 128256): the LM distillation step's student loss (the stream forward and
+# slices backward of the t entry in fp32)
 @pytest.mark.parametrize("B,N,V", [(1, 8, 10), (4, 8, 10), (3, 37, 1000),
-                                   (4, 256, 2048), (2, 64, 128256)])
+                                   (4, 256, 2048), (2, 64, 128256), (1, 128, 128256)])
 @pytest.mark.parametrize("beta", [0.0, 1.5])
 def test_distill_loss_matches_plain(cuda, B, N, V, beta):
     z, t, y, w = _distill_inputs(B, N, V, cuda)
@@ -264,6 +266,9 @@ def _skr_state(B, N, C, Bq, dev, classes=None, seed=1):
     (1, 8, 10, 20, None), (4, 8, 10, 20, None), (4, 256, 1024, 20, None),
     (2, 64, 10, 4, 2),      # repeated labels: pushes wrap the heads
     (2, 1500, 10, 20, 3),   # more rows than the kernel's chunk
+    # the LM distillation step's teacher step: 128 rows of 128,256 classes,
+    # labels over all of them or from 64, every queue partly full (Eq. 31)
+    (1, 128, 128256, 20, None), (1, 128, 128256, 20, 64),
 ])
 def test_skr_process_matches_plain(cuda, B, N, C, Bq, classes):
     ins = _skr_state(B, N, C, Bq, cuda, classes)
@@ -591,6 +596,9 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
     (1, 1500, 1500, 12, 12, 64, False, 0, 0),
     (1, 4096, 1500, 12, 12, 64, False, 0, 0),
     (1, 4096, 4096, 12, 12, 64, True, 0, 0),
+    # the LM distillation step's teacher prefill (llama3.2-3b, 4 x 32
+    # tokens): every 128-row query tile partial
+    (4, 32, 32, 24, 8, 128, True, 0, 0),
 ])
 def test_flash_attention_sm90_matches_plain(cuda, B, Sq, Sk, N, K, H, causal, window,
                                             q_offset):
@@ -1328,3 +1336,51 @@ def test_moe_forward_on_the_card_matches_the_cpu(cuda, cf):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * want.abs().max().item())
     for k in waux:
         torch.testing.assert_close(aux[k].cpu(), waux[k], rtol=1e-5, atol=0)
+
+
+def test_lm_distill_on_the_card_matches_the_cpu(cuda):
+    """Three steps of ``train_lm_distill.run`` on the reduced configs (fp32,
+    TF32 off) on the card and on the CPU from the same params: the losses
+    within 1e-5 relative at step 1 and 1e-4 after, SKR's count and head
+    exact and q within 1e-6; on the card a step launches distill_loss's t
+    entry once each way, SKR's fused entry once and one flash_attention
+    kernel a teacher attention layer."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.examples import train_lm_distill as D
+    from repro_torch.kernels.skr_rectify import variant_launches as skr
+    from repro_torch.models.transformer import ATTN_KINDS, init_params
+    from repro_torch.tree import tree_map
+
+    tcfg, scfg = reduced(get_arch("llama3.2-3b")), reduced(get_arch("llama3-8b"))
+    pt = init_params(tcfg, D.pair_opts(tcfg), seed=0, device="cpu")
+    ps = init_params(scfg, D.pair_opts(scfg), seed=1, device="cpu")
+    steps = 3
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        ops.reset_launches()
+        res = D.run(tcfg, scfg, steps=steps, pt=tree_map(lambda t: t.to(d, copy=True), pt),
+                    ps=tree_map(lambda t: t.to(d, copy=True), ps), device=d)
+        if d == cuda:
+            attn = steps * sum(b.kind in ATTN_KINDS for b in tcfg.blocks)
+            assert ops.launches["distill_loss_fwd"] == ops.launches["distill_loss_bwd"] == steps
+            assert skr == {"map": 0, "fused": steps}
+            assert ops.launches["flash_attention"] == attn
+        out.append(res)
+    got, want = out
+    np.testing.assert_allclose(got.losses[:1], want.losses[:1], rtol=1e-5)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4)
+    for k in ("count", "head"):
+        assert torch.equal(got.skr[k].cpu(), want.skr[k])
+    torch.testing.assert_close(got.skr["q"].cpu(), want.skr["q"], rtol=0, atol=1e-6)
+
+
+def test_serve_decode_on_the_card(cuda):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.examples import serve_decode
+
+    ops.reset_launches()
+    res = serve_decode.main(["rwkv6-1.6b"])
+    n = sum(b.kind == "rwkv6" for b in reduced(get_arch("rwkv6-1.6b")).blocks)
+    assert res.tokens.shape == (serve_decode.REQUESTS, serve_decode.GEN_LEN)
+    assert res.logits_finite
+    assert ops.launches["rwkv6_scan"] == n * (serve_decode.PROMPT_LEN + serve_decode.GEN_LEN)

@@ -198,11 +198,13 @@ def test_examples_default_to_cuda_and_raise_without_a_card():
         fedeec_vs_baselines,
         quickstart,
         scenario_sweep,
+        serve_decode,
+        train_lm_distill,
     )
 
     with _no_card():
         for example in (quickstart, scenario_sweep, fedeec_vs_baselines, custom_algorithm,
-                        dynamic_migration):
+                        dynamic_migration, train_lm_distill, serve_decode):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 example.main([])
 
