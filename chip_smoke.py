@@ -37,6 +37,13 @@ two LMs, batched decode serving).
                                          # at the LM distillation step's
                                          # shapes, and 12's distillation
                                          # path, its parity and serve_decode
+    python3 chip_smoke.py --zamba2-train # only phases 1-2, 3's distill_loss
+                                         # cases at zamba2-7b's loss shape,
+                                         # 11-12 for zamba2-7b and 13's CE
+                                         # times
+    python3 chip_smoke.py --zamba2-depths  # only phases 1-2 and two zamba2-7b
+                                           # training steps at each depth of
+                                           # ZAMBA2_DEPTHS, peak vs reckoned
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
@@ -60,8 +67,9 @@ the result line:
    entries, the t entry and the cross-entropy entry that takes no teacher,
    each case naming the kernels that served it (``regs`` or ``stream``
    forward, ``rows`` or ``slices`` backward), on fp32 and on bf16 logits up
-   to the LM training loss's (1, 1024, 128256) and the LM distillation
-   step's fp32 (1, 128, 128256), at and across each
+   to the LM training loss's (1, 1024, 128256) (zamba2-7b's (1, 1024,
+   32000) too) and the LM distillation step's fp32 (1, 128, 128256), at
+   and across each
    variant's threshold, on logits off a 16-byte boundary, and the CE entry
    bit for bit against the t entry on an all-zero t; then a check that the
    CE forward allocates nothing of the logits' size; flash_attention has three kernels: the split-KV
@@ -227,14 +235,25 @@ the result line:
    launch: wall s, tokens/s, loss and grad norm per step, and the peak
    memory; then one step's breakdown under ``torch.profiler`` (device busy
    ms, idle share, top kernels; the window opens with a marker lead-in,
-   whose lost count is printed, and fails if it lost all of it);
+   whose lost count is printed, and fails if it lost all of it); then
+   zamba2-7b at full width and the deepest depth whose peak, reckoned from
+   ``launch.steps.param_shapes`` / ``opt_shapes`` (the table of 10-13
+   repeats printed), leaves 4 GiB of the card free (12 of 13 repeats of
+   (mamba2 x 5, shared_attn) + 3 tail blocks on an H100 80GB), ``remat``
+   on, the same 4 steps, held to 8 CE launches each way and nothing else
+   and to the 4 GiB; with the memory allocated just before and after the
+   unit's gradient is stacked, and the profiled step's device time in the
+   mamba2 mixers (``record_function`` ranges around each mixer's forward
+   and backward);
 12. training parity: llama3.2-3b, rwkv6-1.6b at (rwkv_chunk,
    ssm_seq_chunk) (0, 0), (0, 32) and (16, 32), qwen2-moe-a2.7b (its router
    losses and the routers' gradients too), gemma3-12b (one local and
    one global layer, a 16-token window), deepseek-v2-lite-16b (``mla``
    and ``mla_moe``, its router too) and whisper-small (two encoder and two
    decoder layers, random frames: encoder, cross attention and decoder
-   under autograd), at full width, two layers,
+   under autograd) and zamba2-7b (four layers, (mamba2, shared_attn)
+   twice, at ssm_seq_chunk 0 and 32; the shared block's leaves' worst
+   share printed), at full width, two layers,
    fp32, one ``make_train_step`` on the card and on the CPU from the same
    params and ``token_batches`` batch (loss, grad norm, every gradient
    leaf), and on the card the loss with ``use_kernels`` on against off;
@@ -284,8 +303,8 @@ the result line:
    design's floor (3xTF32 GEMMs and chunk scratch), and its three kernels
    (local, chunk_scan, grads) under the profiler; and
    distill_loss at the training shape in bf16, both entries forward and
-   backward, beside ``F.cross_entropy`` on the same logits, printed on a
-   line of its own. They come last, so that nothing the timing leaves
+   backward, and its CE entry at zamba2-7b's (1, 1024, 32000), beside
+   ``F.cross_entropy`` on the same logits, printed on lines of their own. They come last, so that nothing the timing leaves
    allocated enters a main path's peak memory;
 14. the next round of each serial and batched run of 6 under
    ``torch.profiler``: kernels in the round, device busy s and idle share
@@ -301,6 +320,7 @@ line and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -574,6 +594,7 @@ DISTILL_BF16_SHAPES = [(1, 8, 10), (3, 37, 1000), (2, 5, 1003), (2, 33, 4095), (
 # the cases also run on logits one element off a 16-byte boundary
 DISTILL_UNALIGNED = {(3, 37, 1000), (2, 33, 4097), (2, 5, 1003), (2, 17, 8193)}
 TRAIN_LOSS_SHAPE = (1, 1024, 128256)  # llama3.2-3b, batch 2 x loss_chunk 512 rows
+ZAMBA2_LOSS_SHAPE = (1, 1024, 32000)  # zamba2-7b's, the same rows
 
 
 def _distill_case(dev, B, N, V, dtype, beta, unaligned):
@@ -662,7 +683,8 @@ def check_distill_loss(dev):
     worst = dict.fromkeys(("distill_loss_fwd", "distill_loss_bwd", "distill_loss_fwd_ce",
                            "distill_loss_bwd_ce"), 0.0)
     cases = ([(s, torch.float32) for s in DISTILL_SHAPES]
-             + [(s, torch.bfloat16) for s in DISTILL_BF16_SHAPES + [TRAIN_LOSS_SHAPE]])
+             + [(s, torch.bfloat16)
+                for s in DISTILL_BF16_SHAPES + [TRAIN_LOSS_SHAPE, ZAMBA2_LOSS_SHAPE]])
     for (B, N, V), dtype in cases:
         for unaligned in (False, True) if (B, N, V) in DISTILL_UNALIGNED else (False,):
             for beta in (0.0, 1.5):
@@ -3484,10 +3506,11 @@ def expected_train_launches(cfg) -> dict:
             "rwkv6_scan_bwd": scans}
 
 
-def drive_train_path(dev, arch="llama3.2-3b"):
-    """The LM training path at ``arch``'s full width and depth, bf16, as
-    ``python -m repro_torch.launch.train --full --use-kernels`` runs it
-    (``remat`` and ``attn_chunk`` as ``train_lm`` sets them), with the
+def drive_train_path(dev, arch="llama3.2-3b", cfg=None, remat=False):
+    """The LM training path at ``arch``'s full width and depth (or at
+    ``cfg``, a cut of it), bf16, as ``python -m repro_torch.launch.train
+    --full --use-kernels`` runs it (``attn_chunk`` as ``train_lm`` sets it,
+    ``remat`` as given), with the
     launch counters zeroed just before and read just after and held to
     ``expected_train_launches`` (the loss's through the CE entry, every scan
     forward on the chunked kernel). The last step runs under
@@ -3505,16 +3528,17 @@ def drive_train_path(dev, arch="llama3.2-3b"):
     from repro_torch.launch.train import PROFILE_LEAD_IN as TRAIN_LEAD_IN
     from repro_torch.launch.train import train_lm
 
-    cfg = get_arch(arch)
+    cfg = cfg or get_arch(arch)
     print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.param_count() / 1e9:.3f} B parameters, {cfg.param_dtype}; {LM_TRAIN}")
+          f"{cfg.param_count() / 1e9:.3f} B parameters by param_count(), {cfg.param_dtype}, "
+          f"remat {remat}; {LM_TRAIN}")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    res = train_lm(arch, use_reduced=False, use_kernels=True, device=dev,
-                   log_every=1, profile_last=1, **LM_TRAIN)
+    res = train_lm(cfg, use_kernels=True, device=dev, log_every=1, profile_last=1,
+                   remat=remat, **LM_TRAIN)
     want = expected_train_launches(cfg)
     counts = {k: ops.launches[k] for k in want}
     variants = dict(rwkv_launches)
@@ -3531,7 +3555,8 @@ def drive_train_path(dev, arch="llama3.2-3b"):
           f"{res.profile['kernels_per_step']:.1f} kernels; {res.profile['markers_lost']} of "
           f"the window's lead-in of {TRAIN_LEAD_IN} markers lost")
     print(f"training peak max_memory_allocated: {peak / 2**20:.1f} MiB "
-          f"({peak / 1e9:.2f} GB)")
+          f"({peak / 1e9:.2f} GB); {res.n_params / 1e9:.3f} B parameters stored, "
+          f"{cfg.param_count() / 1e9:.3f} B by param_count()")
     print(f"launches: {counts}  predicted from the layer list: {want}")
     print(f"rwkv6_scan forward launches per kernel: {variants}; distill_loss launches per "
           f"entry and kernel: {ce}")
@@ -3553,7 +3578,212 @@ def drive_train_path(dev, arch="llama3.2-3b"):
     return counts, variants, res, peak
 
 
+# zamba2-7b's training on one card: full width, R repeats of (mamba2 x 5,
+# shared_attn) and the 3 tail mamba2 blocks, bf16, ``remat`` on. The depths
+# whose memory the shape helpers reckon; the run takes the deepest whose
+# reckoned peak leaves ZAMBA2_HEADROOM of the card free, and fails if its
+# measured peak does not
+ZAMBA2_DEPTHS = (10, 11, 12, 13)
+ZAMBA2_HEADROOM = 4 * 2**30
+MAMBA2_RANGE = "mamba2_block"  # the record_function range of a mamba2 mixer
+
+
+def zamba2_train_config(repeats):
+    """zamba2-7b at full width with ``repeats`` of its 13 repeats."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("zamba2-7b")
+    return replace(cfg, n_repeats=repeats,
+                   num_layers=repeats * len(cfg.pattern) + len(cfg.tail_blocks))
+
+
+def zamba2_memory(repeats) -> dict:
+    """The training state of ``zamba2_train_config(repeats)`` from the
+    shape helpers (``param_shapes``, ``opt_shapes``; nothing allocated), in
+    bytes: the stored parameters, params + grads + AdamW's fp32 moments
+    (``states``), the unit's gradient (``unit_grads``), and the reckoned
+    peak: the states plus what ``clip_by_global_norm`` holds beside them (a
+    second gradient tree, and two fp32 copies of the largest leaf)."""
+    from repro_torch.launch.steps import default_opts, opt_shapes, param_shapes
+    from repro_torch.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    cfg = zamba2_train_config(repeats)
+    params = param_shapes(cfg, default_opts(cfg))
+    grads = nbytes(params)
+    states = 2 * grads + nbytes(opt_shapes(params))
+    largest = max(t.numel() for t in tree_leaves(params))
+    return dict(params=sum(t.numel() for t in tree_leaves(params)), states=states,
+                unit_grads=nbytes(params["unit"]), peak=states + grads + 8 * largest,
+                param_count=cfg.param_count())
+
+
+def zamba2_depth(dev) -> tuple[int, dict]:
+    """Print the depths' table and return the deepest depth whose reckoned
+    peak, on top of what earlier phases left allocated, leaves
+    ``ZAMBA2_HEADROOM`` of the card's memory free, with its
+    ``zamba2_memory``."""
+    import torch
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    held = torch.cuda.memory_allocated(dev)
+    fits = {}
+    print(f"card memory {total / 1e9:.3f} GB ({total / 2**30:.2f} GiB); a peak must stay "
+          f"under {(total - ZAMBA2_HEADROOM) / 1e9:.3f} GB; {held / 1e9:.3f} GB allocated "
+          "before the run")
+    for r in ZAMBA2_DEPTHS:
+        m = zamba2_memory(r)
+        print(f"  zamba2-7b, {r} repeats + 3 tail blocks: {m['params'] / 1e9:.3f} B parameters "
+              f"stored ({m['param_count'] / 1e9:.3f} B by param_count()), states "
+              f"{m['states'] / 1e9:.2f} GB, the unit's bf16 grads {m['unit_grads'] / 1e9:.2f} GB, "
+              f"reckoned peak {m['peak'] / 1e9:.2f} GB")
+        if held + m["peak"] <= total - ZAMBA2_HEADROOM:
+            fits[r] = m
+    if not fits:
+        fail(f"zamba2-7b: no depth of {ZAMBA2_DEPTHS} fits the card")
+    return max(fits), fits[max(fits)]
+
+
+@contextlib.contextmanager
+def watch_unit_stacks(seen: list):
+    """While open, every ``unbind`` with a gradient (``_backbone``'s split
+    of the unit's stacked leaves into their repeats) records the device
+    memory allocated just before its backward stacks the repeats'
+    gradients into one leaf (``("before", bytes)``) and just after
+    (``("after", bytes)``)."""
+    from unittest import mock
+
+    import torch
+
+    unbind = torch.Tensor.unbind
+
+    def watched(self, dim=0):
+        parts = unbind(self, dim)
+        if parts and parts[0].grad_fn is not None:
+            node = parts[0].grad_fn
+            node.register_prehook(
+                lambda _: seen.append(("before", torch.cuda.memory_allocated())))
+            node.register_hook(
+                lambda *_: seen.append(("after", torch.cuda.memory_allocated())))
+        return parts
+
+    with mock.patch.object(torch.Tensor, "unbind", watched):
+        yield
+
+
+@contextlib.contextmanager
+def mamba2_ranges():
+    """While open, each mamba2 mixer runs inside a ``record_function``
+    range named ``MAMBA2_RANGE``: its forward (the recompute of a
+    checkpointed repeat included) and its backward, from its output's
+    gradient to its input's (the range opened and closed by tensor hooks,
+    on the autograd thread), so that ``train_lm``'s profile gives the
+    mixers' device time (``ranges``)."""
+    from unittest import mock
+
+    from torch.autograd.profiler import record_function
+
+    from repro_torch.models import ssm as S
+
+    block = S.mamba2_block
+
+    def ranged(cfg, p, x, state):
+        with record_function(MAMBA2_RANGE):
+            y, st = block(cfg, p, x, state)
+        if y.requires_grad and x.requires_grad:
+            rf = record_function(MAMBA2_RANGE)
+
+            def enter(_):
+                rf.__enter__()
+
+            def leave(_):
+                rf.__exit__(None, None, None)
+
+            y.register_hook(enter)
+            x.register_hook(leave)
+        return y, st
+
+    with mock.patch.object(S, "mamba2_block", ranged):
+        yield
+
+
+def drive_zamba2_train(dev):
+    """zamba2-7b's training path (``drive_train_path`` at
+    ``zamba2_train_config(zamba2_depth())``, ``remat`` on): the launches
+    held to the layer list (the loss's CE entry, nothing else), the peak
+    held ``ZAMBA2_HEADROOM`` under the card's memory; beside them the
+    memory allocated just before and after the unit's gradient is stacked,
+    and the profiled step's device time in the mamba2 mixers."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    repeats, reckoned = zamba2_depth(dev)
+    cfg = zamba2_train_config(repeats)
+    print(f"zamba2-7b training at {repeats} of 13 repeats + 3 tail blocks "
+          f"({cfg.num_layers} of 81 layers), full width")
+    seen = []
+    with watch_unit_stacks(seen), mamba2_ranges():
+        counts, _, res, peak = drive_train_path(dev, "zamba2-7b", cfg=cfg, remat=True)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    before = max(b for k, b in seen if k == "before")
+    after = max(b for k, b in seen if k == "after")
+    mixers = res.profile["ranges"].get(MAMBA2_RANGE, 0.0)
+    retries = torch.cuda.memory_stats(dev)["num_alloc_retries"]
+    print(f"the unit's gradient ({sum(k == 'before' for k, _ in seen)} stacks over "
+          f"{LM_TRAIN['steps']} steps): {before / 1e9:.2f} GB allocated before a stack at "
+          f"most, {after / 1e9:.2f} GB just after one at most; the step's peak "
+          f"{peak / 1e9:.2f} GB, reckoned {reckoned['peak'] / 1e9:.2f} GB; "
+          f"{retries} allocations retried after freeing the allocator's cache")
+    print(f"mamba2 mixers in the profiled step: {1e3 * mixers:.4f} ms of "
+          f"{1e3 * res.profile['busy_s']:.4f} busy ms ({mixers / res.profile['busy_s']:.4f}); "
+          f"record_function ranges {res.profile['ranges']}")
+    if peak > total - ZAMBA2_HEADROOM:
+        fail(f"zamba2-7b training at {repeats} repeats: peak {peak / 1e9:.2f} GB, over the "
+             f"card's {total / 1e9:.2f} GB less {ZAMBA2_HEADROOM / 2**30:.0f} GiB")
+    if not mixers > 0:
+        fail("the profiled step attributed no device time to the mamba2 mixers")
+    return counts, res, peak
+
+
+def measure_zamba2_depths(dev):
+    """``python3 chip_smoke.py --zamba2-depths``: two training steps at each
+    depth of ``ZAMBA2_DEPTHS`` (bf16, ``remat`` on, 2 x 1024 tokens), the
+    measured peak beside the reckoned one; a depth that runs out of memory
+    is said to."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.train import train_lm
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for r in ZAMBA2_DEPTHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reckoned = zamba2_memory(r)["peak"]
+        try:
+            res = train_lm(zamba2_train_config(r), steps=2, batch=2, seq=1024, use_kernels=True,
+                           remat=True, device=dev, log_every=1)
+        except torch.OutOfMemoryError:
+            print(f"zamba2-7b at {r} repeats: out of memory (reckoned peak "
+                  f"{reckoned / 1e9:.2f} GB of {total / 1e9:.2f})")
+            continue
+        peak = torch.cuda.max_memory_allocated()
+        print(f"zamba2-7b at {r} repeats: peak {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB), "
+              f"{(total - peak) / 2**30:.2f} GiB free; reckoned {reckoned / 1e9:.2f} GB; "
+              f"steps {res.step_s} s, losses {res.losses}")
+        del res
+
+
 RWKV_PARITY_SETTINGS = ((0, 0), (0, 32), (16, 32))  # (rwkv_chunk, ssm_seq_chunk)
+ZAMBA2_PARITY_SETTINGS = ((0, 0), (0, 32))
 
 
 def _router_leaves(tree) -> list:
@@ -3582,7 +3812,9 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
     scan (the sequence chunks' recompute adds forward launches), none where
     ``rwkv_chunk`` sends it through the chunked torch form. For an MoE
     model the line also gives the router losses on both devices (each
-    within 1e-5 relative) and the router's gradient leaves' worst share."""
+    within 1e-5 relative) and the router's gradient leaves' worst share;
+    for a model with a shared block (zamba2-7b: one copy, its gradient
+    summed over its occurrences), the shared leaves' worst share."""
     import gc
     from dataclasses import replace
 
@@ -3599,8 +3831,10 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
 
     cfg = two_layer_config(arch)
     moe = any(b.kind in ("moe", "mla_moe") for b in cfg.blocks)
+    rwkv = any(b.kind == "rwkv6" for b in cfg.blocks)
     cpu = torch.device("cpu")
     params = init_params(cfg, default_opts(cfg), seed=5, device=cpu)
+    shared = [i for i, n in enumerate(_leaf_names(params)) if n.startswith("shared/")]
     b = next(token_batches(np.random.default_rng(6), cfg.vocab_size, 2, 64))
     stubs = {k: torch.from_numpy(np.random.default_rng(7).standard_normal(t.shape, np.float32))
              for k, t in stub_inputs(cfg, 2, "meta").items()}
@@ -3622,6 +3856,7 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
                            forward_train(cfg, opts, p, batch)[1].items() if k != "ce"}
             if d == dev:
                 scans = {k: ops.launches[k] for k in ("rwkv6_scan", "rwkv6_scan_bwd")}
+                ce = {k: ops.launches[k] for k in ("distill_loss_fwd", "distill_loss_bwd")}
                 with torch.no_grad():
                     plain = forward_train(cfg, replace(opts, use_kernels=False), p, batch)[0]
                 loss_plain = float(plain)
@@ -3636,7 +3871,7 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
         share = max(shares)
         worst_leaf = _leaf_names(params)[shares.index(share)]
         tag = (f" rwkv_chunk {rwkv_chunk} ssm_seq_chunk {ssm_seq_chunk}"
-               if cfg.family == "ssm" else "")
+               if len(settings) > 1 else "")
         layers = "+".join(b.kind for b in cfg.blocks) + (
             f", window {cfg.sliding_window}" if cfg.sliding_window else "")
         print(f"{arch} 2 layers ({layers}) fp32 train step{tag}: loss {lg:.7f} (card) "
@@ -3644,7 +3879,10 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
               f"max|card - CPU| {share:.3e} of its max|g| ({worst_leaf}); card loss with "
               f"use_kernels off "
               f"{loss_plain:.7f}"
-              + (f"; card scan launches in the gradient {scans}" if cfg.family == "ssm" else "")
+              + (f"; card scan launches in the gradient {scans}" if rwkv else "")
+              + (f"; the shared block's {len(shared)} leaves' worst "
+                 f"{max(shares[i] for i in shared):.3e} of max|g|; card CE launches in the "
+                 f"gradient {ce}" if shared else "")
               + (f"; router losses {ag} (card) {ac} (CPU); the routers' gradient leaves' "
                  f"worst {max(_leaf_shares(rc, rg)):.3e} of max|g|" if moe else ""))
         if abs(lg - lc) > 1e-5 * abs(lc) or abs(ng - nc) > 1e-4 * abs(nc) or share > 1e-4:
@@ -3654,7 +3892,7 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
         if abs(lg - loss_plain) > 1e-5 * abs(loss_plain):
             fail(f"{arch}{tag}: the card's training loss differs between use_kernels on "
                  "and off")
-        if cfg.family == "ssm" and (scans["rwkv6_scan_bwd"] > 0) != (rwkv_chunk == 0):
+        if rwkv and (scans["rwkv6_scan_bwd"] > 0) != (rwkv_chunk == 0):
             fail(f"{arch}{tag}: scan launches {scans} in the gradient")
         del out
         gc.collect()
@@ -3805,7 +4043,8 @@ def time_train_loss_kernels(dev):
     forwards, ``F.cross_entropy`` on the same bf16 logits. The bound counts
     the bytes each entry moves (z, and t for the t entry, read once; dz
     written once; in bf16) and 16 bytes a row of labels, stats, loss and
-    cotangent, against 3.35 TB/s; the fp32 operations against 67 TFLOP/s."""
+    cotangent, against 3.35 TB/s; the fp32 operations against 67 TFLOP/s.
+    Then the CE entry at zamba2-7b's training shape (V 32,000), the same."""
     import torch
 
     B, N, V = TRAIN_LOSS_SHAPE
@@ -3813,7 +4052,11 @@ def time_train_loss_kernels(dev):
                         launches=20)
     print("distill_loss at the training shape: "
           + json.dumps({f"{k[0]} beta={k[2]}": v for k, v in rows.items()}))
-    return rows
+    zamba2 = time_distill(dev, "train_zamba2", *ZAMBA2_LOSS_SHAPE, torch.bfloat16,
+                          [("ce", 0.0)], launches=20)
+    print("distill_loss's CE entry at zamba2-7b's training shape: "
+          + json.dumps({f"{k[0]} beta={k[2]}": v for k, v in zamba2.items()}))
+    return {**rows, **zamba2}
 
 
 # The LM distillation path (``repro_torch.examples.train_lm_distill``):
@@ -4157,6 +4400,11 @@ def run_baselines_phases(dev) -> dict:
 
 
 TRACING_PHASE = "tracing: the simulator, the plain round and the kernel ops under a Tracer"
+ZAMBA2_TRAIN_PHASE = ("LM training path: zamba2-7b, full width, the deepest depth that fits "
+                      "(repeats of 13) + 3 tail blocks, bf16, remat")
+ZAMBA2_PARITY_PHASE = ("training parity: zamba2-7b, full width, four layers ((mamba2, "
+                       "shared_attn) twice), fp32, the card vs the CPU, at (rwkv_chunk, "
+                       "ssm_seq_chunk) " + ", ".join(map(str, ZAMBA2_PARITY_SETTINGS)))
 # the GQA families' training step held card against CPU: qwen2-moe-a2.7b's
 # router and gemma3-12b's local and global layers
 TRAIN_PARITY_FAMILIES = ("qwen2-moe-a2.7b", "gemma3-12b", "deepseek-v2-lite-16b",
@@ -4243,6 +4491,22 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--lm-families"]:
         run_lm_families(dev)
+        return
+    if sys.argv[1:] == ["--zamba2-train"]:
+        phase("distill_loss at zamba2-7b's training loss shape vs its plain version")
+        for beta in (0.0, 1.5):
+            _distill_case(dev, *ZAMBA2_LOSS_SHAPE, torch.bfloat16, beta, False)
+        phase(ZAMBA2_TRAIN_PHASE)
+        drive_zamba2_train(dev)
+        phase(ZAMBA2_PARITY_PHASE)
+        check_train_parity(dev, "zamba2-7b", ZAMBA2_PARITY_SETTINGS)
+        phase("distill_loss's CE entry at zamba2-7b's training loss shape: times")
+        time_train_loss_kernels(dev)
+        return
+    if sys.argv[1:] == ["--zamba2-depths"]:
+        phase("zamba2-7b training at each depth of " + ", ".join(map(str, ZAMBA2_DEPTHS)))
+        zamba2_depth(dev)
+        measure_zamba2_depths(dev)
         return
     if sys.argv[1:] == ["--latent"]:
         phase("the latent decode kernel vs its plain version, and its times")
@@ -4332,6 +4596,10 @@ def main() -> None:
             counts[k] += train_counts[k]
         for k, variant in RWKV_VARIANTS.items():
             counts[k] += train_variants[variant]
+    phase(ZAMBA2_TRAIN_PHASE)
+    train_counts, _, _ = drive_zamba2_train(dev)
+    for k in ("distill_loss_fwd", "distill_loss_bwd"):
+        counts[k] += train_counts[k]
     # the LM distillation path's launches: distill_loss's t entry, SKR's
     # fused entry, the teacher's attention on the (128, 128) instance; the
     # serve_decode example's sequential scans
@@ -4349,6 +4617,8 @@ def main() -> None:
     phase("training parity: rwkv6-1.6b, full width, two layers, fp32, the card vs the CPU, "
           "at (rwkv_chunk, ssm_seq_chunk) " + ", ".join(map(str, RWKV_PARITY_SETTINGS)))
     check_train_parity(dev, "rwkv6-1.6b", RWKV_PARITY_SETTINGS)
+    phase(ZAMBA2_PARITY_PHASE)
+    check_train_parity(dev, "zamba2-7b", ZAMBA2_PARITY_SETTINGS)
     for arch in TRAIN_PARITY_FAMILIES:
         phase(f"training parity: {arch}, full width, two layers, fp32, the card vs the CPU")
         check_train_parity(dev, arch)

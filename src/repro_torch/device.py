@@ -22,3 +22,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+class on_meta(torch.overrides.TorchFunctionMode):
+    """Inside ``with on_meta():`` every tensor a torch function makes lands
+    on the ``meta`` device, whatever device it names: shapes and dtypes,
+    no storage. So an entry point called with ``device="cpu"`` builds its
+    tree for nothing, a full-size model included (the reference's
+    ``jax.eval_shape``). Random draws take a CPU generator's place and do
+    nothing."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if "device" in kwargs:
+            kwargs = {**kwargs, "device": "meta"}
+        return func(*args, **kwargs)

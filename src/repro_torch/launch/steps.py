@@ -1,19 +1,27 @@
-"""Train, prefill and serve steps of the LM plane.
+"""Train, prefill and serve steps of the LM plane, their inputs' shapes,
+and the shapes of the trees they carry.
 
 Counterpart of ``repro.launch.steps``. The reference jit-compiles these for
-a mesh; the port runs them eagerly on one device.
+a mesh; the port runs them eagerly on one device. ``input_specs``,
+``param_shapes``, ``opt_shapes`` and ``cache_shapes`` return trees of
+``meta`` tensors (shape and dtype, no storage) where the reference returns
+``jax.eval_shape``'s ``ShapeDtypeStruct``s, so a full-size model can be
+sized without a byte of it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.device import on_meta
 from repro_torch.models.transformer import (
     ModelOpts,
     forward_decode,
     forward_prefill,
     forward_train,
+    init_cache,
+    init_params,
 )
-from repro_torch.optim import adamw_update_, clip_by_global_norm
+from repro_torch.optim import adamw_init, adamw_update_, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
@@ -61,6 +69,29 @@ def input_specs(cfg, batch: int, seq: int, mode: str) -> dict[str, torch.Tensor]
     if cfg.enc_dec:
         specs["frames"] = spec((batch, cfg.enc_seq_len, cfg.d_model), cdt)
     return specs
+
+
+def param_shapes(cfg, opts: ModelOpts):
+    """``init_params``' tree as ``meta`` tensors: the reference's
+    ``param_shapes``, whatever the model's size."""
+    with on_meta():
+        return init_params(cfg, opts, device="cpu")
+
+
+def opt_shapes(params_shapes):
+    """``adamw_init``'s tree over ``param_shapes``' as ``meta`` tensors:
+    fp32 moments shaped like the params, an int32 step counter."""
+    with on_meta():
+        return adamw_init(params_shapes)
+
+
+def cache_shapes(cfg, opts: ModelOpts, batch: int, seq: int, dtype=None):
+    """``init_cache``'s decode states for ``batch`` sequences of a
+    ``seq``-long cache, as ``meta`` tensors, in ``dtype`` (the compute dtype
+    by default) as the reference's ``cache_shapes``."""
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    with on_meta():
+        return init_cache(cfg, opts, batch, seq, dtype, device="cpu")
 
 
 def make_train_step(cfg, opts: ModelOpts, *, lr: float = 3e-4, clip: float = 1.0):

@@ -10,12 +10,15 @@ Counterpart of ``repro.launch.train``. Two planes:
         --seq 1024 --use-kernels --profile-last 1  # on the card: full width and depth, bf16
     python -m repro_torch.launch.train --arch rwkv6-1.6b --full --steps 4 --batch 2 \\
         --seq 1024 --use-kernels  # rwkv6 on the card: the scan's kernels forward and backward
+    python -m repro_torch.launch.train --arch zamba2-7b --reduced --steps 10 --device cpu
 
 Both run on the card by default; ``--device cpu`` (or ``device="cpu"``)
 runs the plain path on the CPU. ``train_lm`` runs ``make_train_step`` with
 the reference's options (``attn_chunk=0, remat=False``; ``rwkv_chunk`` and
 ``ssm_seq_chunk`` at their defaults, so an rwkv6 model's time mix runs
-``ops.rwkv6_scan``, its forward and backward kernels on the card); ``use_kernels``
+``ops.rwkv6_scan``, its forward and backward kernels on the card);
+``remat=True`` recomputes each repeat of the unit in the backward pass,
+which zamba2-7b needs at full width on one card; ``use_kernels``
 sends the LM loss through ``distill_loss``'s cross-entropy kernels (bf16
 logits at full size, no teacher tensor). ``profile_last`` runs the last steps under ``torch.profiler`` and
 reports where their device time goes. ``checkpoint`` (``--checkpoint
@@ -79,12 +82,18 @@ def _device_breakdown(prof, steps: int, wall_s: float, top: int = 8) -> dict:
     the host), kernels per step, the ``top`` kernels by device time, and
     the markers of the window's lead-in that the profiler lost
     (``markers_lost``; all of them lost means the steps' first records may
-    be lost too)."""
+    be lost too), and the device s per step of the kernels launched inside
+    each ``record_function`` range opened in the window (``ranges``)."""
     from torch.autograd import DeviceType
 
     from repro_torch.fl.profile_round import busy_us
 
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    everything = prof.events()
+    # a record_function range also leaves a span on the device's timeline,
+    # which is not a kernel
+    ranges = {e.name for e in everything if getattr(e, "is_user_annotation", False)}
+    events = [e for e in everything
+              if e.device_type == DeviceType.CUDA and e.name not in ranges]
     kernels = [e for e in events if "spin_kernel" not in e.name]
     lost = PROFILE_LEAD_IN - (len(events) - len(kernels))
     if not kernels:
@@ -95,7 +104,29 @@ def _device_breakdown(prof, steps: int, wall_s: float, top: int = 8) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6 / steps
     return dict(busy_s=busy, idle_share=1 - busy / wall_s,
                 kernels_per_step=len(kernels) / steps,
-                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:top], markers_lost=lost)
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:top], markers_lost=lost,
+                ranges=range_times(everything, steps))
+
+
+def range_times(events, steps: int) -> dict[str, float]:
+    """Device s per step of the kernels launched inside each
+    ``record_function`` range (a user annotation of the profiler), each
+    kernel counted once, under its outermost range: a CPU op's kernels
+    belong to the outermost annotation among its ancestors on its thread.
+    A backward range opened and closed by tensor hooks runs on the
+    autograd thread, and so holds the backward's ops."""
+    out: dict[str, float] = {}
+    for e in events:
+        if not e.kernels or getattr(e, "is_user_annotation", False):
+            continue
+        outer, p = None, e.cpu_parent
+        while p is not None:
+            if getattr(p, "is_user_annotation", False):
+                outer = p.name
+            p = p.cpu_parent
+        if outer is not None:
+            out[outer] = out.get(outer, 0.0) + sum(k.duration for k in e.kernels) / 1e6 / steps
+    return out
 
 
 def stub_inputs(cfg, batch: int, device) -> dict[str, torch.Tensor]:
@@ -112,7 +143,7 @@ def train_lm(arch: str | ArchConfig, *, steps: int = 50, batch: int = 8,
              seq: int = 128,
              use_reduced: bool = True, lr: float = 1e-3, seed: int = 0,
              checkpoint: str | None = None, log_every: int = 10,
-             use_kernels: bool = False, profile_last: int = 0,
+             use_kernels: bool = False, profile_last: int = 0, remat: bool = False,
              device="cuda") -> TrainResult:
     """Train ``arch`` (a registered name, reduced unless
     ``use_reduced=False``, or an ``ArchConfig`` taken as it is) for
@@ -121,7 +152,9 @@ def train_lm(arch: str | ArchConfig, *, steps: int = 50, batch: int = 8,
     sync. The last ``profile_last`` steps (fewer than ``steps``) run under
     ``torch.profiler``; ``profile`` then holds their device breakdown, its
     idle share against the wall time of the step before them. Raises if a
-    loss is not finite. ``checkpoint`` names a file that receives
+    loss is not finite. ``remat`` checkpoints each repeat of the unit
+    (``ModelOpts.remat``; the reference's ``train_lm`` runs without).
+    ``checkpoint`` names a file that receives
     ``{"params", "opt"}`` after the run, in the reference's layout
     (``convert.lm_to_jax`` / ``lm_adamw_to_jax``)."""
     if not 0 <= profile_last < steps:
@@ -131,13 +164,13 @@ def train_lm(arch: str | ArchConfig, *, steps: int = 50, batch: int = 8,
         cfg = arch
     else:
         cfg = reduced(get_arch(arch)) if use_reduced else get_arch(arch)
-    opts = default_opts(cfg, attn_chunk=0, remat=False, use_kernels=use_kernels)
+    opts = default_opts(cfg, attn_chunk=0, remat=remat, use_kernels=use_kernels)
     params = init_params(cfg, opts, seed=seed, device=dev)
     opt_state = adamw_init(params)
     res = TrainResult(tokens_per_step=batch * seq,
                       n_params=sum(t.numel() for t in tree_leaves(params)))
     print(f"[train_lm] {cfg.name}: {res.n_params / 1e6:.2f}M params on {dev.type}, "
-          f"batch {batch} x seq {seq}, use_kernels={use_kernels}")
+          f"batch {batch} x seq {seq}, use_kernels={use_kernels}, remat={remat}")
 
     step = make_train_step(cfg, opts, lr=lr)
     gen = token_batches(np.random.default_rng(seed), cfg.vocab_size, batch, seq)

@@ -30,13 +30,14 @@ it). llava-next-mistral-7b's ``vision_stub`` frontend prepends
 token embeddings at prefill and in training; decode never sees media. A
 frontend name other than the two stubs, or a block kind the reference
 does not know, raises ``ValueError``.
-``forward_train`` runs every ported kind but ``mamba2`` and the shared
-blocks (zamba2 training, ROADMAP A6.6, raises ``NotImplementedError``) and
-adds the ``moe`` and ``mla_moe`` blocks' router losses
-(``lb_loss``, ``router_z``, summed over the blocks) to the LM loss, as the
-reference does. An MLA block's cache is the compressed one (``c_kv`` and
-``k_rope``, views of one buffer per block occurrence, the unit's repeats
-stacked in it). A ``local_attn`` block's cache is as long
+``forward_train`` trains every kind and adds the ``moe`` and ``mla_moe``
+blocks' router losses (``lb_loss``, ``router_z``, summed over the blocks)
+to the LM loss, as the reference does. A shared block's one parameter
+copy is used at each of its occurrences, inside the checkpointed repeats
+too, so autograd sums its gradient over them, as ``jax.grad`` sums it
+through the reference's scan, which closes over the copy. An MLA block's
+cache is the compressed one (``c_kv`` and ``k_rope``, views of one buffer
+per block occurrence, the unit's repeats stacked in it). A ``local_attn`` block's cache is as long
 as an ``attn`` block's (the reference's ``window_cache`` ring buffer is
 not ported, ROADMAP A6.5). An ``rwkv6`` block's time mix
 trains through ``ops.rwkv6_scan`` (the forward and backward kernels on the
@@ -45,7 +46,8 @@ card), or through the reference's chunk-parallel torch form with
 sequence chunks, each recomputed in the backward pass
 (``torch.utils.checkpoint``), with the recurrent state carried from chunk
 to chunk, as the reference's chunked-remat time scan; ``mamba2`` blocks
-take the same chunking.
+take the same chunking (their two conv states and the SSM state carried),
+and train through ``ssm.mamba2_scan_chunked`` under autograd.
 
 Entry points:
   init_params(cfg, opts, seed=, device=)      -> param tree
@@ -512,17 +514,11 @@ def forward_train(cfg, opts, params, batch):
     {"ce", "lb_loss", "router_z"} (the router terms summed over the ``moe``
     blocks; 0 in a model without one). Attention runs ``attention.mha``
     under autograd, the RWKV6 scan ``ops.rwkv6_scan`` (its kernels forward
-    and backward on the card); each repeat is checkpointed with
-    ``opts.remat``. A model with ``mamba2`` or shared blocks (zamba2-7b)
-    raises ``NotImplementedError``: its training waits (ROADMAP A6.6)."""
+    and backward on the card), the mamba2 scan its chunked torch form; each
+    repeat is checkpointed with ``opts.remat``. A shared block's gradient
+    is the sum over its occurrences. A block kind the reference does not
+    know raises ``ValueError``."""
     _check_ported(cfg)
-    lacking = sorted({b.kind + " (shared)" * b.shared for b in cfg.blocks
-                      if b.kind == "mamba2" or b.shared})
-    if lacking:
-        raise NotImplementedError(
-            f"training a model with {', '.join(lacking)} blocks is not ported to repro_torch "
-            "yet (ROADMAP A6.6: zamba2 training, the shared block's gradient summed over its "
-            "occurrences and the mamba2 scan under autograd); prefill and decode run")
     x, enc_out = _inputs(cfg, opts, params, batch, train=True)
     positions = torch.arange(x.shape[1], device=x.device)
     h, aux = _backbone(cfg, opts, params, x, positions=positions, enc_out=enc_out, train=True)

@@ -980,6 +980,48 @@ def test_zamba2_on_the_card_matches_the_cpu(cuda, dtype):
             assert (g - c).abs().max().item() <= 1e-4 * c.abs().max().item()
 
 
+@pytest.mark.parametrize("ssm_seq_chunk", [0, 32])
+def test_zamba2_train_step_on_the_card_matches_the_cpu(cuda, ssm_seq_chunk):
+    """Reduced zamba2-7b with n_repeats 2 ((5 mamba2 + the shared block)
+    twice and a tail mamba2: the shared block's gradient summed over two
+    occurrences), fp32, the repeats checkpointed, the loss through the CE
+    entry on the card: one make_train_step and the gradients from the same
+    params and a 2 x 64 batch on the card and on the CPU. Loss 1e-5
+    relative, grad norm 1e-4 relative, every gradient leaf (the shared
+    block's included) within 1e-4 of its max|g|; on the card one CE launch
+    each way and no other kernel of the repo."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.loader import token_batches
+    from repro_torch.launch.steps import default_opts, make_train_step
+    from repro_torch.models.transformer import forward_train, init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+
+    cfg = replace(reduced(get_arch("zamba2-7b")), n_repeats=2, num_layers=13)
+    opts = default_opts(cfg, attn_chunk=0, remat=True, use_kernels=True,
+                        ssm_seq_chunk=ssm_seq_chunk)
+    params = init_params(cfg, opts, seed=0, device="cpu")
+    b = next(token_batches(np.random.default_rng(0), cfg.vocab_size, 2, 64))
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d), params)
+        batch = {k: torch.from_numpy(v).to(d, torch.int64) for k, v in b.items()}
+        ops.reset_launches()
+        _, g = value_and_grad(lambda pp: forward_train(cfg, opts, pp, batch)[0], p)
+        launched = {k: n for k, n in ops.launches.items() if n}
+        _, _, m = make_train_step(cfg, opts, lr=1e-3)(p, adamw_init(p), batch)
+        out[d.type] = (float(m["loss"]), float(m["grad_norm"]),
+                       [t.cpu() for t in tree_leaves(g)], launched)
+    (lg, ng, gg, launched), (lc, nc, gc, _) = out["cuda"], out["cpu"]
+    assert launched == {"distill_loss_fwd": 1, "distill_loss_bwd": 1}
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(ng, nc, rtol=1e-4)
+    for a, c in zip(gg, gc):
+        assert (a - c).abs().max() <= 1e-4 * c.abs().max()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["whisper-small", "llava-next-mistral-7b"])
 def test_enc_dec_and_media_on_the_card_match_the_cpu(cuda, arch, dtype):

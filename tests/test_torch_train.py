@@ -276,10 +276,12 @@ def test_mla_forward_train_matches_the_reference(remat):
 
 
 def test_training_a_block_kind_the_port_lacks_raises():
-    """rwkv6 trains (tests/test_torch_rwkv6_train.py), local_attn and moe
-    (tests/test_torch_train_families.py), mla and mla_moe (below); zamba2-7b
-    serves (tests/test_torch_mamba2.py) but its training, a model with
-    mamba2 or shared blocks, still raises, naming ROADMAP A6.6."""
+    """Every block kind of the reference trains: rwkv6
+    (tests/test_torch_rwkv6_train.py), local_attn and moe
+    (tests/test_torch_train_families.py), mla and mla_moe (above), mamba2
+    and the shared block (tests/test_torch_zamba2_train.py). A kind the
+    reference does not know raises ``ValueError``, naming the kinds, as a
+    frontend it does not know does."""
     from dataclasses import replace
 
     from repro_torch.configs.base import BlockKind
@@ -287,12 +289,14 @@ def test_training_a_block_kind_the_port_lacks_raises():
     cfg = reduced(get_arch("zamba2-7b"))
     params = init_params(cfg, ModelOpts(), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A6.6"):
-        forward_train(cfg, ModelOpts(), params, {"tokens": tok, "labels": tok})
-    lacking = replace(cfg, pattern=(BlockKind("mamba2"),), n_repeats=1, tail_blocks=(),
+    loss, _ = forward_train(cfg, ModelOpts(), params, {"tokens": tok, "labels": tok})
+    assert torch.isfinite(loss)
+    unknown = replace(cfg, pattern=(BlockKind("mamba3"),), n_repeats=1, tail_blocks=(),
                       num_layers=1)
-    with pytest.raises(NotImplementedError, match="A6.6"):
-        forward_train(lacking, ModelOpts(), init_params(lacking, ModelOpts(), device="cpu"),
+    with pytest.raises(ValueError, match="unknown block kind 'mamba3'"):
+        forward_train(unknown, ModelOpts(), params, {"tokens": tok, "labels": tok})
+    with pytest.raises(ValueError, match="unknown frontend"):
+        forward_train(replace(cfg, frontend="video_stub"), ModelOpts(), params,
                       {"tokens": tok, "labels": tok})
 
 

@@ -7,7 +7,7 @@ one ``token_batches`` batch of 2 x 48 tokens (past the window). The loss
 and its terms within 1e-5 relative and every gradient leaf within 1e-4 of
 that leaf's max |g|, with ``remat`` off and on (the router losses summed
 once through the checkpointed repeats); one ``make_train_step``; and
-``train_lm`` on each reduced family on the CPU."""
+``train_lm`` on each reduced family on the CPU, zamba2-7b's included."""
 from dataclasses import replace
 
 import jax
@@ -114,7 +114,7 @@ def test_train_step_matches_the_reference(setup):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "llama3-8b", "nemotron-4-15b",
-                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
+                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "zamba2-7b"])
 def test_train_lm_on_cpu(arch):
     res = train_lm(arch, steps=2, batch=2, seq=16, log_every=1, device="cpu")
     assert len(res.losses) == 2 and np.isfinite(res.losses + res.grad_norms).all()
