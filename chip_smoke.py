@@ -43,7 +43,12 @@ two LMs, batched decode serving).
                                          # times
     python3 chip_smoke.py --zamba2-depths  # only phases 1-2 and two zamba2-7b
                                            # training steps at each depth of
-                                           # ZAMBA2_DEPTHS, peak vs reckoned
+                                           # ZAMBA2_DEPTHS, peak vs traced
+    python3 chip_smoke.py --sharding     # only phases 1-2 and the sharding
+                                         # plane's: the NCCL mesh, the dry
+                                         # run and its one-card records
+                                         # against the card (the serving
+                                         # steps run here for that alone)
 
 Run from the repository root on a machine with an H100 (sm_90) and nvcc.
 It imports only ``repro_torch`` (never JAX or ``repro``) and goes through
@@ -236,9 +241,9 @@ the result line:
    memory; then one step's breakdown under ``torch.profiler`` (device busy
    ms, idle share, top kernels; the window opens with a marker lead-in,
    whose lost count is printed, and fails if it lost all of it); then
-   zamba2-7b at full width and the deepest depth whose peak, reckoned from
-   ``launch.steps.param_shapes`` / ``opt_shapes`` (the table of 10-13
-   repeats printed), leaves 4 GiB of the card free (12 of 13 repeats of
+   zamba2-7b at full width and the deepest depth whose peak, traced by the
+   dry run on one card (``launch.dryrun``; the table of 10-13 repeats
+   printed), leaves 4 GiB of the card free (12 of 13 repeats of
    (mamba2 x 5, shared_attn) + 3 tail blocks on an H100 80GB), ``remat``
    on, the same 4 steps, held to 8 CE launches each way and nothing else
    and to the 4 GiB; with the memory allocated just before and after the
@@ -311,6 +316,30 @@ the result line:
    (last, after every other profiler window), in a window opened by a
    marker lead-in, the round after in a window with twice the lead-in if
    every marker is lost, the lost count printed.
+
+The sharding plane:
+
+- dry run, right after the build and before any timed phase:
+  ``launch.dryrun.run_one`` for the 10 architectures x 4 input shapes on
+  1x1 (the step traced on ``meta``), 16x16 and 2x16x16, a line a record as
+  the reference's CLI prints, each status held to ``shape_skip_reason``,
+  and the one-card table (peak, whether it fits); with them the one-card
+  records of the card checks below. It is traced in a worker process a
+  host core, the card hidden from them, and ends before phase 1 starts;
+- mesh, between 11's training paths and zamba2-7b's: ``make_host_mesh()``
+  on the card, a one-rank NCCL group on an in-process store, as (1, 1)
+  over ("data", "model") and (1, 1, 1) over ("pod", "data", "model");
+  ``hier_grad_mean`` and ``edge_only_mean`` over a batch-leading tree
+  shaped as llama3.2-3b's parameters (full width, bf16, batch 2, 12.85
+  GB), each held bit for bit to the flat ``mean(0)``;
+- after zamba2-7b's training, the dry run against the card: for each case,
+  the peak stats reset, one step on the card, ``max_memory_allocated``
+  over what was allocated before its arguments held to the traced
+  ``peak_bytes`` within 5% or 512 MiB: zamba2-7b's training step at 10, 11
+  and 12 repeats (the record saying 13 does not fit), llama3.2-3b's and
+  rwkv6-1.6b's, each served model's prefill step and decode step at 4095
+  (measured in 9), and every input-shape pair the one-card record says
+  fits, at its own batch and length, full width and depth.
 
 It ends with its seconds in all, the count of ``profile_phases`` windows
 taken and taken again (ROADMAP C14), the kernels' JSON line (distill_loss has
@@ -1311,10 +1340,13 @@ COLD_COPIES = 8  # inputs rotated through for a cold-L2 time: 8 x 8.4 MB of z at
 def _distill_bounds(entry, direction, n, V, itemsize):
     """Bytes and fp32 operations an entry must move and do: z (and t for
     the t entry) read once, dz written once; labels, stats, loss and the
-    cotangent once (16 bytes a row either way); exp counted as one op."""
+    cotangent once (16 bytes a row either way); the operations as the
+    kernel's meta entry declares them (``distill_loss.loss_flops``, exp
+    counted as one op)."""
+    from repro_torch.kernels.distill_loss import loss_flops
+
     reads = (1 if entry == "ce" else 2) + (1 if direction == "bwd" else 0)
-    ops = {("ce", "fwd"): 5, ("t", "fwd"): 7, ("ce", "bwd"): 6, ("t", "bwd"): 11}
-    return itemsize * reads * n * V + 16 * n, ops[(entry, direction)] * n * V
+    return itemsize * reads * n * V + 16 * n, loss_flops(direction, entry == "t", n, V)
 
 
 def time_distill(dev, tag, B, N, V, dtype, entries, cold=False, launches=TIMED_LAUNCHES):
@@ -1408,6 +1440,7 @@ def time_kernels(dev):
 
     from repro_torch.kernels import _lib
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels.skr_rectify import map_flops
 
     rows = {}
     rows.update(time_distill(dev, "main", 1, 8, 10, torch.float32, DISTILL_TIMED))
@@ -1434,7 +1467,7 @@ def time_kernels(dev):
         rows[("skr_rectify_map", tag, None)] = _timed(
             "skr_rectify [map]", tag, f"({B},{N},{C})", launch,
             lambda: R.skr_rectify_rows_ref(probs, labels, p_c, do, qb), None,
-            4 * 2 * n * C + n * (4 + 4 + 1 + 4), 2 * n * C)
+            4 * 2 * n * C + n * (4 + 4 + 1 + 4), map_flops(n, C))
         torch.cuda.synchronize()
         if not torch.equal(out, R.skr_rectify_rows_ref(probs, labels, p_c, do, qb)):
             fail("the timed skr_rectify launches disagree with the plain version")
@@ -1457,6 +1490,7 @@ def time_skr_fused(dev):
 
     from repro_torch.kernels import _lib
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels.skr_rectify import process_flops
 
     rows = {}
     for tag, (B, N, C, Bq), launches, plain_launches in [
@@ -1480,7 +1514,7 @@ def time_skr_fused(dev):
         ms, eager = device_ms(launch, launches), eager_ms(launch, launches)
         plain_ms = device_ms(plain, plain_launches)
         b, by = bound_ms(4 * 2 * n * C + 8 * n + 2 * (4 * B * C * Bq + 8 * B * C) + 4 * B,
-                         2 * n * C + n * Bq)
+                         process_flops(B, N, C, Bq))
         shape = f"({B},{N},{C}) Bq {Bq}"
         print(f"skr_rectify [fused] {tag} {shape}: kernel {ms:.5f} ms device ({eager:.5f} ms "
               f"eager)  plain {plain_ms:.5f} ms  bound {b:.6f} ms ({by}), {b / ms:.3f} of it")
@@ -2566,17 +2600,6 @@ def profile_dispatch(held):
                   f"markers lost; window and trace {time.perf_counter() - t1:.1f} s")
 
 
-def attn_pairs(Sq, Sk, qo, causal, window) -> int:
-    """Unmasked (query, key) pairs: each query's visible key range [j_lo,
-    j_hi] as the kernels' masks leave it, the window included."""
-    total = 0
-    for i in range(Sq):
-        j_hi = min(qo + i, Sk - 1) if causal else Sk - 1
-        j_lo = max(0, qo + i - window + 1) if window > 0 else 0
-        total += max(0, j_hi - j_lo + 1)
-    return total
-
-
 def sdpa_backend(fn) -> str:
     """Which backend of F.scaled_dot_product_attention ran ``fn``, from the
     names of the kernels one call launches under ``torch.profiler`` (in a
@@ -2619,7 +2642,8 @@ def time_lm_kernels(dev):
     a few microseconds at the bound, so launch latency may set the time.
     The bound counts q, o and the k/v rows the masks leave (each read or
     written once) against 3.35 TB/s, and 4 H flops per unmasked (q, k) pair
-    and q head (pairs counted with the window) against the bf16
+    and q head (pairs counted with the window, ``attention_flops``, as the
+    kernel's meta entry declares them) against the bf16
     tensor-core peak (989 TFLOP/s: the card could run this bf16 attention
     there) or, in fp32, 3 x 4 H flops against the TF32 tensor-core peak
     (495 TFLOP/s: fp32-accurate products on the tensor cores take three
@@ -2645,6 +2669,7 @@ def time_lm_kernels(dev):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import attention_flops
 
     rows = {}
     bf16 = torch.bfloat16
@@ -2689,10 +2714,9 @@ def time_lm_kernels(dev):
         # the keys some query sees: from the first query's window start
         lo = max(0, qo - window + 1) if window else 0
         n_keys = (min(Sk, qo + Sq) if causal else Sk) - lo
-        pairs = attn_pairs(Sq, Sk, qo, causal, window)
         size = q.element_size()
         nbytes = size * (B * Sq * N * (H + Hv) + B * n_keys * K * (H + Hv))
-        flops = 2 * (H + Hv) * B * N * pairs
+        flops = attention_flops(B, Sq, Sk, N, H, Hv, causal, window, qo)
         # fp32: three TF32 products a pair on the tensor cores (3xTF32)
         ops_, peak = (flops, BF16_OPS_PER_S) if dtype == bf16 else (3 * flops, TF32_OPS_PER_S)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -2774,6 +2798,7 @@ def time_latent_decode(dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.flash_attention import _latent_plan
+    from repro_torch.kernels.flash_attention import latent_decode_flops
 
     rows = {}
     L, Rd = LATENT_DIMS
@@ -2782,7 +2807,7 @@ def time_latent_decode(dev):
     for qo in LATENT_TIMED:
         n_keys = min(qo, S - 1) + 1
         nbytes = B * n_keys * (L + Rd) * 2 + B * N * (L + Rd) * 4 + B * N * L * 4
-        flops = 2 * (L + Rd + L) * B * N * n_keys
+        flops = latent_decode_flops(B, N, S, L, Rd, qo)
         kv = torch.cat([ckv, krope], -1)[:, :n_keys].float()
         qt, kt, vt = q.transpose(1, 2), kv[:, None], kv[:, None, :, :L]
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -2834,13 +2859,14 @@ def time_rwkv_kernels(dev):
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.rwkv6_scan import _variant as _rwkv_variant
+    from repro_torch.kernels.rwkv6_scan import scan_flops
 
     rows = {}
     for tag, (B, T, H, hd) in [("prefill", RWKV_PREFILL), ("decode", RWKV_DECODE)]:
         ins = _rwkv_inputs(B, T, H, hd, dev)
         shape = f"{(B, T, H, hd)} fp32"
         nbytes = 4 * (5 * B * T * H * hd + H * hd + 2 * B * H * hd * hd)
-        flops = (5 * hd * hd + 5 * hd) * T * H * B
+        flops = scan_flops(B, T, H, hd)
         n = 10 if tag == "prefill" else TIMED_LAUNCHES
         plain = lambda: R.rwkv6_scan_ref(*ins)  # noqa: E731
         name = "rwkv6_scan_chunked" if _rwkv_variant(T) == "chunked" else "rwkv6_scan"
@@ -2877,9 +2903,10 @@ def _rwkv_bwd_bounds(B, T, H, hd):
     row prices these operations as row 4b does, three times over at TF32's
     peak; at fp32's (the earlier kernel's bound) they are printed beside
     it."""
+    from repro_torch.kernels.rwkv6_scan import scan_grad_flops
+
     nbytes = 4 * (9 * B * T * H * hd + 2 * H * hd + 3 * B * H * hd * hd)
-    flops = (14 * hd * hd + 12 * hd) * B * T * H
-    return nbytes, flops
+    return nbytes, scan_grad_flops(B, T, H, hd)
 
 
 def _rwkv_bwd_design_bound(B, T, H, hd, C, L):
@@ -3233,6 +3260,7 @@ def drive_lm_path(dev, arch, prefill_len):
     serve_rwkv = dict(rwkv_launches)
 
     opts = default_opts(cfg)
+    base = torch.cuda.memory_allocated()  # the dry run's checks read peaks over this
     params = init_params(cfg, opts, seed=1, device=dev)
     print(f"{arch}: {sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B parameters "
           "served (a shared block once)")
@@ -3240,10 +3268,12 @@ def drive_lm_path(dev, arch, prefill_len):
     print("prefill step batch: " + ", ".join(f"{k} {tuple(t.shape)} {str(t.dtype)[6:]}"
                                              for k, t in batch.items()))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits = make_prefill_step(cfg, opts)(params, batch)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    CARD_PEAKS[f"{arch} prefill"] = torch.cuda.max_memory_allocated() - base
     want = expected_lm_launches(cfg)
     counts = dict(ops.launches)
     variants = dict(variant_launches)
@@ -3271,7 +3301,7 @@ def drive_lm_path(dev, arch, prefill_len):
     n_rwkv = sum(b.kind == "rwkv6" for b in cfg.blocks)
     want_rwkv = {"seq": want["rwkv6_scan"] - n_rwkv, "chunked": n_rwkv}
     finite = bool(torch.isfinite(logits).all())
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(serve_peak, torch.cuda.max_memory_allocated())
 
     print(f"serve: decode-step prefill of {LM_SERVE['prompt_len']} tokens "
           f"{res.prefill_s:.4f} s; generation {res.gen_s:.4f} s, "
@@ -3313,6 +3343,11 @@ def drive_lm_path(dev, arch, prefill_len):
         fail(f"{arch}: rwkv6_scan kernels {rwkv} (serve {serve_rwkv}), predicted {want_rwkv}")
     if max(counts.values()) <= 0:
         fail(f"{arch}: no kernel was launched on the serving path")
+    CARD_PEAKS[f"{arch} decode"] = decode_peak(dev, cfg, opts, params, base)
+    print(f"peaks over the {base / 2**20:.1f} MiB allocated before the params: prefill step "
+          f"{CARD_PEAKS[f'{arch} prefill'] / 2**20:.1f} MiB, a decode step at "
+          f"{LM_SERVE['cache_len'] - 1} of a full cache {CARD_PEAKS[f'{arch} decode'] / 2**20:.1f} "
+          "MiB (held to the dry run later)")
     full_cache = time_decode_at(dev, cfg, opts, params, LM_SERVE["cache_len"] - 1) \
         if n_attn + n_mla else {}
     del params, logits
@@ -3421,9 +3456,24 @@ def two_layer_config(arch):
                    sliding_window=min(cfg.sliding_window, PARITY_WINDOW))
 
 
+def parity_params(cfg, opts, seed, dev):
+    """A parity config's parameters on the CPU, drawn on the card and
+    copied: the CPU's ``trunc_normal_`` took most of a parity phase's
+    time at a 256k-token vocabulary. An rwkv6 model's are drawn on the CPU,
+    as before: on PR 29's card draw its training parity's worst leaf read
+    1.001e-4 of its max|g|, fp32 noise of the chunked forward (ROADMAP C13),
+    against the CPU draw's margin."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_map
+
+    if any(b.kind == "rwkv6" for b in cfg.blocks):
+        return init_params(cfg, opts, seed=seed, device="cpu")
+    return tree_map(lambda t: t.cpu(), init_params(cfg, opts, seed=seed, device=dev))
+
+
 def check_lm_parity(dev, arch):
-    """Full width, two layers (``two_layer_config``), fp32, parameters drawn
-    on the CPU and copied to the card: the same decode steps (2 requests,
+    """Full width, two layers (``two_layer_config``), fp32, the same
+    parameters on the card and on the CPU (``parity_params``): the same decode steps (2 requests,
     the same input tokens on both devices; 8, or 24 where a sliding window
     of 16 makes the later steps reach past it) and one 128-token prefill.
     Logits within 1e-4 of max|logit| (TF32 off: fp32 sums in other orders
@@ -3438,7 +3488,7 @@ def check_lm_parity(dev, arch):
     import torch
 
     from repro_torch.launch.steps import default_opts, make_prefill_step, make_serve_step
-    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.models.transformer import init_cache
     from repro_torch.tree import tree_map
 
     cfg = two_layer_config(arch)
@@ -3449,7 +3499,7 @@ def check_lm_parity(dev, arch):
     steps = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, n_steps)))
     prompt = prefill_batch(cfg, 1, 128, cpu, seed=2)
     enc = torch.from_numpy(rng.standard_normal((2, cfg.enc_seq_len, cfg.d_model), np.float32))
-    params = init_params(cfg, opts, seed=3, device=cpu)
+    params = parity_params(cfg, opts, 3, dev)
     out = []
     for d in (dev, cpu):
         p = params if d == cpu else tree_map(lambda t: t.to(d), params)
@@ -3580,9 +3630,9 @@ def drive_train_path(dev, arch="llama3.2-3b", cfg=None, remat=False):
 
 # zamba2-7b's training on one card: full width, R repeats of (mamba2 x 5,
 # shared_attn) and the 3 tail mamba2 blocks, bf16, ``remat`` on. The depths
-# whose memory the shape helpers reckon; the run takes the deepest whose
-# reckoned peak leaves ZAMBA2_HEADROOM of the card free, and fails if its
-# measured peak does not
+# the dry run traces on one card; the run takes the deepest whose traced
+# peak leaves ZAMBA2_HEADROOM of the card free, and fails if its measured
+# peak does not
 ZAMBA2_DEPTHS = (10, 11, 12, 13)
 ZAMBA2_HEADROOM = 4 * 2**30
 MAMBA2_RANGE = "mamba2_block"  # the record_function range of a mamba2 mixer
@@ -3599,35 +3649,16 @@ def zamba2_train_config(repeats):
                    num_layers=repeats * len(cfg.pattern) + len(cfg.tail_blocks))
 
 
-def zamba2_memory(repeats) -> dict:
-    """The training state of ``zamba2_train_config(repeats)`` from the
-    shape helpers (``param_shapes``, ``opt_shapes``; nothing allocated), in
-    bytes: the stored parameters, params + grads + AdamW's fp32 moments
-    (``states``), the unit's gradient (``unit_grads``), and the reckoned
-    peak: the states plus what ``clip_by_global_norm`` holds beside them (a
-    second gradient tree, and two fp32 copies of the largest leaf)."""
-    from repro_torch.launch.steps import default_opts, opt_shapes, param_shapes
-    from repro_torch.tree import tree_leaves
-
-    def nbytes(tree):
-        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
-
-    cfg = zamba2_train_config(repeats)
-    params = param_shapes(cfg, default_opts(cfg))
-    grads = nbytes(params)
-    states = 2 * grads + nbytes(opt_shapes(params))
-    largest = max(t.numel() for t in tree_leaves(params))
-    return dict(params=sum(t.numel() for t in tree_leaves(params)), states=states,
-                unit_grads=nbytes(params["unit"]), peak=states + grads + 8 * largest,
-                param_count=cfg.param_count())
-
-
-def zamba2_depth(dev) -> tuple[int, dict]:
-    """Print the depths' table and return the deepest depth whose reckoned
-    peak, on top of what earlier phases left allocated, leaves
-    ``ZAMBA2_HEADROOM`` of the card's memory free, with its
-    ``zamba2_memory``."""
+def zamba2_depth(dev, cases=None) -> tuple[int, dict]:
+    """Print the depths' table and return the deepest depth whose one-card
+    record (``dryrun_case``'s "zamba2-7b train x R": the training step at
+    2 x 1024 traced on ``meta``), on top of what earlier phases left
+    allocated, leaves ``ZAMBA2_HEADROOM`` of the card's memory free, with
+    its record. ``cases`` holds the dry run's records; without them the
+    depths are traced here."""
     import torch
+
+    from repro_torch.launch.dryrun import one_card
 
     total = torch.cuda.get_device_properties(dev).total_memory
     held = torch.cuda.memory_allocated(dev)
@@ -3636,13 +3667,18 @@ def zamba2_depth(dev) -> tuple[int, dict]:
           f"under {(total - ZAMBA2_HEADROOM) / 1e9:.3f} GB; {held / 1e9:.3f} GB allocated "
           "before the run")
     for r in ZAMBA2_DEPTHS:
-        m = zamba2_memory(r)
-        print(f"  zamba2-7b, {r} repeats + 3 tail blocks: {m['params'] / 1e9:.3f} B parameters "
-              f"stored ({m['param_count'] / 1e9:.3f} B by param_count()), states "
-              f"{m['states'] / 1e9:.2f} GB, the unit's bf16 grads {m['unit_grads'] / 1e9:.2f} GB, "
-              f"reckoned peak {m['peak'] / 1e9:.2f} GB")
-        if held + m["peak"] <= total - ZAMBA2_HEADROOM:
-            fits[r] = m
+        label = f"zamba2-7b train x{r}"
+        if cases:
+            rec = cases[label]
+        else:
+            cfg, mode, batch, seq, opts, _ = dryrun_case(label)
+            rec = one_card(cfg, mode, batch, seq, opts=opts, card_bytes=total)
+        m = rec["memory"]
+        print(f"  zamba2-7b, {r} repeats + 3 tail blocks: arguments (params, AdamW state, "
+              f"batch) {m['argument_bytes'] / 1e9:.2f} GB, traced peak {m['peak_bytes'] / 1e9:.2f} "
+              f"GB, fits one card {rec['fits_one_card']}")
+        if held + m["peak_bytes"] <= total - ZAMBA2_HEADROOM:
+            fits[r] = rec
     if not fits:
         fail(f"zamba2-7b: no depth of {ZAMBA2_DEPTHS} fits the card")
     return max(fits), fits[max(fits)]
@@ -3723,7 +3759,7 @@ def drive_zamba2_train(dev):
     import torch
 
     gc.collect()
-    repeats, reckoned = zamba2_depth(dev)
+    repeats, reckoned = zamba2_depth(dev, DRYRUN["cases"])
     cfg = zamba2_train_config(repeats)
     print(f"zamba2-7b training at {repeats} of 13 repeats + 3 tail blocks "
           f"({cfg.num_layers} of 81 layers), full width")
@@ -3738,7 +3774,7 @@ def drive_zamba2_train(dev):
     print(f"the unit's gradient ({sum(k == 'before' for k, _ in seen)} stacks over "
           f"{LM_TRAIN['steps']} steps): {before / 1e9:.2f} GB allocated before a stack at "
           f"most, {after / 1e9:.2f} GB just after one at most; the step's peak "
-          f"{peak / 1e9:.2f} GB, reckoned {reckoned['peak'] / 1e9:.2f} GB; "
+          f"{peak / 1e9:.2f} GB, traced {reckoned['memory']['peak_bytes'] / 1e9:.2f} GB; "
           f"{retries} allocations retried after freeing the allocator's cache")
     print(f"mamba2 mixers in the profiled step: {1e3 * mixers:.4f} ms of "
           f"{1e3 * res.profile['busy_s']:.4f} busy ms ({mixers / res.profile['busy_s']:.4f}); "
@@ -3754,12 +3790,13 @@ def drive_zamba2_train(dev):
 def measure_zamba2_depths(dev):
     """``python3 chip_smoke.py --zamba2-depths``: two training steps at each
     depth of ``ZAMBA2_DEPTHS`` (bf16, ``remat`` on, 2 x 1024 tokens), the
-    measured peak beside the reckoned one; a depth that runs out of memory
-    is said to."""
+    measured peak beside the dry run's traced one; a depth that runs out
+    of memory is said to."""
     import gc
 
     import torch
 
+    from repro_torch.launch.dryrun import one_card
     from repro_torch.launch.train import train_lm
 
     total = torch.cuda.get_device_properties(dev).total_memory
@@ -3767,19 +3804,337 @@ def measure_zamba2_depths(dev):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        reckoned = zamba2_memory(r)["peak"]
+        label = f"zamba2-7b train x{r}"
+        cfg, mode, batch, seq, opts, _ = dryrun_case(label)
+        traced = one_card(cfg, mode, batch, seq, opts=opts, card_bytes=total)
+        traced = traced["memory"]["peak_bytes"]
         try:
             res = train_lm(zamba2_train_config(r), steps=2, batch=2, seq=1024, use_kernels=True,
                            remat=True, device=dev, log_every=1)
         except torch.OutOfMemoryError:
-            print(f"zamba2-7b at {r} repeats: out of memory (reckoned peak "
-                  f"{reckoned / 1e9:.2f} GB of {total / 1e9:.2f})")
+            print(f"zamba2-7b at {r} repeats: out of memory (traced peak "
+                  f"{traced / 1e9:.2f} GB of {total / 1e9:.2f})")
             continue
         peak = torch.cuda.max_memory_allocated()
         print(f"zamba2-7b at {r} repeats: peak {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB), "
-              f"{(total - peak) / 2**30:.2f} GiB free; reckoned {reckoned / 1e9:.2f} GB; "
+              f"{(total - peak) / 2**30:.2f} GiB free; traced {traced / 1e9:.2f} GB; "
               f"steps {res.step_s} s, losses {res.losses}")
         del res
+
+
+# ------------------------------------------------------- the sharding plane
+
+# The dry run is traced on the host's cores before the first timed phase,
+# in worker processes that never touch the card, so that no host-bound
+# time of a later phase shares the host with it; CARD_PEAKS holds the
+# serving phases' measured peaks for the check against the card
+DRYRUN: dict = {"records": None, "cases": None}
+DRYRUN_MESHES = (("1x1", {"card": True}), ("16x16", {"multi_pod": False}),
+                 ("2x16x16", {"multi_pod": True}))
+CARD_PEAKS: dict[str, int] = {}
+MESH_BATCH = 2  # rows of the batch-leading tree the mesh phase averages
+MESH_PHASE = ("mesh: make_host_mesh() on NCCL, (1, 1) and (1, 1, 1); hier_grad_mean and "
+              "edge_only_mean over llama3.2-3b's parameters, batch 2, bf16, vs mean(0)")
+DRYRUN_PHASE = ("dry run: run_one for 10 architectures x 4 input shapes on 1x1, 16x16 and "
+                "2x16x16, and the one-card records of the card checks")
+DRYRUN_CARD_PHASE = ("dry run against the card: each traced one-card peak vs "
+                     "max_memory_allocated over one step")
+
+
+def train_opts(cfg, remat):
+    """``train_lm``'s options, the training phases': attention without
+    chunks, the loss through distill_loss's CE entry, ``remat`` as given."""
+    from repro_torch.launch.steps import default_opts
+
+    return default_opts(cfg, attn_chunk=0, remat=remat, use_kernels=True)
+
+
+def dryrun_labels() -> list[str]:
+    """The one-card cases the card checks read besides the 40 pairs:
+    zamba2-7b's training step at each depth of ``ZAMBA2_DEPTHS``, the
+    training phases' llama3.2-3b and rwkv6-1.6b steps, and each served
+    model's prefill and decode step."""
+    labels = [f"zamba2-7b train x{r}" for r in ZAMBA2_DEPTHS]
+    labels += [f"{arch} train" for arch, _ in LM_ARCHS]
+    for arch, _ in LM_ARCHS + LM_FAMILIES:
+        labels += [f"{arch} prefill", f"{arch} decode"]
+    return labels
+
+
+def dryrun_case(label):
+    """(cfg, mode, batch, seq, opts, pos) of a ``dryrun_labels`` case, as
+    the phase that runs it on the card runs it: training at 2 x 1024 with
+    ``train_opts`` (zamba2-7b with ``remat`` at its depth), a prefill step
+    at batch 1 of the serving phase's length, a decode step of its 8
+    requests at position 4095 of a 4096-long cache, both at the served
+    depth (``served_config``) with ``default_opts``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import default_opts
+
+    arch, kind, *rest = label.split(" ")
+    if kind == "train":
+        cfg = zamba2_train_config(int(rest[0][1:])) if rest else get_arch(arch)
+        return (cfg, "train", LM_TRAIN["batch"], LM_TRAIN["seq"], train_opts(cfg, bool(rest)),
+                None)
+    cfg = served_config(arch)
+    if kind == "prefill":
+        return cfg, "prefill", 1, dict(LM_ARCHS + LM_FAMILIES)[arch], default_opts(cfg), None
+    B, S = LM_SERVE["num_requests"], LM_SERVE["cache_len"]
+    return cfg, "decode", B, S, default_opts(cfg), S - 1
+
+
+def dryrun_work() -> list[tuple]:
+    """The dry run's items, the dearest first: ("case", label) for each of
+    ``dryrun_labels``, then ("record", mesh, arch, shape) for 10
+    architectures x 4 input shapes on each of ``DRYRUN_MESHES``."""
+    from repro_torch.configs import INPUT_SHAPES, list_archs
+
+    return ([("case", label) for label in dryrun_labels()]
+            + [("record", m, a, s) for m, _ in DRYRUN_MESHES for a in list_archs()
+               for s in INPUT_SHAPES])
+
+
+def _dryrun_worker() -> None:
+    """A dry-run worker: the card hidden, one thread."""
+    import os
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _dryrun_item(item, card_bytes: int) -> dict:
+    """One item of ``dryrun_work``, in a worker: ``run_one`` for a record
+    (1x1 against ``card_bytes``), ``one_card`` for a case."""
+    from repro_torch.launch import dryrun as D
+
+    if item[0] == "record":
+        _, mesh, arch, shape = item
+        return D.run_one(arch, shape, **dict(DRYRUN_MESHES)[mesh], out_dir=None,
+                         card_bytes=card_bytes)
+    cfg, mode, batch, seq, opts, pos = dryrun_case(item[1])
+    return D.one_card(cfg, mode, batch, seq, opts=opts, pos=pos, card_bytes=card_bytes)
+
+
+def run_dryrun(dev) -> tuple[list, dict]:
+    """Trace ``dryrun_work`` over a worker process a host core (spawned,
+    the card hidden, one thread each); fail on any failed item or on a
+    status other than ``shape_skip_reason``'s; print a line a record as the
+    reference's CLI does, a line a case, and the one-card table (peak,
+    whether it fits) of the 40 pairs."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import record_line, shape_skip_reason
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    work = dryrun_work()
+    workers = len(os.sched_getaffinity(0))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_dryrun_worker) as pool:
+        futures = [pool.submit(_dryrun_item, item, total) for item in work]
+        done, failed = [], []
+        for item, fut in zip(work, futures):
+            try:
+                done.append(fut.result())
+            except Exception as e:  # noqa: BLE001 - every failure is reported
+                failed.append(item)
+                print(f"[FAIL] {item}: {type(e).__name__}: {e}")
+    print(f"dry run: {len(work)} items over {workers} worker processes (card memory {total} "
+          f"bytes) in {time.perf_counter() - t0:.1f} s, {len(failed)} failed")
+    if failed:
+        fail(f"the dry run: {len(failed)} items failed")
+    records = [rec for item, rec in zip(work, done) if item[0] == "record"]
+    cases = {item[1]: rec for item, rec in zip(work, done) if item[0] == "case"}
+    for rec in records:
+        print(record_line(rec))
+        skip = shape_skip_reason(get_arch(rec["arch"]), rec["shape"], False)
+        if (rec["status"], rec.get("reason")) != (("skipped", skip) if skip else ("ok", None)):
+            fail(f"the dry run: {rec['arch']} {rec['shape']} {rec['mesh']} is {rec['status']}, "
+                 f"shape_skip_reason says {skip!r}")
+    for label, rec in cases.items():
+        m = rec["memory"]
+        print(f"[OK]   {label:32s} trace {rec['trace_s']:6.1f}s arg "
+              f"{m['argument_bytes'] / 1e9:7.2f}GB peak {m['peak_bytes'] / 1e9:7.2f}GB "
+              f"flops {rec['cost']['flops']:.4g}")
+    print("one card (1x1), 4 GiB of headroom: peak GB, fits")
+    for rec in records:
+        if rec["mesh"] == "1x1":
+            what = (f"{rec['memory']['peak_bytes'] / 1e9:10.2f} "
+                    f"{'fits' if rec['fits_one_card'] else 'does not fit'}"
+                    if rec["status"] == "ok" else "skipped")
+            print(f"  {rec['arch']:24s} {rec['shape']:12s} {what}")
+    DRYRUN.update(records=records, cases=cases)
+    return records, cases
+
+
+def check_mesh(dev) -> None:
+    """``make_host_mesh()`` on the card (a one-rank NCCL group on an
+    in-process store), as (1, 1) over ("data", "model") and (1, 1, 1) over
+    ("pod", "data", "model"); ``hier_grad_mean`` and ``edge_only_mean``
+    over a batch-leading tree shaped as llama3.2-3b's parameters, full
+    width, bf16, ``MESH_BATCH`` rows, each held bit for bit to the flat
+    ``mean(0)``; the group is destroyed after."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import axis_sizes, make_host_mesh
+    from repro_torch.launch.steps import default_opts, param_shapes
+    from repro_torch.sharding.hierarchy import edge_only_mean, hier_grad_mean
+    from repro_torch.tree import tree_leaves, tree_map
+
+    meshes = (make_host_mesh(device=dev), make_host_mesh(pod=1, device=dev))
+    print(f"process group: backend {dist.get_backend()}, world size {dist.get_world_size()}; "
+          f"meshes {[axis_sizes(m) for m in meshes]}")
+    if dist.get_backend() != "nccl":
+        fail(f"the card's mesh runs on {dist.get_backend()}, not NCCL")
+    cfg = get_arch("llama3.2-3b")
+    g = torch.Generator(device=dev).manual_seed(5)
+    tree = tree_map(lambda t: torch.randn((MESH_BATCH,) + tuple(t.shape), generator=g,
+                                          device=dev).to(torch.bfloat16),
+                    param_shapes(cfg, default_opts(cfg)))
+    leaves = tree_leaves(tree)
+    print(f"tree: {len(leaves)} leaves, {sum(t.numel() * 2 for t in leaves) / 1e9:.2f} GB")
+    flat = [t.mean(0) for t in leaves]
+    for mesh in meshes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hier = tree_leaves(hier_grad_mean(tree, mesh))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bad = sum(not torch.equal(a, b) for a, b in zip(hier, flat))
+        del hier
+        edge = [e.full_tensor() if isinstance(e, DTensor) else e[None]
+                for e in tree_leaves(edge_only_mean(tree, mesh))]
+        torch.cuda.synchronize()
+        bad += sum(e.shape != (1,) + f.shape or not torch.equal(e[0], f)
+                   for e, f in zip(edge, flat))
+        kind = "DTensor over pod" if "pod" in axis_sizes(mesh) else "plain"
+        del edge
+        print(f"mesh {axis_sizes(mesh)}: hier_grad_mean {t1 - t0:.3f} s, edge_only_mean "
+              f"({kind}); leaves not equal to mean(0) bit for bit: {bad}")
+        if bad:
+            fail(f"the two-tier mean on the mesh {axis_sizes(mesh)} is not mean(0) bit for bit")
+    del tree, leaves, flat
+    dist.destroy_process_group()
+
+
+def decode_peak(dev, cfg, opts, params, base) -> int:
+    """One decode step of the serving batch at position 4095 of a 4096-long
+    cache: ``max_memory_allocated`` over ``base`` (the bytes allocated
+    before the params), the peak stats reset just before the step."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transformer import init_cache
+
+    B, S = LM_SERVE["num_requests"], LM_SERVE["cache_len"]
+    cache = init_cache(cfg, opts, B, S, getattr(torch, cfg.compute_dtype), device=dev)
+    tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    make_serve_step(cfg, opts)(params, cache, {"token": tok, "pos": S - 1})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del cache
+    gc.collect()
+    return peak
+
+
+def check_dryrun_on_card(dev, measure_serving=False) -> None:
+    """Each one-card record held to the card: reset the peak stats, run
+    the one step, and hold ``max_memory_allocated`` over what was
+    allocated before its arguments to the record's ``peak_bytes``, within
+    5% or 512 MiB (``dryrun.within_bar``). (a) zamba2-7b's training step
+    at 10, 11 and 12 repeats, the record saying 13 does not fit; (b)
+    llama3.2-3b's and rwkv6-1.6b's; (c) each served model's prefill and
+    decode step (measured in the serving phases, ``CARD_PEAKS``, or here
+    with ``measure_serving``); (d) every input-shape pair the one-card
+    record says fits, at its own batch and length, full width and
+    depth."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, get_arch
+    from repro_torch.launch.dryrun import measure_on_card, within_bar
+    from repro_torch.launch.steps import default_opts
+
+    records, cases = DRYRUN["records"], DRYRUN["cases"]
+    rows = []
+
+    def hold(label, rec, measured, step_s=None):
+        want = rec["memory"]["peak_bytes"]
+        ok = within_bar(measured, want)
+        rows.append((label, ok))
+        print(f"  {label:40s} traced {want / 1e9:8.3f} GB  measured {measured / 1e9:8.3f} GB  "
+              f"{(measured - want) / 2**20:+9.1f} MiB ({(measured - want) / want:+.4f})  "
+              f"{'inside' if ok else 'OUTSIDE'} the bar"
+              + (f"  step {step_s:.3f} s" if step_s is not None else ""), flush=True)
+
+    def run(label, cfg, mode, batch, seq, opts, pos=None):
+        m = measure_on_card(cfg, mode, batch, seq, opts=opts, pos=pos, device=dev)
+        out = m["out"]  # the metrics, the logits, or the next token and the logits
+        out = out.values() if isinstance(out, dict) else out if isinstance(out, tuple) else [out]
+        if not all(bool(torch.isfinite(t).all()) for t in out if t.is_floating_point()):
+            fail(f"{label}: the step on the card gave non-finite outputs")
+        del m["out"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        return m
+
+    print("(a) zamba2-7b training, 2 x 1024, remat, at each depth")
+    for r in ZAMBA2_DEPTHS:
+        label = f"zamba2-7b train x{r}"
+        rec = cases[label]
+        if r == ZAMBA2_DEPTHS[-1]:
+            print(f"  {label:40s} traced {rec['memory']['peak_bytes'] / 1e9:8.3f} GB: fits one "
+                  f"card {rec['fits_one_card']} (not run)")
+            if rec["fits_one_card"]:
+                fail(f"the dry run says zamba2-7b fits at {r} repeats")
+            continue
+        if not rec["fits_one_card"]:
+            fail(f"the dry run says zamba2-7b does not fit at {r} repeats")
+        m = run(label, *dryrun_case(label))
+        hold(label, rec, m["peak_bytes"], m["step_s"])
+    print("(b) the training phases' steps, 2 x 1024")
+    for arch, _ in LM_ARCHS:
+        label = f"{arch} train"
+        m = run(label, *dryrun_case(label))
+        hold(label, cases[label], m["peak_bytes"], m["step_s"])
+    print("(c) each served model's prefill step and decode step at 4095 (served depths)")
+    for arch, _ in LM_ARCHS + LM_FAMILIES:
+        for kind in ("prefill", "decode"):
+            label = f"{arch} {kind}"
+            if measure_serving:
+                m = run(label, *dryrun_case(label))
+                CARD_PEAKS[label] = m["peak_bytes"]
+            if label not in CARD_PEAKS:
+                fail(f"{label}: no peak measured on the card")
+            hold(label, cases[label], CARD_PEAKS[label])
+    print("(d) every input-shape pair that fits one card, its own batch and length, full "
+          "width and depth")
+    fitting = [r for r in records if r["mesh"] == "1x1" and r["status"] == "ok"
+               and r["fits_one_card"]]
+    for rec in fitting:
+        label = f"{rec['arch']} {rec['shape']}"
+        cfg, shape = get_arch(rec["arch"]), INPUT_SHAPES[rec["shape"]]
+        m = run(label, cfg, shape.mode, shape.global_batch, shape.seq_len, default_opts(cfg))
+        hold(label, rec, m["peak_bytes"], m["step_s"])
+    outside = [label for label, ok in rows if not ok]
+    print(f"{len(rows)} cases, {len(outside)} outside 5% or 512 MiB: {outside}")
+    if outside:
+        fail(f"traced one-card peaks miss the card's: {outside}")
 
 
 RWKV_PARITY_SETTINGS = ((0, 0), (0, 32), (16, 32))  # (rwkv_chunk, ssm_seq_chunk)
@@ -3794,9 +4149,12 @@ def _router_leaves(tree) -> list:
 
 def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
     """``arch`` at full width, two layers (``two_layer_config``), fp32
-    (params drawn on the CPU and copied to the card), one
+    (the same params on both devices, ``parity_params``), one
     ``make_train_step`` with the loss through
-    ``use_kernels`` on the card and on the CPU from one ``token_batches``
+    ``use_kernels`` on the card, and on the CPU the gradient of the same
+    ``forward_train`` (whose loss and ``clip_by_global_norm`` norm are what
+    the CPU's ``make_train_step`` reports, without a second backward pass),
+    from one ``token_batches``
     batch of 2 x 64, at each (rwkv_chunk, ssm_seq_chunk) of ``settings``:
     loss within 1e-5 relative, grad norm within 1e-4 relative, every
     gradient leaf within 1e-4 of that leaf's max |g| (TF32 off: fp32 sums in
@@ -3825,15 +4183,15 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import default_opts, make_train_step
     from repro_torch.launch.train import stub_inputs
-    from repro_torch.models.transformer import forward_train, init_params
-    from repro_torch.optim import adamw_init
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.optim import adamw_init, clip_by_global_norm
     from repro_torch.tree import tree_leaves, tree_map, value_and_grad
 
     cfg = two_layer_config(arch)
     moe = any(b.kind in ("moe", "mla_moe") for b in cfg.blocks)
     rwkv = any(b.kind == "rwkv6" for b in cfg.blocks)
     cpu = torch.device("cpu")
-    params = init_params(cfg, default_opts(cfg), seed=5, device=cpu)
+    params = parity_params(cfg, default_opts(cfg), 5, dev)
     shared = [i for i, n in enumerate(_leaf_names(params)) if n.startswith("shared/")]
     b = next(token_batches(np.random.default_rng(6), cfg.vocab_size, 2, 64))
     stubs = {k: torch.from_numpy(np.random.default_rng(7).standard_normal(t.shape, np.float32))
@@ -3847,7 +4205,10 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
             batch = {k: torch.from_numpy(v).to(d, torch.int64) for k, v in b.items()}
             batch.update({k: t.to(d) for k, t in stubs.items()})
             ops.reset_launches()
-            _, g = value_and_grad(lambda pp: forward_train(cfg, opts, pp, batch)[0], p)
+            loss, g = value_and_grad(lambda pp: forward_train(cfg, opts, pp, batch)[0], p)
+            # the CPU's make_train_step would compute this gradient again: its
+            # loss and grad norm are this loss and clip_by_global_norm's norm
+            norm = clip_by_global_norm(g, 1.0)[1] if d == cpu else None
             routers = [t.cpu() for t in _router_leaves(g)]
             g = [t.cpu() for t in tree_leaves(g)]
             if moe:
@@ -3860,9 +4221,10 @@ def check_train_parity(dev, arch="llama3.2-3b", settings=((0, 0),)):
                 with torch.no_grad():
                     plain = forward_train(cfg, replace(opts, use_kernels=False), p, batch)[0]
                 loss_plain = float(plain)
-            _, _, m = make_train_step(cfg, opts, lr=1e-4)(p, adamw_init(p), batch)
-            out.append((float(m["loss"]), float(m["grad_norm"]), g, routers,
-                        aux if moe else {}))
+            if d == dev:
+                _, _, m = make_train_step(cfg, opts, lr=1e-4)(p, adamw_init(p), batch)
+                loss, norm = m["loss"], m["grad_norm"]
+            out.append((float(loss), float(norm), g, routers, aux if moe else {}))
             del p, batch
             gc.collect()
         (lg, ng, gg, rg, ag), (lc, nc, gc_, rc, ac) = out
@@ -4461,6 +4823,15 @@ def main() -> None:
 
     dev, name, count, smi = check_device()
     build_kernels()
+    if sys.argv[1:] in ([], ["--sharding"]):
+        phase(DRYRUN_PHASE)
+        run_dryrun(dev)
+    if sys.argv[1:] == ["--sharding"]:
+        phase(MESH_PHASE)
+        check_mesh(dev)
+        phase(DRYRUN_CARD_PHASE)
+        check_dryrun_on_card(dev, measure_serving=True)
+        return
     if sys.argv[1:] == ["--rwkv-chunks"]:
         phase("rwkv6_scan_chunked and the backward kernel at each chunk length")
         time_rwkv_chunks(dev)
@@ -4505,7 +4876,6 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--zamba2-depths"]:
         phase("zamba2-7b training at each depth of " + ", ".join(map(str, ZAMBA2_DEPTHS)))
-        zamba2_depth(dev)
         measure_zamba2_depths(dev)
         return
     if sys.argv[1:] == ["--latent"]:
@@ -4596,10 +4966,14 @@ def main() -> None:
             counts[k] += train_counts[k]
         for k, variant in RWKV_VARIANTS.items():
             counts[k] += train_variants[variant]
+    phase(MESH_PHASE)
+    check_mesh(dev)
     phase(ZAMBA2_TRAIN_PHASE)
     train_counts, _, _ = drive_zamba2_train(dev)
     for k in ("distill_loss_fwd", "distill_loss_bwd"):
         counts[k] += train_counts[k]
+    phase(DRYRUN_CARD_PHASE)
+    check_dryrun_on_card(dev)
     # the LM distillation path's launches: distill_loss's t entry, SKR's
     # fused entry, the teacher's attention on the (128, 128) instance; the
     # serve_decode example's sequential scans

@@ -12,6 +12,13 @@ launches its kernel and nowhere else. A TPU kernel with two CUDA variants
 keeps one name there; its wrapper keeps a per-variant count of its own,
 registered with ``counter`` so that ``reset_launches`` zeroes it too.
 
+On a ``meta`` tensor (``launch.dryrun``'s trace) a wrapper allocates what
+its CUDA path allocates, outputs and scratch alike, on ``meta``, and
+``launch`` calls ``meta_launch`` instead of the kernel: no
+arithmetic, no count, and the kernel's FLOPs and scratch bytes go to the
+sinks ``meta_sink`` installs (``FlopCounterMode`` cannot see inside a
+hand-written kernel).
+
 A kernel that checks its inputs reports a fault in pinned host words
 (``fault_words``) that are read at the caller's next sync on the card
 (``check_labels``' or ``raise_faults``), so that no launch waits for a
@@ -19,6 +26,7 @@ read-back of its own.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -181,16 +189,47 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device: torch.device, *args, count_as: str | None = None) -> None:
+def launch(name: str, device: torch.device, *args, count_as: str | None = None,
+           flops=None, scratch=()) -> None:
     """Call kernel entry point ``name`` on ``device``'s current stream
     (appended as the last argument), count the launch under ``count_as``
-    (default ``name``) and raise if CUDA refused it."""
+    (default ``name``) and raise if CUDA refused it. On the ``meta`` device
+    nothing is built, launched or counted: ``meta_launch`` hears ``name``
+    with ``flops()`` (a callable, so the card's path never evaluates it)
+    and the ``scratch`` tensors."""
+    if device.type == "meta":
+        meta_launch(name, flops=flops() if flops is not None else 0.0, scratch=scratch)
+        return
     fn = getattr(lib(), name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
     launches[count_as or name] += 1
+
+
+_meta_sinks: list = []
+
+
+def meta_launch(name: str, *, flops: float, scratch=()) -> None:
+    """What a launch of kernel ``name`` would do, on ``meta`` tensors: tell
+    each sink of ``meta_sink`` its FLOPs and the bytes of its scratch
+    tensors (allocated by the caller on ``meta``, as on the card, and freed
+    when the wrapper returns). Counts no launch."""
+    nbytes = sum(t.untyped_storage().nbytes() for t in scratch)
+    for sink in _meta_sinks:
+        sink(name, float(flops), nbytes)
+
+
+@contextlib.contextmanager
+def meta_sink(fn):
+    """While open, ``fn(name, flops, scratch_bytes)`` hears every
+    ``meta_launch``."""
+    _meta_sinks.append(fn)
+    try:
+        yield fn
+    finally:
+        _meta_sinks.remove(fn)
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -220,7 +259,7 @@ def check_labels(name: str, labels: torch.Tensor, n: int) -> torch.Tensor:
     kernels' faults (``check_faults``)."""
     if labels.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"{name}: labels must be int32 or int64, got {labels.dtype}")
-    if labels.numel():
+    if labels.numel() and not labels.is_meta:  # a meta tensor has no values to check
         if not bool(((labels >= 0) & (labels < n)).all()):
             raise ValueError(f"{name}: labels must lie in [0, {n})")
         if labels.is_cuda:
@@ -243,6 +282,8 @@ def fault_words(name: str, device: torch.device, n: int, report) -> torch.Tensor
     zero until a launch sets one; ``report(bits)`` gives the exception that
     a set word raises. Growing them first syncs ``device`` and reads the
     old ones."""
+    if device.type == "meta":  # no launch sets them; the card keeps them in host memory
+        return torch.empty(0, dtype=torch.int32, device=device)
     key = (name, device.index)
     held = _faults.get(key)
     if held is None or held[0].size < n:

@@ -23,6 +23,12 @@ z's dtype (bf16 is the LM training loss's case). On a CUDA tensor the
 wrapper launches the kernels or raises; on a CPU tensor it computes the
 plain version in ``ref.py``.
 
+On a ``meta`` tensor (``launch.dryrun``'s trace) the op takes the CUDA
+path's allocations on ``meta`` and reports the kernels' FLOPs
+(``loss_flops``: fp32 operations an element, exp as one; the counts
+``chip_smoke.py``'s bounds use) through ``_lib.meta_launch``;
+nothing is computed or counted.
+
 Which kernel a CUDA call runs is chosen from integers:
 
 - forward, ``_fwd_variant(rows, V, dtype)``: ``"regs"`` for rows of up to
@@ -57,6 +63,16 @@ variant_launches = _lib.counter(
     (("fwd", _LAYOUT), ("fwd_ce", _LAYOUT), ("bwd", ("rows", "slices")),
      ("bwd_ce", ("rows", "slices")))
     for variant in variants)
+
+
+_OPS = {("fwd", False): 5, ("fwd", True): 7, ("bwd", False): 6, ("bwd", True): 11}
+
+
+def loss_flops(direction: str, with_t: bool, rows: int, V: int) -> float:
+    """fp32 operations of one launch over ``rows`` rows of ``V`` classes:
+    5 an element forward and 6 backward for the CE entry, 7 and 11 with a
+    teacher."""
+    return float(_OPS[(direction, with_t)] * rows * V)
 
 
 def _row_threads(V: int, itemsize: int) -> int:
@@ -116,14 +132,15 @@ def _fwd_cuda(z, t, y32, beta, label_weight):
         _lib.launch("distill_loss_fwd_ce" + _ENTRY[z.dtype], z.device, z.data_ptr(),
                     y32.data_ptr(), loss.data_ptr(), stats.data_ptr(), B * N, V,
                     float(label_weight), _LAYOUT[variant], threads,
-                    count_as="distill_loss_fwd")
+                    count_as="distill_loss_fwd", flops=lambda: loss_flops("fwd", False, B * N, V))
     else:
         entry = "fwd"
         _lib.launch("distill_loss_fwd" + _ENTRY[z.dtype], z.device, z.data_ptr(),
                     t.data_ptr(), y32.data_ptr(), loss.data_ptr(), stats.data_ptr(), B * N,
                     V, float(beta), float(label_weight), _LAYOUT[variant], threads,
-                    count_as="distill_loss_fwd")
-    variant_launches[f"{entry}:{variant}"] += 1
+                    count_as="distill_loss_fwd", flops=lambda: loss_flops("fwd", True, B * N, V))
+    if not z.is_meta:
+        variant_launches[f"{entry}:{variant}"] += 1
     return loss, stats
 
 
@@ -139,14 +156,17 @@ def _bwd_cuda(z, t, y32, stats, g, beta, label_weight):
         entry = "bwd_ce"
         _lib.launch("distill_loss_bwd_ce" + _ENTRY[z.dtype], z.device, z.data_ptr(),
                     y32.data_ptr(), stats.data_ptr(), g.data_ptr(), dz.data_ptr(), B * N, V,
-                    float(label_weight), threads, slices, count_as="distill_loss_bwd")
+                    float(label_weight), threads, slices, count_as="distill_loss_bwd",
+                    flops=lambda: loss_flops("bwd", False, B * N, V))
     else:
         entry = "bwd"
         _lib.launch("distill_loss_bwd" + _ENTRY[z.dtype], z.device, z.data_ptr(),
                     t.data_ptr(), y32.data_ptr(), stats.data_ptr(), g.data_ptr(),
                     dz.data_ptr(), B * N, V, float(beta), float(label_weight), threads,
-                    slices, count_as="distill_loss_bwd")
-    variant_launches[f"{entry}:{variant}"] += 1
+                    slices, count_as="distill_loss_bwd",
+                    flops=lambda: loss_flops("bwd", True, B * N, V))
+    if not z.is_meta:
+        variant_launches[f"{entry}:{variant}"] += 1
     return dz
 
 
@@ -155,7 +175,7 @@ class DistillLoss(torch.autograd.Function):
     def forward(ctx, logits, teacher_logprobs, labels, beta, label_weight):
         _check(logits, teacher_logprobs, labels)
         ctx.beta, ctx.label_weight = beta, label_weight
-        if logits.is_cuda:
+        if logits.is_cuda or logits.is_meta:
             y32 = _lib.check_labels("distill_loss", labels, logits.shape[-1])
             loss, stats = _fwd_cuda(logits, teacher_logprobs, y32, beta,
                                     label_weight)
@@ -169,7 +189,7 @@ class DistillLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         z, t, y, stats = ctx.saved_tensors
-        if z.is_cuda:
+        if z.is_cuda or z.is_meta:
             dz = _bwd_cuda(z, t, y, stats, g.contiguous(), ctx.beta,
                            ctx.label_weight)
         else:
@@ -186,7 +206,7 @@ class SoftmaxXent(torch.autograd.Function):
     def forward(ctx, logits, labels, label_weight):
         _check(logits, None, labels)
         ctx.label_weight = label_weight
-        if logits.is_cuda:
+        if logits.is_cuda or logits.is_meta:
             y32 = _lib.check_labels("softmax_xent", labels, logits.shape[-1])
             loss, stats = _fwd_cuda(logits, None, y32, 0.0, label_weight)
             ctx.save_for_backward(logits, y32, stats)
@@ -197,7 +217,7 @@ class SoftmaxXent(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         z, y, stats = ctx.saved_tensors
-        if z.is_cuda:
+        if z.is_cuda or z.is_meta:
             dz = _bwd_cuda(z, None, y, stats, g.contiguous(), 0.0, ctx.label_weight)
         else:
             dz = R.softmax_xent_grad_ref(z, y, ctx.label_weight, g=g)

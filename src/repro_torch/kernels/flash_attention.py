@@ -63,6 +63,13 @@ finds such calls from ints alone, and the wrapper then launches
 ``csrc/flash_attention_empty_rows.cu`` after the picked kernel, which
 overwrites those rows.
 
+On a ``meta`` tensor (``launch.dryrun``'s trace) each wrapper allocates
+its output and the kernel's scratch (the decode kernel's split partials,
+the latent decode's split pass) on ``meta`` and reports the kernel's FLOPs
+(``attention_flops``, ``latent_decode_flops``: the unmasked pairs the
+kernel computes; the counts ``chip_smoke.py``'s bounds use) through
+``_lib.meta_launch``; nothing is computed or counted.
+
 The kernels have no backward (nor has the TPU kernel): on a CUDA tensor the
 wrapper raises if grad mode is on and an input requires grad, rather than
 return an output with no ``grad_fn``.
@@ -78,6 +85,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _lib
@@ -177,6 +185,30 @@ def _latent_plan(B: int, S: int, q_offset: int) -> tuple[int, int, int]:
     return chunk, splits, vsplits
 
 
+def attention_pairs(Sq: int, Sk: int, q_offset: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of a call: each query's visible key
+    range [j_lo, j_hi] as the kernels' masks leave it, the window
+    included."""
+    qpos = np.arange(q_offset, q_offset + Sq, dtype=np.int64)
+    j_hi = np.minimum(qpos, Sk - 1) if causal else np.full_like(qpos, Sk - 1)
+    j_lo = np.maximum(0, qpos - window + 1) if window > 0 else 0
+    return int(np.maximum(0, j_hi - j_lo + 1).sum())
+
+
+def attention_flops(B: int, Sq: int, Sk: int, N: int, H: int, Hv: int, causal: bool,
+                    window: int, q_offset: int) -> float:
+    """The kernel's FLOPs: 2 (H + Hv) a (query, key) pair and head that the
+    mask leaves (q·k and p·v, an FMA as two)."""
+    return 2.0 * (H + Hv) * B * N * attention_pairs(Sq, Sk, q_offset, causal, window)
+
+
+def latent_decode_flops(B: int, N: int, S: int, L: int, Rd: int, q_offset: int) -> float:
+    """The latent decode kernel's FLOPs: 2 (L + Rd + L) a key and head over
+    the keys at or before ``q_offset`` (the scores over c_kv joined to
+    k_rope, then p·c_kv)."""
+    return 2.0 * (L + Rd + L) * B * N * (min(int(q_offset), S - 1) + 1)
+
+
 def _has_empty_rows(Sq: int, Sk: int, q_offset: int, causal: bool, window: int) -> bool:
     """Whether a query row at q_offset + i, i < Sq, sees no key. The rows
     that see some key are those with qpos >= 0 (causal) and qpos <= Sk +
@@ -240,7 +272,7 @@ def _check(q, k, v):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
     """Returns (B, Sq, N, Hv) in q's dtype."""
     _check(q, k, v)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return R.flash_attention_ref(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
     _lib.refuse_grad("flash_attention", q, k, v)
@@ -258,21 +290,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
         return out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     mask = (int(bool(causal)), int(window), int(q_offset), Sk, float(H**-0.5))
+    flops = lambda: attention_flops(B, Sq, Sk, N, H, Hv, bool(causal), int(window),  # noqa: E731
+                                    int(q_offset))
     if variant == "decode":
         _, chunk, splits = _decode_plan(B, K, Sk, int(q_offset), bool(causal), int(window))
         ws = torch.empty(B * N * splits * (H + 2) if splits > 1 else 0,
                          dtype=torch.float32, device=q.device)
         _lib.launch("flash_attention_decode", q.device, *ptrs, ws.data_ptr(), B, Sk, N, K,
                     H, int(q.dtype == torch.bfloat16), *mask, chunk, splits,
-                    count_as="flash_attention")
+                    count_as="flash_attention", flops=flops, scratch=(ws,))
     elif variant == "sm90":
         _lib.launch("flash_attention_sm90", q.device, *ptrs, B, Sq, Sk, N, K, H, Hv, *mask,
-                    count_as="flash_attention")
-        sm90_launches[(H, Hv)] += 1
+                    count_as="flash_attention", flops=flops)
     else:
         _lib.launch("flash_attention", q.device, *ptrs, B, Sq, Sk, N, K, H, Hv,
-                    int(q.dtype == torch.bfloat16), *mask)
-    variant_launches[variant] += 1
+                    int(q.dtype == torch.bfloat16), *mask, flops=flops)
+    if not q.is_meta:
+        variant_launches[variant] += 1
+        if variant == "sm90":
+            sm90_launches[(H, Hv)] += 1
     if _has_empty_rows(Sq, Sk, int(q_offset), bool(causal), int(window)):
         _lib.launch("flash_attention_empty_rows", q.device, v.data_ptr(), out.data_ptr(), B,
                     Sq, Sk, N, K, Hv, int(q.dtype == torch.bfloat16), int(bool(causal)),
@@ -309,7 +345,7 @@ def latent_decode(q, c_kv, k_rope, *, scale: float, q_offset: int):
     of the kernel on ``_latent_plan``'s grid, and of its merge pass when
     the plan has more than one split."""
     _check_latent(q, c_kv, k_rope)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return R.latent_decode_ref(q, c_kv, k_rope, scale=scale, q_offset=q_offset)
     _lib.refuse_grad("latent_decode", q, c_kv, k_rope)
     B, _, N, _ = q.shape
@@ -339,6 +375,8 @@ def latent_decode(q, c_kv, k_rope, *, scale: float, q_offset: int):
                 k_rope.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, N,
                 c_kv.stride(0), c_kv.stride(1), k_rope.stride(0), k_rope.stride(1),
                 int(c_kv.dtype == torch.bfloat16), int(q_offset), float(scale), chunk, splits,
-                vsplits, count_as="flash_attention")
-    variant_launches["latent_decode"] += 1
+                vsplits, count_as="flash_attention", scratch=(ws,),
+                flops=lambda: latent_decode_flops(B, N, S, L, Rd, q_offset))
+    if not q.is_meta:
+        variant_launches["latent_decode"] += 1
     return out

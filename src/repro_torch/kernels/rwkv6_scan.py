@@ -33,6 +33,12 @@ the inputs from the forward and recomputes the states it needs, so a call
 under ``torch.no_grad()`` (serving) allocates and launches what it did
 before the backward existed.
 
+On a ``meta`` tensor (``launch.dryrun``'s trace) the wrapper takes the
+CUDA path's allocations on ``meta`` (the fp32 copies, the outputs, the
+chunked scan's and the backward's chunk scratch) and reports the kernels'
+FLOPs (``scan_flops``, ``scan_grad_flops``) through ``_lib.meta_launch``;
+nothing is computed or counted.
+
 ``_lib.launches["rwkv6_scan"]`` counts the calls that launch a forward
 kernel, ``variant_launches`` counts them per variant, and
 ``_lib.launches["rwkv6_scan_bwd"]`` the backward's launches.
@@ -79,6 +85,18 @@ def bwd_smem(hd: int, chunk: int) -> int:
     return need.value
 
 
+def scan_flops(B: int, T: int, H: int, hd: int) -> float:
+    """The forward's FLOPs: 5 hd^2 + 5 hd a token and head (an FMA as
+    two: y's reads of the state and of u k v^T, the state's update)."""
+    return float((5 * hd * hd + 5 * hd) * T * H * B)
+
+
+def scan_grad_flops(B: int, T: int, H: int, hd: int) -> float:
+    """The backward's FLOPs: 14 hd^2 + 12 hd a token and head (the states
+    recomputed, dr, dk, dv, dw, du and the state's gradient)."""
+    return float((14 * hd * hd + 12 * hd) * T * H * B)
+
+
 def _aligned(*tensors):
     """The kernels stage their arrays with 16-byte accesses: a view that
     starts off that grid is copied to a fresh allocation."""
@@ -88,16 +106,17 @@ def _aligned(*tensors):
 def _forward(r, k, v, w, u, s0):
     """y, sT by the plain version (a CPU tensor) or the kernel ``_variant``
     picks (fp32 contiguous CUDA tensors)."""
-    if not r.is_cuda:
+    if not (r.is_cuda or r.is_meta):
         return R.rwkv6_scan_ref(r, k, v, w, u, s0)
     B, T, H, hd = r.shape
     y = torch.empty_like(r)
     sT = torch.empty_like(s0)
     variant = _variant(T)
+    flops = lambda: scan_flops(B, T, H, hd)  # noqa: E731
     if variant == "seq":
         _lib.launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
                     w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
-                    B, T, H, hd)
+                    B, T, H, hd, flops=flops)
     else:
         r, k, v, w = _aligned(r, k, v, w)
         nc = -(-T // CHUNK)
@@ -107,8 +126,9 @@ def _forward(r, k, v, w, u, s0):
         _lib.launch("rwkv6_scan_chunked", r.device, r.data_ptr(), k.data_ptr(),
                     v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(),
                     sT.data_ptr(), st.data_ptr(), rp.data_ptr(), pend.data_ptr(), B, T, H,
-                    hd, CHUNK, count_as="rwkv6_scan")
-    variant_launches[variant] += 1
+                    hd, CHUNK, count_as="rwkv6_scan", flops=flops, scratch=(st, rp, pend))
+    if not r.is_meta:
+        variant_launches[variant] += 1
     return y, sT
 
 
@@ -116,7 +136,7 @@ def _backward(r, k, v, w, u, s0, dy, dsT):
     """(dr, dk, dv, dw, du, ds0): the plain backward on a CPU tensor, the
     backward kernel on fp32 contiguous CUDA tensors (du summed from its
     per-chunk partials)."""
-    if not r.is_cuda:
+    if not (r.is_cuda or r.is_meta):
         return R.rwkv6_scan_grad_ref(r, k, v, w, u, s0, dy, dsT)
     B, T, H, hd = r.shape
     dy, dsT = dy.contiguous(), dsT.contiguous()  # fp32, as y and sT are
@@ -133,7 +153,8 @@ def _backward(r, k, v, w, u, s0, dy, dsT):
     _lib.launch("rwkv6_scan_bwd", r.device,
                 *(t.data_ptr() for t in (r, k, v, w, u, s0, dy, dsT, dr, dk, dv, dw, dup,
                                           ds0, sx, gx, pend)),
-                B, T, H, hd, chunk)
+                B, T, H, hd, chunk, flops=lambda: scan_grad_flops(B, T, H, hd),
+                scratch=(dup, sx, gx, pend))
     return dr, dk, dv, dw, dup.sum((0, 2)), ds0
 
 
@@ -167,7 +188,7 @@ def rwkv6_scan(r, k, v, w, u, s0):
     if len({t.device for t in (r, k, v, w, u, s0)}) != 1:
         raise ValueError("rwkv6_scan: inputs must share a device")
     ins = (r, k, v, w, u, s0)
-    if r.is_cuda:
+    if r.is_cuda or r.is_meta:
         if hd not in HEAD_DIMS:
             raise ValueError(f"rwkv6_scan: the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
         ins = tuple(t.to(torch.float32) for t in ins)

@@ -26,7 +26,10 @@ the fault is raised at the next sync the caller makes on the device,
 or by ``_lib.raise_faults``.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
-tensor it computes the plain version in ``ref.py``. The map is
+tensor it computes the plain version in ``ref.py``; on a ``meta`` tensor
+(``launch.dryrun``'s trace) it allocates its outputs on ``meta`` and
+reports the kernel's FLOPs (``map_flops``, ``process_flops``) through
+``_lib.meta_launch``. The map is
 bit-identical either way; the fused entry's queue means are fp32 sums in
 slot order, the plain version's ``torch.sum``'s order, so Q may differ in
 the last bits (count, head and q are copies and exact).
@@ -45,6 +48,17 @@ variant_launches = _lib.counter(("map", "fused"))
 _BAD_LABEL = 1
 
 
+def map_flops(rows: int, C: int) -> float:
+    """The map's operations: a product and a select an element."""
+    return float(2 * rows * C)
+
+
+def process_flops(B: int, N: int, C: int, Bq: int) -> float:
+    """The fused entry's operations: 2 N C + N Bq a pair (the argmax and
+    the map's products, at most Bq adds a row for the queue mean)."""
+    return float(B * (2 * N * C + N * Bq))
+
+
 def skr_rectify_rows(probs, labels, p_c, do, qb):
     """probs (..., C) fp32; labels (...) int in [0, C); p_c, qb (...) fp32;
     do (...) bool. Returns rectified (..., C)."""
@@ -56,7 +70,7 @@ def skr_rectify_rows(probs, labels, p_c, do, qb):
         raise TypeError("skr_rectify: probs, p_c and qb must be fp32")
     if do.dtype != torch.bool:
         raise TypeError(f"skr_rectify: do must be bool, got {do.dtype}")
-    if not probs.is_cuda:
+    if not (probs.is_cuda or probs.is_meta):
         return R.skr_rectify_rows_ref(probs, labels, p_c, do, qb)
     C = probs.shape[-1]
     y32 = _lib.check_labels("skr_rectify", labels, C)
@@ -64,8 +78,10 @@ def skr_rectify_rows(probs, labels, p_c, do, qb):
     out = torch.empty_like(probs)
     _lib.launch("skr_rectify", probs.device, probs.data_ptr(), y32.data_ptr(),
                 p_c.data_ptr(), do.data_ptr(), qb.data_ptr(), out.data_ptr(),
-                probs.numel() // max(C, 1), C)
-    variant_launches["map"] += 1
+                probs.numel() // max(C, 1), C,
+                flops=lambda: map_flops(probs.numel() // max(C, 1), C))
+    if not probs.is_meta:
+        variant_launches["map"] += 1
     return out
 
 
@@ -98,7 +114,7 @@ def skr_process_batched(probs, labels, q, count, head):
         raise ValueError("skr_process: probs must be (B, N, C) and q (B, C, Bq)")
     B, N, C = probs.shape
     _check(probs, labels, q, count, head, (B, N), (B, C))
-    if not probs.is_cuda:
+    if not (probs.is_cuda or probs.is_meta):
         return R.skr_process_batched_ref(probs, labels, q, count, head)
     return _launch(probs, labels, q, count, head, B, N, C)
 
@@ -110,7 +126,7 @@ def skr_process_rows(probs, labels, q, count, head):
         raise ValueError("skr_process: probs must be (N, C) and q (C, Bq)")
     N, C = probs.shape
     _check(probs, labels, q, count, head, (N,), (C,))
-    if not probs.is_cuda:
+    if not (probs.is_cuda or probs.is_meta):
         return R.skr_process_ref(probs, labels, q, count, head)
     return _launch(probs, labels, q, count, head, 1, N, C)
 
@@ -145,8 +161,10 @@ def _launch(probs, labels, q, count, head, B, N, C):
     _lib.launch("skr_process", probs.device, probs.data_ptr(), labels.data_ptr(),
                 int(labels.dtype == torch.int64), q.data_ptr(), count.data_ptr(),
                 head.data_ptr(), out.data_ptr(), new_q.data_ptr(), new_count.data_ptr(),
-                new_head.data_ptr(), err.data_ptr(), B, N, C, Bq, count_as="skr_rectify")
-    variant_launches["fused"] += 1
+                new_head.data_ptr(), err.data_ptr(), B, N, C, Bq, count_as="skr_rectify",
+                flops=lambda: process_flops(B, N, C, Bq))
+    if not probs.is_meta:
+        variant_launches["fused"] += 1
     return out, new_q, new_count, new_head
 
 

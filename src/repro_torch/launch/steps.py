@@ -2,7 +2,8 @@
 and the shapes of the trees they carry.
 
 Counterpart of ``repro.launch.steps``. The reference jit-compiles these for
-a mesh; the port runs them eagerly on one device. ``input_specs``,
+a mesh; the port runs them eagerly on one device (``launch.dryrun`` traces
+them on the ``meta`` device). ``input_specs``,
 ``param_shapes``, ``opt_shapes`` and ``cache_shapes`` return trees of
 ``meta`` tensors (shape and dtype, no storage) where the reference returns
 ``jax.eval_shape``'s ``ShapeDtypeStruct``s, so a full-size model can be
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import on_meta
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.transformer import (
     ModelOpts,
     forward_decode,
@@ -22,16 +24,40 @@ from repro_torch.models.transformer import (
     init_params,
 )
 from repro_torch.optim import adamw_init, adamw_update_, clip_by_global_norm
+from repro_torch.sharding.specs import axes_entry
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
-def default_opts(cfg, **overrides) -> ModelOpts:
-    """The reference's ``default_opts`` on a one-device mesh: no KV
-    replication (``kv_mult=1``), routed experts padded to a multiple of
-    the mesh's one model-parallel device (``expert_pad_to=1``: no padding),
-    chunked attention for long sequences (``attn_chunk=1024``),
-    ``remat=True``; ``overrides`` replace any field."""
-    kw = dict(kv_mult=1, expert_pad_to=1, attn_chunk=1024, remat=True)
+def default_opts(cfg, mesh=None, *, seq_parallel: bool = False, **overrides) -> ModelOpts:
+    """``ModelOpts`` adapted to a mesh, the reference's rules: KV heads
+    replicated ``kv_mult`` times to tile the model axis where GQA grouping
+    survives it, chunked attention for long sequences (``attn_chunk=1024``),
+    routed experts padded to a multiple of the model axis
+    (``expert_pad_to``), ``remat=True``; ``seq_parallel`` with a model axis
+    over one device adds the sequence-parallel residual spec (``act_spec``
+    = (data axes, "model", None)). ``mesh`` is a ``launch.mesh.MeshSpec``,
+    a ``DeviceMesh`` or None (one device: ``kv_mult=1``,
+    ``expert_pad_to=1``, no ``act_spec``); ``overrides`` replace any
+    field."""
+    sizes = axis_sizes(mesh)
+    tp = sizes.get("model", 1)
+    kv_mult = 1
+    if (
+        tp > 1
+        and cfg.num_kv_heads
+        and cfg.num_kv_heads < tp
+        and tp % cfg.num_kv_heads == 0
+        # replication must keep GQA grouping: q heads must tile the
+        # replicated kv heads (llama3.2's 24q / 8kv cannot replicate to 16)
+        and cfg.num_heads % (cfg.num_kv_heads * (tp // cfg.num_kv_heads)) == 0
+    ):
+        kv_mult = tp // cfg.num_kv_heads
+    act_spec = None
+    if seq_parallel and mesh is not None and tp > 1:
+        act_spec = (axes_entry(tuple(a for a in ("pod", "data") if a in sizes)), "model", None)
+    kw = dict(kv_mult=kv_mult, attn_chunk=1024,
+              expert_pad_to=tp if tp > 1 and cfg.num_experts else 1, remat=True,
+              act_spec=act_spec)
     kw.update(overrides)
     return ModelOpts(**kw)
 

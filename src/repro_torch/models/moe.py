@@ -20,7 +20,9 @@ Counterpart of ``repro.models.moe``, with the reference's arithmetic:
   on the run); the shared MLP is added last.
 
 The reference's ``constrain`` (an expert-sharding constraint on the
-dispatch buffers) waits for the port's sharding substrate (ROADMAP A7).
+dispatch buffers, ``ModelOpts.moe_constrain``) lays out a sharded array;
+the port's model runs on plain tensors on one device and refuses the
+option until a DTensor reaches it (ROADMAP A7.7).
 """
 from __future__ import annotations
 

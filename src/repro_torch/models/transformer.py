@@ -37,10 +37,13 @@ copy is used at each of its occurrences, inside the checkpointed repeats
 too, so autograd sums its gradient over them, as ``jax.grad`` sums it
 through the reference's scan, which closes over the copy. An MLA block's
 cache is the compressed one (``c_kv`` and ``k_rope``, views of one buffer
-per block occurrence, the unit's repeats stacked in it). A ``local_attn`` block's cache is as long
-as an ``attn`` block's (the reference's ``window_cache`` ring buffer is
-not ported, ROADMAP A6.5). An ``rwkv6`` block's time mix
-trains through ``ops.rwkv6_scan`` (the forward and backward kernels on the
+per block occurrence, the unit's repeats stacked in it). A ``local_attn``
+block's cache is as long as an ``attn`` block's, or with
+``opts.window_cache`` as long as its window. The model runs on plain
+tensors on one device, so it refuses ``opts.act_spec`` and
+``opts.moe_constrain``, the reference's layouts of the residual stream and
+of the MoE dispatch buffers over a mesh (ROADMAP A7.7). An ``rwkv6``
+block's time mix trains through ``ops.rwkv6_scan`` (the forward and backward kernels on the
 card), or through the reference's chunk-parallel torch form with
 ``opts.rwkv_chunk``; ``opts.ssm_seq_chunk`` cuts a full-sequence block into
 sequence chunks, each recomputed in the backward pass
@@ -93,16 +96,15 @@ ATTN_KINDS = ("attn", "local_attn", "moe", "shared_attn")  # a GQA half and a KV
 MLA_KINDS = ("mla", "mla_moe")  # an MLA half and a compressed cache
 SSM_KINDS = ("rwkv6", "mamba2")  # a recurrent state
 FRONTENDS = (None, "", "vision_stub", "audio_stub")  # stubs: the batch carries their output
+LAYOUT_REFUSED = ("act_spec and moe_constrain lay out DTensors over a mesh; the model "
+                  "runs on plain tensors on one device (ROADMAP A7.7)")
 
 
 @dataclass(frozen=True)
 class ModelOpts:
-    """Build/runtime options orthogonal to the architecture definition.
-
-    Only the reference's fields that the ported code reads, with the
-    reference's defaults; each other field comes with the code that reads
-    it (ROADMAP A6).
-    """
+    """Build/runtime options orthogonal to the architecture definition:
+    the reference's fields, with the reference's defaults, but
+    ``unroll_scan`` (the port loops over the repeats in Python always)."""
 
     kv_mult: int = 1  # KV-head replication for tensor parallelism
     expert_pad_to: int = 1  # pad routed experts to a multiple of this
@@ -112,6 +114,13 @@ class ModelOpts:
     loss_chunk: int = 512  # sequence chunk for the LM loss (avoids (B,S,V))
     use_kernels: bool = False  # LM loss through ops.fused_softmax_xent
     ssm_seq_chunk: int = 0  # chunked-remat SSM time scan (0 = one full scan)
+    window_cache: bool = False  # local_attn caches sized min(seq, sliding_window)
+    # the reference's layouts over a mesh: the residual stream's spec between
+    # repeats (seq parallel) and expert-sharded MoE dispatch buffers.
+    # ``default_opts`` sets them as the reference's does; the model refuses
+    # them, since no DTensor reaches it (``_backbone``)
+    act_spec: Any = None
+    moe_constrain: bool = False
 
 
 def _unknown(kind: str) -> ValueError:
@@ -174,16 +183,21 @@ def init_block(gen: torch.Generator, cfg, kind: str, opts: ModelOpts, *,
 
 def init_block_state(cfg, kind: str, opts: ModelOpts, batch: int, seq: int, dtype,
                      device=None, lead: tuple = ()):
-    """Decode-time state for one block occurrence: a full-length KV cache
-    for every attention kind (``local_attn`` and ``shared_attn`` included),
-    the compressed cache for the MLA kinds, the fp32 recurrent state of an
-    SSM kind (whatever ``dtype``, as the reference's). ``lead`` stacks that
-    many occurrences (a unit's repeats) on leading axes of each leaf."""
+    """Decode-time state for one block occurrence: a ``seq``-long KV cache
+    for every attention kind (``shared_attn`` included; ``local_attn`` too,
+    but with ``opts.window_cache`` it is min(seq, sliding_window) long, the
+    decode write clamped to its last slot as the reference's
+    ``dynamic_update_slice`` clamps it), the compressed cache for the MLA
+    kinds, the fp32 recurrent state of an SSM kind (whatever ``dtype``, as
+    the reference's). ``lead`` stacks that many occurrences (a unit's
+    repeats) on leading axes of each leaf."""
     if kind in MLA_KINDS:
         return A.init_mla_cache(cfg, batch, seq, dtype, device, lead)
     if lead:
         return tree_map(lambda t: t.new_zeros(tuple(lead) + t.shape),
                         init_block_state(cfg, kind, opts, batch, seq, dtype, device))
+    if kind == "local_attn" and opts.window_cache:
+        seq = min(seq, cfg.sliding_window)
     if kind in ATTN_KINDS:
         return A.init_kv_cache(cfg, batch, seq, dtype, opts.kv_mult, device)
     if kind == "rwkv6":
@@ -384,6 +398,8 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
     repeats are checkpointed when ``opts.remat``. Returns the final-normed
     hidden states and the router losses {"lb_loss", "router_z"} summed over
     the blocks in layer order (fp32; 0 without a ``moe`` block)."""
+    if opts.act_spec is not None or opts.moe_constrain:
+        raise NotImplementedError(LAYOUT_REFUSED)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"lb_loss": zero, "router_z": zero}
     for i, blk in enumerate(cfg.head_blocks):

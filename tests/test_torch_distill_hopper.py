@@ -238,9 +238,9 @@ def test_launch_arguments(monkeypatch, dtype, V, ce):
     variant."""
     calls = []
 
-    def launch(name, device, *args, count_as=None):
+    def launch(name, device, *args, count_as=None, flops=None, scratch=()):
         assert len(args) + 1 == len(_lib._SIGNATURES[name]), name
-        calls.append((name, args))
+        calls.append((name, args, flops()))
         _lib.launches[count_as or name] += 1
 
     monkeypatch.setattr(_lib, "launch", launch)
@@ -259,6 +259,7 @@ def test_launch_arguments(monkeypatch, dtype, V, ce):
     bv, tpr, slices = DL._bwd_variant(V, dtype)
     assert calls[0][1][-2:] == (DL._LAYOUT[fv], threads)
     assert calls[1][1][-2:] == (tpr, slices)
+    assert [c[2] for c in calls] == [DL.loss_flops(d, not ce, 6, V) for d in ("fwd", "bwd")]
     assert ops.launches["distill_loss_fwd"] == ops.launches["distill_loss_bwd"] == 1
     counted = {k: n for k, n in DL.variant_launches.items() if n}
     assert counted == {f"fwd{entry}:{fv}": 1, f"bwd{entry}:{bv}": 1}

@@ -1426,3 +1426,48 @@ def test_serve_decode_on_the_card(cuda):
     assert res.tokens.shape == (serve_decode.REQUESTS, serve_decode.GEN_LEN)
     assert res.logits_finite
     assert ops.launches["rwkv6_scan"] == n * (serve_decode.PROMPT_LEN + serve_decode.GEN_LEN)
+
+
+def test_host_mesh_on_nccl_gives_the_flat_mean_bit_for_bit(cuda):
+    """``make_host_mesh`` on the card starts a one-rank NCCL group; the
+    two-tier means over it are ``mean(0)`` bit for bit, on the (1, 1) and
+    the (1, 1, 1) mesh (``edge_only_mean`` there a DTensor over "pod")."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import axis_sizes, make_host_mesh
+    from repro_torch.sharding.hierarchy import edge_only_mean, hier_grad_mean
+
+    try:
+        meshes = (make_host_mesh(device=cuda), make_host_mesh(pod=1, device=cuda))
+        assert dist.get_backend() == "nccl"
+        g = torch.Generator(device=cuda).manual_seed(0)
+        tree = {"w": torch.randn(2, 64, 48, generator=g, device=cuda).to(torch.bfloat16),
+                "b": [torch.randn(2, 48, generator=g, device=cuda)]}
+        flat = [tree["w"].mean(0), tree["b"][0].mean(0)]
+        for mesh in meshes:
+            hier = hier_grad_mean(tree, mesh)
+            assert torch.equal(hier["w"], flat[0]) and torch.equal(hier["b"][0], flat[1])
+            edge = edge_only_mean(tree, mesh)
+            got = [edge["w"], edge["b"][0]]
+            if "pod" in axis_sizes(mesh):
+                assert isinstance(got[0], DTensor)
+                got = [t.full_tensor()[0] for t in got]
+            assert all(torch.equal(a, b) for a, b in zip(got, flat))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_dry_run_peak_matches_the_card(cuda):
+    """The one-card record's traced peak of llama3.2-3b's prefill step at
+    full width (4096 tokens) within 5% or 512 MiB of the card's
+    ``max_memory_allocated`` over the same step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import measure_on_card, one_card, within_bar
+
+    cfg = get_arch("llama3.2-3b")
+    rec = one_card(cfg, "prefill", 1, 4096)
+    got = measure_on_card(cfg, "prefill", 1, 4096, device=cuda)
+    assert rec["outputs"]["logits"][0] == list(got["out"].shape)
+    assert within_bar(got["peak_bytes"], rec["memory"]["peak_bytes"]), (got, rec["memory"])

@@ -51,7 +51,8 @@ def test_scan_covers_the_package():
             "events.py", "churn.py", "faults.py", "scenarios.py", "network.py",
             "runner.py", "metrics.py", "quickstart.py", "scenario_sweep.py", "tree.py",
             "baselines.py", "checkpoint.py", "protocols.py", "fedeec_vs_baselines.py",
-            "custom_algorithm.py", "dynamic_migration.py"} <= names
+            "custom_algorithm.py", "dynamic_migration.py", "mesh.py", "dryrun.py",
+            "specs.py", "hierarchy.py"} <= names
     sim = {p.name for p in PORT_FILES if p.parent.name == "sim"}
     assert {"engine.py", "events.py", "churn.py", "faults.py", "scenarios.py",
             "network.py", "runner.py"} <= sim

@@ -548,7 +548,10 @@ def test_latent_decode_launch_arguments():
     assert launch.call_count == len(want)
     for (qo, plan), (args, kw), ws in zip(want.items(), launch.call_args_list, workspaces):
         assert args[0] == "flash_attention_latent_decode"
-        assert kw == {"count_as": "flash_attention"}
+        assert kw.keys() == {"count_as", "flops", "scratch"}
+        assert kw["count_as"] == "flash_attention" and len(kw["scratch"]) == 1
+        assert kw["scratch"][0] is ws
+        assert kw["flops"]() == FA.latent_decode_flops(8, 16, 4096, 512, 64, qo)
         (q_ptr, ckv_ptr, kr_ptr, _, ws_ptr, B, S, N, cbs, crs, kbs, krs, is_bf16, got_qo,
          scale, chunk, splits, vsplits) = args[2:]
         assert (q_ptr, ckv_ptr, kr_ptr) == (q.data_ptr(), ckv.data_ptr(), krope.data_ptr())
