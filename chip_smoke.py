@@ -44,6 +44,8 @@ two LMs, batched decode serving).
     python3 chip_smoke.py --zamba2-depths  # only phases 1-2 and two zamba2-7b
                                            # training steps at each depth of
                                            # ZAMBA2_DEPTHS, peak vs traced
+    python3 chip_smoke.py --analysis     # only phases 1-2 and the static
+                                         # analysis against the built kernels
     python3 chip_smoke.py --sharding     # only phases 1-2 and the sharding
                                          # plane's: the NCCL mesh, the dry
                                          # run and its one-card records
@@ -317,6 +319,24 @@ the result line:
    marker lead-in, the round after in a window with twice the lead-in if
    every marker is lost, the lost count printed.
 
+The static analysis, right after the build, in every mode of the script
+(``repro_torch.analysis``, which reads source and traces on ``meta``):
+
+- ``run_analysis()`` over ``src/repro_torch``, the AST rules and the kernel
+  contracts, with no finding outside ``analysis-baseline-torch.json``;
+- the contract table's mirror held to the built kernels: the build's
+  report compiles as many entry functions as the table has instances, the
+  card's ``shared_memory_per_block_optin`` is KRN003's limit, and for each
+  instance (a line each) ``cudaFuncGetAttributes`` through its family's
+  ``*_attrs`` entry, after the opt-in its launch makes, gives the mirror's
+  static shared bytes, the dynamic bytes its launch passes and the opt-in's
+  bytes, registers within its cap, threads within the card's most a block
+  and no local bytes but where the table says why (the three instances no
+  main path reaches);
+- each contract shape once through its entry on the card (zeros; the
+  backward too where the contract has one), its outputs' and gradient's
+  shapes and dtypes held to the meta trace's, a line each.
+
 The sharding plane:
 
 - dry run, right after the build and before any timed phase:
@@ -580,6 +600,71 @@ def build_kernels():
               f"thread, {local} local (spill) bytes a thread")
         if local:
             fail(f"the latent decode kernel for a {dtype} cache uses {local} local bytes")
+
+
+ANALYSIS_PHASE = "static analysis and kernel contracts against the built kernels"
+
+
+def run_static_analysis(dev) -> None:
+    """The port's static analysis (``python -m repro_torch.analysis``'s run)
+    clean against its baseline; the contract table's mirror of every kernel
+    instance held to ``cudaFuncGetAttributes``; each contract shape through
+    its entry on the card held to its meta trace. Any mismatch fails."""
+    import torch
+
+    from repro_torch.analysis import BASELINE_NAME, Baseline, run_analysis
+    from repro_torch.analysis import kernel_contracts as kc
+    from repro_torch.kernels import _lib
+
+    t0 = time.perf_counter()
+    findings, suppressed = run_analysis(root=str(ROOT))
+    new, old = Baseline.load(str(ROOT / BASELINE_NAME)).split(findings)
+    print(f"run_analysis over src/repro_torch: {len(new)} finding(s), {len(old)} "
+          f"grandfathered, {len(suppressed)} inline-allowed, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for f in new:
+        print("  " + f.render())
+    if new:
+        fail(f"the static analysis found {len(new)} finding(s) outside {BASELINE_NAME}")
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    print(f"shared memory a block may opt in to: {optin} B on the card, KRN003's limit "
+          f"{kc.DEFAULT_SMEM_LIMIT} B")
+    if optin != kc.DEFAULT_SMEM_LIMIT:
+        fail(f"the card's opt-in limit {optin} B is not KRN003's {kc.DEFAULT_SMEM_LIMIT} B")
+    pairs = kc.all_instances()
+    compiled = _lib.build()[1].count("Compiling entry function")
+    print(f"the build compiled {compiled} entry functions; the contract table has "
+          f"{len(pairs)} instances")
+    if compiled != len(pairs):
+        fail(f"{compiled} entry functions compiled, {len(pairs)} instances in the table")
+    bad = []
+    t0 = time.perf_counter()
+    for c, inst in pairs:
+        a, problems = kc.card_attrs(c, inst)
+        opt = "" if inst.opt_in is None else f" opt-in {a['max_dynamic_smem']}/{inst.opt_in}"
+        print(f"  {c.name} {inst.name}: regs {a['regs']} (cap {inst.reg_cap()}), local "
+              f"{a['local_bytes']}, static {a['static_smem']}/{inst.static_smem}, dynamic "
+              f"{a['dynamic_smem']}/{inst.dynamic_smem}{opt}, threads {inst.threads} of "
+              f"{a['max_threads']}: " + ("MISMATCH " + "; ".join(problems) if problems
+                                         else "ok (card/mirror)"))
+        bad += [f"{c.name} {inst.name}: {p}" for p in problems]
+    print(f"{len(pairs)} instances read in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    n = 0
+    for name in sorted(kc.CONTRACTS):
+        c = kc.CONTRACTS[name]
+        for shape in c.shapes:
+            want, problems = kc.card_trace(c, shape, dev)
+            grad = f", gradient {kc._show([want['grad']])}" if "grad" in want else ""
+            print(f"  {name}.{c.entry} at {kc._label(shape)}: {kc._show(want['out'])}{grad} "
+                  + ("MISMATCH " + "; ".join(problems) if problems else "on the card as on meta"))
+            bad += [f"{name} at {kc._label(shape)}: {p}" for p in problems]
+            n += 1
+    torch.cuda.empty_cache()
+    print(f"{n} contract shapes through their entries on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if bad:
+        fail(f"{len(bad)} contract mismatch(es) against the card: " + "; ".join(bad[:5]))
 
 
 def _distill_inputs(B, N, V, dev, seed=0):
@@ -4823,6 +4908,10 @@ def main() -> None:
 
     dev, name, count, smi = check_device()
     build_kernels()
+    phase(ANALYSIS_PHASE)
+    run_static_analysis(dev)
+    if sys.argv[1:] == ["--analysis"]:
+        return
     if sys.argv[1:] in ([], ["--sharding"]):
         phase(DRYRUN_PHASE)
         run_dryrun(dev)

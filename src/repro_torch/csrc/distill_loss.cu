@@ -90,6 +90,8 @@
 
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -694,6 +696,30 @@ int bwd_launch(const T* z, const T* t, const int* y, const float* stats, const f
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool HAS_T, bool VEC>
+cudaError_t attrs(int kernel, int tpr, long long* out) {
+  switch (kernel) {
+    case 0:
+      switch (tpr) {
+        case 32: return kernel_attrs(fwd_regs<T, HAS_T, VEC, 32>, 0, out);
+        case 64: return kernel_attrs(fwd_regs<T, HAS_T, VEC, 64>, 0, out);
+        case 128: return kernel_attrs(fwd_regs<T, HAS_T, VEC, 128>, 0, out);
+        case 256: return kernel_attrs(fwd_regs<T, HAS_T, VEC, 256>, 0, out);
+        default: return cudaErrorInvalidValue;
+      }
+    case 1: return kernel_attrs(fwd_stream<T, HAS_T, VEC>, 0, out);
+    case 2: return kernel_attrs(bwd<T, HAS_T, VEC>, 0, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t attrs_of(int kernel, int has_t, int vec, int tpr, long long* out) {
+  if (has_t)
+    return vec ? attrs<T, true, true>(kernel, tpr, out) : attrs<T, true, false>(kernel, tpr, out);
+  return vec ? attrs<T, false, true>(kernel, tpr, out) : attrs<T, false, false>(kernel, tpr, out);
+}
+
 }  // namespace
 
 extern "C" int distill_loss_fwd(const float* z, const float* t, const int* y, float* loss,
@@ -752,4 +778,14 @@ extern "C" int distill_loss_bwd_ce_bf16(const __nv_bfloat16* z, const int* y,
                                         cudaStream_t stream) {
   return bwd_launch<__nv_bfloat16, false>(z, nullptr, y, stats, g, dz, rows, V, 0.0f, lw, tpr,
                                           slices, stream);
+}
+
+// The attributes of one kernel instance (kernel_attrs.cuh's out[6]):
+// kernel 0 fwd_regs (tpr threads a row: 32, 64, 128 or 256), 1 fwd_stream,
+// 2 bwd; is_bf16 the logits' dtype, has_t the t entry's kernels (0: the CE
+// entry's), vec the 16-byte vector loads. None takes dynamic shared memory.
+extern "C" int distill_loss_attrs(int kernel, int is_bf16, int has_t, int vec, int tpr,
+                                  long long* out) {
+  return (int)(is_bf16 ? attrs_of<__nv_bfloat16>(kernel, has_t, vec, tpr, out)
+                       : attrs_of<float>(kernel, has_t, vec, tpr, out));
 }

@@ -94,6 +94,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -441,19 +443,29 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// above 48 KB needs the opt-in: once per instance, before its first launch
+// (and before its attributes are read)
 template <typename T, int H, int HV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Sk, int N, int K, int causal, int window, long long q_offset,
-                   int k_len, float scale, cudaStream_t stream) {
+cudaError_t opt_in() {
   using C = Cfg<T, H, HV>;
   static_assert(C::SMEM <= 232448, "shared memory over the 227 KB a block may have");
-  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
+  static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_tf32x3_kernel<T, H, HV>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
+  return cudaSuccess;
+}
+
+template <typename T, int H, int HV>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                   int Sk, int N, int K, int causal, int window, long long q_offset,
+                   int k_len, float scale, cudaStream_t stream) {
+  using C = Cfg<T, H, HV>;
+  const cudaError_t e = opt_in<T, H, HV>();
+  if (e != cudaSuccess) return e;
   const long long rows = (long long)Sq * (N / K);
   const dim3 grid((unsigned)((rows + C::BM - 1) / C::BM), (unsigned)K, (unsigned)B);
   flash_tf32x3_kernel<T, H, HV><<<grid, C::THREADS, C::SMEM, stream>>>(
@@ -486,21 +498,29 @@ cudaError_t dispatch(int H, int Hv, const void* q, const void* k, const void* v,
   }
 }
 
+// an instance's attributes, read after its opt-in as its launch makes it
+template <typename T, int H, int HV>
+cudaError_t instance_attrs(long long* out) {
+  const cudaError_t e = opt_in<T, H, HV>();
+  if (e != cudaSuccess) return e;
+  return kernel_attrs(flash_tf32x3_kernel<T, H, HV>, Cfg<T, H, HV>::SMEM, out);
+}
+
 template <typename T>
-cudaError_t attrs(int H, int Hv, cudaFuncAttributes* a) {
-  if (H == 192 && Hv == 128) return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 192, 128>);
+cudaError_t attrs(int H, int Hv, long long* out) {
+  if (H == 192 && Hv == 128) return instance_attrs<T, 192, 128>(out);
   if (H != Hv) return cudaErrorInvalidValue;
   switch (H) {
     case 32:
-      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 32, 32>);
+      return instance_attrs<T, 32, 32>(out);
     case 64:
-      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 64, 64>);
+      return instance_attrs<T, 64, 64>(out);
     case 112:
-      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 112, 112>);
+      return instance_attrs<T, 112, 112>(out);
     case 128:
-      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 128, 128>);
+      return instance_attrs<T, 128, 128>(out);
     case 256:
-      return cudaFuncGetAttributes(a, flash_tf32x3_kernel<T, 256, 256>);
+      return instance_attrs<T, 256, 256>(out);
     default:
       return cudaErrorInvalidValue;
   }
@@ -526,15 +546,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   return (int)e;
 }
 
-// The registers a thread and the local (spill and stack) bytes a thread of
-// the instance (H, Hv) for dtype (is_bf16), as cudaFuncGetAttributes
-// reports them.
-extern "C" int flash_attention_attrs(int H, int Hv, int is_bf16, int* regs,
-                                     long long* local_bytes) {
-  cudaFuncAttributes a;
-  const cudaError_t e = is_bf16 ? attrs<__nv_bfloat16>(H, Hv, &a) : attrs<float>(H, Hv, &a);
-  if (e != cudaSuccess) return (int)e;
-  *regs = a.numRegs;
-  *local_bytes = (long long)a.localSizeBytes;
-  return 0;
+// The attributes of the instance (H, Hv) for dtype (is_bf16), as
+// kernel_attrs.cuh reports them (out[6]: registers, local bytes, static
+// shared bytes, the most threads a block, the dynamic shared bytes its
+// launch passes and the opt-in), after the opt-in its launch makes.
+extern "C" int flash_attention_attrs(int H, int Hv, int is_bf16, long long* out) {
+  return (int)(is_bf16 ? attrs<__nv_bfloat16>(H, Hv, out) : attrs<float>(H, Hv, out));
 }

@@ -52,6 +52,8 @@
 
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -401,6 +403,33 @@ cudaError_t by_head_dim(int H, int G, const void* q, const void* k, const void* 
   }
 }
 
+// kernel 0: the split pass at GT q heads a block (1, 2, 4 or 8); 1: the
+// merge pass. Neither takes dynamic shared memory.
+template <typename T, int H>
+cudaError_t instance_attrs(int kernel, int GT, long long* out) {
+  if (kernel == 1) return kernel_attrs(flash_decode_merge<T, H>, 0, out);
+  if (kernel != 0) return cudaErrorInvalidValue;
+  switch (GT) {
+    case 1: return kernel_attrs(flash_decode_split<T, H, 1>, 0, out);
+    case 2: return kernel_attrs(flash_decode_split<T, H, 2>, 0, out);
+    case 4: return kernel_attrs(flash_decode_split<T, H, 4>, 0, out);
+    case kMaxRows: return kernel_attrs(flash_decode_split<T, H, kMaxRows>, 0, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t attrs(int kernel, int H, int GT, long long* out) {
+  switch (H) {
+    case 32: return instance_attrs<T, 32>(kernel, GT, out);
+    case 64: return instance_attrs<T, 64>(kernel, GT, out);
+    case 112: return instance_attrs<T, 112>(kernel, GT, out);
+    case 128: return instance_attrs<T, 128>(kernel, GT, out);
+    case 256: return instance_attrs<T, 256>(kernel, GT, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q (B, 1, N, H), k and v (B, Sk, K, H), o like q; is_bf16: 0 for fp32, 1
@@ -426,4 +455,13 @@ extern "C" int flash_attention_decode(const void* q, const void* k, const void* 
               : by_head_dim<float>(H, G, q, k, v, o, w, B, Sk, N, K, causal, window, q_offset,
                                    k_len, scale, chunk, splits, stream);
   return (int)e;
+}
+
+// The attributes of one kernel instance, as kernel_attrs.cuh reports them
+// (out[6]): kernel 0 the split pass, 1 the merge pass, for is_bf16 (0 fp32,
+// 1 bf16), head_dim H and, for the split pass, GT q heads a block.
+extern "C" int flash_attention_decode_attrs(int kernel, int is_bf16, int H, int GT,
+                                            long long* out) {
+  return (int)(is_bf16 ? attrs<__nv_bfloat16>(kernel, H, GT, out)
+                       : attrs<float>(kernel, H, GT, out));
 }

@@ -28,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 __device__ __forceinline__ float widen(float x) { return x; }
@@ -77,4 +79,11 @@ extern "C" int flash_attention_empty_rows(const void* v, void* o, int B, int Sq,
                                                  static_cast<float*>(o), Sq, Sk, N, K, H,
                                                  causal, window, q_offset);
   return (int)cudaGetLastError();
+}
+
+// The attributes of the kernel for is_bf16 (0 fp32, 1 bf16), as
+// kernel_attrs.cuh reports them (out[6]); it takes no dynamic shared memory.
+extern "C" int flash_attention_empty_rows_attrs(int is_bf16, long long* out) {
+  return (int)(is_bf16 ? kernel_attrs(mean_v_kernel<__nv_bfloat16>, 0, out)
+                       : kernel_attrs(mean_v_kernel<float>, 0, out));
 }

@@ -101,6 +101,8 @@
 
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -819,20 +821,40 @@ cudaError_t encode_leaf(CUtensorMap* map, const void* base, int cols, int S, int
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// above 48 KB needs the opt-in: once per instance, before its first launch
+// (and before its attributes are read)
 template <int MT>
-cudaError_t launch_wgmma(const void* q, const void* ckv, const void* krope, void* o, float* ws,
-                         int B, int S, int N, long long ckv_bs, long long ckv_rs,
-                         long long kr_bs, long long kr_rs, long long j_hi, float scale,
-                         int chunk, int splits, int vsplits, cudaStream_t stream) {
-  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
+cudaError_t opt_in_wgmma() {
+  static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         latent_decode_wgmma<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
+  return cudaSuccess;
+}
+
+cudaError_t opt_in_mma() {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        latent_decode_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, f32::SMEM);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  return cudaSuccess;
+}
+
+template <int MT>
+cudaError_t launch_wgmma(const void* q, const void* ckv, const void* krope, void* o, float* ws,
+                         int B, int S, int N, long long ckv_bs, long long ckv_rs,
+                         long long kr_bs, long long kr_rs, long long j_hi, float scale,
+                         int chunk, int splits, int vsplits, cudaStream_t stream) {
+  cudaError_t e = opt_in_wgmma<MT>();
+  if (e != cudaSuccess) return e;
   CUtensorMap map_ckv, map_kr;
-  cudaError_t e = encode_leaf(&map_ckv, ckv, kL, S, B, ckv_bs, ckv_rs);
+  e = encode_leaf(&map_ckv, ckv, kL, S, B, ckv_bs, ckv_rs);
   if (e == cudaSuccess) e = encode_leaf(&map_kr, krope, kR, S, B, kr_bs, kr_rs);
   if (e != cudaSuccess) return e;
   float* ws_ml = ws == nullptr ? nullptr : ws + (long long)B * N * splits * kL;
@@ -847,13 +869,8 @@ cudaError_t launch_mma(const void* q, const void* ckv, const void* krope, void* 
                        int B, int N, long long ckv_bs, long long ckv_rs, long long kr_bs,
                        long long kr_rs, long long j_hi, float scale, int chunk, int splits,
                        int vsplits, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        latent_decode_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, f32::SMEM);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  const cudaError_t e = opt_in_mma();
+  if (e != cudaSuccess) return e;
   float* ws_ml = ws == nullptr ? nullptr : ws + (long long)B * N * splits * kL;
   latent_decode_mma<<<dim3((unsigned)(splits * vsplits), (unsigned)B), kThreads, f32::SMEM,
                        stream>>>(static_cast<const float*>(q), static_cast<const float*>(ckv),
@@ -861,6 +878,13 @@ cudaError_t launch_mma(const void* q, const void* ckv, const void* krope, void* 
                                  ws_ml, N, ckv_bs, ckv_rs, kr_bs, kr_rs, j_hi, scale, chunk,
                                  splits, vsplits);
   return merge(ws, o, B, N, splits, stream);
+}
+
+template <int MT>
+cudaError_t wgmma_attrs(long long* out) {
+  const cudaError_t e = opt_in_wgmma<MT>();
+  if (e != cudaSuccess) return e;
+  return kernel_attrs(latent_decode_wgmma<MT>, wg::SMEM, out);
 }
 
 }  // namespace
@@ -900,17 +924,25 @@ extern "C" int flash_attention_latent_decode(const void* q, const void* ckv, con
                   splits, vsplits, stream);
 }
 
-// The registers a thread and the local (spill and stack) bytes a thread of
-// the split pass for a cache of bf16 (is_bf16 = 1: the wgmma kernel's
-// instance for one value-column group, the serving path's at a full cache)
-// or fp32 (the mma.sync kernel), as cudaFuncGetAttributes reports them.
-extern "C" int flash_attention_latent_decode_attrs(int is_bf16, int* regs,
-                                                   long long* local_bytes) {
-  cudaFuncAttributes a;
-  const cudaError_t e = is_bf16 ? cudaFuncGetAttributes(&a, latent_decode_wgmma<4>)
-                                : cudaFuncGetAttributes(&a, latent_decode_mma);
-  if (e != cudaSuccess) return (int)e;
-  *regs = a.numRegs;
-  *local_bytes = (long long)a.localSizeBytes;
-  return 0;
+// The attributes of one kernel instance, as kernel_attrs.cuh reports them
+// (out[6]: registers, local bytes, static shared bytes, the most threads a
+// block, the dynamic shared bytes its launch passes and the opt-in), after
+// the opt-in its launch makes: kernel 0 the wgmma split pass for a bf16
+// cache at mt value-column m-tiles (4, 2 or 1: vsplits 1, 2 or 4), 1 the
+// mma.sync split pass for an fp32 cache, 2 the merge pass.
+extern "C" int flash_attention_latent_decode_attrs(int kernel, int mt, long long* out) {
+  cudaError_t e;
+  switch (kernel) {
+    case 0:
+      return (int)(mt == 4 ? wgmma_attrs<4>(out)
+                   : mt == 2 ? wgmma_attrs<2>(out)
+                   : mt == 1 ? wgmma_attrs<1>(out) : cudaErrorInvalidValue);
+    case 1:
+      if ((e = opt_in_mma()) != cudaSuccess) return (int)e;
+      return (int)kernel_attrs(latent_decode_mma, f32::SMEM, out);
+    case 2:
+      return (int)kernel_attrs(latent_decode_merge, 0, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

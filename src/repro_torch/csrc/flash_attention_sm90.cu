@@ -88,6 +88,8 @@
 
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -451,19 +453,29 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
+// above 48 KB needs the opt-in: once per instance, before its first launch
+// (and before its attributes are read)
 template <int H, int HV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                   int N, int K, int causal, int window, long long q_offset, int k_len,
-                   float scale, cudaStream_t stream) {
+cudaError_t opt_in() {
   constexpr int smem = Cfg<H, HV>::SMEM;
   static_assert(smem <= 232448, "shared memory over the 227 KB a block may have");
-  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
+  static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_sm90_kernel<H, HV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
+  return cudaSuccess;
+}
+
+template <int H, int HV>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+                   int N, int K, int causal, int window, long long q_offset, int k_len,
+                   float scale, cudaStream_t stream) {
+  constexpr int smem = Cfg<H, HV>::SMEM;
+  const cudaError_t e = opt_in<H, HV>();
+  if (e != cudaSuccess) return e;
   const long long rows = (long long)Sq * (N / K);
   const dim3 grid((unsigned)((rows + kBM - 1) / kBM), (unsigned)K, (unsigned)B);
   flash_sm90_kernel<H, HV><<<grid, kThreads, smem, stream>>>(
@@ -816,19 +828,25 @@ cudaError_t encode_kv_map(CUtensorMap* map, const void* base, int B, int Sk, int
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+cudaError_t opt_in_h256() {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_sm90_h256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, H256::SMEM);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  return cudaSuccess;
+}
+
 cudaError_t launch_h256(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                         int Sk, int N, int K, int causal, int window, long long q_offset,
                         int k_len, float scale, cudaStream_t stream) {
   constexpr int smem = H256::SMEM;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_sm90_h256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  cudaError_t e = opt_in_h256();
+  if (e != cudaSuccess) return e;
   CUtensorMap map_k, map_v;
-  cudaError_t e = encode_kv_map(&map_k, k, B, Sk, K, k_len);
+  e = encode_kv_map(&map_k, k, B, Sk, K, k_len);
   if (e == cudaSuccess) e = encode_kv_map(&map_v, v, B, Sk, K, k_len);
   if (e != cudaSuccess) return e;
   const long long rows = (long long)Sq * (N / K);
@@ -837,6 +855,13 @@ cudaError_t launch_h256(const void* q, const void* k, const void* v, void* o, in
       map_k, map_v, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), Sq, N,
       K, causal, window, q_offset, k_len, scale);
   return cudaGetLastError();
+}
+
+template <int H, int HV>
+cudaError_t instance_attrs(long long* out) {
+  const cudaError_t e = opt_in<H, HV>();
+  if (e != cudaSuccess) return e;
+  return kernel_attrs(flash_sm90_kernel<H, HV>, Cfg<H, HV>::SMEM, out);
 }
 
 }  // namespace
@@ -868,27 +893,19 @@ extern "C" int flash_attention_sm90(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The registers a thread and the local (spill and stack) bytes a thread of
-// the instance (H, Hv), as cudaFuncGetAttributes reports them. The (256,
-// 256) instance's count is the one at launch (384 threads, one block an
-// SM); setmaxnreg moves its consumers to 232 and its producer to 40.
-extern "C" int flash_attention_sm90_attrs(int H, int Hv, int* regs, long long* local_bytes) {
-  cudaFuncAttributes a;
-  cudaError_t e;
-  if (H == 64 && Hv == 64)
-    e = cudaFuncGetAttributes(&a, flash_sm90_kernel<64, 64>);
-  else if (H == 128 && Hv == 128)
-    e = cudaFuncGetAttributes(&a, flash_sm90_kernel<128, 128>);
-  else if (H == 192 && Hv == 128)
-    e = cudaFuncGetAttributes(&a, flash_sm90_kernel<192, 128>);
-  else if (H == 112 && Hv == 112)
-    e = cudaFuncGetAttributes(&a, flash_sm90_kernel<112, 112>);
-  else if (H == 256 && Hv == 256)
-    e = cudaFuncGetAttributes(&a, flash_sm90_h256_kernel);
-  else
-    return (int)cudaErrorInvalidValue;
+// The attributes of the instance (H, Hv), as kernel_attrs.cuh reports them
+// (out[6]: registers, local bytes, static shared bytes, the most threads a
+// block, the dynamic shared bytes its launch passes and the opt-in), after
+// the opt-in its launch makes. The (256, 256) instance's registers are the
+// count at launch (384 threads, one block an SM); setmaxnreg moves its
+// consumers to 232 and its producer to 40.
+extern "C" int flash_attention_sm90_attrs(int H, int Hv, long long* out) {
+  if (H == 64 && Hv == 64) return (int)instance_attrs<64, 64>(out);
+  if (H == 128 && Hv == 128) return (int)instance_attrs<128, 128>(out);
+  if (H == 192 && Hv == 128) return (int)instance_attrs<192, 128>(out);
+  if (H == 112 && Hv == 112) return (int)instance_attrs<112, 112>(out);
+  if (H != 256 || Hv != 256) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = opt_in_h256();
   if (e != cudaSuccess) return (int)e;
-  *regs = a.numRegs;
-  *local_bytes = (long long)a.localSizeBytes;
-  return 0;
+  return (int)kernel_attrs(flash_sm90_h256_kernel, H256::SMEM, out);
 }

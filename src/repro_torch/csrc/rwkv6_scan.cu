@@ -29,6 +29,8 @@
 // its column with no reduction across threads.
 #include <cuda_runtime.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int kChunk = 16;
@@ -99,4 +101,16 @@ extern "C" int rwkv6_scan(const float* r, const float* k, const float* v, const 
     default: e = cudaErrorInvalidValue;
   }
   return (int)e;
+}
+
+// The attributes of the kernel at head_dim hd, as kernel_attrs.cuh reports
+// them (out[6]); it takes no dynamic shared memory.
+extern "C" int rwkv6_scan_attrs(int hd, long long* out) {
+  switch (hd) {
+    case 16: return (int)kernel_attrs(rwkv6_kernel<16>, 0, out);
+    case 32: return (int)kernel_attrs(rwkv6_kernel<32>, 0, out);
+    case 64: return (int)kernel_attrs(rwkv6_kernel<64>, 0, out);
+    case 128: return (int)kernel_attrs(rwkv6_kernel<128>, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

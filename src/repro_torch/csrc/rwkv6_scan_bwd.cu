@@ -121,6 +121,8 @@
 
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int kMaxChunk = 128;  // the longest chunk the entry takes
@@ -747,14 +749,11 @@ cudaError_t configure(K kernel, size_t smem) {
   return e;
 }
 
+// the shared memory opt-in of kernels 1 and 3, raised to a chunk length's
+// needs the first time a launch needs more (off the per-call path, and
+// before their attributes are read)
 template <int HD>
-cudaError_t launch(const float* r, const float* k, const float* v, const float* w,
-                   const float* u, const float* s0, const float* dy, const float* dsT,
-                   float* dr, float* dk, float* dv, float* dw, float* dup, float* ds0,
-                   float* sx, float* gx, float* pend, int B, int T, int H, int C,
-                   cudaStream_t stream) {
-  // the shared memory opt-in of each kernel, raised to a chunk length's
-  // needs the first time a launch needs more (off the per-call path)
+cudaError_t opt_in(int C) {
   static size_t local_set = 0, grads_set = 0;
   cudaError_t e;
   if (local_smem<HD>(C) > local_set) {
@@ -765,6 +764,17 @@ cudaError_t launch(const float* r, const float* k, const float* v, const float* 
     if ((e = configure(grads<HD>, grads_smem<HD>(C))) != cudaSuccess) return e;
     grads_set = grads_smem<HD>(C);
   }
+  return cudaSuccess;
+}
+
+template <int HD>
+cudaError_t launch(const float* r, const float* k, const float* v, const float* w,
+                   const float* u, const float* s0, const float* dy, const float* dsT,
+                   float* dr, float* dk, float* dv, float* dw, float* dup, float* ds0,
+                   float* sx, float* gx, float* pend, int B, int T, int H, int C,
+                   cudaStream_t stream) {
+  cudaError_t e = opt_in<HD>(C);
+  if (e != cudaSuccess) return e;
   const int NC = (T + C - 1) / C;
   if (NC > 0) {
     local<HD><<<dim3(NC, H, B), kThreads, local_smem<HD>(C), stream>>>(r, k, v, w, dy, sx, gx,
@@ -793,6 +803,20 @@ size_t smem_need(int C) {
 bool valid_chunk(int hd, int chunk) {
   return chunk >= kSubChunk && chunk <= kMaxChunk && chunk % kSubChunk == 0 &&
          (hd != 128 || chunk == kSubChunk);
+}
+
+// kernel 0 local, 1 chunk_scan, 2 grads (kernels 1-3 above), at chunks of
+// C steps
+template <int HD>
+cudaError_t attrs(int kernel, int C, long long* out) {
+  const cudaError_t e = opt_in<HD>(C);
+  if (e != cudaSuccess) return e;
+  switch (kernel) {
+    case 0: return kernel_attrs(local<HD>, (long long)local_smem<HD>(C), out);
+    case 1: return kernel_attrs(chunk_scan<HD>, 0, out);
+    case 2: return kernel_attrs(grads<HD>, (long long)grads_smem<HD>(C), out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -837,4 +861,18 @@ extern "C" int rwkv6_scan_bwd_smem(int hd, int chunk, long long* bytes) {
     default: return (int)cudaErrorInvalidValue;
   }
   return 0;
+}
+
+// The attributes of one kernel instance at head_dim hd and chunks of chunk
+// steps, as kernel_attrs.cuh reports them (out[6]), after the opt-in the
+// entry makes for that chunk: kernel 0 local, 1 chunk_scan, 2 grads.
+extern "C" int rwkv6_scan_bwd_attrs(int kernel, int hd, int chunk, long long* out) {
+  if (!valid_chunk(hd, chunk)) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return (int)attrs<16>(kernel, chunk, out);
+    case 32: return (int)attrs<32>(kernel, chunk, out);
+    case 64: return (int)attrs<64>(kernel, chunk, out);
+    case 128: return (int)attrs<128>(kernel, chunk, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

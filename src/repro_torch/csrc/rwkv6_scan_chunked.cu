@@ -64,6 +64,8 @@
 // keep one L1 / shared split between them.
 #include <cuda_runtime.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int kRowGroups = 4;  // lanes that share one column quad's rows
@@ -335,22 +337,37 @@ cudaError_t configure(K kernel, size_t smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// the local pass's shared memory: two stages of r, k, w, v, then u and the
+// decays' running products
 template <int HD>
-cudaError_t launch(const float* r, const float* k, const float* v, const float* w,
-                   const float* u, const float* s0, float* y, float* sT, float* st,
-                   float* rp, float* pend, int B, int T, int H, int L, cudaStream_t stream) {
-  const int NC = (T + L - 1) / L;
-  const size_t smem1 = ((size_t)2 * 4 * kSub * HD + HD + kSub) * sizeof(float);
-  static bool attrs_set = false;  // once per instance, off the per-call path
+constexpr size_t local_smem() {
+  return ((size_t)2 * 4 * kSub * HD + HD + kSub) * sizeof(float);
+}
+
+// the three kernels' opt-ins: once per instance, off the per-call path (and
+// before their attributes are read)
+template <int HD>
+cudaError_t configure_all() {
+  static bool attrs_set = false;
   if (!attrs_set) {
     cudaError_t e;
-    if ((e = configure(local_pass<HD>, smem1)) != cudaSuccess ||
+    if ((e = configure(local_pass<HD>, local_smem<HD>())) != cudaSuccess ||
         (e = configure(chunk_scan<HD>, 0)) != cudaSuccess ||
         (e = configure(correct<HD>, correct_smem<HD>(kMaxChunk))) != cudaSuccess)
       return e;
     attrs_set = true;
   }
-  cudaError_t e;
+  return cudaSuccess;
+}
+
+template <int HD>
+cudaError_t launch(const float* r, const float* k, const float* v, const float* w,
+                   const float* u, const float* s0, float* y, float* sT, float* st,
+                   float* rp, float* pend, int B, int T, int H, int L, cudaStream_t stream) {
+  const int NC = (T + L - 1) / L;
+  const size_t smem1 = local_smem<HD>();
+  cudaError_t e = configure_all<HD>();
+  if (e != cudaSuccess) return e;
   if (NC > 0) {
     local_pass<HD><<<dim3(NC, H, B), HD, smem1, stream>>>(r, k, v, w, u, y, st, rp, pend,
                                                                T, H, L);
@@ -366,6 +383,20 @@ cudaError_t launch(const float* r, const float* k, const float* v, const float* 
     e = cudaGetLastError();
   }
   return e;
+}
+
+// kernel 0 the local pass, 1 the chunk scan, 2 the correction, at chunks of
+// L steps (the dynamic shared memory of the correction's launch)
+template <int HD>
+cudaError_t attrs(int kernel, int L, long long* out) {
+  const cudaError_t e = configure_all<HD>();
+  if (e != cudaSuccess) return e;
+  switch (kernel) {
+    case 0: return kernel_attrs(local_pass<HD>, (long long)local_smem<HD>(), out);
+    case 1: return kernel_attrs(chunk_scan<HD>, 0, out);
+    case 2: return kernel_attrs(correct<HD>, (long long)correct_smem<HD>(L), out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -388,4 +419,18 @@ extern "C" int rwkv6_scan_chunked(const float* r, const float* k, const float* v
     default: e = cudaErrorInvalidValue;
   }
   return (int)e;
+}
+
+// The attributes of one kernel instance at head_dim hd and chunks of chunk
+// steps, as kernel_attrs.cuh reports them (out[6]), after the opt-ins the
+// entry makes: kernel 0 the local pass, 1 the chunk scan, 2 the correction.
+extern "C" int rwkv6_scan_chunked_attrs(int kernel, int hd, int chunk, long long* out) {
+  if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return (int)attrs<16>(kernel, chunk, out);
+    case 32: return (int)attrs<32>(kernel, chunk, out);
+    case 64: return (int)attrs<64>(kernel, chunk, out);
+    case 128: return (int)attrs<128>(kernel, chunk, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

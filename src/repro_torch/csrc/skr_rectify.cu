@@ -56,6 +56,8 @@
 // caller's next sync, not after each launch.
 #include <cuda_runtime.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 // Eq. 31 for one element of a rectified row, in the TPU kernel's order
@@ -257,4 +259,16 @@ extern "C" int skr_process(const float* p, const void* label, int label_is_i64,
         count_out, head_out, err, N, C, Bq);
   }
   return (int)cudaGetLastError();
+}
+
+// The attributes of one kernel instance (kernel_attrs.cuh's out[6]):
+// kernel 0 the map (skr_rectify_kernel), 1 the fused kernel on int32
+// labels, 2 on int64 labels. None takes dynamic shared memory.
+extern "C" int skr_rectify_attrs(int kernel, long long* out) {
+  switch (kernel) {
+    case 0: return (int)kernel_attrs(skr_rectify_kernel, 0, out);
+    case 1: return (int)kernel_attrs(skr_process_kernel<int>, 0, out);
+    case 2: return (int)kernel_attrs(skr_process_kernel<long long>, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -74,17 +74,19 @@ def main(argv=None) -> None:
 
     step()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    # the profiler's wall times are host-only measurements, read after the
+    # round and never part of its event log
+    t0 = time.perf_counter()  # analysis: allow[DET001]
     step()
     torch.cuda.synchronize()
-    wall_plain = time.perf_counter() - t0
+    wall_plain = time.perf_counter() - t0  # analysis: allow[DET001]
 
     ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # analysis: allow[DET001]
         step()
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
+        wall_prof = time.perf_counter() - t0  # analysis: allow[DET001]
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise SystemExit("the profiler recorded no device activity")

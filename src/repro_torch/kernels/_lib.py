@@ -53,6 +53,12 @@ launches: dict[str, int] = {
 }
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)
+# the query entries (``*_attrs``) write these six numbers of one kernel
+# instance (csrc/kernel_attrs.cuh), as cudaFuncGetAttributes gives them,
+# beside the dynamic shared bytes the instance's launch passes
+ATTRS = ("regs", "local_bytes", "static_smem", "max_threads", "dynamic_smem",
+         "max_dynamic_smem")
 _SIGNATURES = {
     # z, t, y, loss, stats, rows, V, beta, lw, layout, threads, stream
     # (z, t fp32; _bf16: bf16); the CE entries (_ce) take no t and no beta
@@ -66,11 +72,16 @@ _SIGNATURES = {
     "distill_loss_bwd_bf16": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _I, _I, _P],
     "distill_loss_bwd_ce": [_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "distill_loss_bwd_ce_bf16": [_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
+    # kernel (0 fwd_regs, 1 fwd_stream, 2 bwd), is_bf16, has_t, vec, threads a
+    # row, attributes out
+    "distill_loss_attrs": [_I, _I, _I, _I, _I, _LLP],
     # p, label, p_c, do, qbar, out, rows, C, stream
     "skr_rectify": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
     # p, label, label_is_i64, q, count, head, out, q_out, count_out,
     # head_out, err, B, N, C, Bq, stream
     "skr_process": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # kernel (0 the map, 1 the fused kernel on int32 labels, 2 on int64), attributes out
+    "skr_rectify_attrs": [_I, _LLP],
     # q, k, v, o, B, Sq, Sk, N, K, H, Hv, is_bf16, causal, window, q_offset,
     # k_len, scale, stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
@@ -79,26 +90,27 @@ _SIGNATURES = {
     # scale, stream (bf16 only)
     "flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _I,
                              _F, _P],
-    # H, Hv, regs out, local bytes out (no stream)
-    "flash_attention_sm90_attrs": [_I, _I, ctypes.POINTER(ctypes.c_int),
-                                   ctypes.POINTER(ctypes.c_longlong)],
-    # H, Hv, is_bf16, regs out, local bytes out (no stream)
-    "flash_attention_attrs": [_I, _I, _I, ctypes.POINTER(ctypes.c_int),
-                              ctypes.POINTER(ctypes.c_longlong)],
+    # H, Hv, attributes out (no stream)
+    "flash_attention_sm90_attrs": [_I, _I, _LLP],
+    # H, Hv, is_bf16, attributes out (no stream)
+    "flash_attention_attrs": [_I, _I, _I, _LLP],
     # q, c_kv, k_rope, o, ws, B, S, N, c_kv batch and row strides, k_rope
     # batch and row strides (elements), is_bf16, q_offset, scale, chunk,
     # splits, vsplits, stream
     "flash_attention_latent_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
                                       _I, _LL, _F, _I, _I, _I, _P],
-    # is_bf16, regs out, local bytes out (no stream)
-    "flash_attention_latent_decode_attrs": [_I, ctypes.POINTER(ctypes.c_int),
-                                            ctypes.POINTER(ctypes.c_longlong)],
+    # kernel (0 wgmma, 1 mma, 2 merge), value-column m-tiles, attributes out
+    "flash_attention_latent_decode_attrs": [_I, _I, _LLP],
     # q, k, v, o, ws, B, Sk, N, K, H, is_bf16, causal, window, q_offset,
     # k_len, scale, chunk, splits, stream (Sq = 1)
     "flash_attention_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
                                _I, _F, _I, _I, _P],
     # v, o, B, Sq, Sk, N, K, H, is_bf16, causal, window, q_offset, stream
     "flash_attention_empty_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
+    # kernel (0 split, 1 merge), is_bf16, H, q heads a block, attributes out
+    "flash_attention_decode_attrs": [_I, _I, _I, _I, _LLP],
+    # is_bf16, attributes out
+    "flash_attention_empty_rows_attrs": [_I, _LLP],
     # r, k, v, w, u, s0, y, sT, B, T, H, hd, stream
     "rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # r, k, v, w, u, s0, y, sT, st, rp, pend, B, T, H, hd, chunk, stream
@@ -108,7 +120,13 @@ _SIGNATURES = {
     # H, hd, chunk, stream
     "rwkv6_scan_bwd": [_P] * 17 + [_I, _I, _I, _I, _I, _P],
     # hd, chunk, shared memory bytes out (no stream)
-    "rwkv6_scan_bwd_smem": [_I, _I, ctypes.POINTER(ctypes.c_longlong)],
+    "rwkv6_scan_bwd_smem": [_I, _I, _LLP],
+    # hd, attributes out
+    "rwkv6_scan_attrs": [_I, _LLP],
+    # kernel (0 local pass, 1 chunk scan, 2 correction), hd, chunk, attributes out
+    "rwkv6_scan_chunked_attrs": [_I, _I, _I, _LLP],
+    # kernel (0 local, 1 chunk_scan, 2 grads), hd, chunk, attributes out
+    "rwkv6_scan_bwd_attrs": [_I, _I, _I, _LLP],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -141,7 +159,7 @@ def build() -> tuple[Path, str]:
     memory and spills per kernel)."""
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_ROOT / h.hexdigest()[:16]
@@ -187,6 +205,17 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+def kernel_attrs(entry: str, *args: int) -> dict[str, int]:
+    """``ATTRS`` of the kernel instance that query entry ``entry`` (a
+    ``*_attrs`` entry) names by ``args``, read on the card after the
+    opt-in the instance's launch makes; launches nothing."""
+    out = (ctypes.c_longlong * len(ATTRS))()
+    err = getattr(lib(), entry)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{entry}{args} failed: cudaError {err}")
+    return dict(zip(ATTRS, out))
 
 
 def launch(name: str, device: torch.device, *args, count_as: str | None = None,

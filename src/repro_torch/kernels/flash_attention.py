@@ -83,8 +83,6 @@ registers and local (spill) bytes from the card.
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -226,11 +224,8 @@ def _attrs(entry: str, *args: int) -> tuple[int, int]:
     """(registers a thread, local bytes a thread) that C entry ``entry``
     reads with ``cudaFuncGetAttributes`` for the instance ``args`` name.
     Local bytes are spills and stack."""
-    regs, local = ctypes.c_int(0), ctypes.c_longlong(0)
-    err = getattr(_lib.lib(), entry)(*args, ctypes.byref(regs), ctypes.byref(local))
-    if err != 0:
-        raise RuntimeError(f"{entry}{args} failed: cudaError {err}")
-    return regs.value, local.value
+    a = _lib.kernel_attrs(entry, *args)
+    return a["regs"], a["local_bytes"]
 
 
 def sm90_attrs(H: int, Hv: int) -> tuple[int, int]:
@@ -246,9 +241,10 @@ def tf32x3_attrs(H: int, Hv: int, dtype: torch.dtype) -> tuple[int, int]:
 
 
 def latent_decode_attrs(dtype: torch.dtype) -> tuple[int, int]:
-    """(registers, local bytes) a thread of the latent decode kernel for a
-    cache of ``dtype``, on the card."""
-    return _attrs("flash_attention_latent_decode_attrs", int(dtype == torch.bfloat16))
+    """(registers, local bytes) a thread of the latent decode kernel's split
+    pass for a cache of ``dtype`` (for bf16 the instance of one value-column
+    group, the serving path's at a full cache), on the card."""
+    return _attrs("flash_attention_latent_decode_attrs", int(dtype != torch.bfloat16), 4)
 
 
 def _check(q, k, v):

@@ -25,8 +25,11 @@ the fault is raised at the next sync the caller makes on the device,
 ``_lib.check_labels``' (FedEEC's student step makes one before it reads Q),
 or by ``_lib.raise_faults``.
 
-On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
-tensor it computes the plain version in ``ref.py``; on a ``meta`` tensor
+On a CUDA tensor each wrapper launches its kernel or raises (and raises
+if grad mode is on and an input requires grad: the kernels have no
+backward, and a launch through ``data_ptr`` would drop the gradient
+without a word); on a CPU tensor it computes the plain version in
+``ref.py``; on a ``meta`` tensor
 (``launch.dryrun``'s trace) it allocates its outputs on ``meta`` and
 reports the kernel's FLOPs (``map_flops``, ``process_flops``) through
 ``_lib.meta_launch``. The map is
@@ -72,6 +75,7 @@ def skr_rectify_rows(probs, labels, p_c, do, qb):
         raise TypeError(f"skr_rectify: do must be bool, got {do.dtype}")
     if not (probs.is_cuda or probs.is_meta):
         return R.skr_rectify_rows_ref(probs, labels, p_c, do, qb)
+    _lib.refuse_grad("skr_rectify", probs, p_c, qb)
     C = probs.shape[-1]
     y32 = _lib.check_labels("skr_rectify", labels, C)
     _lib.check_cuda("skr_rectify", probs, y32, p_c, do, qb)
@@ -152,6 +156,7 @@ def _launch(probs, labels, q, count, head, B, N, C):
     fault words (``_fault``). Every output is a tensor of its own: one
     allocation each costs the host less than views of a shared one."""
     _lib.check_cuda("skr_process", probs, labels, q, count, head)
+    _lib.refuse_grad("skr_process", probs, q)
     Bq = q.shape[-1]
     out, new_q = torch.empty_like(probs), torch.empty_like(q)
     new_count, new_head = torch.empty_like(count), torch.empty_like(head)

@@ -47,6 +47,24 @@ def test_kernels_build_for_sm90a(cuda):
     assert _lib.lib() is not None
 
 
+def test_kernel_contract_mirror_holds_on_the_card(cuda):
+    """The static analysis's mirror of every kernel instance
+    (``repro_torch.analysis.kernel_contracts``) against
+    ``cudaFuncGetAttributes``: static and dynamic shared bytes, the opt-in,
+    registers within the cap, threads, local bytes only where the table
+    says why; KRN003's limit is the card's opt-in limit, and the build
+    compiles one entry function per instance. Early in the file, so that
+    the backward's opt-in is still the one the main chunk makes."""
+    from repro_torch.analysis import kernel_contracts as kc
+
+    props = torch.cuda.get_device_properties(cuda)
+    assert props.shared_memory_per_block_optin == kc.DEFAULT_SMEM_LIMIT
+    assert _lib.build()[1].count("Compiling entry function") == len(kc.all_instances())
+    bad = {f"{c.name} {i.name}": p for c, i in kc.all_instances()
+           for p in (kc.card_attrs(c, i)[1],) if p}
+    assert bad == {}
+
+
 # forward within 1e-5 relative: fp32 sums in another order. Gradient within
 # 1e-6 absolute plus 1e-5 relative: the two sides' logZ may differ by one
 # fp32 ulp (about 1e-6 at logZ ~ 10), which moves every dz element by that
