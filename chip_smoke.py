@@ -25,6 +25,8 @@ two LMs, batched decode serving).
                                          # deepseek-v2-lite-16b,
                                          # zamba2-7b, whisper-small and
                                          # llava-next-mistral-7b
+    python3 chip_smoke.py --serving      # only phases 1-2, 9 for the ten
+                                         # LMs and 11's training paths
     python3 chip_smoke.py --latent       # only phases 1-2, the latent decode
                                          # kernel's checks and times (3, 13)
                                          # and 9 for deepseek-v2-lite-16b
@@ -341,17 +343,35 @@ The sharding plane:
 
 - dry run, right after the build and before any timed phase:
   ``launch.dryrun.run_one`` for the 10 architectures x 4 input shapes on
-  1x1 (the step traced on ``meta``), 16x16 and 2x16x16, a line a record as
-  the reference's CLI prints, each status held to ``shape_skip_reason``,
-  and the one-card table (peak, whether it fits); with them the one-card
-  records of the card checks below. It is traced in a worker process a
-  host core, the card hidden from them, and ends before phase 1 starts;
+  1x1 (the step traced on ``meta``), a line a record as the reference's
+  CLI prints, each status held to ``shape_skip_reason``, and the one-card
+  table (peak, whether it fits); with them the one-card records of the
+  card checks below, and ``PRODUCTION_RECORDS``, five production-mesh
+  records traced with DTensor over a fake process group (each in a child
+  process of its worker): whisper-small ``prefill_32k`` on 16x16 and
+  rwkv6-1.6b ``long_500k`` on 2x16x16 (the two the reference's own test
+  compiles), llama3-8b ``train_4k``, qwen2-moe-a2.7b ``train_4k`` with
+  ``--seq-parallel --moe-constrain`` and deepseek-v2-lite-16b
+  ``decode_32k`` on 16x16, each with ``temp_bytes`` > 0 and its
+  collectives. It is traced in a worker process a host core, the card
+  hidden from them, and ends before phase 1 starts;
 - mesh, between 11's training paths and zamba2-7b's: ``make_host_mesh()``
   on the card, a one-rank NCCL group on an in-process store, as (1, 1)
   over ("data", "model") and (1, 1, 1) over ("pod", "data", "model");
   ``hier_grad_mean`` and ``edge_only_mean`` over a batch-leading tree
   shaped as llama3.2-3b's parameters (full width, bf16, batch 2, 12.85
   GB), each held bit for bit to the flat ``mean(0)``;
+- layouts, right after the mesh: the reference's ``act_spec`` and
+  ``moe_constrain`` through DTensors on a one-rank NCCL mesh
+  (``check_layouts``): qwen2-moe-a2.7b's prefill step at its served depth
+  (1 x 4096, bf16) and two steps of its two-layer ``make_train_step``
+  (fp32, the loss on the CE entry, ZeRO-1 moments), deepseek-v2-lite-16b's
+  two-layer decode step over a random cache laid out by ``cache_specs``;
+  logits, the training metrics, every leaf of the updated params and
+  moments, and the written cache bit for bit the plain steps', the same
+  launches
+  (``sm90`` (128, 128), the CE entry, the latent decode kernel), which the
+  kernels line counts; each step's wall, plain and laid out;
 - after zamba2-7b's training, the dry run against the card: for each case,
   the peak stats reset, one step on the card, ``max_memory_allocated``
   over what was allocated before its arguments held to the traced
@@ -3914,14 +3934,24 @@ def measure_zamba2_depths(dev):
 # time of a later phase shares the host with it; CARD_PEAKS holds the
 # serving phases' measured peaks for the check against the card
 DRYRUN: dict = {"records": None, "cases": None}
-DRYRUN_MESHES = (("1x1", {"card": True}), ("16x16", {"multi_pod": False}),
-                 ("2x16x16", {"multi_pod": True}))
+DRYRUN_MESHES = (("1x1", {"card": True}),)
+# production-mesh records traced in the script: the full sweep of both
+# meshes (python -m repro_torch.launch.dryrun --all --both-meshes) is too
+# long for its time limit
+PRODUCTION_RECORDS = (
+    ("whisper-small", "prefill_32k", {}),
+    ("rwkv6-1.6b", "long_500k", {"multi_pod": True}),
+    ("llama3-8b", "train_4k", {}),
+    ("qwen2-moe-a2.7b", "train_4k", {"seq_parallel": True, "moe_constrain": True}),
+    ("deepseek-v2-lite-16b", "decode_32k", {}),
+)
 CARD_PEAKS: dict[str, int] = {}
 MESH_BATCH = 2  # rows of the batch-leading tree the mesh phase averages
 MESH_PHASE = ("mesh: make_host_mesh() on NCCL, (1, 1) and (1, 1, 1); hier_grad_mean and "
               "edge_only_mean over llama3.2-3b's parameters, batch 2, bf16, vs mean(0)")
-DRYRUN_PHASE = ("dry run: run_one for 10 architectures x 4 input shapes on 1x1, 16x16 and "
-                "2x16x16, and the one-card records of the card checks")
+DRYRUN_PHASE = ("dry run: run_one for 10 architectures x 4 input shapes on 1x1, the one-card "
+                "records of the card checks, and five production-mesh records traced with "
+                "DTensor")
 DRYRUN_CARD_PHASE = ("dry run against the card: each traced one-card peak vs "
                      "max_memory_allocated over one step")
 
@@ -3969,12 +3999,14 @@ def dryrun_case(label):
 
 
 def dryrun_work() -> list[tuple]:
-    """The dry run's items, the dearest first: ("case", label) for each of
+    """The dry run's items, the dearest first: ("production", arch, shape,
+    flags) for each of ``PRODUCTION_RECORDS``, ("case", label) for each of
     ``dryrun_labels``, then ("record", mesh, arch, shape) for 10
     architectures x 4 input shapes on each of ``DRYRUN_MESHES``."""
     from repro_torch.configs import INPUT_SHAPES, list_archs
 
-    return ([("case", label) for label in dryrun_labels()]
+    return ([("production", a, s, kw) for a, s, kw in PRODUCTION_RECORDS]
+            + [("case", label) for label in dryrun_labels()]
             + [("record", m, a, s) for m, _ in DRYRUN_MESHES for a in list_archs()
                for s in INPUT_SHAPES])
 
@@ -3991,9 +4023,14 @@ def _dryrun_worker() -> None:
 
 def _dryrun_item(item, card_bytes: int) -> dict:
     """One item of ``dryrun_work``, in a worker: ``run_one`` for a record
-    (1x1 against ``card_bytes``), ``one_card`` for a case."""
+    (1x1 against ``card_bytes``; a production record traced in a child
+    process of the worker, which holds no process group), ``one_card`` for
+    a case."""
     from repro_torch.launch import dryrun as D
 
+    if item[0] == "production":
+        _, arch, shape, kw = item
+        return D.run_one(arch, shape, out_dir=None, **kw)
     if item[0] == "record":
         _, mesh, arch, shape = item
         return D.run_one(arch, shape, **dict(DRYRUN_MESHES)[mesh], out_dir=None,
@@ -4037,6 +4074,19 @@ def run_dryrun(dev) -> tuple[list, dict]:
         fail(f"the dry run: {len(failed)} items failed")
     records = [rec for item, rec in zip(work, done) if item[0] == "record"]
     cases = {item[1]: rec for item, rec in zip(work, done) if item[0] == "case"}
+    print("production meshes, traced with DTensor over a fake process group (per device):")
+    for item, rec in zip(work, done):
+        if item[0] != "production":
+            continue
+        print(record_line(rec) + (" [" + ", ".join(f"--{k.replace('_', '-')}" for k in item[3]
+                                                  if k != "multi_pod") + "]"
+                                  if set(item[3]) - {"multi_pod"} else ""))
+        m = rec.get("memory", {})
+        if not (rec["status"] == "ok" and isinstance(m.get("temp_bytes"), int)
+                and m["temp_bytes"] > 0 and m["peak_bytes"] > m["argument_bytes"] > 0
+                and rec["collectives"]):
+            fail(f"the dry run: {item[1]} {item[2]} {rec['mesh']} has no traced temporaries "
+                 "or collectives")
     for rec in records:
         print(record_line(rec))
         skip = shape_skip_reason(get_arch(rec["arch"]), rec["shape"], False)
@@ -4110,6 +4160,189 @@ def check_mesh(dev) -> None:
             fail(f"the two-tier mean on the mesh {axis_sizes(mesh)} is not mean(0) bit for bit")
     del tree, leaves, flat
     dist.destroy_process_group()
+
+
+LAYOUT_PHASE = ("layouts: qwen2-moe-a2.7b's prefill step (8 of 24 layers, 1 x 4096, bf16) and "
+                "a two-layer training step (fp32, the loss on distill_loss's CE entry), "
+                "deepseek-v2-lite-16b's two-layer decode step (fp32, 8 at 4095), through "
+                "DTensors on a one-rank NCCL mesh with act_spec and moe_constrain, each vs "
+                "the plain step bit for bit")
+LAYOUT_SPECS = dict(act_spec=("data", "model", None), moe_constrain=True)
+
+
+def check_layouts(dev) -> dict:
+    """The reference's layouts on the card: ``make_host_mesh()`` (a
+    one-rank NCCL group), the params, batch and cache laid out as DTensors
+    by the spec rules (``distribute_tree``), ``default_opts`` with
+    ``LAYOUT_SPECS`` as overrides (a model axis of one gives neither). Each
+    step runs plain, then through DTensors with the launch counts set to 0
+    just before it: (a) qwen2-moe-a2.7b's prefill step at its served depth,
+    its logits bit for bit the plain step's, the same tensor-core attention
+    launches; (b) ``make_train_step`` of its two-layer config with
+    ``use_kernels``, each run on its own copy of the params (the laid-out
+    one's moments laid out by ``zero1_specs``) and called twice: the
+    metrics (loss, grad norm), the step counter and every leaf of the
+    updated params and of both moments (the first carries each step's
+    gradients) bit for bit, the same CE-entry launches (through the op's
+    DTensor entry); (c)
+    deepseek-v2-lite-16b's two-layer decode step over a random cache laid
+    out by ``cache_specs``, its logits, next tokens and written cache bit
+    for bit, the same latent decode launches. A one-rank redistribution
+    moves nothing, so any difference is a fault. Prints each step's wall,
+    plain and laid out (DTensor's host overhead). Returns the laid-out
+    runs' launches by the kernels line's names. Each step runs once before
+    it is timed."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import distill_loss as DL
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import sm90_launches, variant_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (
+        default_opts,
+        make_prefill_step,
+        make_serve_step,
+        make_train_step,
+    )
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import batch_specs, cache_specs, param_specs, zero1_specs
+    from repro_torch.sharding.specs import distribute_tree, gather_tree
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = make_host_mesh(device=dev)
+    print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {dist.get_backend()}")
+    found = {}
+
+    def run(fn, counted):
+        # once untimed (the plain step's first call loads its kernels, the
+        # laid-out step's fills DTensor's sharding caches), then timed, the
+        # launch counts set to 0 just before
+        first = fn()
+        del first
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seen = dict(launches=dict(ops.launches), flash=dict(variant_launches),
+                    sm90=dict(sm90_launches), distill=dict(DL.variant_launches))
+        if counted:
+            add_variant_launches()
+        return out, wall, seen
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            fail(f"the laid-out step returned a {type(t).__name__}, not a DTensor")
+        return t.to_local()
+
+    # (a) the prefill step at the served depth
+    cfg = served_config("qwen2-moe-a2.7b")
+    plain, laid = default_opts(cfg), default_opts(cfg, mesh, **LAYOUT_SPECS)
+    params = init_params(cfg, plain, seed=3, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (1, 4096), generator=g, device=dev,
+                        dtype=torch.int32)
+    want, plain_s, plain_n = run(lambda: make_prefill_step(cfg, plain)(params, {"tokens": tok}),
+                                 False)
+    dparams = distribute_tree(params, param_specs(cfg, laid, params, mesh), mesh)
+    dbatch = distribute_tree({"tokens": tok}, batch_specs(cfg, "prefill", 1, mesh), mesh)
+    got, laid_s, laid_n = run(lambda: make_prefill_step(cfg, laid)(dparams, dbatch), True)
+    same = torch.equal(local(got), want)
+    print(f"prefill (1, 4096), {cfg.num_layers} layers: plain {plain_s:.4f} s, through "
+          f"DTensors {laid_s:.4f} s; logits {tuple(want.shape)} bit for bit: {same}; "
+          f"tensor-core launches per instance {laid_n['sm90']} (plain {plain_n['sm90']})")
+    if not same or laid_n != plain_n or laid_n["sm90"][(128, 128)] <= 0:
+        fail("the laid-out prefill step is not the plain step's, logits or launches")
+    found["flash_attention"] = laid_n["sm90"][(128, 128)]
+    del params, dparams, dbatch, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the training step, the loss on the CE entry, each run on its own
+    # copy of the params and its own moments (ZeRO-1 ones through DTensors)
+    cfg = two_layer_config("qwen2-moe-a2.7b")
+    plain = default_opts(cfg, use_kernels=True)
+    laid = default_opts(cfg, mesh, use_kernels=True, **LAYOUT_SPECS)
+    params = init_params(cfg, plain, seed=4, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    pspec = param_specs(cfg, laid, params, mesh)
+    mspec = zero1_specs(pspec, params, mesh)
+    mine = tree_map(torch.clone, params)
+    state = adamw_init(mine)
+    dparams = distribute_tree(tree_map(torch.clone, params), pspec, mesh)
+    dstate = distribute_tree(adamw_init(params), {"step": (), "m": mspec, "v": mspec}, mesh)
+    dbatch = distribute_tree(batch, batch_specs(cfg, "train", B, mesh), mesh)
+    del params
+    want, plain_s, plain_n = run(lambda: make_train_step(cfg, plain)(mine, state, batch)[2],
+                                 False)
+    got, laid_s, laid_n = run(lambda: make_train_step(cfg, laid)(dparams, dstate, dbatch)[2],
+                              True)
+    same = all(torch.equal(local(got[k]), want[k]) for k in want)
+    # the first moments carry each step's gradients
+    bad = {name: sum(not torch.equal(local(a), b) for a, b in zip(tree_leaves(x), tree_leaves(y)))
+           for name, x, y in (("params", dparams, mine), ("m", dstate["m"], state["m"]),
+                              ("v", dstate["v"], state["v"]))}
+    same = same and torch.equal(local(dstate["step"]), state["step"])
+    print(f"training step (B {B}, S {S}), {cfg.num_layers} layers, fp32, twice: plain "
+          f"{plain_s:.4f} s, through DTensors {laid_s:.4f} s; loss {float(want['loss']):.6f}, "
+          f"grad norm {float(want['grad_norm']):.6f}, metrics and step bit for bit: {same}; "
+          f"leaves not bit for bit {bad} of {len(tree_leaves(mine))} each; CE entry launches "
+          f"{laid_n['distill']} (plain {plain_n['distill']})")
+    ce = {k: n for k, n in laid_n["distill"].items() if k.split(":")[0].endswith("_ce") and n}
+    if not same or any(bad.values()) or laid_n != plain_n or not ce:
+        fail("the laid-out training step is not the plain step's: metrics, params, moments "
+             "or launches")
+    found["distill_loss_fwd"] = laid_n["launches"]["distill_loss_fwd"]
+    found["distill_loss_bwd"] = laid_n["launches"]["distill_loss_bwd"]
+    del mine, state, dparams, dstate, dbatch, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a decode step over a random cache
+    cfg = two_layer_config("deepseek-v2-lite-16b")
+    plain, laid = default_opts(cfg), default_opts(cfg, mesh, **LAYOUT_SPECS)
+    params = init_params(cfg, plain, seed=5, device=dev)
+    B, S = LM_SERVE["num_requests"], LM_SERVE["cache_len"]
+    g = torch.Generator(device=dev).manual_seed(5)
+    cache = init_cache(cfg, plain, B, S, torch.float32, device=dev)
+    for t in tree_leaves(cache):
+        t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    dcache = distribute_tree(tree_map(torch.clone, cache),
+                             cache_specs(cfg, laid, cache, mesh, batch=B, seq=S), mesh)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=dev, dtype=torch.int32)
+    # a decode step writes its cache: both calls of a run write the same slot
+    (want_t, want, _), plain_s, plain_n = run(
+        lambda: make_serve_step(cfg, plain)(params, cache, {"token": tok, "pos": S - 1}), False)
+    dparams = distribute_tree(params, param_specs(cfg, laid, params, mesh), mesh)
+    dtok = distribute_tree({"token": tok, "pos": S - 1}, batch_specs(cfg, "decode", B, mesh),
+                           mesh)
+    (got_t, got, dcache), laid_s, laid_n = run(
+        lambda: make_serve_step(cfg, laid)(dparams, dcache, dtok), True)
+    same = torch.equal(local(got), want) and torch.equal(local(got_t), want_t)
+    bad = sum(not torch.equal(a, b) for a, b in zip(tree_leaves(gather_tree(dcache)),
+                                                     tree_leaves(cache)))
+    print(f"decode step ({B} at {S - 1}), {cfg.num_layers} layers, fp32: plain {plain_s:.4f} s, "
+          f"through DTensors {laid_s:.4f} s; logits and next tokens bit for bit: {same}; "
+          f"cache leaves not bit for bit: {bad}; latent decode launches "
+          f"{laid_n['flash']['latent_decode']} (plain {plain_n['flash']['latent_decode']})")
+    if not same or bad or laid_n != plain_n or laid_n["flash"]["latent_decode"] <= 0:
+        fail("the laid-out decode step is not the plain step's, logits, cache or launches")
+    found["flash_attention_latent_decode"] = laid_n["flash"]["latent_decode"]
+    del params, dparams, cache, dcache
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(f"launches of the laid-out steps, added to the kernels line: {found}")
+    return found
 
 
 def decode_peak(dev, cfg, opts, params, base) -> int:
@@ -4915,6 +5148,10 @@ def main() -> None:
     if sys.argv[1:] in ([], ["--sharding"]):
         phase(DRYRUN_PHASE)
         run_dryrun(dev)
+    if sys.argv[1:] == ["--layouts"]:
+        phase(LAYOUT_PHASE)
+        check_layouts(dev)
+        return
     if sys.argv[1:] == ["--sharding"]:
         phase(MESH_PHASE)
         check_mesh(dev)
@@ -4951,6 +5188,16 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--lm-families"]:
         run_lm_families(dev)
+        return
+    if sys.argv[1:] == ["--serving"]:
+        # the serving and training walls alone, as the whole run drives them,
+        # to set one tree's beside another's in one call
+        for arch, prefill_len in LM_ARCHS + LM_FAMILIES:
+            phase(f"LM serving path: {arch}, full width and depth, bf16")
+            drive_lm_path(dev, arch, prefill_len)
+        for arch, _ in LM_ARCHS:
+            phase(f"LM training path: {arch}, full width and depth, bf16")
+            drive_train_path(dev, arch)
         return
     if sys.argv[1:] == ["--zamba2-train"]:
         phase("distill_loss at zamba2-7b's training loss shape vs its plain version")
@@ -5057,6 +5304,9 @@ def main() -> None:
             counts[k] += train_variants[variant]
     phase(MESH_PHASE)
     check_mesh(dev)
+    phase(LAYOUT_PHASE)
+    for k, n in check_layouts(dev).items():
+        counts[k] += n
     phase(ZAMBA2_TRAIN_PHASE)
     train_counts, _, _ = drive_zamba2_train(dev)
     for k in ("distill_loss_fwd", "distill_loss_bwd"):

@@ -8,8 +8,13 @@ Counterpart of ``repro.launch.mesh``. The reference builds every mesh with
 sizes and no device, as the reference's own tests stub them
 (``tests/test_substrates.py``). ``make_host_mesh`` gives a
 ``DeviceMesh`` over the ranks of the process group, starting a one-rank
-group itself when none is up. The spec rules (``repro_torch.sharding``)
-read either kind through ``axis_sizes``.
+group itself when none is up. ``make_fake_mesh`` gives a ``DeviceMesh``
+of a ``MeshSpec``'s shape over a fake process group (torch's ``"fake"``
+backend: every rank but this one imagined, no collective run, no device
+touched), on which
+``launch.dryrun`` traces a step laid out as the production mesh lays it
+out. The spec rules (``repro_torch.sharding``) read every kind through
+``axis_sizes``.
 
 ``HW`` holds the constants of the card the port runs on, where the
 reference's hold the TPU v5e's.
@@ -120,3 +125,41 @@ def make_host_mesh(data: int = 1, model: int = 1, *, pod: int | None = None,
         shape, names = (pod, data, model), ("pod", "data", "model")
     ranks = torch.arange(math.prod(shape)).reshape(shape)
     return DeviceMesh(dev.type, ranks, mesh_dim_names=names)
+
+
+def fake_group_size() -> int | None:
+    """The world size of this process's fake process group, or None when
+    no group is up or the group is a real one."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_backend() != "fake":
+        return None
+    return dist.get_world_size()
+
+
+def make_fake_mesh(spec: MeshSpec):
+    """A ``DeviceMesh`` with ``spec``'s axis names and sizes over a fake
+    process group of ``spec.size`` ranks, this process rank 0, started here
+    if none is up. Raises if this process holds a real group, or a fake
+    one of another size: a fake group never shares a process with a real
+    one (``launch.dryrun`` traces in a child process)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+
+    size = fake_group_size()
+    if size is None:
+        if dist.is_initialized():
+            raise RuntimeError("a real process group is up: a fake mesh needs a process of "
+                               "its own")
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=spec.size)
+    elif size != spec.size:
+        raise RuntimeError(f"the fake group has {size} ranks, the mesh {spec.size}")
+    ranks = torch.arange(spec.size).reshape(spec.sizes)
+    # a "cuda" mesh where torch is built for CUDA (no card need be visible:
+    # the fake group touches none), so that DTensor runs the card's
+    # collectives; a CPU-only build's DTensor cannot propagate some backward
+    # ops on a "cuda" mesh, and on its "cpu" mesh runs a shard-to-shard
+    # redistribution as an all-gather and a slice (gloo has no all-to-all)
+    device = "cuda" if torch.backends.cuda.is_built() else "cpu"
+    return DeviceMesh(device, ranks, mesh_dim_names=spec.axis_names)

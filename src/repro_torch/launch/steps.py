@@ -2,8 +2,13 @@
 and the shapes of the trees they carry.
 
 Counterpart of ``repro.launch.steps``. The reference jit-compiles these for
-a mesh; the port runs them eagerly on one device (``launch.dryrun`` traces
-them on the ``meta`` device). ``input_specs``,
+a mesh; the port runs them eagerly, on plain tensors on one device or on
+trees laid out as DTensors over a mesh (``sharding.specs.distribute_tree``;
+``launch.dryrun`` traces both on the ``meta`` device). A step given
+DTensors runs under ``implicit_replication``, so that the plain constants
+it makes (positions, rope tables, masks, zeros) enter as replicated; the
+kernel ops take DTensors through their own entry (``kernels.ops``), and
+nothing else of a step changes. ``input_specs``,
 ``param_shapes``, ``opt_shapes`` and ``cache_shapes`` return trees of
 ``meta`` tensors (shape and dtype, no storage) where the reference returns
 ``jax.eval_shape``'s ``ShapeDtypeStruct``s, so a full-size model can be
@@ -11,10 +16,13 @@ sized without a byte of it.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.device import on_meta
 from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models.layers import whole_on
 from repro_torch.models.transformer import (
     ModelOpts,
     forward_decode,
@@ -120,6 +128,19 @@ def cache_shapes(cfg, opts: ModelOpts, batch: int, seq: int, dtype=None):
         return init_cache(cfg, opts, batch, seq, dtype, device="cpu")
 
 
+def _scope(params):
+    """``implicit_replication`` for a step over DTensor params (its first
+    leaf is one), else nothing: the plain constants a laid-out step makes
+    are replicated."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(tree_leaves(params)[0], DTensor):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
 def make_train_step(cfg, opts: ModelOpts, *, lr: float = 3e-4, clip: float = 1.0):
     """One training step: the gradient of ``forward_train`` over the param
     leaves (autograd), ``clip_by_global_norm``, then AdamW.
@@ -132,6 +153,10 @@ def make_train_step(cfg, opts: ModelOpts, *, lr: float = 3e-4, clip: float = 1.0
     device."""
 
     def train_step(params, opt_state, batch):
+        with _scope(params):
+            return _train(params, opt_state, batch)
+
+    def _train(params, opt_state, batch):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         loss, aux = forward_train(cfg, opts, tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
@@ -147,7 +172,8 @@ def make_train_step(cfg, opts: ModelOpts, *, lr: float = 3e-4, clip: float = 1.0
 
 def make_prefill_step(cfg, opts: ModelOpts):
     def prefill_step(params, batch):
-        return forward_prefill(cfg, opts, params, batch)
+        with _scope(params):
+            return forward_prefill(cfg, opts, params, batch)
 
     return prefill_step
 
@@ -156,8 +182,14 @@ def make_serve_step(cfg, opts: ModelOpts):
     """One greedy decode step: (next_token int32 (B,), logits, cache)."""
 
     def serve_step(params, cache, batch):
+        with _scope(params):
+            return _serve(params, cache, batch)
+
+    def _serve(params, cache, batch):
         logits, new_cache = forward_decode(cfg, opts, params, batch, cache)
-        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        # the vocabulary whole on each device (DTensor's argmax over a
+        # sharded one fails on some meshes)
+        next_token = torch.argmax(whole_on(logits, -1), dim=-1).to(torch.int32)
         return next_token, logits, new_cache
 
     return serve_step

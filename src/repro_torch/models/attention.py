@@ -39,7 +39,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init, mm, rmsnorm, rope_angles
+from repro_torch.models.layers import (
+    apply_rope,
+    dense_init,
+    mm,
+    rmsnorm,
+    rope_angles,
+    split_heads,
+    write_seq,
+)
 
 
 def init_attn(gen: torch.Generator, cfg, dtype, kv_mult: int = 1):
@@ -58,7 +66,7 @@ def init_attn(gen: torch.Generator, cfg, dtype, kv_mult: int = 1):
 
 
 def _split_heads(x, n, hd):
-    return x.reshape(x.shape[:-1] + (n, hd))
+    return split_heads(x, n, hd)
 
 
 NEG_INF = -1e30
@@ -74,7 +82,14 @@ def mha(q, k, v, *, q_positions, k_positions, causal: bool = True, window: int =
     chunk > 0 (and Sk > chunk) runs an online softmax over KV chunks of
     ``chunk`` keys (Sk % chunk == 0), the reference's ``lax.scan`` as a loop.
     valid_len: optional scalar — kv positions >= valid_len are masked.
+    DTensors run on each device's (batch, head) shards
+    (``ops.attention_on_shards``).
     """
+    if ops.mesh_of(q, k, v) is not None:
+        return ops.attention_on_shards(
+            lambda q, k, v: mha(q, k, v, q_positions=q_positions, k_positions=k_positions,
+                                causal=causal, window=window, chunk=chunk,
+                                valid_len=valid_len), q, k, v)
     B, Sq, N, H = q.shape
     K = k.shape[2]
     G = N // K
@@ -171,8 +186,8 @@ def attn_forward(cfg, params, x, *, positions, theta: float, window: int = 0,
     # cache_pos runs past the cache); the causal mask at q_offset =
     # cache_pos is its valid_len = cache_pos + 1
     at = max(0, min(cache_pos, cache["k"].shape[1] - S))
-    cache["k"][:, at:at + S] = k.to(cache["k"].dtype)
-    cache["v"][:, at:at + S] = v.to(cache["v"].dtype)
+    write_seq(cache["k"], at, k.to(cache["k"].dtype))
+    write_seq(cache["v"], at, v.to(cache["v"].dtype))
     # attend in the wider of q's and the cache's dtypes, as the reference
     # computes in fp32 whatever the cache holds
     dt = torch.promote_types(q.dtype, cache["k"].dtype)
@@ -290,8 +305,8 @@ def mla_forward(cfg, params, x, *, positions, theta: float, cache: Optional[dict
     # absorbed decode: the write lands where the reference's
     # dynamic_update_slice clamps it; the keys at or before cache_pos attend
     at = max(0, min(cache_pos, cache["c_kv"].shape[1] - S))
-    cache["c_kv"][:, at:at + S] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, at:at + S] = k_rope.to(cache["k_rope"].dtype)
+    write_seq(cache["c_kv"], at, c_kv.to(cache["c_kv"].dtype))
+    write_seq(cache["k_rope"], at, k_rope.to(cache["k_rope"].dtype))
     w_uk = params["w_uk"].reshape(lora, n, nope)
     # absorb W_uk into the query: q_lat (B, S, n, lora), joined to q_rope,
     # both fp32 (a few hundred KB; the cache is read where it lies)

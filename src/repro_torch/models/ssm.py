@@ -27,7 +27,15 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
-from repro_torch.models.layers import dense_init, mm, rmsnorm
+from repro_torch.models.layers import (
+    dense_init,
+    matmul,
+    mm,
+    pin_grad,
+    rmsnorm,
+    split_heads,
+    whole_on,
+)
 
 LORA_R = 32  # rank of the data-dependent mixing/decay LoRAs
 
@@ -80,7 +88,8 @@ def _rwkv6_inputs(p, x, x_prev):
     xxx = x + dx * p["mu_base"]
     lora = mm(torch.tanh(mm(xxx, p["lora_A"])), p["lora_B"])  # (B,S,5d)
     d = x.shape[-1]
-    mix = p["mu"][None, None] + lora.reshape(*x.shape[:-1], 5, d)
+    # (a DTensor's gradient of the split laid out as the split, pin_grad)
+    mix = p["mu"][None, None] + pin_grad(lora.reshape(*x.shape[:-1], 5, d))
     xs = x[..., None, :] + dx[..., None, :] * mix  # (B,S,5,d)
     x_r, x_w, x_k, x_v, x_g = (xs[..., i, :] for i in range(5))
     r = mm(x_r, p["wr"])
@@ -93,17 +102,18 @@ def _rwkv6_inputs(p, x, x_prev):
 
 
 def _heads(x, H, hd):
-    return x.reshape(*x.shape[:-1], H, hd)
+    return split_heads(x, H, hd)
 
 
 def _group_norm(x, scale, bias, H, eps=1e-5):
     """Per-head groupnorm on (B,S,d)."""
     shp = x.shape
-    xh = x.reshape(*shp[:-1], H, shp[-1] // H).to(torch.float32)
+    xh = split_heads(x, H, shp[-1] // H).to(torch.float32)
     mu = xh.mean(-1, keepdim=True)
     var = xh.var(-1, keepdim=True, correction=0)
     xh = (xh - mu) * torch.rsqrt(var + eps)
-    return (xh.reshape(shp) * scale + bias).to(x.dtype)
+    # a DTensor's head_dim whole again (its statistics may have spread it)
+    return (whole_on(xh, -1).reshape(shp) * scale + bias).to(x.dtype)
 
 
 def _shift(x_last, x):
@@ -174,9 +184,9 @@ def rwkv6_channel_mix(cfg, p, x, state):
     dx = x_prev - x
     x_k = x + dx * p["cm_mu_k"]
     x_r = x + dx * p["cm_mu_r"]
-    k = torch.square(F.relu(x_k @ p["cm_wk"].to(x_k.dtype)))
-    kv = k @ p["cm_wv"].to(k.dtype)
-    y = (torch.sigmoid(x_r @ p["cm_wr"].to(x_r.dtype)) * kv).to(x.dtype)
+    k = torch.square(F.relu(matmul(x_k, p["cm_wk"].to(x_k.dtype))))
+    kv = matmul(k, p["cm_wv"].to(k.dtype))
+    y = (torch.sigmoid(matmul(x_r, p["cm_wr"].to(x_r.dtype))) * kv).to(x.dtype)
     return y, {"cm_x": x[:, -1].to(state["cm_x"].dtype)}
 
 
@@ -335,7 +345,20 @@ def mamba2_block(cfg, p, x, state):
     A = -torch.exp(p["A_log"])  # (H,) negative
     xh = xin.reshape(Bt, S, H, P).to(f32)
     scan = R.mamba2_scan_ref if S == 1 else mamba2_scan_chunked
-    y, s_new = scan(xh, dt, A, Bc, Cc, state["s"].to(f32))
+    s0 = state["s"].to(f32)
+    mesh = ops.mesh_of(xh, dt, Bc, Cc, s0)
+    if mesh is not None:
+        # each device scans its (batch, head) shards, as a kernel op does:
+        # B and C are shared by the heads, A by the batch
+        px = ops.shard_layout(mesh, batch_dim=0, batch=Bt, head_dim=2, heads=(H,))
+        pb = ops.shard_layout(mesh, batch_dim=0, batch=Bt)
+        y, s_new = ops.on_shards(scan, mesh, [
+            (xh, px), (dt, px), (A, ops.shard_layout(mesh, head_dim=0, heads=(H,))),
+            (Bc, pb), (Cc, pb),
+            (s0, ops.shard_layout(mesh, batch_dim=0, batch=Bt, head_dim=1, heads=(H,)))],
+            (px, ops.shard_layout(mesh, batch_dim=0, batch=Bt, head_dim=1, heads=(H,))))
+    else:
+        y, s_new = scan(xh, dt, A, Bc, Cc, s0)
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(Bt, S, din).to(x.dtype)
     y = y * _silu(z)

@@ -40,9 +40,12 @@ cache is the compressed one (``c_kv`` and ``k_rope``, views of one buffer
 per block occurrence, the unit's repeats stacked in it). A ``local_attn``
 block's cache is as long as an ``attn`` block's, or with
 ``opts.window_cache`` as long as its window. The model runs on plain
-tensors on one device, so it refuses ``opts.act_spec`` and
-``opts.moe_constrain``, the reference's layouts of the residual stream and
-of the MoE dispatch buffers over a mesh (ROADMAP A7.7). An ``rwkv6``
+tensors on one device, or on DTensors laid out over a mesh
+(``launch.steps``): ``opts.act_spec`` then lays the residual stream out
+before and after each repeat (the reference's ``_constrain``, for a
+stream longer than one token) through ``sharding.specs.constrain``, which
+returns a plain tensor as it is, and ``opts.moe_constrain`` runs the MoE
+dispatch expert-parallel, its buffers on the expert axis (``models.moe``). An ``rwkv6``
 block's time mix trains through ``ops.rwkv6_scan`` (the forward and backward kernels on the
 card), or through the reference's chunk-parallel torch form with
 ``opts.rwkv_chunk``; ``opts.ssm_seq_chunk`` cuts a full-sequence block into
@@ -78,15 +81,19 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.sharding.specs import constrain
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
     embed_init,
+    embed_lookup,
     init_mlp,
     init_norm,
     mask_padded_logits,
     mm,
     padded_vocab,
+    split_heads,
+    whole_inner,
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -96,8 +103,6 @@ ATTN_KINDS = ("attn", "local_attn", "moe", "shared_attn")  # a GQA half and a KV
 MLA_KINDS = ("mla", "mla_moe")  # an MLA half and a compressed cache
 SSM_KINDS = ("rwkv6", "mamba2")  # a recurrent state
 FRONTENDS = (None, "", "vision_stub", "audio_stub")  # stubs: the batch carries their output
-LAYOUT_REFUSED = ("act_spec and moe_constrain lay out DTensors over a mesh; the model "
-                  "runs on plain tensors on one device (ROADMAP A7.7)")
 
 
 @dataclass(frozen=True)
@@ -116,9 +121,8 @@ class ModelOpts:
     ssm_seq_chunk: int = 0  # chunked-remat SSM time scan (0 = one full scan)
     window_cache: bool = False  # local_attn caches sized min(seq, sliding_window)
     # the reference's layouts over a mesh: the residual stream's spec between
-    # repeats (seq parallel) and expert-sharded MoE dispatch buffers.
-    # ``default_opts`` sets them as the reference's does; the model refuses
-    # them, since no DTensor reaches it (``_backbone``)
+    # repeats (seq parallel) and expert-sharded MoE dispatch buffers, set by
+    # ``default_opts`` as the reference's; on plain tensors they do nothing
     act_spec: Any = None
     moe_constrain: bool = False
 
@@ -217,6 +221,10 @@ def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
     block's router losses {"lb_loss", "router_z"}, and None for the other
     kinds (the reference adds zeros for them)."""
     decode = state is not None and cache_pos is not None
+    # a DTensor stream enters a block with its sequence whole: act_spec
+    # shards it between repeats only (the gather before a column-parallel
+    # product, as sequence parallelism does)
+    x = whole_inner(x)
     if kind in ATTN_KINDS or kind in MLA_KINDS:
         h = apply_norm(cfg, p["ln1"], x)
         if kind in MLA_KINDS:
@@ -239,7 +247,7 @@ def apply_block(cfg, opts: ModelOpts, kind: str, p, x, *, positions, state=None,
             x = x + A.cross_attn_forward(cfg, p["xattn"], h, enc_out, train=train)
         h = apply_norm(cfg, p["ln2"], x)
         if kind in ("moe", "mla_moe"):
-            y, aux = M.moe_forward(cfg, p["moe"], h)
+            y, aux = M.moe_forward(cfg, p["moe"], h, constrain=opts.moe_constrain)
         else:
             y, aux = apply_mlp(cfg, p["mlp"], h), None
         return x + y, new_state if decode else None, aux
@@ -358,9 +366,9 @@ def _encode(cfg, opts, params, frames, *, train: bool = False):
     for r in range(cfg.enc_layers):
         lp = tree_unflatten(params["encoder"], [ts[r] for ts in layers])
         h = apply_norm(cfg, lp["ln1"], x)
-        q = mm(h, lp["attn"]["wq"]).reshape(B, Se, n, hd)
-        k = mm(h, lp["attn"]["wk"]).reshape(B, Se, -1, hd)
-        v = mm(h, lp["attn"]["wv"]).reshape(B, Se, -1, hd)
+        q = split_heads(mm(h, lp["attn"]["wq"]), n, hd)
+        k = split_heads(mm(h, lp["attn"]["wk"]), lp["attn"]["wk"].shape[-1] // hd, hd)
+        v = split_heads(mm(h, lp["attn"]["wv"]), lp["attn"]["wv"].shape[-1] // hd, hd)
         if train:
             o = A.mha(q, k, v, q_positions=positions, k_positions=positions, causal=False)
         else:
@@ -398,8 +406,6 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
     repeats are checkpointed when ``opts.remat``. Returns the final-normed
     hidden states and the router losses {"lb_loss", "router_z"} summed over
     the blocks in layer order (fp32; 0 without a ``moe`` block)."""
-    if opts.act_spec is not None or opts.moe_constrain:
-        raise NotImplementedError(LAYOUT_REFUSED)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"lb_loss": zero, "router_z": zero}
     for i, blk in enumerate(cfg.head_blocks):
@@ -418,10 +424,16 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
     unit = [tree_unflatten(params["unit"], [ts[r] for ts in split])
             for r in range(cfg.n_repeats)]
 
+    def lay_out(x):
+        # the reference's _constrain: the residual stream of a sequence
+        # (not of one decode token) laid out by act_spec
+        return constrain(x, opts.act_spec) if x.shape[1] > 1 else x
+
     def repeat(x, aux, r):
         # the running sums go through the repeat (as the reference's scan
         # carries them), so a checkpointed repeat adds its blocks' losses
         # once, and their gradient reaches the router
+        x = lay_out(x)
         for i, blk in enumerate(cfg.pattern):
             # a shared block's one copy, and this occurrence's own cache slot
             p = params["shared"][blk.kind] if blk.shared else unit[r][f"blk{i}"]
@@ -431,7 +443,7 @@ def _backbone(cfg, opts, params, x, *, positions, states=None, cache_pos=None,
             aux = _add_aux(aux, a)
             if ns is not None:
                 _write_state(st, ns)
-        return x, aux
+        return lay_out(x), aux
 
     for r in range(cfg.n_repeats):
         if train and opts.remat:
@@ -458,7 +470,7 @@ def _embed_tokens(cfg, params, tokens, *, offset: int = 0):
     learned position embeddings. As the reference's
     ``dynamic_slice_in_dim``, the start is clamped to [0, max_seq_len - S],
     so the rows past the table repeat its last S."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     if cfg.learned_pos_emb:
         S = tokens.shape[1]
         start = max(0, min(int(offset), params["pos_embed"].shape[0] - S))
@@ -495,6 +507,7 @@ def lm_loss_chunked(cfg, opts, h, w_vocab, labels):
     logits, logsumexp minus the gold logit.
     Returns the mean over B * S tokens, fp32."""
     B, Sq, d = h.shape
+    h = whole_inner(h)  # a DTensor's sequence whole, to cut into chunks
     chunk = min(opts.loss_chunk, Sq)
     while Sq % chunk:
         chunk -= 1
@@ -511,10 +524,55 @@ def lm_loss_chunked(cfg, opts, h, w_vocab, labels):
             total = total + loss.sum()
         else:
             logits = mask_padded_logits(logits.to(torch.float32), cfg.vocab_size)
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, l_i.long()[..., None])[..., 0]
+            if ops.mesh_of(logits) is not None:
+                logz, gold = _vocab_parallel_terms(logits, l_i)
+            else:
+                logz = torch.logsumexp(logits, dim=-1)
+                gold = torch.gather(logits, -1, l_i.long()[..., None])[..., 0]
             total = total + (logz - gold).sum()
     return total / (B * Sq)
+
+
+def _vocab_parallel_terms(logits, labels):
+    """logsumexp and the gold logit of DTensor logits whose vocabulary may be
+    sharded over "model", each row flattened: the rows' max, then the sum of
+    exponentials, each a partial result that one all-reduce over the
+    vocabulary's shards completes, and the gold logit from the shard that
+    holds it (DTensor's masked gather), so the (rows, V) logits are never
+    gathered onto one device."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    V = logits.shape[-1]
+    z = logits.reshape(-1, V)
+    mesh = z.device_mesh
+    zp = [Replicate() if p.is_partial() else p for p in z.placements]
+    z = z.redistribute(mesh, zp)
+    m = torch.amax(z.detach(), dim=-1, keepdim=True)
+    logz = m[:, 0] + torch.log(torch.sum(torch.exp(z - m), dim=-1))
+    vocab_dims = [i for i, p in enumerate(zp) if p == Shard(1)]
+    if len(vocab_dims) > 1:
+        raise NotImplementedError("the vocabulary is sharded over more than one mesh axis")
+    width = -(-V // mesh.shape[vocab_dims[0]]) if vocab_dims else V
+    rank = mesh.get_local_rank(vocab_dims[0]) if vocab_dims else 0
+
+    def gold_of_shard(z, y):
+        # the gold logit where this shard holds it, 0 elsewhere
+        idx = y.long() - rank * width
+        held = (idx >= 0) & (idx < z.shape[-1])
+        g = torch.gather(z, -1, idx.clamp(0, z.shape[-1] - 1)[:, None])[:, 0]
+        return torch.where(held, g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+    yp = [Replicate() if p == Shard(1) else p for p in zp]
+    gp = [Partial() if p == Shard(1) else p for p in zp]
+    labels = labels.reshape(-1)
+    if ops.mesh_of(labels) is None:
+        from torch.distributed.tensor import DTensor
+
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    gold = local_map(gold_of_shard, out_placements=gp, in_placements=(zp, yp),
+                     device_mesh=mesh)(z, labels.redistribute(mesh, yp))
+    return logz, gold
 
 
 # ---------------------------------------------------------------------------

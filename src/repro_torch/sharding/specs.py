@@ -24,8 +24,10 @@ largest replicated axis additionally sharded over "data" when divisible
 (``zero1_specs``).
 
 ``to_placements`` turns a spec into DTensor placements on a
-``DeviceMesh`` (the reference's ``to_named``), and ``constrain`` lays a
-DTensor out by a spec and returns a plain tensor as it is (the reference's
+``DeviceMesh`` (the reference's ``to_named``), ``distribute_tree`` lays a
+tree out as DTensors by a spec tree (the reference's ``in_shardings``),
+``gather_tree`` is its inverse, and ``constrain`` lays a DTensor out by a
+spec and returns a plain tensor as it is (the reference's
 ``with_sharding_constraint``, which is a no-op without a mesh).
 """
 from __future__ import annotations
@@ -260,7 +262,8 @@ def per_device_bytes(tree, specs, mesh) -> int:
 
     def add(spec, leaf):
         nonlocal total
-        total += math.prod(shard_shape(leaf.shape, spec, mesh)) * leaf.element_size()
+        if isinstance(leaf, torch.Tensor):  # a decode position is a Python int
+            total += math.prod(shard_shape(leaf.shape, spec, mesh)) * leaf.element_size()
         return spec
 
     _zip_specs(add, specs, tree)
@@ -281,6 +284,40 @@ def to_placements(spec: Spec, mesh) -> list:
                     if s == name or (isinstance(s, tuple) and name in s)), None)
         out.append(Replicate() if dim is None else Shard(dim))
     return out
+
+
+def distribute_tree(tree, specs, mesh) -> Any:
+    """``tree`` laid out as DTensors on ``mesh`` (a ``DeviceMesh``) by a
+    spec tree of the same structure, each leaf by ``to_placements``: a
+    tensor with values by ``distribute_tensor`` (this rank's shard of it),
+    a ``meta`` tensor (a trace) as ``DTensor.from_local`` of a ``meta``
+    shard of ``shard_shape``, the shard this rank holds. A leaf that is not
+    a tensor (a decode position) stays as it is."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def lay(spec, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        placements = to_placements(spec, mesh)
+        if leaf.is_meta:
+            local = torch.empty(shard_shape(leaf.shape, spec, mesh), dtype=leaf.dtype,
+                                device="meta")
+            return DTensor.from_local(local, mesh, placements, run_check=False,
+                                      shape=leaf.shape, stride=leaf.stride())
+        return distribute_tensor(leaf, mesh, placements)
+
+    return _zip_specs(lay, specs, tree)
+
+
+def gather_tree(tree) -> Any:
+    """The inverse of ``distribute_tree``: every DTensor leaf gathered to
+    its full tensor (a collective: every rank calls it), any other leaf as
+    it is."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
 
 
 def constrain(x: torch.Tensor, spec: Spec | None) -> torch.Tensor:

@@ -39,9 +39,15 @@ def test_every_pair_is_skipped_or_kept_as_the_reference():
                 assert D.shape_skip_reason(get_arch(arch), shape, long_variant) == want
                 if long_variant and shape != "long_500k":
                     continue  # the switch reads long_500k alone
-                rec = D.run_one(arch, shape, long_variant=long_variant, out_dir=None)
-                assert rec["status"] == ("skipped" if want else "ok"), (arch, shape)
+                # a production record's head (its trace is
+                # test_torch_dtensor_trace.py's): skipped pairs are whole records
+                rec, cfg = D.record_head(arch, shape, long_variant=long_variant)
+                assert rec.get("status") == ("skipped" if want else None), (arch, shape)
+                assert (cfg is None) == bool(want)
                 assert rec.get("reason") == want
+                if want:
+                    assert D.run_one(arch, shape, long_variant=long_variant,
+                                     out_dir=None) == rec
                 variant = (long_variant and want is None and shape == "long_500k"
                            and get_arch(arch).long_context == "window")
                 assert rec.get("arch_variant") == (
@@ -55,12 +61,21 @@ def test_long_variant_is_the_references():
 
 
 def test_production_meshes_records(tmp_path):
-    rec = D.run_one("whisper-small", "prefill_32k", out_dir=str(tmp_path))
-    assert rec["status"] == "ok" and rec["num_devices"] == 256 and rec["mesh"] == "16x16"
-    assert rec["memory"]["temp_bytes"] is None and rec["not_traced"]
+    """Both production meshes' records traced in one child process each
+    (``run_records``): per-device temporaries, peak and collectives where
+    the spec rules alone left ``None``, written under the reference's file
+    names; a skipped pair traces nothing."""
+    jobs = [dict(arch="whisper-small", shape_name="prefill_32k", out_dir=str(tmp_path)),
+            dict(arch="rwkv6-1.6b", shape_name="long_500k", multi_pod=True,
+                 out_dir=str(tmp_path), tag="t")]
+    for rec, devices, mesh in zip(D.run_records(jobs), (256, 512), ("16x16", "2x16x16")):
+        assert rec["status"] == "ok" and rec["num_devices"] == devices and rec["mesh"] == mesh
+        m = rec["memory"]
+        assert isinstance(m["temp_bytes"], int) and m["temp_bytes"] > 0
+        assert m["peak_bytes"] == m["argument_bytes"] + m["temp_bytes"]
+        assert rec["collectives"] and rec["collectives_counted"] == "whole_step"
+        assert "not_traced" not in rec
     assert (tmp_path / "whisper-small__prefill_32k__16x16.json").exists()
-    rec = D.run_one("rwkv6-1.6b", "long_500k", multi_pod=True, out_dir=str(tmp_path), tag="t")
-    assert rec["status"] == "ok" and rec["num_devices"] == 512 and rec["mesh"] == "2x16x16"
     assert (tmp_path / "rwkv6-1.6b__long_500k__2x16x16__t.json").exists()
     rec = D.run_one("whisper-small", "long_500k", out_dir=None)
     assert rec["status"] == "skipped"

@@ -1477,6 +1477,49 @@ def test_host_mesh_on_nccl_gives_the_flat_mean_bit_for_bit(cuda):
             dist.destroy_process_group()
 
 
+def test_laid_out_prefill_is_the_plain_step_bit_for_bit_on_one_rank(cuda):
+    """A prefill step through DTensors on a one-rank NCCL mesh
+    (``make_host_mesh``), with the reference's layouts (``act_spec``,
+    ``moe_constrain``) as ``default_opts`` overrides, on reduced
+    qwen2-moe-a2.7b in bf16 at head_dim 128 (the tensor-core kernel):
+    logits bit for bit the plain step's, the same kernel launches, through
+    the attention op's DTensor entry."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import sm90_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import default_opts, make_prefill_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sharding import batch_specs, param_specs
+    from repro_torch.sharding.specs import distribute_tree
+
+    cfg = dataclasses.replace(reduced(get_arch("qwen2-moe-a2.7b")), head_dim=128,
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    try:
+        mesh = make_host_mesh(device=cuda)
+        plain = default_opts(cfg)
+        laid = default_opts(cfg, mesh, act_spec=("data", "model", None), moe_constrain=True)
+        params = init_params(cfg, plain, seed=0, device=cuda)
+        tok = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda, dtype=torch.int32)
+        ops.reset_launches()
+        want = make_prefill_step(cfg, plain)(params, {"tokens": tok})
+        plain_n = (dict(_lib.launches), dict(sm90_launches))
+        ops.reset_launches()
+        got = make_prefill_step(cfg, laid)(
+            distribute_tree(params, param_specs(cfg, laid, params, mesh), mesh),
+            distribute_tree({"tokens": tok}, batch_specs(cfg, "prefill", 2, mesh), mesh))
+        assert isinstance(got, DTensor) and torch.equal(got.to_local(), want)
+        assert (dict(_lib.launches), dict(sm90_launches)) == plain_n
+        assert plain_n[1][(128, 128)] == cfg.num_layers
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def test_dry_run_peak_matches_the_card(cuda):
     """The one-card record's traced peak of llama3.2-3b's prefill step at
     full width (4096 tokens) within 5% or 512 MiB of the card's

@@ -29,7 +29,7 @@ from repro.sharding import cache_specs as jax_cache_specs
 from repro.sharding import param_specs as jax_param_specs
 from repro.sharding import zero1_specs as jax_zero1_specs
 from repro_torch.configs import INPUT_SHAPES, get_arch
-from repro_torch.launch.dryrun import sharded, shape_skip_reason
+from repro_torch.launch.dryrun import reckon_argument_bytes, shape_skip_reason
 from repro_torch.launch.mesh import MeshSpec, make_production_mesh
 from repro_torch.launch.steps import cache_shapes, default_opts, param_shapes
 from repro_torch.sharding import batch_specs, cache_specs, param_specs, zero1_specs
@@ -177,9 +177,10 @@ def test_batch_and_cache_specs_match_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_per_device_argument_bytes_match_the_reference(arch):
-    """``dryrun.sharded``'s argument bytes against the same sum over the
-    reference's specs and ``jax.eval_shape`` trees, for every input shape
-    the policy keeps, on both production meshes and on 1x1."""
+    """``dryrun.reckon_argument_bytes`` (a production record's
+    ``argument_bytes``, beside its traced temporaries) against the same sum
+    over the reference's specs and ``jax.eval_shape`` trees, for every input
+    shape the policy keeps, on both production meshes and on 1x1."""
     jcfg, cfg = jax_get_arch(arch), get_arch(arch)
     for M, prod in ((M16, make_production_mesh()), (M2x16, make_production_mesh(multi_pod=True)),
                     (M1, MeshSpec(("data", "model"), (1, 1)))):
@@ -202,10 +203,7 @@ def test_per_device_argument_bytes_match_the_reference(arch):
                 want += _jax_bytes(jcsh, jax_cache_specs(jcfg, jo, jcsh, M(),
                                                          batch=jshape.global_batch,
                                                          seq=jshape.seq_len), M())
-            rec = sharded(cfg, opts, shape, prod)
-            assert rec["memory"]["argument_bytes"] == want, (name, prod)
-            assert rec["num_devices"] == prod.size
-            assert rec["memory"]["temp_bytes"] is None and rec["collectives"] is None
+            assert reckon_argument_bytes(cfg, opts, shape, prod) == want, (name, prod)
 
 
 def test_constrain_leaves_a_plain_tensor_and_lays_out_a_dtensor(one_rank_group):
@@ -231,11 +229,15 @@ def test_constrain_leaves_a_plain_tensor_and_lays_out_a_dtensor(one_rank_group):
                                                                       Shard(2)]
 
 
-def test_layout_options_are_refused_until_a_dtensor_reaches_the_model():
-    """``act_spec`` and ``moe_constrain`` lay out DTensors, and none enters
-    the model: a forward with either raises, and so does a dry run asked
-    for ``seq_parallel`` or ``moe_constrain``; with neither the forward
-    runs as before."""
+def test_layout_options_are_refused_until_a_dtensor_reaches_the_model(tmp_path, capsys):
+    """A DTensor reaches the model now, so ``act_spec`` and
+    ``moe_constrain`` are refused no more: on plain tensors a forward with
+    either (or with ``default_opts``' sequence-parallel spec for 16x16) is
+    the forward without them, bit for bit, and the dry run takes
+    ``--seq-parallel`` and ``--moe-constrain``, tracing the record with
+    both layouts (its opts and collectives written to its file)."""
+    import json
+
     from repro_torch.configs import reduced
     from repro_torch.launch import dryrun as D
     from repro_torch.models import transformer as T
@@ -244,18 +246,22 @@ def test_layout_options_are_refused_until_a_dtensor_reaches_the_model():
     base = default_opts(cfg, remat=False)
     params = T.init_params(cfg, base, seed=0, device="cpu")
     tok = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(0))
-    assert torch.isfinite(T.forward_prefill(cfg, base, params, {"tokens": tok})).all()
+    want = T.forward_prefill(cfg, base, params, {"tokens": tok})
+    assert torch.isfinite(want).all()
     for opts in (dataclasses.replace(base, act_spec=("data", "model", None)),
                  dataclasses.replace(base, moe_constrain=True),
-                 default_opts(cfg, MESHES["16x16"](), seq_parallel=True, remat=False)):
-        with pytest.raises(NotImplementedError, match="plain tensors"):
-            T.forward_prefill(cfg, opts, params, {"tokens": tok})
-    for kw in ({"seq_parallel": True}, {"moe_constrain": True}):
-        with pytest.raises(NotImplementedError, match="A7.7"):
-            D.run_one("qwen2-moe-a2.7b", "train_4k", out_dir=None, **kw)
-    with pytest.raises(SystemExit):
-        D.main(["--arch", "qwen2-moe-a2.7b", "--shape", "train_4k", "--seq-parallel",
-                "--out", ""])
+                 dataclasses.replace(default_opts(cfg, MESHES["16x16"](), seq_parallel=True,
+                                                  remat=False), kv_mult=1, expert_pad_to=1)):
+        assert opts.act_spec is not None or opts.moe_constrain
+        assert torch.equal(T.forward_prefill(cfg, opts, params, {"tokens": tok}), want)
+    assert not hasattr(T, "LAYOUT_REFUSED") and not hasattr(D, "LAYOUTS_REFUSED")
+    assert not hasattr(D, "NOT_TRACED")
+    D.main(["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k", "--seq-parallel",
+            "--moe-constrain", "--out", str(tmp_path)])
+    summary = capsys.readouterr().out  # the children print the record's own line
+    assert "dry run: 1 records" in summary and ", 0 failed" in summary
+    rec = json.loads((tmp_path / "qwen2-moe-a2.7b__decode_32k__16x16.json").read_text())
+    assert rec["seq_parallel"] and rec["moe_constrain"] and rec["collectives"]
 
 
 def test_mesh_spec_sizes():
